@@ -1,0 +1,251 @@
+"""Torch port, device programs: the torch tiers against the JAX programs.
+
+Each case compiles one rule set, encodes one query batch (seeded
+`random`), uploads the SAME numpy arrays to both packages
+(tables_from_reference on the port's side) and requires bit-identical
+int32 results:
+
+* hint_hash_match (the unfused tier) vs hashmatch.hint_hash_jit;
+* fused_classify_pick (the plain tier of the CUDA kernel) vs
+  fused.fused_jit, with and without uri rules, and vs the Pallas kernel
+  in interpret mode;
+* both _reduce_best branches (i32 pack, and two passes past r_cap
+  524,286);
+* pad rows never match.
+
+The CUDA kernel itself runs only on the GPU (chip_smoke.py holds it
+against the plain tier there); here the tests prove the fused entry
+never substitutes the plain tier for a non-CPU tensor.
+"""
+import ctypes
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from test_fused import mk_ips, mk_queries, mk_rules
+from test_torch_host import LONG, SHARED, rand_hints, rand_rules
+from vproxy_tpu.ops import fused as RF
+from vproxy_tpu.ops import hashmatch as RH
+from vproxy_tpu.rules import maglev as RM
+from vproxy_tpu_torch.ops import fused as F
+from vproxy_tpu_torch.ops import fused_cuda as FC
+from vproxy_tpu_torch.ops import hashmatch as H
+from vproxy_tpu_torch.rules import maglev as M
+from vproxy_tpu_torch.rules.engine import _PAD_CUCKOO, _pad_hint_q
+from vproxy_tpu_torch.rules.ir import Hint, HintRule
+from vproxy_tpu_torch.utils.torchenv import tables_from_reference as up
+
+torch.set_num_threads(1)
+
+
+def host_only(n=3000):
+    return [HintRule(host=f"svc{i}.ns{i % 97}.example.com",
+                     port=443 if i % 5 == 0 else 0) for i in range(n)] + \
+        [HintRule(host="*"), HintRule(host="w.example.com", port=443)]
+
+
+def host_only_hints(b):
+    return [Hint.of_host(f"a.svc{i}.ns{i % 97}.example.com")
+            for i in range(b - 3)] + \
+        [Hint(host="w.example.com", uri="/x", port=443),
+         Hint(uri="/only-uri"), Hint()]
+
+
+def case(name):
+    """-> (rules, hints, caps) of one parity case."""
+    if name == "mk_rules_5k_b512":
+        r = mk_rules(5000)
+        return r, mk_queries(r, 512), None
+    if name == "random_300_b600":
+        r = rand_rules(300, 11)
+        return r, rand_hints(r, 600, 11), None
+    if name == "shared_keys":
+        return SHARED, [
+            Hint(host="a.com", uri="/xyz"), Hint(host="a.com", uri="/xy"),
+            Hint(host="a.com"), Hint(host="a.com", port=443),
+            Hint(host="a.com", port=8080), Hint(host="b.a.com", uri="/x"),
+            Hint(host="z.com"), Hint(uri="/xyq"), Hint(uri="/zzz"),
+            Hint(host="*"), Hint(host="q.*"), Hint(uri="*")], None
+    if name == "long_hosts":
+        h = LONG[0].host
+        return LONG, [Hint(host=h), Hint(host="x." + h),
+                      Hint(host="q" + h)], None
+    if name == "host_only_b96":
+        return host_only(), host_only_hints(96), None
+    assert name == "two_pass_r_cap_600k"
+    r = mk_rules(300)
+    return r, mk_queries(r, 64), {"r_cap": 600_000}
+
+
+CASES = ("host_only_b96", "long_hosts", "mk_rules_5k_b512",
+         "random_300_b600", "shared_keys", "two_pass_r_cap_600k")
+
+
+def compile_case(name):
+    rules, hints, caps = case(name)
+    tab = RH.compile_hint_hash(rules, caps=caps)
+    q = RH.encode_hint_queries(hints, tab)
+    return rules, hints, tab, q
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_hint_hash_match_vs_jax(name):
+    rules, hints, tab, q = compile_case(name)
+    ref_i, ref_l = RH.hint_hash_jit(tab.arrays, q)
+    got_i, got_l = H.hint_hash_match(up(tab.arrays, "cpu"), up(q, "cpu"))
+    assert got_i.dtype == got_l.dtype == torch.int32
+    assert np.array_equal(np.asarray(ref_i), got_i.numpy())
+    assert np.array_equal(np.asarray(ref_l), got_l.numpy())
+    if name == "two_pass_r_cap_600k":
+        assert tab.r_cap > H._PACK_I32_MAX
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_fused_classify_pick_vs_jax(name):
+    rules, hints, tab, q = compile_case(name)
+    ht = RF.pack_hint_table(tab.arrays)
+    mtab = RM.build_table([(f"b{i}", 1 + i % 3) for i in range(9)], 4099)
+    ips = mk_ips(len(hints))
+    slots = RM.flow_slots(4099, ips, [None if i % 3 else 1024 + i
+                                      for i in range(len(ips))])
+    ref = np.asarray(RF.fused_jit(ht, q, mtab, slots))
+    got = F.fused_classify_pick(up(ht, "cpu"), up(q, "cpu"),
+                                torch.from_numpy(mtab),
+                                torch.from_numpy(slots))
+    assert got.dtype == torch.int32 and np.array_equal(ref, got.numpy())
+    assert ("pk_uslot" in ht) == (name not in ("host_only_b96",
+                                               "long_hosts"))
+
+
+@pytest.mark.parametrize("r_cap", [4096, 600_000])
+def test_reduce_best_branches_vs_jax(r_cap):
+    """Both branches on the same synthetic (level, index) pairs: ties at
+    the max level keep the smallest index, level 0 is no match."""
+    from vproxy_tpu.ops.hashmatch import _reduce_best as ref_reduce
+    rnd = np.random.default_rng(r_cap)
+    level = rnd.choice([0, 1, 2, 1024, 1025, 3 << 10, (3 << 10) + 1023],
+                       size=(64, 40)).astype(np.int32)
+    level[:4] = 0
+    c = rnd.integers(0, min(r_cap, 4096), size=(64, 40)).astype(np.int32)
+    ri, rl = ref_reduce(level, c, r_cap)
+    gi, gl = H._reduce_best(torch.from_numpy(level), torch.from_numpy(c),
+                            r_cap)
+    assert np.array_equal(np.asarray(ri), gi.numpy())
+    assert np.array_equal(np.asarray(rl), gl.numpy())
+    assert (gi[:4] == -1).all()
+
+
+@pytest.mark.parametrize("b,pad_to", [(3, 16), (40, 64)])
+def test_fused_pad_rows_never_match(b, pad_to):
+    rules = mk_rules(300)
+    tab = H.compile_hint_hash(rules)
+    q = _pad_hint_q(H.encode_hint_queries(mk_queries(rules, b), tab,
+                                          pad_to=pad_to), pad_to,
+                    _PAD_CUCKOO)
+    assert q["hostb"].shape[0] == pad_to
+    slots = np.zeros(pad_to, np.int64)
+    ht = F.pack_hint_table(tab.arrays)
+    mtab = M.build_table([("b0", 1)], 251)
+    got = F.fused_classify_pick(up(ht, "cpu"), up(q, "cpu"),
+                                torch.from_numpy(mtab),
+                                torch.from_numpy(slots)).numpy()
+    ref = np.asarray(RF.fused_jit(ht, q, mtab, slots))
+    assert np.array_equal(ref, got)
+    assert (got[b:, 0] == -1).all()
+    v, _ = H.hint_hash_match(up(tab.arrays, "cpu"), up(q, "cpu"))
+    assert (v[b:] == -1).all()
+
+
+def test_fused_vs_pallas_interpret():
+    """The TPU kernel itself, in the Pallas interpreter, against the
+    port's plain tier on the same inputs (400 rules, B = 16)."""
+    from vproxy_tpu.ops import fused_pallas as RFP
+    rules = mk_rules(400)
+    tab = RH.compile_hint_hash(rules)
+    q = RH.encode_hint_queries(mk_queries(rules, 16), tab)
+    ht = RF.pack_hint_table(tab.arrays)
+    mtab = RM.build_table([(f"b{i}", 1) for i in range(6)], 251)
+    slots = np.array([RM.flow_hash(ip) % 251 for ip in mk_ips(16)],
+                     np.int64)
+    ref = np.asarray(RFP.fused_classify_pick_pallas(ht, q, mtab, slots,
+                                                    interpret=True))
+    got = F.fused_classify_pick(up(ht, "cpu"), up(q, "cpu"),
+                                torch.from_numpy(mtab),
+                                torch.from_numpy(slots))
+    assert np.array_equal(ref, got.numpy())
+
+
+def test_device_take_clamps_like_take_clip():
+    tab = torch.from_numpy(M.build_table([("a", 1), ("b", 2)], 251))
+    s = np.array([-5, 0, 17, 250, 251, 10_000], np.int64)
+    ref = np.take(tab.numpy(), s, mode="clip")
+    assert np.array_equal(M._device_take(tab, s).numpy(), ref)
+
+
+# ------------------------------------------- the fused entry: no fallback
+
+
+def _fused_inputs(device):
+    rules = mk_rules(300)
+    tab = H.compile_hint_hash(rules)
+    q = H.encode_hint_queries(mk_queries(rules, 8), tab)
+    ht = up(F.pack_hint_table(tab.arrays), "cpu")
+    qd = up(q, "cpu")
+    mtab = torch.from_numpy(M.build_table([("a", 1)], 251))
+    slots = torch.zeros(8, dtype=torch.int64)
+    if device != "cpu":
+        ht = {k: v.to(device) for k, v in ht.items()}
+        qd = {k: v.to(device) for k, v in qd.items()}
+        mtab, slots = mtab.to(device), slots.to(device)
+    return ht, qd, mtab, slots
+
+
+def test_fused_entry_serves_cpu_tensors_with_plain_tier():
+    ht, q, mtab, slots = _fused_inputs("cpu")
+    n0 = FC.fused_classify_pick_cuda.launches
+    out = FC.fused_classify_pick(ht, q, mtab, slots)
+    assert torch.equal(out, F.fused_classify_pick(ht, q, mtab, slots))
+    assert FC.fused_classify_pick_cuda.launches == n0  # no kernel launch
+
+
+def test_fused_entry_raises_on_non_cpu_tensor(monkeypatch):
+    """A tensor off the CPU goes to the kernel or raises — the plain
+    tier is never substituted (meta tensors stand in for CUDA ones on
+    this CPU-only build; the plain tier would accept them)."""
+    called = []
+    monkeypatch.setattr(F, "fused_classify_pick",
+                        lambda *a: called.append(a))
+    ht, q, mtab, slots = _fused_inputs("meta")
+    n0 = FC.fused_classify_pick_cuda.launches
+    with pytest.raises((ValueError, RuntimeError)):
+        FC.fused_classify_pick(ht, q, mtab, slots)
+    assert not called and FC.fused_classify_pick_cuda.launches == n0
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(FC, "CUDA_DEFAULT", str(tmp_path / "cuda"))
+    monkeypatch.setattr(FC, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(FC.KernelError, match="nvcc"):
+        FC.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_kernel_abi_mirror_matches_source():
+    """The ctypes FusedArgs mirror has the C struct's fields, in order,
+    with the C types' sizes (the .cu compiles only on the GPU host)."""
+    with open(FC.SOURCE) as f:
+        src = f.read()
+    body = re.search(r"struct FusedArgs \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    ptrs = re.findall(r"\*\s*(\w+);", body)
+    ints = [x.strip() for decl in re.findall(r"int32_t ([\w ,]+);", body)
+            for x in decl.split(",")]
+    assert tuple(ptrs) == FC._PTRS
+    assert tuple(ints) == FC._INTS
+    assert ctypes.sizeof(FC._FusedArgs) == 8 * len(ptrs) + 4 * len(
+        FC._INTS) + (4 if len(FC._INTS) % 2 else 0)

@@ -1,0 +1,268 @@
+"""The hand-written CUDA kernel of the fused classify+pick contract.
+
+Replaces `vproxy_tpu/ops/fused_pallas.py` `_fused_kernel`: packed hint
+table + encoded query batch + Maglev column/slots -> int32 [B, 2]
+(verdict, pick) in ONE launch. The kernel is
+csrc/fused_classify_pick.cu (its header note gives the bound and the
+design); this module builds it with nvcc into a shared library with a
+plain C interface, loads it with ctypes and launches it on PyTorch's
+current stream.
+
+* `fused_classify_pick` is the entry the engine serves with: CPU tensors
+  take the plain torch tier (ops/fused.py), everything else the kernel.
+  There is no fallback: a build, load or launch failure raises
+  KernelError, which the serving layers never fail over to the host.
+* `prepare_table` checks a packed table once and caches the table's
+  half of the launch arguments; the engine calls it when a CUDA
+  matcher publishes (which also builds the library, so a build failure
+  stops the publish). Per call only the query batch is checked.
+* `fused_classify_pick_cuda` is the kernel wrapper; its `launches`
+  attribute counts the launches it made.
+* `build()` compiles at first use into a directory .gitignore lists,
+  under a file lock (concurrent processes build once), keyed by the
+  source's content, the flags and the packed layout version.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+from . import fused as F
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "fused_classify_pick.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+CUDA_DEFAULT = "/usr/local/cuda"  # the toolkit's usual prefix
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_PTRS = ("hostb", "urib", "hlen", "ulen", "port", "has_host", "has_uri",
+         "hp_len", "hp_slot1", "hp_slot2", "up_len", "up_slot1",
+         "up_slot2", "slots", "pk_meta", "pk_bytes", "pk_hslot", "pk_hkey",
+         "pk_uslot", "pk_ukey", "hb_items", "ub_items", "wh_idx", "wu_idx",
+         "mtab", "out")
+_INTS = ("b", "hw", "uw", "pk_w", "ukw", "maxp", "lw", "bh", "bu",
+         "n_hb", "n_ub", "n_wh", "n_wu", "r_cap", "m")
+
+
+class _FusedArgs(ctypes.Structure):
+    """Mirror of `struct FusedArgs` in the .cu (pointers, then ints)."""
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + \
+        [(n, ctypes.c_int) for n in _INTS]
+
+
+# the one dtype each argument must have, table half and query half
+_TABLE_DTYPES = {
+    "pk_meta": torch.int32, "pk_bytes": torch.uint8,
+    "pk_hslot": torch.int32, "pk_hkey": torch.uint8,
+    "pk_uslot": torch.int32, "pk_ukey": torch.uint8,
+    "hb_items": torch.int32, "ub_items": torch.int32,
+    "wh_idx": torch.int32, "wu_idx": torch.int32,
+}
+_URI_ONLY = ("pk_uslot", "pk_ukey", "ub_items", "wu_idx")
+_QUERY_DTYPES = {
+    "hostb": torch.uint8, "urib": torch.uint8, "hlen": torch.int32,
+    "ulen": torch.int32, "port": torch.int32, "has_host": torch.bool,
+    "has_uri": torch.bool, "hp_len": torch.int32,
+    "hp_slot1": torch.int32, "hp_slot2": torch.int32,
+    "up_len": torch.int32, "up_slot1": torch.int32,
+    "up_slot2": torch.int32,
+}
+
+
+class KernelError(RuntimeError):
+    """The fused kernel cannot serve: nvcc is missing or failed, the
+    library does not load or does not match its ctypes mirror, or a
+    launch was refused. Never answered by a fallback."""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "",
+              os.path.join(CUDA_DEFAULT, "bin", "nvcc")]
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on "
+                      "PATH): the fused CUDA kernel cannot be built")
+
+
+def build() -> str:
+    """Compile csrc/fused_classify_pick.cu for sm_90a once; -> the
+    shared library's path. nvcc's output (ptxas register and shared
+    memory report included) is kept beside it as <lib>.log. Raises
+    KernelError when nvcc is missing or the compile fails."""
+    with open(SOURCE, "rb") as f:
+        src = f.read()
+    key = f"{' '.join(NVCC_FLAGS)} layout {F.PACK_LAYOUT_V}".encode()
+    tag = hashlib.sha256(src + key).hexdigest()
+    lib = os.path.join(BUILD_DIR, f"libfused_{tag[:16]}.so")
+    if os.path.exists(lib):
+        return lib
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)  # one process builds, others wait
+        if os.path.exists(lib):
+            return lib
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+                           capture_output=True, text=True)
+        with open(lib + ".log", "w") as log:
+            log.write(r.stdout + r.stderr)
+        if r.returncode != 0:
+            raise KernelError(f"nvcc failed ({r.returncode}):\n"
+                              f"{r.stderr[-4000:]}")
+        os.replace(tmp, lib)
+    return lib
+
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def _lib():
+    """Build (first use) and load the library. -> the ctypes handle."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            path = build()
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
+            lib.vproxy_fused_args_size.restype = ctypes.c_int
+            lib.vproxy_fused_args_size.argtypes = []
+            fn = lib.vproxy_fused_classify_pick
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(_FusedArgs), ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+            size = lib.vproxy_fused_args_size()
+            if size != ctypes.sizeof(_FusedArgs):
+                raise KernelError(f"FusedArgs ABI drift: C {size} B, "
+                                  f"ctypes {ctypes.sizeof(_FusedArgs)} B")
+            _LIB = lib
+        return _LIB
+
+
+def _check(name: str, v, dev, dtype) -> None:
+    if v.device != dev or v.dtype != dtype or not v.is_contiguous():
+        raise ValueError(f"fused kernel: {name} must be a contiguous "
+                         f"{dtype} tensor on {dev}, got {v.dtype} on "
+                         f"{v.device}")
+
+
+class PackedTable(dict):
+    """A packed table (the dict of tensors) checked for the kernel, with
+    the table's half of the launch arguments cached: `args` (table
+    pointers and sizes), `uri`, `hw`, `uw`, `device`."""
+
+
+def prepare_table(ht: dict) -> PackedTable:
+    """Check a packed table once for the kernel (device, dtypes,
+    contiguity, widths) and build + load the library. -> a PackedTable
+    (`ht` itself when it already is one). Raises KernelError when the
+    library cannot be built or loaded, ValueError on a bad table."""
+    if isinstance(ht, PackedTable):
+        return ht
+    _lib()
+    dev = ht["pk_meta"].device
+    if dev.type != "cuda":
+        raise ValueError(f"fused CUDA kernel needs CUDA tensors, got "
+                         f"{dev}")
+    uri = "pk_uslot" in ht
+    for k, want in _TABLE_DTYPES.items():
+        if k in ht:
+            _check(k, ht[k], dev, want)
+        elif uri or k not in _URI_ONLY:
+            raise ValueError(f"fused kernel: missing {k!r}")
+    hw = ht["pk_hsplit"].shape[0]
+    pk_w = ht["pk_bytes"].shape[1]
+    uw = ht["pk_ukey"].shape[1] if uri else 0
+    if ht["pk_hkey"].shape[1] != hw or pk_w != hw + uw:
+        raise ValueError("fused kernel: packed byte widths disagree "
+                         f"(hw {hw}, uw {uw}, pk_bytes {pk_w})")
+    rows = [("pk_meta", 8), ("pk_hslot", 4)] + ([("pk_uslot", 4)] if uri
+                                                 else [])
+    for k, w in rows:
+        if ht[k].dim() != 2 or ht[k].shape[1] != w:
+            raise ValueError(f"fused kernel: {k} must be [n, {w}], got "
+                             f"{tuple(ht[k].shape)}")
+    t = PackedTable(ht)
+    t.uri, t.hw, t.uw, t.device = uri, hw, uw, dev
+    t.args = _FusedArgs(**{k: ht[k].data_ptr() for k in _TABLE_DTYPES
+                           if k in ht})
+    a = t.args
+    a.hw, a.uw, a.pk_w, a.ukw = hw, uw, pk_w, uw
+    a.bh = ht["bh_iota"].shape[0]
+    a.bu = ht["bu_iota"].shape[0] if uri else 0
+    a.n_hb, a.n_wh = ht["hb_items"].shape[0], ht["wh_idx"].shape[0]
+    a.n_ub = ht["ub_items"].shape[0] if uri else 0
+    a.n_wu = ht["wu_idx"].shape[0] if uri else 0
+    a.r_cap = ht["pk_meta"].shape[0]
+    return t
+
+
+def fused_classify_pick(ht: dict, q: dict, mtab, slots):
+    """The fused entry: the plain tier for CPU tensors, the CUDA kernel
+    for everything else (which raises unless it launched)."""
+    if ht["pk_meta"].device.type == "cpu":
+        return F.fused_classify_pick(ht, q, mtab, slots)
+    return fused_classify_pick_cuda(ht, q, mtab, slots)
+
+
+def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots):
+    """Launch the fused kernel: same contract as
+    fused.fused_classify_pick, CUDA tensors only. -> int32 [B, 2].
+    `ht` is best a PackedTable (prepare_table); a plain dict is
+    prepared on every call."""
+    t = prepare_table(ht)
+    dev = t.device
+    for k, want in _QUERY_DTYPES.items():
+        _check(k, q[k], dev, want)
+    _check("slots", slots, dev, torch.int64)
+    _check("mtab", mtab, dev, torch.int32)
+    b, hw = q["hostb"].shape
+    uw = q["urib"].shape[1]
+    maxp = q["hp_slot1"].shape[1]
+    lw = q["up_slot1"].shape[1]
+    if hw != t.hw or (t.uri and uw != t.uw):
+        raise ValueError(f"fused kernel: query windows (hw {hw}, uw {uw}) "
+                         f"differ from the packed table's (hw {t.hw}, uw "
+                         f"{t.uw})")
+    for k, w in (("hlen", None), ("ulen", None), ("port", None),
+                 ("has_host", None), ("has_uri", None), ("hp_len", maxp),
+                 ("hp_slot2", maxp), ("up_len", lw), ("up_slot2", lw)):
+        shape = (b,) if w is None else (b, w)
+        if tuple(q[k].shape) != shape:
+            raise ValueError(f"fused kernel: {k} has shape "
+                             f"{tuple(q[k].shape)}, want {shape}")
+    if tuple(slots.shape) != (b,) or mtab.dim() != 1:
+        raise ValueError(f"fused kernel: slots must be [{b}] and mtab "
+                         f"1-D, got {tuple(slots.shape)} and "
+                         f"{tuple(mtab.shape)}")
+    out = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    a = _FusedArgs.from_buffer_copy(t.args)
+    for k in _QUERY_DTYPES:
+        setattr(a, k, q[k].data_ptr())
+    a.slots, a.mtab, a.out = (slots.data_ptr(), mtab.data_ptr(),
+                              out.data_ptr())
+    a.b, a.uw, a.maxp, a.lw, a.m = b, uw, maxp, lw, mtab.shape[0]
+    err = (_LIB or _lib()).vproxy_fused_classify_pick(
+        ctypes.byref(a), int(t.uri), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise KernelError(f"fused kernel launch failed: CUDA error {err}")
+    fused_classify_pick_cuda.launches += 1
+    return out
+
+
+fused_classify_pick_cuda.launches = 0
