@@ -10,11 +10,18 @@ and prints one JSON line per result. Phases, in order:
 
 1. environment: a CUDA device, or exit 1; the card's name and power
    limit as nvidia-smi reports them;
-2. build: nvcc of csrc/fused_classify_pick.cu, with its seconds;
+2. build: nvcc of csrc/fused_classify_pick.cu, with its seconds, and
+   per kernel instance (uri or uri-free, compare word) ptxas's
+   registers and spills (any spill fails) and its global loads in the
+   SASS (cuobjdump, kept beside the library as <lib>.sass);
 3. kernel vs plain tier, int32-exact, on identical device tensors: 100k
-   rules with uri rules, 100k host-only rules (the uri-free kernel), and
-   a few hundred rules at r_cap 600,000 (the plain tier's two-pass
-   reduction);
+   rules with uri rules, 100k host-only rules (the uri-free kernel), a
+   few hundred rules at r_cap 600,000 (the plain tier's two-pass
+   reduction), the CPU parity cases long_hosts (host window 65: 1-byte
+   words), shared_keys and random_300_b600, wide_buckets (more live
+   candidates per query than the kernel lists at once), and the
+   boundary sets at every compare word, each with and without its uri
+   rules;
 4. service: 4 bursts of 512 submit_classify_pick requests through a
    FusedPair and 4 of 512 submit_hint requests, every answer equal to
    the host index (HintIndex + maglev.pick), no failover, every query
@@ -28,7 +35,9 @@ and prints one JSON line per result. Phases, in order:
    call); and the least time the card could take (bytes this batch
    must move over the 3.35 TB/s HBM rate, or its integer operations
    over the INT32 rate, whichever is larger). The bound is an HBM
-   bound: the warm time, served from L2, may beat it;
+   bound, read against the cold time; the warm time, served from L2,
+   may beat it; then the warm kernel time alone at B = 512 to 8192, to
+   show where it stops being set by one query's chain of loads;
 6. the {"kernels": [...]} line, then the device line.
 
 Any failed phase raises, and the script exits non-zero.
@@ -38,6 +47,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import threading
@@ -49,12 +59,14 @@ N_RULES = 100_000
 SERVICE_BATCH = 512
 BURSTS = 4
 TIME_BATCHES = (16, 512, 4096)
+SWEEP_BATCHES = (1024, 2048, 8192)  # warm kernel time only: how it scales
 MAGLEV_M = 65_537
 BACKENDS = 256
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 INT_OPS_PER_S = 132 * 64 * 1.98e9  # INT32 lanes per SM x SMs x boost clock
 
 REPLACES = "vproxy_tpu/ops/fused_pallas.py:56"
+KERNEL = "fused_kernel"  # the kernel's name, as the profiler lists it
 SOURCE = "vproxy_tpu_torch/csrc/fused_classify_pick.cu"
 
 
@@ -123,6 +135,170 @@ def mk_queries(rules, b, seed=7):
     return hints
 
 
+# The rule sets of the port's CPU parity cases (tests/test_torch_host.py,
+# tests/test_torch_kernels.py), carried here because tests/ is not part
+# of what this script may import; tier-1 holds these copies equal to
+# those.
+
+WORDS = ["a", "bb", "ccc", "x", "api", "web", "cdn", "img", "v2", "svc"]
+TLDS = ["com", "net", "io", "local"]
+
+
+def rand_rules(n, seed):
+    """The reference hashmatch tests' rule mix: hosts, wildcards, uri
+    prefixes, ports, shared keys."""
+    from vproxy_tpu_torch.rules.ir import HintRule
+    rnd = random.Random(seed)
+
+    def dom():
+        return ".".join(rnd.choice(WORDS) for _ in range(rnd.randint(1, 3))) \
+            + "." + rnd.choice(TLDS)
+
+    def uri():
+        return "/" + "/".join(rnd.choice(WORDS)
+                              for _ in range(rnd.randint(1, 4)))
+
+    out = []
+    for _ in range(n):
+        host = u = None
+        port = 0
+        while host is None and u is None and port == 0:
+            if rnd.random() < 0.7:
+                host = "*" if rnd.random() < 0.1 else dom()
+            if rnd.random() < 0.5:
+                u = "*" if rnd.random() < 0.1 else uri()
+            if rnd.random() < 0.3:
+                port = rnd.choice([80, 443, 8080])
+        out.append(HintRule(host=host, port=port, uri=u))
+    return out
+
+
+def rand_hints(rules, n, seed):
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rnd = random.Random(seed)
+    out = []
+    for i in range(n):
+        r = rules[rnd.randrange(len(rules))] if rules else HintRule()
+        host = r.host if r.host not in (None, "*") else f"h{i}.io"
+        if rnd.random() < 0.4:
+            host = rnd.choice(WORDS) + "." + host
+        u = (r.uri if r.uri not in (None, "*") else "/a") + \
+            rnd.choice(["", "/x", "yz"])
+        out.append(Hint(host=host if rnd.random() < 0.85 else None,
+                        port=rnd.choice([0, 80, 443, 8080]),
+                        uri=u if rnd.random() < 0.6 else None))
+    return out
+
+
+def shared_keys():
+    """Rules sharing host and uri keys, and the queries that split them.
+    -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = [HintRule(host="a.com", uri="/x"),
+             HintRule(host="a.com", uri="/xy"), HintRule(host="a.com"),
+             HintRule(host="a.com", port=443),
+             HintRule(host="a.com", uri="/xy"), HintRule(host="com"),
+             HintRule(host="*", uri="/x"), HintRule(uri="/xy"),
+             HintRule(uri="*")]
+    return rules, [
+        Hint(host="a.com", uri="/xyz"), Hint(host="a.com", uri="/xy"),
+        Hint(host="a.com"), Hint(host="a.com", port=443),
+        Hint(host="a.com", port=8080), Hint(host="b.a.com", uri="/x"),
+        Hint(host="z.com"), Hint(uri="/xyq"), Hint(uri="/zzz"),
+        Hint(host="*"), Hint(host="q.*"), Hint(uri="*")]
+
+
+def long_hosts():
+    """Two hosts of 64 and 32 bytes (host window hw = 65). -> (rules,
+    hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    h64 = "a" * 31 + "." + "b" * 32
+    return [HintRule(host=h64), HintRule(host="b" * 32)], [
+        Hint(host=h64), Hint(host="x." + h64), Hint(host="q" + h64)]
+
+
+def wide_buckets():
+    """More live candidates per query than the kernel lists at once
+    (128): one host bucket of 200 rules (distinct uris survive the
+    bucket pruning), 150 wildcard-host rules and port-gated uri rules.
+    -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = [HintRule(host="a.example.com", uri=f"/p{i}") for i in range(200)]
+    rules += [HintRule(host="*", uri=f"/w{i}") for i in range(150)]
+    rules += [HintRule(uri=f"/p{i}", port=443) for i in range(0, 200, 3)]
+    hints = [Hint(host="a.example.com", uri=f"/p{i}/x", port=(0, 443)[i % 2])
+             for i in range(0, 200, 7)]
+    hints += [Hint(host="b.a.example.com", uri=f"/w{i}") for i in range(0, 150, 11)]
+    hints += [Hint(host="zz.com", uri="/p3", port=443), Hint(uri="/p1")]
+    return rules, hints
+
+
+BOUNDARY_HOSTS = (7, 8, 15, 16, 17, 31, 32, 33, 64)
+BOUNDARY_URIS = (7, 8, 15, 16, 17, 128)
+# The boundary set per compare word of the kernel: the whole set (hw 65:
+# 1-byte words), and cuts of it whose windows split into 16-, 8- and
+# 4-byte words (the last through compile caps, as a caps-reusing update
+# compile could give). -> (host lengths, uri lengths, caps)
+BOUNDARY_SETS = {
+    "boundary": (BOUNDARY_HOSTS, BOUNDARY_URIS, None),
+    "boundary_w16": (BOUNDARY_HOSTS[:-1], BOUNDARY_URIS, None),
+    "boundary_w8": ((7,), (7, 8), None),
+    "boundary_w4": ((7, 8, 15), (7, 8, 15, 16, 17), {"hw": 20, "uw": 36}),
+}
+# each set as it is (the uri instance) and cut to its host-only rules
+# (the uri-free instance)
+BOUNDARY_CASES = tuple(n + s for n in BOUNDARY_SETS for s in ("", "_hosts"))
+
+
+def boundary(name="boundary"):
+    """Rules and queries at the edges of the kernel's word-wide masked
+    compares. Host h_L is L bytes ("hh...h.com"), so shorter hosts are
+    byte prefixes of longer ones in the reversed compare order; uri u_M
+    is M bytes ("/uu...u"), each a prefix of the longer ones. Rules:
+    every host and uri alone, port-gated copies, host+uri pairs, a
+    suffix parent ("com"), every uri under a wildcard host and every
+    host under a wildcard uri (so every query reaches every row's
+    compare). Queries, for every host and every uri: equal to a rule;
+    one byte short; one byte longer (a '.' at the host's boundary);
+    differing only in the last compared byte; a subdomain or a longer
+    path; alone and beside the other half of a host+uri rule, with
+    ports 0, 443 and 8443 in turn; and four that match nothing. A name
+    ending in "_hosts" keeps only the rules without a uri.
+    -> (rules, hints, caps)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    hls, uls, caps = BOUNDARY_SETS[name.removesuffix("_hosts")]
+    host = ["h" * (n - 4) + ".com" for n in hls]
+    uri = ["/" + "u" * (n - 1) for n in uls]
+    pairs = list(zip(host, uri * len(host)))
+    rules = [HintRule(host=h, port=443) for h in host]
+    rules += [HintRule(uri=u, port=8443) for u in uri]
+    rules += [HintRule(host=h) for h in host]
+    rules += [HintRule(uri=u) for u in uri]
+    rules += [HintRule(host=h, uri=u) for h, u in pairs]
+    rules += [HintRule(host="com")]
+    rules += [HintRule(host="*", uri=u) for u in uri]
+    rules += [HintRule(host=h, uri="*") for h in host]
+
+    def hvar(h):
+        return [h, h[1:], "." + h, chr(ord(h[0]) + 1) + h[1:], "x." + h]
+
+    def uvar(u):
+        return [u, u[:-1], u + ".", u[:-1] + chr(ord(u[-1]) + 1), u + "/r"]
+
+    qs = [(h, None) for h0 in host for h in hvar(h0)]
+    qs += [(None, u) for u0 in uri for u in uvar(u0)]
+    for h0, u0 in pairs:
+        qs += [(h, u0 + "/r") for h in hvar(h0)]
+        qs += [(h0, u) for u in uvar(u0)]
+    qs += [("h" * 10 + ".net", None), (None, "/v"), ("hhh.con", "/x"),
+           (None, None)]  # no match
+    hints = [Hint(host=h, uri=u, port=(0, 443, 8443)[i % 3])
+             for i, (h, u) in enumerate(qs)]
+    if name.endswith("_hosts"):
+        rules = [r for r in rules if r.uri is None]
+    return rules, hints, caps
+
+
 def mk_ips(n, seed=5):
     rnd = random.Random(seed)
     return [bytes([10 + rnd.randrange(14), rnd.randrange(256),
@@ -150,17 +326,59 @@ def phase_env() -> str:
     return smi
 
 
-def phase_build() -> float:
+def instance(mangled: str) -> str:
+    """fused_kernel<URI, W>'s mangled name -> "uri W=16" and the like."""
+    m = re.search(r"fused_kernelILb([01])ELi(\d+)E", mangled)
+    return (f"{'uri' if m.group(1) == '1' else 'uri-free'} W={m.group(2)}"
+            if m else mangled)
+
+
+def phase_build() -> tuple:
+    """-> (build seconds, {instance: {registers, spill_stores,
+    spill_loads, ldg}})."""
     from vproxy_tpu_torch.ops import fused_cuda as FC
     t0 = time.monotonic()
     lib = FC.build()
     secs = time.monotonic() - t0
     log(f"build: {secs:.2f} s -> {os.path.basename(lib)}")
+    kern, name = {}, None
     with open(lib + ".log") as f:
         for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
-    return secs
+            m = re.search(r"(?:Compiling entry function|Function properties"
+                          r" for) '?(\w+)", line)
+            if m:
+                name = instance(m.group(1))
+                kern.setdefault(name, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                kern[name]["spill_stores"] = int(m.group(1))
+                kern[name]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                kern[name]["registers"] = int(m.group(1))
+    dump = os.path.join(os.path.dirname(FC._nvcc()), "cuobjdump")
+    sass = subprocess.run([dump, "-sass", lib], capture_output=True,
+                          text=True) if os.access(dump, os.X_OK) else None
+    if sass is not None and sass.returncode == 0:
+        with open(lib + ".sass", "w") as f:
+            f.write(sass.stdout)
+        for part in sass.stdout.split("Function : ")[1:]:
+            name = instance(part.split()[0])
+            kern.setdefault(name, {})["ldg"] = len(
+                re.findall(r"\bLDG\b", part))
+    for name in sorted(kern):
+        k = kern[name]
+        log(f"  ptxas: fused_kernel {name}: {k.get('registers')} registers,"
+            f" {k.get('spill_stores')} B spill stores, "
+            f"{k.get('spill_loads')} B spill loads; SASS {k.get('ldg')} "
+            f"LDG")
+    check(len(kern) == 8 and all(k.get("registers") for k in
+                                 kern.values()),
+          f"ptxas reported {len(kern)} kernel instances, want 8")
+    check(all(k.get("spill_stores") == k.get("spill_loads") == 0
+              for k in kern.values()), "a kernel instance spills")
+    return secs, kern
 
 
 def packed_case(rules, device, caps=None):
@@ -178,46 +396,66 @@ def packed_case(rules, device, caps=None):
     return tab, ht, mtab
 
 
-def encode(tab, rules, b, device, seed=7):
+def encode(tab, hints, device, seed=7):
+    """Query tensors and Maglev slots for `hints` on `device`."""
     from vproxy_tpu_torch.ops import hashmatch as H
     from vproxy_tpu_torch.rules import maglev as M
     from vproxy_tpu_torch.utils.torchenv import tables_from_reference
-    q = tables_from_reference(
-        H.encode_hint_queries(mk_queries(rules, b, seed), tab), device)
+    b = len(hints)
+    q = tables_from_reference(H.encode_hint_queries(hints, tab), device)
     slots = torch.from_numpy(M.flow_slots(
         MAGLEV_M, mk_ips(b, seed), [1024 + i for i in range(b)])).to(device)
     return q, slots
 
 
+def kernel_cases():
+    """-> (name, rules, hints, caps) of each kernel-vs-plain case."""
+    for name, rules, caps in (
+            ("100k uri", mk_rules(N_RULES), None),
+            ("100k host-only", mk_host_rules(N_RULES), None),
+            ("few hundred, r_cap 600000", mk_rules(300),
+             {"r_cap": 600_000})):
+        yield name, rules, mk_queries(rules, SERVICE_BATCH), caps
+    for name, gen in (("long_hosts", long_hosts),
+                      ("shared_keys", shared_keys),
+                      ("wide_buckets", wide_buckets)):
+        yield (name, *gen(), None)
+    rules = rand_rules(300, 11)
+    yield "random_300_b600", rules, rand_hints(rules, 600, 11), None
+    for name in BOUNDARY_CASES:
+        yield (name, *boundary(name))
+
+
 def phase_kernel_vs_plain(device):
-    """Three cases, int32-exact. -> (max |kernel - plain|, the 100k
-    uri table pieces reused by the timing phase)."""
+    """Every kernel_cases() case, int32-exact. -> (max |kernel - plain|,
+    the 100k uri table pieces reused by the timing phase)."""
     from vproxy_tpu_torch.ops import fused as F
     from vproxy_tpu_torch.ops import fused_cuda as FC
     from vproxy_tpu_torch.ops.hashmatch import _PACK_I32_MAX
     err = 0
     keep = None
-    cases = (("100k uri", mk_rules(N_RULES), None),
-             ("100k host-only", mk_host_rules(N_RULES), None),
-             ("few hundred, r_cap 600000", mk_rules(300),
-              {"r_cap": 600_000}))
-    for name, rules, caps in cases:
+    words = set()
+    for name, rules, hints, caps in kernel_cases():
         t0 = time.monotonic()
         tab, ht, mtab = packed_case(rules, device, caps)
-        q, slots = encode(tab, rules, SERVICE_BATCH, device)
+        q, slots = encode(tab, hints, device)
         got = FC.fused_classify_pick_cuda(ht, q, mtab, slots)
         ref = F.fused_classify_pick(ht, q, mtab, slots)
         torch.cuda.synchronize()
         d = int((got.long() - ref.long()).abs().max())
         err = max(err, d)
         r_cap = ht["pk_meta"].shape[0]
-        log(f"kernel vs plain [{name}]: r_cap {r_cap} "
-            f"uri={'pk_uslot' in ht} two_pass={r_cap > _PACK_I32_MAX} "
-            f"matched {int((ref[:, 0] >= 0).sum())}/{SERVICE_BATCH} "
+        words.add((ht.uri, ht.word))
+        log(f"kernel vs plain [{name}]: r_cap {r_cap} uri={ht.uri} "
+            f"hw {ht.hw} uw {ht.uw} word {ht.word} "
+            f"two_pass={r_cap > _PACK_I32_MAX} "
+            f"matched {int((ref[:, 0] >= 0).sum())}/{len(hints)} "
             f"max_abs_err {d} ({time.monotonic() - t0:.1f} s)")
         check(torch.equal(got, ref), f"kernel != plain tier [{name}]")
         if keep is None:
             keep = (rules, tab, ht, mtab)
+    check(len(words) == 8, f"cases ran {len(words)} of the 8 kernel "
+          f"instances: {sorted(words)}")
     return err, keep
 
 
@@ -341,24 +579,33 @@ def call_ms(fn, iters: int, reps: int = 5) -> float:
     return best
 
 
-def device_ms(fn, iters: int, only: str = "") -> float:
+def device_ms(fn, iters: int, only: str = "", launches: int = 0) -> float:
     """Mean device ms per call: the CUDA kernels' own time, summed over
     every kernel one call launches whose name holds `only` (all when
     empty) (torch.profiler / CUPTI). 0.0 when the profiler saw no such
-    device activity."""
+    device activity. With `launches` > 0 the profiler must have seen
+    iters x launches such kernels: a run that lost events would read
+    low, so it is run again, and the phase fails after three."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.key_averages():
-        if only in ev.key:
-            us += getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))
-    return us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for ev in prof.key_averages():
+            if only in ev.key:
+                us += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0))
+                n += ev.count
+        if not launches or n == iters * launches:
+            return us / iters / 1e3
+        log(f"profiler saw {n} of {iters * launches} {only} kernels "
+            f"({us / max(n, 1):.3f} us each); timing again")
+    raise RuntimeError(f"chip smoke failed: the profiler lost {only} "
+                       f"kernels in three runs")
 
 
 def work(ht, q, mtab, slots):
@@ -411,13 +658,15 @@ def phase_times(device, keep):
     rows = []
     saved = FC.fused_classify_pick_cuda.launches
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    q, slots = encode(tab, rules, max(TIME_BATCHES), device, seed=499)
+    b = max(TIME_BATCHES)
+    q, slots = encode(tab, mk_queries(rules, b, 499), device, seed=499)
     t0 = time.monotonic()
     while time.monotonic() - t0 < 0.5:  # bring the clocks up first
         FC.fused_classify_pick_cuda(ht, q, mtab, slots)
     torch.cuda.synchronize()
     for b in TIME_BATCHES:
-        q, slots = encode(tab, rules, b, device, seed=500 + b)
+        q, slots = encode(tab, mk_queries(rules, b, 500 + b), device,
+                          seed=500 + b)
         kern = lambda: FC.fused_classify_pick_cuda(ht, q, mtab, slots)
         plain = lambda: F.fused_classify_pick(ht, q, mtab, slots)
         raw = dict(ht)  # a plain dict: the table is checked every call
@@ -427,10 +676,10 @@ def phase_times(device, keep):
         check(torch.equal(kern(), plain()), f"kernel != plain at B={b}")
         # alternate plain, kernel, kernel, plain within this call
         p1 = device_ms(plain, 10)
-        k1 = device_ms(kern, 200)
-        k2 = device_ms(kern, 200)
+        k1 = device_ms(kern, 200, KERNEL, 1)
+        k2 = device_ms(kern, 200, KERNEL, 1)
         p2 = device_ms(plain, 10)
-        c1 = device_ms(cold, 50, only="fused_kernel")
+        c1 = device_ms(cold, 50, KERNEL, 1)
         check(min(p1, p2, k1, k2, c1) > 0, "profiler saw no device time")
         # dict, published, published, dict within this call
         kr1, kc1, kc2, kr2 = (call_ms(kern_raw, 200), call_ms(kern, 200),
@@ -449,33 +698,45 @@ def phase_times(device, keep):
                "bytes": nbytes, "int_ops": ops}
         rows.append(row)
         log("times " + json.dumps(row))
+    sweep = []
+    for b in sorted(SWEEP_BATCHES + TIME_BATCHES[1:]):
+        q, slots = encode(tab, mk_queries(rules, b, 500 + b), device,
+                          seed=500 + b)
+        kern = lambda: FC.fused_classify_pick_cuda(ht, q, mtab, slots)
+        check(torch.equal(kern(), F.fused_classify_pick(ht, q, mtab, slots)),
+              f"kernel != plain at B={b}")
+        runs = [device_ms(kern, 200, KERNEL, 1) for _ in range(2)]
+        sweep.append({"batch": b, "ms": min(runs), "ms_runs": runs})
+        log("sweep " + json.dumps(sweep[-1]))
     FC.fused_classify_pick_cuda.launches = saved
     del flush
     log("clocks " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
-    return rows
+    return rows, sweep
 
 
 def main() -> int:
     smi = phase_env()
     from vproxy_tpu_torch.rules import engine as E
     device = torch.device("cuda")
-    build_s = phase_build()
+    build_s, instances = phase_build()
     err, keep = phase_kernel_vs_plain(device)
     launches = phase_service(device, keep[0])
-    rows = phase_times(device, keep)
+    rows, sweep = phase_times(device, keep)
     main_row = next(r for r in rows if r["batch"] == SERVICE_BATCH)
     check(E.fused_kernel_name() == "cuda", "fused kernel tier changed")
     log(json.dumps({"kernels": [{
         "name": "fused_classify_pick", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": float(err), "ms": main_row["ms"],
+        "cold_ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"], "library_ms": None,
         "batch": SERVICE_BATCH, "build_s": build_s, "card": smi,
-        "by_batch": rows}]}))
+        "instances": instances,
+        "by_batch": rows, "sweep": sweep}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,14 +8,18 @@ int32 results:
 * hint_hash_match (the unfused tier) vs hashmatch.hint_hash_jit;
 * fused_classify_pick (the plain tier of the CUDA kernel) vs
   fused.fused_jit, with and without uri rules, and vs the Pallas kernel
-  in interpret mode;
+  in interpret mode, on chip_smoke.py's boundary sets too (the inputs
+  the card's kernel is held to there);
 * both _reduce_best branches (i32 pack, and two passes past r_cap
   524,286);
 * pad rows never match.
 
 The CUDA kernel itself runs only on the GPU (chip_smoke.py holds it
 against the plain tier there); here the tests prove the fused entry
-never substitutes the plain tier for a non-CPU tensor.
+never substitutes the plain tier for a non-CPU tensor, that the
+kernel's compare word suits every window width the compiler gives, and
+that chip_smoke.py's copies of these cases' generators give the same
+rules and queries.
 """
 import ctypes
 import re
@@ -24,8 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as CS
 from test_fused import mk_ips, mk_queries, mk_rules
 from test_torch_host import LONG, SHARED, rand_hints, rand_rules
+from vproxy_tpu_torch.ops.tables import MAX_HOST, MAX_URI
 from vproxy_tpu.ops import fused as RF
 from vproxy_tpu.ops import hashmatch as RH
 from vproxy_tpu.rules import maglev as RM
@@ -74,13 +80,18 @@ def case(name):
                       Hint(host="q" + h)], None
     if name == "host_only_b96":
         return host_only(), host_only_hints(96), None
+    if name in CS.BOUNDARY_CASES:
+        return CS.boundary(name)
+    if name == "wide_buckets":
+        return (*CS.wide_buckets(), None)
     assert name == "two_pass_r_cap_600k"
     r = mk_rules(300)
     return r, mk_queries(r, 64), {"r_cap": 600_000}
 
 
-CASES = ("host_only_b96", "long_hosts", "mk_rules_5k_b512",
-         "random_300_b600", "shared_keys", "two_pass_r_cap_600k")
+CASES = CS.BOUNDARY_CASES + (
+    "host_only_b96", "long_hosts", "mk_rules_5k_b512", "random_300_b600",
+    "shared_keys", "two_pass_r_cap_600k", "wide_buckets")
 
 
 def compile_case(name):
@@ -116,7 +127,8 @@ def test_fused_classify_pick_vs_jax(name):
                                 torch.from_numpy(slots))
     assert got.dtype == torch.int32 and np.array_equal(ref, got.numpy())
     assert ("pk_uslot" in ht) == (name not in ("host_only_b96",
-                                               "long_hosts"))
+                                               "long_hosts") and
+                                  not name.endswith("_hosts"))
 
 
 @pytest.mark.parametrize("r_cap", [4096, 600_000])
@@ -158,16 +170,24 @@ def test_fused_pad_rows_never_match(b, pad_to):
     assert (v[b:] == -1).all()
 
 
-def test_fused_vs_pallas_interpret():
+@pytest.mark.parametrize("name", ("mk_rules_400_b16",) +
+                         CS.BOUNDARY_CASES)
+def test_fused_vs_pallas_interpret(name):
     """The TPU kernel itself, in the Pallas interpreter, against the
-    port's plain tier on the same inputs (400 rules, B = 16)."""
+    port's plain tier on the same inputs: 400 rules at B = 16, and each
+    boundary set of chip_smoke.py (the masked-compare edges at every
+    compare word)."""
     from vproxy_tpu.ops import fused_pallas as RFP
-    rules = mk_rules(400)
-    tab = RH.compile_hint_hash(rules)
-    q = RH.encode_hint_queries(mk_queries(rules, 16), tab)
+    if name == "mk_rules_400_b16":
+        rules = mk_rules(400)
+        hints, caps = mk_queries(rules, 16), None
+    else:
+        rules, hints, caps = CS.boundary(name)
+    tab = RH.compile_hint_hash(rules, caps=caps)
+    q = RH.encode_hint_queries(hints, tab)
     ht = RF.pack_hint_table(tab.arrays)
     mtab = RM.build_table([(f"b{i}", 1) for i in range(6)], 251)
-    slots = np.array([RM.flow_hash(ip) % 251 for ip in mk_ips(16)],
+    slots = np.array([RM.flow_hash(ip) % 251 for ip in mk_ips(len(hints))],
                      np.int64)
     ref = np.asarray(RFP.fused_classify_pick_pallas(ht, q, mtab, slots,
                                                     interpret=True))
@@ -175,6 +195,60 @@ def test_fused_vs_pallas_interpret():
                                 torch.from_numpy(mtab),
                                 torch.from_numpy(slots))
     assert np.array_equal(ref, got.numpy())
+
+
+# ------------------------------------------------- the kernel's compare word
+
+# the longest host / uri that gives each window the compiler makes
+# without caps: hw = pow2(longest host + 1 boundary byte) from 8, at
+# most MAX_HOST + 1; uw = pow2(longest uri) from 8, at most MAX_URI; a
+# table with no uri rule packs uri-free and launches with uw 0
+HW_HOST = {8: 7, 16: 15, 32: 31, 64: 63, MAX_HOST + 1: MAX_HOST}
+UW_URI = {0: None, 8: 8, 16: 16, 32: 32, 64: 64, MAX_URI: MAX_URI}
+
+
+@pytest.mark.parametrize("uw", sorted(UW_URI))
+@pytest.mark.parametrize("hw", sorted(HW_HOST))
+def test_word_bytes_every_compiled_width(hw, uw):
+    """Every (hw, uw) compile_hint_hash can give: the word divides both
+    windows and the packed row, and is the widest that does."""
+    rules = [HintRule(host="h" * (HW_HOST[hw] - 4) + ".com")]
+    if UW_URI[uw]:
+        rules.append(HintRule(uri="/" + "u" * (UW_URI[uw] - 1)))
+    tab = H.compile_hint_hash(rules)
+    pk = F.pack_hint_table(tab.arrays)
+    kuw = pk["pk_ukey"].shape[1] if "pk_ukey" in pk else 0
+    assert (tab.hw, kuw) == (hw, uw)
+    w = FC.word_bytes(hw, kuw)
+    assert w == (1 if hw == MAX_HOST + 1 else min(16, hw, uw or 16))
+    assert hw % w == 0 and kuw % w == 0 and pk["pk_bytes"].shape[1] % w == 0
+
+
+def test_word_bytes_divides_widths_and_addresses():
+    """Any width a caps-reusing compile could give, and base addresses
+    off the allocator's alignment: the word divides every value given,
+    and no wider word of the kernel does."""
+    for hw in range(1, MAX_HOST + 2):
+        for uw in range(0, MAX_URI + 1):
+            w = FC.word_bytes(hw, uw)
+            assert hw % w == 0 and uw % w == 0
+            assert not any(hw % x == 0 and uw % x == 0
+                           for x in FC.WORDS if x > w)
+    assert FC.word_bytes(32, 16, 0x7f0000001000) == 16
+    assert FC.word_bytes(32, 16, 0x7f0000001000, 0x7f0000001008) == 8
+    assert FC.word_bytes(32, 16, 0x7f0000001004) == 4
+    assert FC.word_bytes(64, 128, 0x7f0000001001) == 1
+
+
+def test_chip_smoke_carries_the_parity_cases():
+    """chip_smoke.py holds the kernel to the plain tier on copies of
+    these cases' generators (tests/ is not importable there): the
+    copies give the same rules and queries."""
+    rules = rand_rules(300, 11)
+    assert CS.rand_rules(300, 11) == rules
+    assert CS.rand_hints(rules, 600, 11) == rand_hints(rules, 600, 11)
+    assert CS.shared_keys() == (SHARED, case("shared_keys")[1])
+    assert CS.long_hosts() == (LONG, case("long_hosts")[1])
 
 
 def test_device_take_clamps_like_take_clip():

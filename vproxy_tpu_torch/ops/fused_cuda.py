@@ -18,6 +18,7 @@ current stream.
   stops the publish). Per call only the query batch is checked.
 * `fused_classify_pick_cuda` is the kernel wrapper; its `launches`
   attribute counts the launches it made.
+* `word_bytes` picks the word the kernel compares byte windows in.
 * `build()` compiles at first use into a directory .gitignore lists,
   under a file lock (concurrent processes build once), keyed by the
   source's content, the flags and the packed layout version.
@@ -49,7 +50,8 @@ _PTRS = ("hostb", "urib", "hlen", "ulen", "port", "has_host", "has_uri",
          "pk_uslot", "pk_ukey", "hb_items", "ub_items", "wh_idx", "wu_idx",
          "mtab", "out")
 _INTS = ("b", "hw", "uw", "pk_w", "ukw", "maxp", "lw", "bh", "bu",
-         "n_hb", "n_ub", "n_wh", "n_wu", "r_cap", "m")
+         "n_hb", "n_ub", "n_wh", "n_wu", "r_cap", "m", "word")
+WORDS = (16, 8, 4, 1)  # the kernel's compare words, widest first
 
 
 class _FusedArgs(ctypes.Structure):
@@ -160,10 +162,21 @@ def _check(name: str, v, dev, dtype) -> None:
                          f"{v.device}")
 
 
+def word_bytes(hw: int, uw: int = 0, *addrs: int) -> int:
+    """The word the kernel compares byte windows in: the widest of
+    WORDS that divides the host window `hw`, the uri window `uw` (0 for
+    a uri-free table) and every base address in `addrs`, so each table
+    row, key row and window splits into whole aligned words. hw 32 with
+    uw 16 gives 16 bytes, hw 16 with uw 8 gives 8, and hw 65 (a 64-byte
+    host rule plus its boundary byte) gives 1."""
+    return next(w for w in WORDS
+                if all(v % w == 0 for v in (hw, uw, *addrs)))
+
+
 class PackedTable(dict):
     """A packed table (the dict of tensors) checked for the kernel, with
     the table's half of the launch arguments cached: `args` (table
-    pointers and sizes), `uri`, `hw`, `uw`, `device`."""
+    pointers and sizes), `uri`, `hw`, `uw`, `word`, `device`."""
 
 
 def prepare_table(ht: dict) -> PackedTable:
@@ -197,6 +210,9 @@ def prepare_table(ht: dict) -> PackedTable:
             raise ValueError(f"fused kernel: {k} must be [n, {w}], got "
                              f"{tuple(ht[k].shape)}")
     t = PackedTable(ht)
+    t.word = word_bytes(hw, uw, *(ht[k].data_ptr() for k in
+                                  ("pk_bytes", "pk_hkey", "pk_ukey")
+                                  if k in ht))
     t.uri, t.hw, t.uw, t.device = uri, hw, uw, dev
     t.args = _FusedArgs(**{k: ht[k].data_ptr() for k in _TABLE_DTYPES
                            if k in ht})
@@ -208,6 +224,7 @@ def prepare_table(ht: dict) -> PackedTable:
     a.n_ub = ht["ub_items"].shape[0] if uri else 0
     a.n_wu = ht["wu_idx"].shape[0] if uri else 0
     a.r_cap = ht["pk_meta"].shape[0]
+    a.word = t.word
     return t
 
 
