@@ -1,0 +1,78 @@
+"""Torch port on the card: the CIDR kernels against their plain tiers.
+
+Every test here is marked `cuda` and asks the `cuda` fixture for the
+card, which skips without one (the CPU tier-1 run skips them all). On a
+machine with an H100:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The file imports nothing of JAX (its cases come from chip_smoke.py's
+copies of the CPU parity generators), so it runs where JAX is not
+installed. chip_smoke.py holds the same kernels at full size.
+"""
+import pytest
+import torch
+
+import chip_smoke as CS
+from vproxy_tpu_torch.ops import cidr_cuda as CC
+from vproxy_tpu_torch.ops import fused as F
+from vproxy_tpu_torch.ops import fused_cuda as FC
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def test_cidr_kernel_matches_plain_tier(cuda):
+    """B4 == _cidr_first_packed, int32, on the CPU parity sets (pad rows
+    included) and on the clamp cuts."""
+    for name, nets, acl, q in CS.small_cidr_cases():
+        ct = CS.packed_cidr(nets, acl, cuda)
+        tables = [(name, ct)]
+        if name in ("routes_2k", "acl_500"):
+            tables += [(f"{name} cut {h}",
+                        CC.prepare_table(CS.cut_table(dict(ct), h)))
+                       for h in CS.CUTS]
+        a16, fam, port = CS.cidr_batch(q, len(q) + 8, cuda)
+        for n, t in tables:
+            got = CC.cidr_first_cuda(t, a16, fam, port)
+            assert torch.equal(got, F._cidr_first_packed(t, a16, fam, port)), n
+
+
+@pytest.mark.parametrize("b", [16, 512])
+def test_route_column_matches_plain_tier(cuda, b):
+    """B1's [B, 3] form == the 3-column plain tier, and its first two
+    columns == the [B, 2] launch."""
+    rules = CS.mk_rules(3000)
+    tab, ht, mtab = CS.packed_case(rules, cuda)
+    nets = CS.route_nets(2000, 5)
+    ct = CS.packed_cidr(nets, None, cuda)
+    q, slots = CS.encode(tab, CS.mk_queries(rules, b, 9), cuda)
+    a16, fam, _ = CS.cidr_batch(
+        [(a, None) for a, _ in CS.cidr_queries(nets, b - b // 8, 10)], b,
+        cuda)
+    got = FC.fused_classify_pick_cuda(ht, q, mtab, slots, ct, a16, fam)
+    assert torch.equal(got, F.fused_classify_pick(ht, q, mtab, slots, ct,
+                                                  a16, fam))
+    assert torch.equal(FC.fused_classify_pick_cuda(ht, q, mtab, slots),
+                       got[:, :2])
+
+
+def test_cidr_matcher_serves_from_the_kernel(cuda):
+    """A CidrMatcher on the card answers batches with one B4 launch
+    each, equal to its host index."""
+    from vproxy_tpu_torch.rules import engine as E
+    acl = CS.acl_rules(500, 7)
+    m = E.CidrMatcher([r.network for r in acl], acl=acl, device=cuda)
+    assert isinstance(m.snapshot()[6], CC.PackedCidrTable)
+    q = CS.acl_queries(acl, 300, 8)
+    n0 = CC.cidr_first_cuda.launches
+    got = m.match([a for a, _ in q], [p for _, p in q])
+    assert CC.cidr_first_cuda.launches == n0 + 1
+    snap = m.snapshot()
+    assert list(got) == [m.index_snap(snap, a, p) for a, p in q]

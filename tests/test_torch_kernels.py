@@ -18,8 +18,9 @@ The CUDA kernel itself runs only on the GPU (chip_smoke.py holds it
 against the plain tier there); here the tests prove the fused entry
 never substitutes the plain tier for a non-CPU tensor, that the
 kernel's compare word suits every window width the compiler gives, and
-that chip_smoke.py's copies of these cases' generators give the same
-rules and queries.
+that chip_smoke.py's copies of these cases' generators (and of the
+CIDR generators of tests/test_torch_cidr.py) give the same rules and
+queries.
 """
 import ctypes
 import re
@@ -241,14 +242,40 @@ def test_word_bytes_divides_widths_and_addresses():
 
 
 def test_chip_smoke_carries_the_parity_cases():
-    """chip_smoke.py holds the kernel to the plain tier on copies of
+    """chip_smoke.py holds the kernels to the plain tiers on copies of
     these cases' generators (tests/ is not importable there): the
-    copies give the same rules and queries."""
+    copies give the same rules and queries — the hint sets of this file
+    and tests/test_torch_host.py, and the CIDR generators of
+    tests/test_torch_cidr.py, whose copies are also the same source."""
+    import inspect
+
+    import test_torch_cidr as TC
     rules = rand_rules(300, 11)
     assert CS.rand_rules(300, 11) == rules
     assert CS.rand_hints(rules, 600, 11) == rand_hints(rules, 600, 11)
     assert CS.shared_keys() == (SHARED, case("shared_keys")[1])
     assert CS.long_hosts() == (LONG, case("long_hosts")[1])
+    for fn in ("_rand_net", "_mapped_net", "route_nets", "acl_rules",
+               "cidr_queries", "acl_queries", "hashmatch_route_case",
+               "acl_port_buckets", "mixed_families", "cut_table"):
+        assert inspect.getsource(getattr(CS, fn)) == \
+            inspect.getsource(getattr(TC, fn)), fn
+    for k in ("CIDR_POOL", "V6_MASKS", "ACL_PORTS", "CUTS"):
+        assert getattr(CS, k) == getattr(TC, k), k
+    nets = TC.route_nets(400, 5)
+    assert CS.route_nets(400, 5) == nets
+    assert CS.cidr_queries(nets, 64, 6) == TC.cidr_queries(nets, 64, 6)
+    acl = TC.acl_rules(200, 7)
+    assert CS.acl_rules(200, 7) == acl
+    assert CS.acl_queries(acl, 64, 8) == TC.acl_queries(acl, 64, 8)
+    assert CS.hashmatch_route_case() == TC.hashmatch_route_case()
+    assert CS.acl_port_buckets() == TC.acl_port_buckets()
+    assert CS.mixed_families() == TC.mixed_families()
+    ct = F.pack_cidr_table(H.compile_cidr_hash(nets).arrays)
+    for how in TC.CUTS:
+        a, b = CS.cut_table(ct, how), TC.cut_table(ct, how)
+        assert sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) for k in a)
 
 
 def test_device_take_clamps_like_take_clip():

@@ -1,10 +1,20 @@
 // Fused classify+pick for Hopper (sm_90a): hint verdict + Maglev pick,
+// and, when the launch carries a packed cidr table, the CIDR route too,
 // one launch per batch.
 //
 // Replaces: vproxy_tpu/ops/fused_pallas.py:56 `_fused_kernel` (entry
 // `fused_classify_pick_pallas`), the Pallas kernel of the same contract.
 // Reference semantics: ops/fused.py `fused_classify_pick` of this
-// package (the plain torch tier), bit for bit.
+// package (the plain torch tier), bit for bit, in its [B, 2] form and
+// in its [B, 3] form (vproxy_tpu/ops/fused.py:304 with `ct`, the route
+// column of rules/engine.py `fused_dispatch_all`).
+//
+// The route column. After the hint fold, a warp whose launch carries a
+// cidr table (a non-null pk_cslot: a runtime flag, so the instances
+// stay 8) computes its query's first-match route with the routine of
+// B4 (cidr_first.cuh, whose note gives its design and bound) and
+// writes column 2. The hint state is dead by then (verdict and pick
+// stay), so the route reuses its registers.
 //
 // Bound. Per query the kernel reads its query windows and probe slots
 // (~0.3 KB), one packed cuckoo slot row + key row per valid probe, the
@@ -80,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cidr_first.cuh"
+
 namespace {
 
 constexpr int WARPS = 4;          // queries per block
@@ -124,9 +136,24 @@ struct FusedArgs {
   const int32_t* wh_idx;    // [n_wh]
   const int32_t* wu_idx;    // [n_wu]         (uri tables only)
   const int32_t* mtab;      // [m]
-  int32_t* out;             // [B, 2] (verdict, pick)
+  int32_t* out;             // [B, 2] (verdict, pick) or [B, 3] (+ route)
+  // the route column (all null without a cidr table)
+  const uint8_t* a16;       // [B, 16] addresses
+  const int32_t* cfam;      // [B] family, -1 for pad rows
+  const int32_t* cport;     // [B], or null: no port gate (routes)
+  const int32_t* pk_cslot;  // [c_ct, 4]
+  const int32_t* pk_cmeta;  // [c_rcap, 4]
+  const uint8_t* s_key;     // [c_ct, 16]
+  const int32_t* cb_items;  // [c_cb]
+  const int32_t* g_fam;     // [c_g]
+  const uint8_t* g_mask;    // [c_g, 16]
+  const int32_t* g_off;     // [c_g]
+  const int32_t* g_capmask; // [c_g]
+  const uint32_t* g_salt1;  // [c_g]
+  const uint32_t* g_salt2;  // [c_g]
   int32_t b, hw, uw, pk_w, ukw, maxp, lw, bh, bu;
   int32_t n_hb, n_ub, n_wh, n_wu, r_cap, m, word;
+  int32_t c_ct, c_rcap, c_cb, c_g, c_bk;
 };
 
 namespace {
@@ -435,8 +462,27 @@ fused_kernel(FusedArgs a, int np, int smem_words) {
     const int oi = __shfl_xor_sync(FULL, bi, off);
     fold(ol, oi, bl, bi);
   }
-  if (lane == 0)
-    reinterpret_cast<int2*>(a.out)[b] = make_int2(bl > 0 ? bi : -1, pick);
+  const int verdict = bl > 0 ? bi : -1;
+  if (a.pk_cslot == nullptr) {
+    if (lane == 0)
+      reinterpret_cast<int2*>(a.out)[b] = make_int2(verdict, pick);
+    return;
+  }
+  const cidr::Table ct = {a.pk_cslot, a.pk_cmeta, a.s_key, a.cb_items,
+                          a.g_fam, a.g_mask, a.g_off, a.g_capmask,
+                          a.g_salt1, a.g_salt2, a.c_ct, a.c_rcap, a.c_cb,
+                          a.c_g, a.c_bk};
+  const uint4 addr = __ldg(reinterpret_cast<const uint4*>(a.a16) + b);
+  const int fam = __ldg(a.cfam + b);
+  const bool gate = a.cport != nullptr;
+  const int port = gate ? __ldg(a.cport + b) : 0;
+  const int route = cidr::first_match(ct, addr, fam, gate, port, lane);
+  if (lane == 0) {
+    int32_t* o = a.out + (size_t)b * 3;
+    o[0] = verdict;
+    o[1] = pick;
+    o[2] = route < a.c_rcap ? route : -1;
+  }
 }
 
 template <bool URI, int W>
@@ -461,11 +507,13 @@ extern "C" int vproxy_fused_args_size() { return (int)sizeof(FusedArgs); }
 
 // Launch on `stream` (PyTorch's current stream; no synchronisation).
 // uri_rules selects the uri-free instances when 0; args->word the
-// compare word (ops/fused_cuda.py word_bytes). Returns
+// compare word (ops/fused_cuda.py word_bytes); a non-null
+// args->pk_cslot the route column (out is then [B, 3]). Returns
 // cudaGetLastError() after the launch: 0 when it was accepted;
 // cudaErrorInvalidValue, before any launch, for a word that does not
-// divide the windows or align the byte tables, or windows wider than a
-// warp copies.
+// divide the windows or align the byte tables, windows wider than a
+// warp copies, or a cidr table that is empty, lacks its address batch
+// or has a 16-byte row array off 16-byte alignment.
 extern "C" int vproxy_fused_classify_pick(const FusedArgs* args,
                                           int uri_rules, int device,
                                           void* stream) {
@@ -480,6 +528,13 @@ extern "C" int vproxy_fused_classify_pick(const FusedArgs* args,
                     (!uri_rules || (a.uw % w == 0 && a.uw <= MAX_UW &&
                                     a.ukw == a.uw && aligned(a.pk_ukey, w)));
   if (!ok_w) return (int)cudaErrorInvalidValue;
+  const bool ok_c =
+      a.pk_cslot == nullptr ||
+      (a.c_ct > 0 && a.c_rcap > 0 && a.c_cb > 0 && a.c_g > 0 &&
+       a.cfam != nullptr && aligned(a.a16, 16) && aligned(a.pk_cslot, 16) &&
+       aligned(a.pk_cmeta, 16) && aligned(a.s_key, 16) &&
+       aligned(a.g_mask, 16) && a.a16 != nullptr);
+  if (!ok_c) return (int)cudaErrorInvalidValue;
   const int np = 2 * a.maxp + (uri_rules ? 2 * a.lw : 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w) {

@@ -6,16 +6,20 @@ Two layers, as in `vproxy_tpu/ops/fused.py`:
   (ops/hashmatch) re-packed so resolving a candidate is two row gathers
   — ONE int32 meta row (`pk_meta`, [r_cap, 8]) and ONE uint8 byte row
   (`pk_bytes`, [r_cap, hw+uw]) — and a cuckoo probe one slot row
-  (`pk_hslot`/`pk_uslot`, [C, 4]). A copy of the reference's; the
-  arrays are byte-identical. Packing runs inside the matcher's standby
-  compile (rules/engine.py), so packed generations publish through the
-  same double-buffered swap as everything else.
+  (`pk_hslot`/`pk_uslot`, [C, 4]); `pack_cidr_table` likewise for a
+  cidr table (one slot row, one meta row per rule). Copies of the
+  reference's; the arrays are byte-identical. Packing runs inside the
+  matcher's standby compile (rules/engine.py), so packed generations
+  publish through the same double-buffered swap as everything else.
 
 * **The plain tier** (`fused_classify_pick`): hint verdict + Maglev
-  pick over the packed tables as torch ops, -> int32 [B, 2]. It is the
-  reference semantics the CUDA kernel (ops/fused_cuda.py) is held to,
-  and the tier that serves CPU tensors. Verdicts are bit-identical to
-  `hashmatch.hint_hash_match`, picks to `maglev._device_take`.
+  pick (+ the CIDR route, with a packed cidr table) over the packed
+  tables as torch ops, -> int32 [B, 2] or [B, 3]. It is the reference
+  semantics the CUDA kernel (ops/fused_cuda.py) is held to, and the
+  tier that serves CPU tensors. Verdicts are bit-identical to
+  `hashmatch.hint_hash_match`, picks to `maglev._device_take`, routes
+  to `hashmatch.cidr_hash_match`; `_cidr_first_packed` alone is the
+  plain version of the CIDR kernel (ops/cidr_cuda.py).
 
 There is one fused tier per device (the kernel on CUDA tensors, this
 tier on CPU ones), so VPROXY_TPU_FUSED_KERNEL, which picks between the
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 from . import cuckoo as CK
-from .hashmatch import DOT, HOST_SHIFT, _items, _reduce_best
+from .hashmatch import (DOT, HOST_SHIFT, _cidr_slots, _first_valid,
+                        _items, _reduce_best)
 
 # Packed-table layout version: bump on ANY change to the pk_* array
 # shapes/column meanings (the same version as vproxy_tpu's layout,
@@ -96,6 +101,34 @@ def pack_hint_table(a: dict) -> dict:
         })
     CK.coop_yield()
     return out
+
+
+def pack_cidr_table(a: dict) -> dict:
+    """HashCidrTable.arrays -> packed arrays. pk_cslot (int32 [CT, 4]):
+    0 used, 1 bucket_start, 2 bucket_count, 3 reserved; pk_cmeta
+    (int32 [r_cap, 4]): 0 valid, 1 min_port, 2 max_port, 3 reserved.
+    The small per-group arrays (g_*) stay as-is — they are read once
+    per batch, not per candidate. Both CUDA kernels that answer a CIDR
+    lookup (ops/cidr_cuda.py, and the route column of
+    ops/fused_cuda.py) read this layout: a slot is one 16-byte record
+    and one 16-byte key, a candidate one 16-byte meta row."""
+    cs = np.zeros((a["s_used"].shape[0], 4), np.int32)
+    cs[:, 0] = a["s_used"]
+    cs[:, 1] = a["s_bs"]
+    cs[:, 2] = a["s_bc"]
+    CK.coop_yield()
+    cm = np.zeros((a["r_valid"].shape[0], 4), np.int32)
+    cm[:, 0] = a["r_valid"]
+    cm[:, 1] = a["min_port"]
+    cm[:, 2] = a["max_port"]
+    CK.coop_yield()
+    return {
+        "pk_cslot": cs, "pk_cmeta": cm, "s_key": a["s_key"],
+        "cb_items": a["cb_items"], "g_fam": a["g_fam"],
+        "g_mask": a["g_mask"], "g_off": a["g_off"],
+        "g_capmask": a["g_capmask"], "g_salt1": a["g_salt1"],
+        "g_salt2": a["g_salt2"], "bk_iota": a["bk_iota"],
+    }
 
 
 # ---------------------------------------------------------- plain tier
@@ -183,12 +216,50 @@ def _hint_verdict_packed(t: dict, q: dict):
     return _reduce_best(level, c, r_cap)
 
 
-def fused_classify_pick(ht: dict, q: dict, mtab, slots):
-    """The plain fused program: hint verdict + Maglev pick -> int32
-    [B, 2] (verdict, pick). `ht`: packed hint tensors; `q`: encoded
+def _cidr_first_packed(t: dict, addr16, fam, port):
+    """hashmatch.cidr_hash_match over the packed layout: slot resolve
+    one [B, G, 4] gather + the key row; rule gate one pk_cmeta row.
+    The plain version of the CUDA kernels' CIDR routine
+    (csrc/cidr_first.cuh), and bit-identical to cidr_hash_match."""
+    r_cap = t["pk_cmeta"].shape[0]
+    b = addr16.shape[0]
+    ct, cb = t["pk_cslot"].shape[0], t["cb_items"].shape[0]
+    masked, gok, slots = _cidr_slots(t, addr16, fam)
+    cands = []
+    for slot in slots:
+        s = slot.clamp(0, ct - 1).long()
+        srec = t["pk_cslot"][s]  # [B, G, 4]
+        key = t["s_key"][s]      # [B, G, 16]
+        ok = gok & (srec[..., 0] > 0) & (key == masked).all(dim=-1)
+        start, cnt = srec[..., 1], srec[..., 2]
+        j = t["bk_iota"][None, None, :]
+        cands.append(torch.where(ok[:, :, None] & (j < cnt[:, :, None]),
+                                 start[:, :, None] + j, -1))
+    slot_cand = torch.cat(cands, dim=1).reshape(b, -1)
+    cand = torch.where(slot_cand >= 0,
+                       t["cb_items"][slot_cand.clamp(0, cb - 1).long()], -1)
+    meta = t["pk_cmeta"][cand.clamp(0, r_cap - 1).long()]  # [B, NC, 4]
+    valid = (cand >= 0) & (meta[..., 0] > 0)
+    if port is not None:
+        valid = valid & (meta[..., 1] <= port[:, None]) & \
+            (port[:, None] <= meta[..., 2])
+    return _first_valid(cand, valid, r_cap)
+
+
+def fused_classify_pick(ht: dict, q: dict, mtab, slots, ct=None, a16=None,
+                        fam=None, port=None):
+    """The plain fused program: hint verdict + Maglev pick (+ the CIDR
+    first-match route when a packed cidr table `ct` and the address
+    batch ride along) -> int32 [B, 2] (verdict, pick) or [B, 3]
+    (verdict, pick, route). `ht`: packed hint tensors; `q`: encoded
     query tensors; `mtab`: int32 [M] Maglev column; `slots`: int64 [B]
     host-side FNV Maglev slots (the shared hash contract of
-    rules/maglev.py), taken with the clamp of jnp.take(mode="clip")."""
+    rules/maglev.py), taken with the clamp of jnp.take(mode="clip");
+    `a16` u8 [B, 16], `fam` i32 [B], `port` i32 [B] or None (no port
+    gate)."""
     v, _level = _hint_verdict_packed(ht, q)
     p = mtab[slots.clamp(0, mtab.shape[0] - 1).long()].to(torch.int32)
-    return torch.stack([v, p], dim=1)
+    cols = [v, p]
+    if ct is not None:
+        cols.append(_cidr_first_packed(ct, a16, fam, port))
+    return torch.stack(cols, dim=1)

@@ -2,7 +2,9 @@
 
 Replaces `vproxy_tpu/ops/fused_pallas.py` `_fused_kernel`: packed hint
 table + encoded query batch + Maglev column/slots -> int32 [B, 2]
-(verdict, pick) in ONE launch. The kernel is
+(verdict, pick) in ONE launch; with a packed cidr table and an address
+batch, int32 [B, 3] (verdict, pick, route), the 3-column contract of
+`vproxy_tpu/ops/fused.py` `fused_classify_pick` with `ct`. The kernel is
 csrc/fused_classify_pick.cu (its header note gives the bound and the
 design); this module builds it with nvcc into a shared library with a
 plain C interface, loads it with ctypes and launches it on PyTorch's
@@ -17,11 +19,14 @@ current stream.
   matcher publishes (which also builds the library, so a build failure
   stops the publish). Per call only the query batch is checked.
 * `fused_classify_pick_cuda` is the kernel wrapper; its `launches`
-  attribute counts the launches it made.
+  attribute counts the launches it made, `route_launches` those of
+  them with the route column.
 * `word_bytes` picks the word the kernel compares byte windows in.
-* `build()` compiles at first use into a directory .gitignore lists,
-  under a file lock (concurrent processes build once), keyed by the
-  source's content, the flags and the packed layout version.
+* `build_library()` compiles a kernel source at first use into a
+  directory .gitignore lists, under a file lock per library (concurrent
+  processes build it once), keyed by the content of the source and the
+  headers it includes, the flags and the packed layout version;
+  `build()` is this kernel's (ops/cidr_cuda.py builds B4 with it too).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from . import fused as F
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "fused_classify_pick.cu")
+CIDR_HEADER = os.path.join(_PKG, "csrc", "cidr_first.cuh")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CUDA_DEFAULT = "/usr/local/cuda"  # the toolkit's usual prefix
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,9 +54,15 @@ _PTRS = ("hostb", "urib", "hlen", "ulen", "port", "has_host", "has_uri",
          "hp_len", "hp_slot1", "hp_slot2", "up_len", "up_slot1",
          "up_slot2", "slots", "pk_meta", "pk_bytes", "pk_hslot", "pk_hkey",
          "pk_uslot", "pk_ukey", "hb_items", "ub_items", "wh_idx", "wu_idx",
-         "mtab", "out")
+         "mtab", "out",
+         # the route column: the address batch, then the packed cidr
+         # table (ops/cidr_cuda.py TABLE_DTYPES order)
+         "a16", "cfam", "cport", "pk_cslot", "pk_cmeta", "s_key",
+         "cb_items", "g_fam", "g_mask", "g_off", "g_capmask", "g_salt1",
+         "g_salt2")
 _INTS = ("b", "hw", "uw", "pk_w", "ukw", "maxp", "lw", "bh", "bu",
-         "n_hb", "n_ub", "n_wh", "n_wu", "r_cap", "m", "word")
+         "n_hb", "n_ub", "n_wh", "n_wu", "r_cap", "m", "word",
+         "c_ct", "c_rcap", "c_cb", "c_g", "c_bk")
 WORDS = (16, 8, 4, 1)  # the kernel's compare words, widest first
 
 
@@ -80,7 +92,8 @@ _QUERY_DTYPES = {
 
 
 class KernelError(RuntimeError):
-    """The fused kernel cannot serve: nvcc is missing or failed, the
+    """A CUDA kernel of the port (this one, or the CIDR kernel of
+    ops/cidr_cuda.py) cannot serve: nvcc is missing or failed, the
     library does not load or does not match its ctypes mirror, or a
     launch was refused. Never answered by a fallback."""
 
@@ -97,34 +110,48 @@ def _nvcc() -> str:
                       "PATH): the fused CUDA kernel cannot be built")
 
 
-def build() -> str:
-    """Compile csrc/fused_classify_pick.cu for sm_90a once; -> the
-    shared library's path. nvcc's output (ptxas register and shared
-    memory report included) is kept beside it as <lib>.log. Raises
+def build_library(source: str, stem: str, key: str,
+                  headers: tuple = ()) -> str:
+    """Compile one .cu (and the headers it includes, which key the
+    build too) for sm_90a once; -> the shared library's path,
+    `<BUILD_DIR>/<stem>_<content hash>.so`. nvcc's output (ptxas
+    register and shared memory report included) is kept beside it as
+    <lib>.log. Each library has its own lock file, so processes build
+    one library once and different libraries at the same time. Raises
     KernelError when nvcc is missing or the compile fails."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    key = f"{' '.join(NVCC_FLAGS)} layout {F.PACK_LAYOUT_V}".encode()
-    tag = hashlib.sha256(src + key).hexdigest()
-    lib = os.path.join(BUILD_DIR, f"libfused_{tag[:16]}.so")
+    src = b""
+    for path in (source, *headers):
+        with open(path, "rb") as f:
+            src += f.read()
+    tag = hashlib.sha256(
+        src + f"{' '.join(NVCC_FLAGS)} {key}".encode()).hexdigest()
+    lib = os.path.join(BUILD_DIR, f"{stem}_{tag[:16]}.so")
     if os.path.exists(lib):
         return lib
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lk:
+    with open(os.path.join(BUILD_DIR, f".{stem}.lock"), "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)  # one process builds, others wait
         if os.path.exists(lib):
             return lib
         tmp = f"{lib}.{os.getpid()}.tmp"
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
                            capture_output=True, text=True)
         with open(lib + ".log", "w") as log:
             log.write(r.stdout + r.stderr)
         if r.returncode != 0:
-            raise KernelError(f"nvcc failed ({r.returncode}):\n"
+            raise KernelError(f"nvcc failed ({r.returncode}) on "
+                              f"{os.path.basename(source)}:\n"
                               f"{r.stderr[-4000:]}")
         os.replace(tmp, lib)
     return lib
+
+
+def build() -> str:
+    """Compile csrc/fused_classify_pick.cu (with the CIDR routine it
+    includes) once; -> the shared library's path (build_library)."""
+    return build_library(SOURCE, "libfused", f"layout {F.PACK_LAYOUT_V}",
+                         (CIDR_HEADER,))
 
 
 _LIB = None
@@ -228,19 +255,24 @@ def prepare_table(ht: dict) -> PackedTable:
     return t
 
 
-def fused_classify_pick(ht: dict, q: dict, mtab, slots):
+def fused_classify_pick(ht: dict, q: dict, mtab, slots, ct=None, a16=None,
+                        fam=None, port=None):
     """The fused entry: the plain tier for CPU tensors, the CUDA kernel
-    for everything else (which raises unless it launched)."""
+    for everything else (which raises unless it launched). With a
+    packed cidr table `ct` and the address batch (a16, fam, port or
+    None) the answer gains the route column: [B, 3]."""
     if ht["pk_meta"].device.type == "cpu":
-        return F.fused_classify_pick(ht, q, mtab, slots)
-    return fused_classify_pick_cuda(ht, q, mtab, slots)
+        return F.fused_classify_pick(ht, q, mtab, slots, ct, a16, fam, port)
+    return fused_classify_pick_cuda(ht, q, mtab, slots, ct, a16, fam, port)
 
 
-def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots):
+def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots, ct=None,
+                             a16=None, fam=None, port=None):
     """Launch the fused kernel: same contract as
-    fused.fused_classify_pick, CUDA tensors only. -> int32 [B, 2].
-    `ht` is best a PackedTable (prepare_table); a plain dict is
-    prepared on every call."""
+    fused.fused_classify_pick, CUDA tensors only. -> int32 [B, 2], or
+    [B, 3] with a cidr table `ct` (best a cidr_cuda.PackedCidrTable;
+    a plain dict is checked on every call). `ht` is best a PackedTable
+    (prepare_table); a plain dict is prepared on every call."""
     t = prepare_table(ht)
     dev = t.device
     for k, want in _QUERY_DTYPES.items():
@@ -266,10 +298,25 @@ def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots):
         raise ValueError(f"fused kernel: slots must be [{b}] and mtab "
                          f"1-D, got {tuple(slots.shape)} and "
                          f"{tuple(mtab.shape)}")
-    out = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    out = torch.empty((b, 2 if ct is None else 3), dtype=torch.int32,
+                      device=dev)
     a = _FusedArgs.from_buffer_copy(t.args)
     for k in _QUERY_DTYPES:
         setattr(a, k, q[k].data_ptr())
+    if ct is not None:
+        from . import cidr_cuda as CC
+        c = ct if isinstance(ct, CC.PackedCidrTable) \
+            else CC.prepare_table(ct, build_kernel=False)
+        if c.device != dev:
+            raise ValueError(f"fused kernel: cidr table on {c.device}, "
+                             f"hint table on {dev}")
+        CC.check_queries(c, a16, fam, port, b)
+        for k, v in c.ptrs.items():
+            setattr(a, k, v)
+        a.a16, a.cfam = a16.data_ptr(), fam.data_ptr()
+        a.cport = None if port is None else port.data_ptr()
+        (a.c_ct, a.c_rcap, a.c_cb, a.c_g, a.c_bk) = (
+            c.ints[k] for k in CC.TABLE_INTS)
     a.slots, a.mtab, a.out = (slots.data_ptr(), mtab.data_ptr(),
                               out.data_ptr())
     a.b, a.uw, a.maxp, a.lw, a.m = b, uw, maxp, lw, mtab.shape[0]
@@ -279,7 +326,10 @@ def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots):
     if err:
         raise KernelError(f"fused kernel launch failed: CUDA error {err}")
     fused_classify_pick_cuda.launches += 1
+    if ct is not None:
+        fused_classify_pick_cuda.route_launches += 1
     return out
 
 
-fused_classify_pick_cuda.launches = 0
+fused_classify_pick_cuda.launches = 0  # every launch
+fused_classify_pick_cuda.route_launches = 0  # of which [B, 3] launches

@@ -1,16 +1,22 @@
-"""Hash-based hint classify — host compilers plus the torch tier.
+"""Hash-based classify — host compilers plus the torch tiers.
 
 The O(1)-per-query fast path of `vproxy_tpu/ops/hashmatch.py`, split in
 two halves:
 
 * **Host half (numpy):** `compile_hint_hash` builds the cuckoo-hashed
   rule tables, `encode_hint_queries` hashes a query batch into probe
-  slots. Both are copies of the reference's and produce byte-identical
-  arrays (tests/test_torch_host.py).
-* **Torch tier:** `hint_hash_match` scores every candidate a query's
+  slots; `compile_cidr_hash` builds the per-(family, mask) cuckoo
+  tables of a route list or ACL. All are copies of the reference's and
+  produce byte-identical arrays (tests/test_torch_host.py,
+  tests/test_torch_cidr.py).
+* **Torch tiers:** `hint_hash_match` scores every candidate a query's
   probes and the wildcard lists surface with the full Hint.matchLevel
   formula (Hint.java:92-160) and reduces to (max level, min rule index)
   (Upstream.java:187-198). It serves unfused hint batches on any device.
+  `cidr_hash_match` is the ordered first match of a route or ACL table
+  (RouteTable.java:44, SecurityGroup.java:30): the plain tier of the
+  CIDR kernel (ops/cidr_cuda.py), which serves CPU tensors;
+  `classify_hash_all` stacks hint, route and ACL answers.
 
 Semantics notes carried over from the reference: a JAX gather clamps an
 out-of-range index, torch indexing raises, so every index the reference
@@ -26,7 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..rules.ir import HintRule
+from ..rules.ir import AclRule, HintRule
 from . import cuckoo as CK
 from .tables import MAX_HOST, MAX_URI, V4, V6, _pad_cap
 
@@ -600,3 +606,193 @@ def _expand_patterns(net) -> list:
     return out
 
 
+@dataclass
+class HashCidrTable:
+    n: int
+    r_cap: int
+    arrays: dict
+    caps: dict = field(default_factory=dict)
+
+
+def _fnv32_bytes(key: bytes, salt: int) -> int:
+    return int(CK.fnv32_masked(np.frombuffer(key, np.uint8), salt))
+
+
+def _prune_acl_members(items: list, acl) -> list:
+    """Members share one network; drop j when an earlier member's port
+    range contains j's (the earlier one is always the first match).
+    A copy of `vproxy_tpu/ops/fphash.py` `_prune_acl_members`; the
+    port's fingerprint backend imports it from here."""
+    keep = []
+    for j in sorted(items):
+        if not any(acl[i].min_port <= acl[j].min_port and
+                   acl[i].max_port >= acl[j].max_port for i in keep):
+            keep.append(j)
+    return keep
+
+
+def compile_cidr_hash(networks: Sequence, acl: Optional[Sequence[AclRule]] = None,
+                      caps: Optional[dict] = None) -> HashCidrTable:
+    """Networks (+ the ACL's port ranges) -> per-(family, mask) cuckoo
+    tables over the masked 16-byte keys, every group in one slot array
+    (`g_off` is a group's first slot). `caps` from an earlier compile
+    keeps every shape that still fits; a larger table grows them."""
+    caps = dict(caps or {})
+    n = len(networks)
+    r_cap = caps.get("r_cap") or _pad_cap(n, 256)
+    if n > r_cap:
+        r_cap = _pad_cap(n, 256)
+
+    groups: dict[tuple, dict[bytes, list[int]]] = {}
+    for i, net in enumerate(networks):
+        if not (i & 31):
+            CK.coop_yield()
+        for key, mask, fam in _expand_patterns(net):
+            groups.setdefault((fam, mask), {}).setdefault(key, []).append(i)
+
+    g_live = sorted(groups.keys())
+    g_cap = max(caps.get("g_cap", 0), _pow2(max(len(g_live), 1), 8))
+    if len(g_live) > g_cap:
+        g_cap = _pow2(len(g_live), 8)
+
+    g_fam = np.full(g_cap, -1, np.int32)
+    g_mask = np.zeros((g_cap, 16), np.uint8)
+    g_off = np.zeros(g_cap, np.int32)
+    g_capmask = np.zeros(g_cap, np.int32)
+    g_salt1 = np.zeros(g_cap, np.uint32)
+    g_salt2 = np.zeros(g_cap, np.uint32)
+
+    tabs = []
+    flat_items: list[int] = []
+    off = 0
+    bk = caps.get("bk", 1)
+    for gi, (fam, mask) in enumerate(g_live):
+        t, items = CK.build_cuckoo(groups[(fam, mask)], 16,
+                                   hasher=_fnv32_bytes, salt_base=3 + gi)
+        g_fam[gi] = fam
+        g_mask[gi] = np.frombuffer(mask, np.uint8)
+        g_off[gi] = off
+        g_capmask[gi] = t.cap - 1
+        g_salt1[gi] = t.salt1
+        g_salt2[gi] = t.salt2
+        t.bucket_start += len(flat_items)
+        flat_items.extend(items.tolist())
+        bk = max(bk, _pow2(int(t.bucket_count.max(initial=1))))
+        tabs.append(t)
+        off += t.cap
+
+    ct = max(caps.get("ct", 0), _pow2(max(off, 1), 256))
+    s_used = np.zeros(ct, bool)
+    s_key = np.zeros((ct, 16), np.uint8)
+    s_bs = np.zeros(ct, np.int32)
+    s_bc = np.zeros(ct, np.int32)
+    o = 0
+    for t in tabs:
+        s_used[o: o + t.cap] = t.used
+        s_key[o: o + t.cap] = t.key_bytes
+        s_bs[o: o + t.cap] = t.bucket_start
+        s_bc[o: o + t.cap] = np.minimum(t.bucket_count, bk)
+        o += t.cap
+
+    cb = max(caps.get("cb", 0), _pow2(max(len(flat_items), 1), 256))
+    cb_items = np.full(cb, -1, np.int32)
+    cb_items[: len(flat_items)] = flat_items
+
+    r_valid = np.zeros(r_cap, bool)
+    r_valid[:n] = True
+    min_port = np.zeros(r_cap, np.int32)
+    max_port = np.full(r_cap, 65535, np.int32)
+    allow = np.zeros(r_cap, bool)
+    if acl is not None:
+        for i, r in enumerate(acl):
+            min_port[i], max_port[i], allow[i] = r.min_port, r.max_port, r.allow
+
+    arrays = {
+        "g_fam": g_fam, "g_mask": g_mask, "g_off": g_off,
+        "g_capmask": g_capmask, "g_salt1": g_salt1, "g_salt2": g_salt2,
+        "s_used": s_used, "s_key": s_key, "s_bs": s_bs, "s_bc": s_bc,
+        "cb_items": cb_items, "r_valid": r_valid,
+        "min_port": min_port, "max_port": max_port, "allow": allow,
+        "bk_iota": np.arange(bk, dtype=np.int32),
+    }
+    return HashCidrTable(n=n, r_cap=r_cap, arrays=arrays,
+                         caps={"r_cap": r_cap, "g_cap": g_cap, "ct": ct,
+                               "cb": cb, "bk": bk})
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _fnv32_device(masked, salt):
+    """masked [B, G, 16] u8, salt [G] u32 -> [B, G] int64 holding the
+    u32 hash; bit-identical to cuckoo.fnv32_masked. The u32 wraparound
+    multiply runs in int64 (a u32 times the 24-bit prime fits) and is
+    masked back to 32 bits each round."""
+    h = (int(CK.FNV32_OFFSET) ^ salt.to(torch.int64))[None, :].expand(
+        masked.shape[:2])
+    prime = int(CK.FNV32_PRIME)
+    m = masked.to(torch.int64)
+    for p in range(16):
+        h = ((h ^ m[:, :, p]) * prime) & _M32
+    return h
+
+
+def _u32_as_i32(h):
+    """The int32 a u32 value (held in int64) reinterprets as."""
+    return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)
+
+
+def _cidr_slots(t: dict, addr16, fam):
+    """Per (query, group, salt): the slot a masked address probes and
+    whether the group applies. -> (masked [B, G, 16], gok [B, G],
+    [slot [B, G] per salt])."""
+    masked = addr16[:, None, :] & t["g_mask"][None]  # [B, G, 16]
+    gok = (t["g_fam"][None] >= 0) & (fam[:, None] == t["g_fam"][None])
+    slots = [t["g_off"][None] + (_u32_as_i32(_fnv32_device(masked, salt))
+                                 & t["g_capmask"][None])
+             for salt in (t["g_salt1"], t["g_salt2"])]
+    return masked, gok, slots
+
+
+def _first_valid(cand, valid, r_cap: int):
+    """min rule index among the valid candidates, -1 for none."""
+    first = torch.where(valid, cand.clamp(min=0), r_cap).amin(dim=1)
+    return torch.where(first < r_cap, first, -1).to(torch.int32)
+
+
+def cidr_hash_match(t: dict, addr16, fam, port=None):
+    """-> first-matching rule index [B] i32 (ordered-scan semantics), -1
+    if none. addr16 [B,16] u8, fam [B] i32, port [B] i32 (ACL only).
+    The plain tier: CPU tensors; ops/cidr_cuda.py is the CUDA entry."""
+    r_cap = t["r_valid"].shape[0]
+    b = addr16.shape[0]
+    ct, cb = t["s_used"].shape[0], t["cb_items"].shape[0]
+    masked, gok, slots = _cidr_slots(t, addr16, fam)
+    cands = []
+    for slot in slots:
+        s = slot.clamp(0, ct - 1).long()
+        key = t["s_key"][s]  # [B, G, 16]
+        ok = gok & t["s_used"][s] & (key == masked).all(dim=-1)
+        start, cnt = t["s_bs"][s], t["s_bc"][s]
+        j = t["bk_iota"][None, None, :]
+        cands.append(torch.where(ok[:, :, None] & (j < cnt[:, :, None]),
+                                 start[:, :, None] + j, -1))
+    slot_cand = torch.cat(cands, dim=1).reshape(b, -1)
+    cand = torch.where(slot_cand >= 0,
+                       t["cb_items"][slot_cand.clamp(0, cb - 1).long()], -1)
+    c = cand.clamp(0, r_cap - 1).long()
+    valid = (cand >= 0) & t["r_valid"][c]
+    if port is not None:
+        valid = valid & (t["min_port"][c] <= port[:, None]) & \
+            (port[:, None] <= t["max_port"][c])
+    return _first_valid(cand, valid, r_cap)
+
+
+def classify_hash_all(hint_t: dict, route_t: dict, acl_t: dict,
+                      hint_q: dict, addr16, fam, port):
+    """One call classifies a micro-batch of hints + route LPM + ACL
+    checks -> one packed [B, 3] i32 result (hint, route, acl)."""
+    h_idx, _ = hint_hash_match(hint_t, hint_q)
+    r_idx = cidr_hash_match(route_t, addr16, fam, None)
+    a_idx = cidr_hash_match(acl_t, addr16, fam, port)
+    return torch.stack([h_idx, r_idx, a_idx], dim=1)

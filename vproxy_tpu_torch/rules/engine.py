@@ -1,16 +1,19 @@
 """Classify engine — the runtime seam between rule owners and kernels.
 
-The port of `vproxy_tpu/rules/engine.py` for the hint + Maglev serving
-path. Backends (`backend=`, default from VPROXY_TPU_MATCHER):
+The port of `vproxy_tpu/rules/engine.py` for the hint, CIDR (routes and
+ACL) and Maglev serving paths. Backends (`backend=`, default from
+VPROXY_TPU_MATCHER):
 
-* "torch" — DEFAULT: cuckoo-hash classify (ops/hashmatch) as torch ops
-            on the serving device, plus the packed tables the fused
-            classify+pick entry reads (ops/fused, ops/fused_cuda).
+* "torch" — DEFAULT: cuckoo-hash classify (ops/hashmatch) on the
+            serving device, plus the packed tables the CUDA kernels
+            read (ops/fused, ops/fused_cuda, ops/cidr_cuda). CPU tensors
+            take the plain torch tiers; on the card hint+pick, CIDR and
+            the 3-column sweep run the hand kernels.
 * "host"  — the pure-Python oracle (correctness floor + latency floor
             for tiny tables).
 
-The reference's fingerprint, dense and mesh-sharded backends, and its
-CIDR matcher, are later slices of the port.
+The reference's fingerprint, dense and mesh-sharded backends are later
+slices of the port.
 
 Rule updates never stall serving: set_rules() hands the new rule list to
 a process-wide background installer (TableInstaller) that compiles and
@@ -30,13 +33,24 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..ops import hashmatch as H
+from ..ops import tables as T
 from ..utils.log import Logger
 from ..utils.torchenv import (default_device, sync, tables_from_reference,
                               to_host)
 from . import oracle
-from .ir import Hint, HintRule
+from .ir import AclRule, Hint, HintRule
 
 _log = Logger("engine")
+
+
+BACKENDS = ("torch", "host")
+
+
+def _check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (this package "
+                         f"serves 'torch' and 'host')")
+    return backend
 
 
 def default_backend() -> str:
@@ -90,8 +104,8 @@ def _pad_hint_q(q: dict, cap: int, fills: dict) -> dict:
 # /metrics (utils/metrics):
 #   vproxy_engine_generation      — total generation publishes
 #   vproxy_engine_swap_ms         — install latency histogram
-#   vproxy_engine_table_bytes{matcher="hint"} — device bytes of every
-#                                   live hint matcher's published table
+#   vproxy_engine_table_bytes{matcher="hint"|"cidr"} — device bytes of
+#                                   every live matcher's published table
 
 _gen_lock = threading.Lock()
 _GENERATION = [0]
@@ -322,6 +336,17 @@ def fused_enabled() -> bool:
     return os.environ.get("VPROXY_TPU_FUSED", "1") != "0"
 
 
+def _fused_stat(fd: Optional[dict]) -> dict:
+    """Packed-table state for the operator surfaces: availability,
+    device bytes, serving kernel tier."""
+    if fd is None:
+        return {"available": False}
+    dev = next(iter(fd.values())).device
+    return {"available": True, "kernel": fused_kernel_name(dev),
+            "packed_bytes": int(sum(v.numel() * v.element_size()
+                                    for v in fd.values()))}
+
+
 def fused_kernel_name(device=None) -> str:
     """Which tier serves fused batches on `device` (default: the
     serving device): "cuda" for the hand kernel, "torch" for the plain
@@ -358,6 +383,58 @@ def fused_dispatch(hm, hsnap: tuple, mm, msnap: tuple, hints,
     return FC.fused_classify_pick(fd, qd, mdev, slots)
 
 
+def fused_dispatch_all(hm, hsnap: tuple, cm, csnap: tuple, mm,
+                       msnap: tuple, hints, addrs: Sequence[bytes],
+                       ips: Sequence[bytes],
+                       ports: Optional[Sequence[int]] = None,
+                       pad_to: Optional[int] = None):
+    """The full fused sweep: hint verdict + Maglev pick + CIDR/LPM
+    route, ONE launch, int32 [B, 3] (verdict, pick, route): the CUDA
+    kernel's route column on the card, the plain tier on the CPU.
+    Route queries carry no ACL port gate (route-table semantics,
+    ports=None in CidrMatcher.dispatch_snap); `ports` are the Maglev
+    source ports. None when either packed table is missing (the host
+    backend, an empty table, VPROXY_TPU_FUSED=0 on the CPU) — callers
+    take the op chain."""
+    if not hints or len(hints) != len(addrs) or len(hints) != len(ips):
+        return None
+    fd = hsnap[5] if len(hsnap) > 5 else None
+    cfd = csnap[6] if len(csnap) > 6 else None
+    if fd is None or cfd is None or not hsnap[2] or not csnap[1]:
+        return None
+    mtab, mdev = msnap[0], msnap[1]
+    if mtab is None or mdev is None:
+        return None
+    note_serving()
+    q = _fused_hint_q(hsnap[0], hints, pad_to)
+    cap = q["hostb"].shape[0]
+    q["slots"] = _fused_slots(mtab, ips, ports, cap)
+    a16, fam, _ = _cidr_q(addrs, None, cap)
+    q["a16"], q["fam"] = a16, fam
+    qd = tables_from_reference(q, fd["pk_meta"].device)
+    slots, a16, fam = qd.pop("slots"), qd.pop("a16"), qd.pop("fam")
+    from ..ops import fused_cuda as FC
+    note_launch()
+    _FUSED_DISP[0] += 1
+    return FC.fused_classify_pick(fd, qd, mdev, slots, cfd, a16, fam, None)
+
+
+def _cidr_q(addrs: Sequence[bytes], ports: Optional[Sequence[int]],
+            cap: Optional[int]) -> tuple:
+    """Encoded CIDR queries padded to `cap` rows: -> (a16 u8 [cap, 16],
+    fam i32 [cap], port i32 [cap] or None). Pad rows carry family -1,
+    which matches no group."""
+    a16, fam = T.encode_ips(addrs)
+    p = None if ports is None else np.asarray(ports, np.int32)
+    if cap and cap > a16.shape[0]:
+        k = cap - a16.shape[0]
+        a16 = np.concatenate([a16, np.zeros((k, 16), a16.dtype)])
+        fam = np.concatenate([fam, np.full(k, -1, fam.dtype)])
+        if p is not None:
+            p = np.concatenate([p, np.zeros(k, p.dtype)])
+    return a16, fam, p
+
+
 def _fused_hint_q(tab, hints, pad_to: Optional[int]) -> dict:
     q = H.encode_hint_queries(hints, tab, pad_to=pad_to or 0)
     if pad_to and q["hostb"].shape[0] < pad_to:
@@ -385,10 +462,7 @@ class HintMatcher:
 
     def __init__(self, rules: Sequence[HintRule] = (),
                  backend: Optional[str] = None, payload=None, device=None):
-        self.backend = backend or default_backend()
-        if self.backend not in ("torch", "host"):
-            raise ValueError(f"unknown hint backend {self.backend!r} "
-                             f"(this package serves 'torch' and 'host')")
+        self.backend = _check_backend(backend or default_backend())
         self.device = default_device(device) \
             if self.backend == "torch" else None
         self._rules: list[HintRule] = list(rules)
@@ -488,13 +562,7 @@ class HintMatcher:
     def fused_stat(self) -> dict:
         """Fused-dispatch state for the operator surfaces: packed-table
         availability, device bytes, serving kernel tier."""
-        fd = self._pub[5]
-        if fd is None:
-            return {"available": False}
-        return {"available": True,
-                "kernel": fused_kernel_name(fd["pk_meta"].device),
-                "packed_bytes": int(sum(v.numel() * v.element_size()
-                                        for v in fd.values()))}
+        return _fused_stat(self._pub[5])
 
     def match(self, hints: Sequence[Hint]) -> np.ndarray:
         """-> int32 [B] matched rule index, -1 for none."""
@@ -553,3 +621,210 @@ class HintMatcher:
                                   self.device)
         idx, _ = H.hint_hash_match(dev, q)
         return idx
+
+
+class CidrMatcher:
+    """Device-backed ordered first-match CIDR matcher (routes / ACL)."""
+
+    _kind = "cidr"
+
+    def __init__(self, networks: Sequence = (),
+                 backend: Optional[str] = None,
+                 acl: Optional[Sequence[AclRule]] = None, payload=None,
+                 device=None):
+        self.backend = _check_backend(backend or default_backend())
+        self.device = default_device(device) \
+            if self.backend == "torch" else None
+        self._nets = list(networks)
+        self._acl = list(acl) if acl is not None else None
+        self._dev: Optional[dict] = None
+        self._caps: Optional[dict] = None
+        self.generation = 0  # bumps on every publish (atomic swap)
+        # (dev, nets, acl, payload, tab, index, fused) — one atomic
+        # generation (see HintMatcher._pub for the why); `tab` is the
+        # reference's sharded-table slot, None until the sharded
+        # backends land; `fused` the packed table the CUDA kernels read
+        self._pub: tuple = (None, [], None, payload, None, None, None)
+        self._payload = payload
+        self._cksum = None  # (pub-tuple, crc32) cache — see checksum()
+        self._recompile()
+        with _gen_lock:
+            _MATCHERS.add(self)
+
+    def set_networks(self, networks: Sequence,
+                     acl: Optional[Sequence[AclRule]] = None,
+                     payload=None, wait: bool = True) -> None:
+        """Install a new generation via the background TableInstaller
+        (see HintMatcher.set_rules — same standby-swap contract)."""
+        t = TableInstaller.get().submit(
+            self, (list(networks),
+                   list(acl) if acl is not None else None, payload))
+        if wait:
+            t.ev.wait()
+            if t.exc is not None:
+                raise t.exc
+
+    def _install(self, args: tuple) -> None:
+        """See HintMatcher._install — transactional standby compile."""
+        networks, acl, payload = args
+        old = (self._nets, self._acl, self._payload, self._dev, self._caps)
+        self._nets = list(networks)
+        self._acl = list(acl) if acl is not None else None
+        self._payload = payload
+        try:
+            self._recompile()
+        except BaseException:
+            (self._nets, self._acl, self._payload, self._dev,
+             self._caps) = old
+            raise
+
+    def published_table_bytes(self) -> int:
+        dev = self._pub[0]
+        if not dev:
+            return 0
+        return int(sum(v.numel() * v.element_size() for v in dev.values()))
+
+    def _recompile(self) -> None:
+        fused_dev = None
+        if self.backend == "torch":
+            tab = H.compile_cidr_hash(self._nets, acl=self._acl,
+                                      caps=self._caps)
+            self._caps = tab.caps
+            self._dev = tables_from_reference(tab.arrays, self.device)
+            on_card = self.device.type != "cpu"
+            # the CUDA kernels read the packed layout, so a matcher on
+            # the card packs whatever VPROXY_TPU_FUSED says
+            if on_card or fused_enabled():
+                from ..ops import fused as F
+                fused_dev = tables_from_reference(
+                    F.pack_cidr_table(tab.arrays), self.device)
+            if on_card:
+                # checked once per publish, and the kernel built: a
+                # build failure stops the publish (KernelError)
+                from ..ops import cidr_cuda as CC
+                fused_dev = CC.prepare_table(fused_dev)
+        idx = None
+        if len(self._nets) > SMALL_TABLE:  # see HintMatcher._recompile
+            from .index import CidrIndex
+            idx = CidrIndex(self._nets, acl=self._acl)
+        sync(self.device)  # the standby upload lands before the swap
+        time.sleep(0)  # preemption point between compile and publish
+        self._pub = (self._dev, list(self._nets),
+                     None if self._acl is None else list(self._acl),
+                     self._payload, None, idx, fused_dev)
+        self.generation += 1
+        with _gen_lock:
+            _GENERATION[0] += 1
+
+    def fused_stat(self) -> dict:
+        """Packed cidr-table state (see HintMatcher.fused_stat)."""
+        return _fused_stat(self._pub[6])
+
+    def match(self, addrs: Sequence[bytes],
+              ports: Optional[Sequence[int]] = None) -> np.ndarray:
+        """-> int32 [B] first matching rule index (order = insert
+        order), -1 for none."""
+        snap = self._pub
+        if self.backend == "host" and snap[1] and addrs:
+            return np.array(
+                [self.oracle_snap(snap, a, None if ports is None
+                                  else ports[i])
+                 for i, a in enumerate(addrs)], np.int32)
+        return to_host(self.dispatch_snap(snap, addrs, ports))
+
+    def _scan_one(self, addr: bytes, port: Optional[int]) -> int:
+        return self.oracle_snap(self._pub, addr, port)
+
+    def oracle_one(self, addr: bytes, port: Optional[int] = None) -> int:
+        return self.oracle_snap(self._pub, addr, port)
+
+    def match_one(self, addr: bytes, port: Optional[int] = None) -> int:
+        # published-generation gate: see HintMatcher.match_one
+        if self.backend != "host" and len(self._pub[1]) <= SMALL_TABLE:
+            return self._scan_one(addr, port)
+        return int(self.match([addr], None if port is None else [port])[0])
+
+    # ---- ClassifyService API (rules/service.py) ----
+
+    def size(self) -> int:
+        return len(self._pub[1])
+
+    def checksum(self) -> int:
+        """u32 checksum of the published networks+ACL generation: the
+        cluster replication gate compares it across nodes, so it is the
+        reference's (crc32 of the reprs); cached per published
+        generation."""
+        snap = self._pub
+        cached = self._cksum
+        if cached is not None and cached[0] is snap:
+            return cached[1]
+        import zlib
+        text = "\n".join(map(repr, snap[1]))
+        if snap[2] is not None:
+            text += "\n" + "\n".join(map(repr, snap[2]))
+        v = zlib.crc32(text.encode())
+        self._cksum = (snap, v)
+        return v
+
+    def snapshot(self) -> tuple:
+        """One consistent (device, nets, acl, payload, tab, index,
+        fused) generation."""
+        return self._pub
+
+    @staticmethod
+    def snap_payload(snap: tuple):
+        return snap[3]
+
+    def oracle_snap(self, snap: tuple, addr: bytes,
+                    port: Optional[int] = None) -> int:
+        nets, acl = snap[1], snap[2]
+        for j, net in enumerate(nets):
+            if net.contains_ip(addr) and (
+                    port is None or acl is None or
+                    (acl[j].min_port <= port <= acl[j].max_port)):
+                return j
+        return -1
+
+    def index_snap(self, snap: tuple, addr: bytes,
+                   port: Optional[int] = None) -> int:
+        """O(groups) host lookup against the snapshot's CidrIndex (same
+        winner as oracle_snap); linear fallback without one."""
+        note_serving()
+        idx = snap[5]
+        if idx is None:
+            return self.oracle_snap(snap, addr, port)
+        # route tables ignore ports entirely (oracle_snap's acl gate)
+        return idx.lookup(addr, None if snap[2] is None else port)
+
+    def dispatch_snap(self, snap: tuple, addrs: Sequence[bytes],
+                      ports: Optional[Sequence[int]],
+                      pad_to: Optional[int] = None):
+        """Encode + submit one batch against the snapshotted table
+        generation: an int32 [cap] tensor (to_host() it to block). On
+        the card, ONE launch of the CIDR kernel (ops/cidr_cuda.py) over
+        the packed table; CPU tensors take the torch tier
+        (hashmatch.cidr_hash_match). pad_to: pad the encoded arrays to
+        this batch bucket (family -1 marks pad rows — matches no
+        group)."""
+        note_serving()
+        dev, nets, acl = snap[0], snap[1], snap[2]
+        if not nets or not addrs:
+            return np.full(len(addrs), -1, np.int32)
+        if self.backend == "host":
+            return np.array(
+                [self.oracle_snap(snap, a, None if ports is None
+                                  else ports[i])
+                 for i, a in enumerate(addrs)], np.int32)
+        note_launch()  # every branch below is one dispatch
+        # route tables (acl=None) have zeroed port-range columns: the
+        # port gate must be skipped entirely or every port>0 query misses
+        a16, fam, p = _cidr_q(addrs, None if acl is None else ports,
+                              pad_to)
+        q = {"a16": a16, "fam": fam}
+        if p is not None:
+            q["port"] = p
+        q = tables_from_reference(q, self.device)
+        if self.device.type == "cpu":
+            return H.cidr_hash_match(dev, q["a16"], q["fam"], q.get("port"))
+        from ..ops import cidr_cuda as CC
+        return CC.cidr_first(snap[6], q["a16"], q["fam"], q.get("port"))

@@ -1,15 +1,20 @@
 """ClassifyService — the cross-connection micro-batching dispatch queue.
 
-The port of `vproxy_tpu/rules/service.py` for the hint and classify+pick
-kinds. Data-plane code never dispatches the device per connection; it
-enqueues a query with a callback and the service coalesces everything
-that arrives while the previous device batch is in flight into ONE
-dispatch ("natural batching": the dispatch latency itself is the batch
-window, so the queue adapts from batch=1 at idle to hundreds under load
-with no timer). Kinds:
+The port of `vproxy_tpu/rules/service.py` for the hint, cidr and
+classify+pick kinds. Data-plane code never dispatches the device per
+connection; it enqueues a query with a callback and the service
+coalesces everything that arrives while the previous device batch is in
+flight into ONE dispatch ("natural batching": the dispatch latency
+itself is the batch window, so the queue adapts from batch=1 at idle to
+hundreds under load with no timer). Kinds:
 
 * "hint"  — submit_hint: a HintMatcher verdict (the path
             Upstream.next_async takes on every accept);
+* "cidr"  — submit_cidr: a CidrMatcher first match (route lookups, and
+            the ACL gate SecurityGroup.allow_async puts on a
+            connection), ONE launch of the CIDR kernel per batch
+            (ops/cidr_cuda.py); port=None queries (no port gate) never
+            share a device batch with port-carrying ones;
 * "cpick" — submit_classify_pick: verdict AND Maglev pick from a
             maglev.FusedPair, ONE fused launch per batch (the hand CUDA
             kernel on the GPU, ops/fused_cuda.py).
@@ -46,15 +51,16 @@ Failure containment: if a device dispatch raises (an injected
 `device.dispatch.error`, an encode fault), the service logs one alarm,
 serves that batch and everything after it from the host index, and
 re-probes the device every RETRY_S seconds. Accepts never die with a
-classify backtrace. A KernelError is different: the fused CUDA kernel
-could not be built, loaded or launched, or the card faulted while
+classify backtrace. A KernelError is different: a CUDA kernel could
+not be built, loaded or launched, or the card faulted while
 producing a result. The card cannot serve then, and the host does not
 quietly take over: the service logs it, answers the batches it holds
 with -1 ("no match") so callers proceed, closes, and every later submit
-raises the error (`ClassifyService.error`). Device results reach the
-host only through utils/torchenv.to_host (a CUDA tensor cannot be
-np.asarray()ed — a raise there would quietly fail every batch over to
-the host).
+raises the error (`ClassifyService.error`). That holds for every kind:
+the fused kernel (cpick) and the CIDR kernel (cidr) alike. Device
+results reach the host only through utils/torchenv.to_host (a CUDA
+tensor cannot be np.asarray()ed — a raise there would quietly fail
+every batch over to the host).
 
 Batch shapes are padded to power-of-two buckets (min VPROXY_TPU_PAD_LO,
 default 4) at the ARRAY level: only the real queries pay the host-side
@@ -259,6 +265,12 @@ class ClassifyService:
         interpreted against the generation that produced it)."""
         self._submit("hint", matcher, hint, cb, loop)
 
+    def submit_cidr(self, matcher, addr: bytes, port: Optional[int],
+                    cb: Callable[[int, object], None], loop=None) -> None:
+        """Queue one route/ACL lookup; cb(first-match idx, payload), -1
+        for none. port=None skips ACL port-range gating entirely."""
+        self._submit("cidr", matcher, (addr, port), cb, loop)
+
     def submit_classify_pick(self, pair, hint: Hint, ip: bytes,
                              port: Optional[int],
                              cb: Callable[[int, int, object], None],
@@ -343,8 +355,11 @@ class ClassifyService:
         big = (matcher.size() > SMALL_TABLE
                and getattr(matcher, "backend", "host") != "host")
         try:
-            # cpick: the FusedPair host lane -> (verdict, pick)
-            i = matcher.index_snap(snap, payload)
+            if kind == "cidr":
+                i = matcher.index_snap(snap, payload[0], payload[1])
+            else:
+                # cpick: the FusedPair host lane -> (verdict, pick)
+                i = matcher.index_snap(snap, payload)
         except MemoryError:
             raise
         except Exception:
@@ -473,32 +488,33 @@ class ClassifyService:
                 if closed:
                     return
                 continue
-            for kind, matcher, part in batches:
-                nxt = None
-                if self.error is not None:  # closed by a KernelError
-                    self._deliver_nomatch(part, kind)
-                    continue
-                try:
-                    nxt = self._begin_uniform(kind, matcher, part)
-                except MemoryError:
-                    raise  # OOM contract: log-then-die (utils/oom)
-                except KernelError as e:
-                    self._kernel_failed(e, kind, part)
-                except Exception:
-                    # the dispatcher thread must survive ANY
-                    # per-batch error (incl. oracle/delivery bugs)
-                    # — a dead thread would strand every future
-                    # classify silently. Callbacks get -1 ("no
-                    # match") so callers proceed.
-                    _log.error("classify dispatch failed; delivering "
-                               "no-match to batch", exc=True)
-                    self._deliver_nomatch(part, kind)
-                if inflight is not None:
-                    # deliver the PREVIOUS batch now that the next
-                    # one is already on the device
-                    self._finish_guarded(inflight)
-                    inflight = None
-                inflight = nxt
+            for kind, matcher, reqs in batches:
+                for part in self._split_uniform(kind, reqs):
+                    nxt = None
+                    if self.error is not None:  # closed by a KernelError
+                        self._deliver_nomatch(part, kind)
+                        continue
+                    try:
+                        nxt = self._begin_uniform(kind, matcher, part)
+                    except MemoryError:
+                        raise  # OOM contract: log-then-die (utils/oom)
+                    except KernelError as e:
+                        self._kernel_failed(e, kind, part)
+                    except Exception:
+                        # the dispatcher thread must survive ANY
+                        # per-batch error (incl. oracle/delivery bugs)
+                        # — a dead thread would strand every future
+                        # classify silently. Callbacks get -1 ("no
+                        # match") so callers proceed.
+                        _log.error("classify dispatch failed; delivering "
+                                   "no-match to batch", exc=True)
+                        self._deliver_nomatch(part, kind)
+                    if inflight is not None:
+                        # deliver the PREVIOUS batch now that the next
+                        # one is already on the device
+                        self._finish_guarded(inflight)
+                        inflight = None
+                    inflight = nxt
 
     def _use_device(self, matcher, n: int) -> bool:
         if self.mode == "host" or getattr(matcher, "backend", "host") == "host":
@@ -531,6 +547,18 @@ class ClassifyService:
         with self._elock:
             cur = self._ewma[path]
             self._ewma[path] = us if cur is None else 0.8 * cur + 0.2 * us
+
+    @staticmethod
+    def _split_uniform(kind: str, reqs: list[_Req]) -> list[list[_Req]]:
+        if kind == "cidr":
+            # port=None means "ignore port ranges" and must NOT share a
+            # device batch with port-carrying queries (it would be
+            # coerced to port 0 and gated against the ACL ranges)
+            with_p = [r for r in reqs if r.payload[1] is not None]
+            without = [r for r in reqs if r.payload[1] is None]
+            if with_p and without:
+                return [with_p, without]
+        return [reqs]
 
     def _begin_uniform(self, kind: str, matcher,
                        reqs: list[_Req]) -> Optional["_Inflight"]:
@@ -623,11 +651,11 @@ class ClassifyService:
             self._pending.clear()
             self._cv.notify()
         if first:
-            _log.alert(f"fused CUDA kernel failed ({e!r}); classify "
-                       f"service closed, submits raise")
+            _log.alert(f"CUDA kernel failed ({e!r}); classify service "
+                       f"closed, submits raise")
             from ..utils import events
             events.record("classify_kernel_error",
-                          f"fused CUDA kernel failed: {e!r}",
+                          f"CUDA kernel failed: {e!r}", classify_kind=kind,
                           batch=len(reqs))
         self._deliver_nomatch(reqs, kind)
         for k, _m, part in held:
@@ -662,11 +690,17 @@ class ClassifyService:
             raise RuntimeError("failpoint device.dispatch.error")
         cap = pad_batch(len(reqs), lo=PAD_LO)
         # single-device dispatches PIPELINE: the submit is async and the
-        # dispatcher pulls the result just before delivery. cpick is the
-        # FusedPair's matcher interface: the same dispatch_snap call,
-        # ONE launch answering verdicts AND picks
-        return matcher.dispatch_snap(snap, [r.payload for r in reqs],
-                                     pad_to=cap)
+        # dispatcher pulls the result just before delivery
+        if kind in ("hint", "cpick"):
+            # cpick is the FusedPair's matcher interface: the same
+            # dispatch_snap call, ONE launch answering verdicts AND picks
+            return matcher.dispatch_snap(snap, [r.payload for r in reqs],
+                                         pad_to=cap)
+        addrs = [r.payload[0] for r in reqs]
+        ports = [r.payload[1] for r in reqs]
+        if ports[0] is None:  # uniform batches only (see _split_uniform)
+            ports = None
+        return matcher.dispatch_snap(snap, addrs, ports, pad_to=cap)
 
     def _device_batch(self, kind: str, matcher, snap, reqs: list[_Req]):
         """Synchronous submit+pull (the probe worker's path)."""
@@ -678,7 +712,10 @@ class ClassifyService:
         """Host-served batch (device down / host path): rides the
         snapshot's O(probes) index — same winner as the linear oracle
         (rules/index.py parity tests), O(table) cheaper per query."""
-        return [matcher.index_snap(snap, r.payload) for r in reqs]
+        if kind in ("hint", "cpick"):
+            return [matcher.index_snap(snap, r.payload) for r in reqs]
+        return [matcher.index_snap(snap, r.payload[0], r.payload[1])
+                for r in reqs]
 
     def _deliver(self, reqs: list[_Req], idxs, payload=None,
                  kind: str = "hint") -> None:

@@ -261,10 +261,12 @@ class GlobalInspection:
         # accounting (rules/engine.py)
         self.registry.gauge_f("vproxy_engine_generation",
                               lambda: self._engine_stat("generation_total"))
-        self.registry.gauge_f(
-            "vproxy_engine_table_bytes",
-            lambda: self._engine_stat("table_bytes_total", "hint"),
-            matcher="hint")
+        for kind in ("hint", "cidr"):
+            self.registry.gauge_f(
+                "vproxy_engine_table_bytes",
+                lambda kind=kind: self._engine_stat("table_bytes_total",
+                                                    kind),
+                matcher=kind)
         self.registry.gauge_f("vproxy_engine_dispatch_launches_total",
                               lambda: self._engine_stat(
                                   "dispatch_launches_total"))
