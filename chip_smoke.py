@@ -17,8 +17,9 @@ in order:
 2. build: nvcc of csrc/fused_classify_pick.cu and csrc/cidr_first.cu,
    started together, with their seconds, and per kernel instance (B1:
    uri or uri-free, compare word; B4: one) ptxas's registers and
-   spills (any spill fails) and its global loads in the SASS
-   (cuobjdump, kept beside the library as <lib>.sass);
+   spills (any spill fails) and its global loads and asynchronous
+   copies in the SASS (cuobjdump, kept beside the library as
+   <lib>.sass);
 3. kernel vs plain tier, int32-exact, on identical device tensors: 100k
    rules with uri rules, 100k host-only rules (the uri-free kernel), a
    few hundred rules at r_cap 600,000 (the plain tier's two-pass
@@ -35,9 +36,14 @@ in order:
    and the 5k ACL at B = 16 / 512 / 4096 (v4, ::v4, ::ffff:v4 and v6
    queries, an eighth of each batch pad rows, the ACL with its ports
    and with port=None), on the CPU parity sets of
-   tests/test_torch_cidr.py, and on tables cut short where the
-   reference clamps; B1's [B, 3] form against the 3-column plain tier
-   on the 100k hint table + the 50k routes, and on an ACL with ports;
+   tests/test_torch_cidr.py (v6_many_masks takes the routine's probe
+   loop past one round, acl_deep_buckets its entry list past one
+   window, or the phase fails), and on tables cut short where the
+   reference clamps; per case, what the routine's design depends on
+   (cidr_design: live pairs and bucket entries per query, probe rounds
+   and entry windows); B1's [B, 3] form against the 3-column plain
+   tier on the 100k hint table + the 50k routes, and on an ACL with
+   ports;
 6. CIDR service: the SecurityGroup answers allow_async for 4 x 512
    (address, port) pairs, and a 50k-route CidrMatcher answers 4 x 512
    submit_cidr(port=None), one burst mixed with port-carrying queries;
@@ -59,7 +65,8 @@ in order:
    may beat it; then the warm kernel time alone at B = 512 to 8192, to
    show where it stops being set by one query's chain of loads;
 8. the same times for B4 (route table, ACL) and for B1 with its route
-   column, and where one cidr batch of 512 spends its host time
+   column, each row with its batch's cidr_design, and where one cidr
+   batch of 512 spends its host time
    (address encode, upload, wrapper call with the kernel, the whole
    CidrMatcher.match round trip);
 9. the {"kernels": [...]} line (B1, B1 with the route column, B4),
@@ -542,6 +549,100 @@ def mixed_families():
     return nets, addrs
 
 
+def _prefix_net(raw: bytes, ml: int):
+    """The network of prefix length ml over the address bytes raw (a
+    4-byte mask at /<=32, as _rand_net makes them)."""
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes
+    m = mask_bytes(ml)
+    return Network(bytes(a & b for a, b in zip(raw, m)) +
+                   bytes(len(raw) - len(m)), m)
+
+
+def _under(rng, raw: bytes, ml: int) -> bytes:
+    """An address with the first ml bits of raw and random bits after."""
+    nbits = 8 * len(raw)
+    keep = ((1 << ml) - 1) << (nbits - ml)
+    a = int.from_bytes(raw, "big") & keep
+    r = int.from_bytes(rng.bytes(len(raw)), "big") & ~keep
+    return (a | r).to_bytes(len(raw), "big")
+
+
+def _v4_form(a: bytes, k: int) -> bytes:
+    """A 4-byte address as itself, ::v4 or ::ffff:v4, by k mod 3."""
+    return (a, bytes(12) + a, bytes(10) + b"\xff\xff" + a)[k % 3]
+
+
+def v6_many_masks(seed: int = 21):
+    """v4 routes at every prefix length /0-/32 (each also in the v6
+    groups, as ::v4 and ::ffff:v4) and v6 routes at most lengths
+    /1-/128, nested under three addresses of each family, in random
+    order; 400 addresses under the nests at every depth (v4 ones as v4,
+    ::v4 and ::ffff:v4 in turn), every 8th random. A 16-byte query
+    probes every v6 group: more than 128 (group, salt) pairs. -> (nets,
+    addrs)"""
+    rng = np.random.default_rng(seed)
+    v4 = [bytes([int(rng.choice(CIDR_POOL))]) + rng.bytes(3)
+          for _ in range(3)]
+    v6 = [b"\xfd" + rng.bytes(15) for _ in range(3)]
+    nets = [_prefix_net(v4[int(rng.integers(3))], ml) for ml in range(33)]
+    nets += [_prefix_net(v6[int(rng.integers(3))], ml)
+             for ml in range(1, 129) if rng.random() < 0.8]
+    nets = [nets[int(i)] for i in rng.permutation(len(nets))]
+    addrs = []
+    for i in range(400):
+        if i % 8 == 7:
+            addrs.append(rng.bytes(4) if i % 16 == 7 else
+                         b"\xfd" + rng.bytes(15))
+        elif i % 2:
+            addrs.append(_under(rng, v6[i % 3], int(rng.integers(129))))
+        else:
+            addrs.append(_v4_form(
+                _under(rng, v4[i % 3], int(rng.integers(33))), i // 2))
+    return nets, addrs
+
+
+def acl_deep_buckets(seed: int = 23):
+    """TCP ACL rules stacked on two nests of six networks (v4 /8-/28 and
+    v6 /32-/112 over one address each), 20-30 rules per network with
+    port ranges disjoint within a network and overlapping across them,
+    in random order; 300 queries under the nests at every depth (v4
+    ones as v4, ::v4 and ::ffff:v4 in turn), each with a port inside
+    the range of a rule above it, or, every 5th, past every range (no
+    rule admits it). A query under a nest's deepest network matches all
+    six of its buckets: more than 128 entries. -> (acl, [(addr,
+    port)])"""
+    from vproxy_tpu_torch.rules.ir import AclRule, Proto
+    rng = np.random.default_rng(seed)
+    nests = ((bytes([int(rng.choice(CIDR_POOL))]) + rng.bytes(3),
+              (8, 12, 16, 20, 24, 28)),
+             (b"\xfd" + rng.bytes(15), (32, 48, 64, 80, 96, 112)))
+    spec = []
+    for n, (raw, mls) in enumerate(nests):
+        for ml in mls:
+            for k in range(int(rng.integers(20, 31))):
+                lo = 2000 * k + int(rng.integers(1000))
+                spec.append((n, ml, lo, lo + int(rng.integers(1500))))
+    spec = [spec[int(i)] for i in rng.permutation(len(spec))]
+    acl = [AclRule(f"deep{i}", _prefix_net(nests[n][0], ml), Proto.TCP,
+                   lo, hi, bool(rng.random() < 0.5))
+           for i, (n, ml, lo, hi) in enumerate(spec)]
+    out = []
+    for i in range(300):
+        raw, mls = nests[i % 2]
+        depth = mls[-1] if rng.random() < 0.6 else int(rng.choice(mls))
+        a = _under(rng, raw, depth)
+        if len(a) == 4:
+            a = _v4_form(a, i // 2)
+        if i % 5 == 4:
+            port = int(rng.integers(61000, 65536))
+        else:
+            above = [s for s in spec if s[0] == i % 2 and s[1] <= depth]
+            _, _, lo, hi = above[int(rng.integers(len(above)))]
+            port = int(rng.integers(lo, hi + 1))
+        out.append((a, port))
+    return acl, out
+
+
 def cut_table(ct: dict, how: str) -> dict:
     """A packed cidr table cut short so that indices the reference
     gathers with JAX's clamp run past an array: "bk" (a bucket walk of
@@ -563,6 +664,7 @@ def cut_table(ct: dict, how: str) -> dict:
 
 
 CUTS = ("bk", "items", "slots", "meta")
+CUT_CASES = ("routes_2k", "acl_500", "acl_deep_buckets")  # cut every way
 
 
 # -------------------------------------------------------------- phases
@@ -591,9 +693,10 @@ def instance(mangled: str) -> str:
 
 
 def _ptxas(lib: str) -> dict:
-    """{instance: {registers, spill_stores, spill_loads, ldg}} from
-    nvcc's log beside the library and its SASS (cuobjdump, written
-    beside it as <lib>.sass)."""
+    """{instance: {registers, spill_stores, spill_loads, ldg, ldgsts}}
+    from nvcc's log beside the library and its SASS (cuobjdump, written
+    beside it as <lib>.sass): global loads, and asynchronous copies to
+    shared memory (cp.async)."""
     from vproxy_tpu_torch.ops import fused_cuda as FC
     kern, name = {}, None
     with open(lib + ".log") as f:
@@ -621,6 +724,7 @@ def _ptxas(lib: str) -> dict:
             name = instance(part.split()[0])
             kern.setdefault(name, {})["ldg"] = len(
                 re.findall(r"\bLDG\b", part))
+            kern[name]["ldgsts"] = len(re.findall(r"\bLDGSTS\b", part))
     return kern
 
 
@@ -648,7 +752,12 @@ def phase_build() -> dict:
             log(f"  ptxas: {lib_name} {name}: {k.get('registers')} "
                 f"registers, {k.get('spill_stores')} B spill stores, "
                 f"{k.get('spill_loads')} B spill loads; SASS "
-                f"{k.get('ldg')} LDG")
+                f"{k.get('ldg')} LDG, {k.get('ldgsts')} LDGSTS")
+        if lib_name == "cidr":
+            log(f"  B4: {kern.get('B4', {}).get('ldg')} LDG in the SASS "
+                f"for a chain of 4 dependent global steps per query "
+                f"(cidr_first.cuh: group rows + query, slot records + "
+                f"keys, bucket entries, meta rows)")
         check(len(kern) == want and all(k.get("registers") for k in
                                         kern.values()),
               f"ptxas reported {len(kern)} {lib_name} kernel instances, "
@@ -1066,6 +1175,10 @@ def small_cidr_cases():
            [(a, None) for a, _ in q])
     nets, addrs = mixed_families()
     yield "mixed_families", nets, None, [(a, None) for a in addrs]
+    nets, addrs = v6_many_masks()
+    yield "v6_many_masks", nets, None, [(a, None) for a in addrs]
+    acl, q = acl_deep_buckets()
+    yield "acl_deep_buckets", [r.network for r in acl], acl, q
     nets = route_nets(2000, 5)
     yield ("routes_2k", nets, None,
            [(a, None) for a, _ in cidr_queries(nets, 600, 6)])
@@ -1095,7 +1208,7 @@ def cidr_kernel_cases(routes, am, acl, device):
     for name, nets, acl_, q in small_cidr_cases():
         ct = packed_cidr(nets, acl_, device)
         yield name, ct, *cidr_batch(q, len(q) + 8, device)
-        if name in ("routes_2k", "acl_500"):
+        if name in CUT_CASES:
             for how in CUTS:
                 yield (f"{name} cut {how}",
                        CC.prepare_table(cut_table(dict(ct), how)),
@@ -1117,12 +1230,20 @@ def phase_cidr_vs_plain(device, keep, routes, am, acl):
         torch.cuda.synchronize()
         d = int((got.long() - ref.long()).abs().max())
         b4_err = max(b4_err, d)
+        design = cidr_design(ct, a16, fam)
         log(f"B4 vs plain [{name}]: b {got.shape[0]} g {ct.ints['g']} ct "
             f"{ct.ints['ct']} cb {ct.ints['cb']} bk {ct.ints['bk']} r_cap "
             f"{ct.ints['r_cap']} port={port is not None} matched "
             f"{int((ref >= 0).sum())}/{int((fam >= 0).sum())} "
-            f"max_abs_err {d}")
+            f"max_abs_err {d}; design {json.dumps(design)}")
         check(torch.equal(got, ref), f"B4 != plain tier [{name}]")
+        # the cases that take the routine past one round of each loop
+        if name == "v6_many_masks":
+            check(design["max_probe_rounds"] > 1,
+                  "v6_many_masks took one probe round")
+        if name == "acl_deep_buckets":
+            check(design["max_entry_windows"] > 1,
+                  "acl_deep_buckets took one entry window")
     rules, tab, ht, mtab = keep
     rct, act = routes.snapshot()[6], am.snapshot()[6]
     rnets = routes.snapshot()[1]
@@ -1335,6 +1456,42 @@ def cidr_work(ct, a16, fam, port):
     return nbytes, ops
 
 
+def cidr_design(ct, a16, fam) -> dict:
+    """What the CIDR routine's design depends on, for one batch, from the
+    table and the batch with torch ops on their device (cidr_first.cuh:
+    a lane takes PROBES live pairs per round, a warp lists LIST = 32 x
+    ENTRIES bucket entries per window): the most, over the batch's
+    queries, of the live (group, salt) pairs, of the entries of matching
+    buckets, and of the probe rounds and entry-list windows the routine
+    takes for one query."""
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops.hashmatch import _cidr_slots
+    with open(FC.CIDR_HEADER) as f:
+        src = f.read()
+    probes, entries = (int(re.search(rf"constexpr int {k} = (\d+);",
+                                     src).group(1))
+                       for k in ("PROBES", "ENTRIES"))
+    per_round, per_window = 32 * probes, 32 * entries
+    n_ct, bk = ct["pk_cslot"].shape[0], ct["bk_iota"].shape[0]
+    masked, gok, slots = _cidr_slots(ct, a16, fam)
+    rank = gok.long().cumsum(dim=1) - 1  # a group's place in its family
+    pairs = 2 * gok.long().sum(dim=1)
+    rounds = (pairs + per_round - 1) // per_round
+    ent = torch.zeros(a16.shape[0], max(int(rounds.max()), 1),
+                      dtype=torch.int64, device=a16.device)
+    for s, slot in enumerate(slots):  # pair 2 x rank + salt
+        sc = slot.clamp(0, n_ct - 1).long()
+        srec, key = ct["pk_cslot"][sc], ct["s_key"][sc]
+        ok = gok & (srec[..., 0] > 0) & (key == masked).all(dim=-1)
+        cnt = torch.where(ok, srec[..., 2].clamp(0, bk), 0).long()
+        ent.scatter_add_(1, ((2 * rank + s) // per_round).clamp(min=0), cnt)
+    windows = ((ent + per_window - 1) // per_window).sum(dim=1)
+    return {"max_pairs": int(pairs.max()),
+            "max_entries": int(ent.sum(dim=1).max()),
+            "max_probe_rounds": int(rounds.max()),
+            "max_entry_windows": int(windows.max())}
+
+
 def time_row(b, kern, plain, name, flush, work_):
     """One timing row: device ms per launch of `kern` (kernel `name`)
     L2-warm and after a 256 MB write (cold), its plain tier's, wall ms
@@ -1429,6 +1586,7 @@ def phase_cidr_times(device, keep, routes, am, acl):
                 b, lambda: CC.cidr_first_cuda(ct, a16, fam, port),
                 lambda: F._cidr_first_packed(ct, a16, fam, port),
                 KERNEL_B4, flush, cidr_work(ct, a16, fam, port))
+            row["design"] = cidr_design(ct, a16, fam)
             out[label].append(row)
             log(f"times {label} " + json.dumps(row))
         q, slots = encode(tab, mk_queries(rules, b, 1600 + b), device,
@@ -1444,6 +1602,7 @@ def phase_cidr_times(device, keep, routes, am, acl):
             lambda: F.fused_classify_pick(ht, q, mtab, slots, rct, a16, fam,
                                           None),
             KERNEL, flush, (nb + cb_, ops + cops))
+        row["design"] = cidr_design(rct, a16, fam)
         out["B1 route column"].append(row)
         log("times B1 route column " + json.dumps(row))
     for label, m, queries in (

@@ -7,7 +7,8 @@ torch's CPU (VPROXY_TPU_TORCH_DEVICE=cpu); every comparison is exact:
 
 * compile_cidr_hash arrays and caps, byte for byte (the route, ACL port
   bucket and mixed-family cases of tests/test_hashmatch.py, random
-  route and ACL sets, a caps-reusing update and a growth), and
+  route and ACL sets, v6 routes at most prefix lengths, an ACL of
+  deep buckets, a caps-reusing update and a growth), and
   pack_cidr_table;
 * cidr_hash_match, _cidr_first_packed (the plain version of the CUDA
   kernels' CIDR routine), classify_hash_all and the 3-column
@@ -271,6 +272,100 @@ def mixed_families():
     return nets, addrs
 
 
+def _prefix_net(raw: bytes, ml: int):
+    """The network of prefix length ml over the address bytes raw (a
+    4-byte mask at /<=32, as _rand_net makes them)."""
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes
+    m = mask_bytes(ml)
+    return Network(bytes(a & b for a, b in zip(raw, m)) +
+                   bytes(len(raw) - len(m)), m)
+
+
+def _under(rng, raw: bytes, ml: int) -> bytes:
+    """An address with the first ml bits of raw and random bits after."""
+    nbits = 8 * len(raw)
+    keep = ((1 << ml) - 1) << (nbits - ml)
+    a = int.from_bytes(raw, "big") & keep
+    r = int.from_bytes(rng.bytes(len(raw)), "big") & ~keep
+    return (a | r).to_bytes(len(raw), "big")
+
+
+def _v4_form(a: bytes, k: int) -> bytes:
+    """A 4-byte address as itself, ::v4 or ::ffff:v4, by k mod 3."""
+    return (a, bytes(12) + a, bytes(10) + b"\xff\xff" + a)[k % 3]
+
+
+def v6_many_masks(seed: int = 21):
+    """v4 routes at every prefix length /0-/32 (each also in the v6
+    groups, as ::v4 and ::ffff:v4) and v6 routes at most lengths
+    /1-/128, nested under three addresses of each family, in random
+    order; 400 addresses under the nests at every depth (v4 ones as v4,
+    ::v4 and ::ffff:v4 in turn), every 8th random. A 16-byte query
+    probes every v6 group: more than 128 (group, salt) pairs. -> (nets,
+    addrs)"""
+    rng = np.random.default_rng(seed)
+    v4 = [bytes([int(rng.choice(CIDR_POOL))]) + rng.bytes(3)
+          for _ in range(3)]
+    v6 = [b"\xfd" + rng.bytes(15) for _ in range(3)]
+    nets = [_prefix_net(v4[int(rng.integers(3))], ml) for ml in range(33)]
+    nets += [_prefix_net(v6[int(rng.integers(3))], ml)
+             for ml in range(1, 129) if rng.random() < 0.8]
+    nets = [nets[int(i)] for i in rng.permutation(len(nets))]
+    addrs = []
+    for i in range(400):
+        if i % 8 == 7:
+            addrs.append(rng.bytes(4) if i % 16 == 7 else
+                         b"\xfd" + rng.bytes(15))
+        elif i % 2:
+            addrs.append(_under(rng, v6[i % 3], int(rng.integers(129))))
+        else:
+            addrs.append(_v4_form(
+                _under(rng, v4[i % 3], int(rng.integers(33))), i // 2))
+    return nets, addrs
+
+
+def acl_deep_buckets(seed: int = 23):
+    """TCP ACL rules stacked on two nests of six networks (v4 /8-/28 and
+    v6 /32-/112 over one address each), 20-30 rules per network with
+    port ranges disjoint within a network and overlapping across them,
+    in random order; 300 queries under the nests at every depth (v4
+    ones as v4, ::v4 and ::ffff:v4 in turn), each with a port inside
+    the range of a rule above it, or, every 5th, past every range (no
+    rule admits it). A query under a nest's deepest network matches all
+    six of its buckets: more than 128 entries. -> (acl, [(addr,
+    port)])"""
+    from vproxy_tpu_torch.rules.ir import AclRule, Proto
+    rng = np.random.default_rng(seed)
+    nests = ((bytes([int(rng.choice(CIDR_POOL))]) + rng.bytes(3),
+              (8, 12, 16, 20, 24, 28)),
+             (b"\xfd" + rng.bytes(15), (32, 48, 64, 80, 96, 112)))
+    spec = []
+    for n, (raw, mls) in enumerate(nests):
+        for ml in mls:
+            for k in range(int(rng.integers(20, 31))):
+                lo = 2000 * k + int(rng.integers(1000))
+                spec.append((n, ml, lo, lo + int(rng.integers(1500))))
+    spec = [spec[int(i)] for i in rng.permutation(len(spec))]
+    acl = [AclRule(f"deep{i}", _prefix_net(nests[n][0], ml), Proto.TCP,
+                   lo, hi, bool(rng.random() < 0.5))
+           for i, (n, ml, lo, hi) in enumerate(spec)]
+    out = []
+    for i in range(300):
+        raw, mls = nests[i % 2]
+        depth = mls[-1] if rng.random() < 0.6 else int(rng.choice(mls))
+        a = _under(rng, raw, depth)
+        if len(a) == 4:
+            a = _v4_form(a, i // 2)
+        if i % 5 == 4:
+            port = int(rng.integers(61000, 65536))
+        else:
+            above = [s for s in spec if s[0] == i % 2 and s[1] <= depth]
+            _, _, lo, hi = above[int(rng.integers(len(above)))]
+            port = int(rng.integers(lo, hi + 1))
+        out.append((a, port))
+    return acl, out
+
+
 def cut_table(ct: dict, how: str) -> dict:
     """A packed cidr table cut short so that indices the reference
     gathers with JAX's clamp run past an array: "bk" (a bucket walk of
@@ -307,6 +402,13 @@ def cidr_case(name):
     if name == "mixed_families":
         nets, addrs = mixed_families()
         return nets, None, addrs, None
+    if name == "v6_many_masks":
+        nets, addrs = v6_many_masks()
+        return nets, None, addrs, None
+    if name == "acl_deep_buckets":
+        acl, q = acl_deep_buckets()
+        return [r.network for r in acl], acl, [a for a, _ in q], \
+            [p for _, p in q]
     if name.startswith("routes_"):
         nets = route_nets(int(name[7:-1]) * 1000, 5)
         return nets, None, [a for a, _ in cidr_queries(nets, 600, 6)], None
@@ -320,7 +422,8 @@ def cidr_case(name):
 
 
 CASES = ("route_200", "acl_port_buckets", "mixed_families", "routes_2k",
-         "acl_500", "acl_500_portless", "empty")
+         "acl_500", "acl_500_portless", "empty", "v6_many_masks",
+         "acl_deep_buckets")
 
 
 def ref_net(n):
@@ -459,7 +562,7 @@ def test_cidr_first_packed_vs_jax(name):
 
 
 @pytest.mark.parametrize("how", CUTS)
-@pytest.mark.parametrize("name", ["routes_2k", "acl_500"])
+@pytest.mark.parametrize("name", ["routes_2k", "acl_500", "acl_deep_buckets"])
 def test_cidr_first_packed_clamps_like_jax(name, how):
     """On a table cut short (cut_table) the plain tier clamps where the
     reference's gathers clamp: the cases chip_smoke.py holds the CUDA
@@ -475,7 +578,9 @@ def test_cidr_first_packed_clamps_like_jax(name, how):
     assert np.array_equal(want, got.numpy())
     full = F._cidr_first_packed(up(F.pack_cidr_table(tab.arrays), "cpu"),
                                 *tq(a16, fam, p))
-    if name == "acl_500":  # its buckets are deep: every cut shows
+    # deep buckets: every cut shows on acl_500; acl_deep_buckets uses
+    # fewer slots than the cut keeps, so its other three cuts show
+    if name == "acl_500" or (name == "acl_deep_buckets" and how != "slots"):
         assert not torch.equal(got, full)
 
 

@@ -34,7 +34,7 @@ def test_cidr_kernel_matches_plain_tier(cuda):
     for name, nets, acl, q in CS.small_cidr_cases():
         ct = CS.packed_cidr(nets, acl, cuda)
         tables = [(name, ct)]
-        if name in ("routes_2k", "acl_500"):
+        if name in CS.CUT_CASES:
             tables += [(f"{name} cut {h}",
                         CC.prepare_table(CS.cut_table(dict(ct), h)))
                        for h in CS.CUTS]
@@ -48,9 +48,18 @@ def test_cidr_kernel_matches_plain_tier(cuda):
 def test_route_column_matches_plain_tier(cuda, b):
     """B1's [B, 3] form == the 3-column plain tier, and its first two
     columns == the [B, 2] launch."""
+    _route_column_case(cuda, b, CS.route_nets(2000, 5))
+
+
+def test_route_column_past_one_probe_round(cuda):
+    """The same on v6_many_masks, whose 16-byte queries take the route
+    blocks' probe loop past one round."""
+    _route_column_case(cuda, 512, CS.v6_many_masks()[0])
+
+
+def _route_column_case(cuda, b, nets):
     rules = CS.mk_rules(3000)
     tab, ht, mtab = CS.packed_case(rules, cuda)
-    nets = CS.route_nets(2000, 5)
     ct = CS.packed_cidr(nets, None, cuda)
     q, slots = CS.encode(tab, CS.mk_queries(rules, b, 9), cuda)
     a16, fam, _ = CS.cidr_batch(

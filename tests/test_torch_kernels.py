@@ -257,7 +257,9 @@ def test_chip_smoke_carries_the_parity_cases():
     assert CS.long_hosts() == (LONG, case("long_hosts")[1])
     for fn in ("_rand_net", "_mapped_net", "route_nets", "acl_rules",
                "cidr_queries", "acl_queries", "hashmatch_route_case",
-               "acl_port_buckets", "mixed_families", "cut_table"):
+               "acl_port_buckets", "mixed_families", "_prefix_net",
+               "_under", "_v4_form", "v6_many_masks", "acl_deep_buckets",
+               "cut_table"):
         assert inspect.getsource(getattr(CS, fn)) == \
             inspect.getsource(getattr(TC, fn)), fn
     for k in ("CIDR_POOL", "V6_MASKS", "ACL_PORTS", "CUTS"):
@@ -271,6 +273,8 @@ def test_chip_smoke_carries_the_parity_cases():
     assert CS.hashmatch_route_case() == TC.hashmatch_route_case()
     assert CS.acl_port_buckets() == TC.acl_port_buckets()
     assert CS.mixed_families() == TC.mixed_families()
+    assert CS.v6_many_masks() == TC.v6_many_masks()
+    assert CS.acl_deep_buckets() == TC.acl_deep_buckets()
     ct = F.pack_cidr_table(H.compile_cidr_hash(nets).arrays)
     for how in TC.CUTS:
         a, b = CS.cut_table(ct, how), TC.cut_table(ct, how)

@@ -11,23 +11,42 @@
 // fused_classify_pick.cu; its note gives the design.
 //
 // Bound. Per query the kernel reads its 16-byte address, its family, a
-// port when the table is an ACL, and writes one int32; per live probe
+// port when the table is an ACL, and writes one int32; per live pair
 // (a group of the query's family, two salts each) one 16-byte slot
 // record and one 16-byte key; per entry of a matching bucket 4 bytes;
 // per listed rule one 16-byte meta row; and once per batch the g_*
-// rows. There is no arithmetic to speak of (16 FNV rounds per probe),
-// so the floor is those distinct bytes over the 3.35 TB/s HBM rate
-// (chip_smoke.py `cidr_work()`). Well above it, the time is latency:
-// per lane, its probes one after another, each a chain of dependent
-// loads (group row -> slot record and key -> bucket entries -> meta
-// rows). This first version keeps that simple and exact; shortening
-// the chain (every probe of a lane in flight at once) is later work.
+// rows. No products and ~40 integer ops per pair, so the floor is those
+// distinct bytes over the 3.35 TB/s HBM rate (chip_smoke.py
+// `cidr_work()`), read against the cold time. Well above it, the time
+// is latency: the chain of dependent loads one query walks. The
+// routine's note (cidr_first.cuh) counts that chain: ~16 steps for a
+// route query and up to ~50 for a deep ACL bucket in the first version
+// of the routine, which walked a lane's pairs and a bucket's entries
+// one after another; 4 here (the block's group rows and the query ->
+// slot records and keys -> bucket entries -> meta rows) while a query
+// has at most 96 live pairs and 128 bucket entries, the warp's lanes
+// taking pairs and entries side by side. wgmma and TMA tiles do not
+// serve it (no products; scattered 16-byte rows chosen by the data):
+// the group rows are the one contiguous read, staged into shared
+// memory once per block with cp.async.
+//
+// Launch shape: one warp per query, WARPS queries per block, at most
+// 64 registers (MIN_BLOCKS blocks of WARPS warps per SM), so B = 4096
+// (1,024 blocks) is one wave on 132 SMs; dynamic shared memory is
+// cidr::block_bytes: the staged group rows (36 B per group) plus, per
+// warp, the family's group list and the entry list. The kernel is the
+// routine's block_first_match, which the route column of
+// fused_classify_pick.cu runs in its route blocks too. At B = 4096
+// every SM is full and the time follows the 32-byte sectors the batch
+// reads from L2 (two per live pair, the staged rows once per block)
+// more than the chain (PERF.md).
 
 #include "cidr_first.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;  // queries per block
+constexpr int WARPS = 4;       // queries per block
+constexpr int MIN_BLOCKS = 8;  // blocks per SM: <= 64 registers
 
 }  // namespace
 
@@ -54,22 +73,19 @@ struct CidrArgs {
 
 namespace {
 
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 cidr_first_kernel(CidrArgs a) {
+  extern __shared__ __align__(16) int32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * WARPS + warp;
-  if (b >= a.b) return;  // warp-uniform: the whole warp leaves together
   const cidr::Table t = {a.pk_cslot, a.pk_cmeta, a.s_key, a.cb_items,
                          a.g_fam, a.g_mask, a.g_off, a.g_capmask,
                          a.g_salt1, a.g_salt2, a.ct, a.r_cap, a.cb, a.g,
                          a.bk};
-  const uint4 addr = __ldg(reinterpret_cast<const uint4*>(a.a16) + b);
-  const int fam = __ldg(a.fam + b);
-  const bool gate = a.port != nullptr;
-  const int port = gate ? __ldg(a.port + b) : 0;
-  const int best = cidr::first_match(t, addr, fam, gate, port, lane);
-  if (lane == 0) a.out[b] = best < a.r_cap ? best : -1;
+  const int best = cidr::block_first_match(t, smem, a.a16, a.fam, a.port,
+                                           a.b, b, warp, lane, WARPS);
+  if (b < a.b && lane == 0) a.out[b] = best < a.r_cap ? best : -1;
 }
 
 bool aligned16(const void* p) {
@@ -94,8 +110,11 @@ extern "C" int vproxy_cidr_first(const CidrArgs* args, int device,
       !aligned16(a.a16) || !aligned16(a.pk_cslot) ||
       !aligned16(a.pk_cmeta) || !aligned16(a.s_key) || !aligned16(a.g_mask))
     return (int)cudaErrorInvalidValue;
+  // 8.7 KB at 128 groups; a table has at most 162 live groups of
+  // prefix masks, far below the 48 KB a launch may take unasked
+  const size_t smem = cidr::block_bytes(a.g, WARPS);
   const dim3 grid((a.b + WARPS - 1) / WARPS), block(WARPS * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cidr_first_kernel<<<grid, block, 0, s>>>(a);
+  cidr_first_kernel<<<grid, block, smem, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -9,13 +9,21 @@
 // in its [B, 3] form (vproxy_tpu/ops/fused.py:304 with `ct`, the route
 // column of rules/engine.py `fused_dispatch_all`).
 //
-// The route column. After the hint fold, a warp whose launch carries a
-// cidr table (a non-null pk_cslot: a runtime flag, so the instances
-// stay 8) computes its query's first-match route with the routine of
-// B4 (cidr_first.cuh, whose note gives its design and bound) and
-// writes column 2. The hint state is dead by then (verdict and pick
-// stay), so the route reuses its registers.
-//
+// The route column. When the launch carries a cidr table (a non-null
+// pk_cslot: a run-time flag, so the instances stay 8), the grid is twice
+// as long: its first half computes the hint verdicts and picks as
+// below, its second half the same queries' first-match routes with
+// B4's block routine (cidr_first.cuh `block_first_match`, whose note
+// gives its design, chain and bound), WARPS queries per block. The two
+// chains of dependent loads run side by side, in blocks the SMs hold at
+// once, instead of one after the other in one warp: the hint phase
+// already takes the 64 registers, so a warp cannot hold the route's
+// probes through it, and walking the route after the hint fold added
+// its whole chain to the hint's (PERF.md has both designs' times). A
+// hint block runs exactly the [B, 2] code and writes columns 0-1;
+// without a cidr table the grid, the shared memory and the work are the
+// [B, 2] kernel's.
+
 // Bound. Per query the kernel reads its query windows and probe slots
 // (~0.3 KB), one packed cuckoo slot row + key row per valid probe, the
 // bucket items of live buckets, one 32 B meta row + one (hw+uw) B byte
@@ -319,6 +327,22 @@ fused_kernel(FusedArgs a, int np, int smem_words) {
   extern __shared__ __align__(16) int32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // a route block: the second half of a route-column grid (the note
+  // at the top)
+  const bool route = a.pk_cslot != nullptr;
+  const int nb = (a.b + WARPS - 1) / WARPS;  // blocks per half
+  if (route && (int)blockIdx.x >= nb) {
+    const cidr::Table ct = {a.pk_cslot, a.pk_cmeta, a.s_key, a.cb_items,
+                            a.g_fam, a.g_mask, a.g_off, a.g_capmask,
+                            a.g_salt1, a.g_salt2, a.c_ct, a.c_rcap, a.c_cb,
+                            a.c_g, a.c_bk};
+    const int rb = ((int)blockIdx.x - nb) * WARPS + warp;
+    const int r = cidr::block_first_match(ct, smem, a.a16, a.cfam, a.cport,
+                                          a.b, rb, warp, lane, WARPS);
+    if (rb < a.b && lane == 0)
+      a.out[(size_t)rb * 3 + 2] = r < a.c_rcap ? r : -1;
+    return;
+  }
   const int b = blockIdx.x * WARPS + warp;
   if (b >= a.b) return;  // warp-uniform: the whole warp leaves together
 
@@ -463,36 +487,29 @@ fused_kernel(FusedArgs a, int np, int smem_words) {
     fold(ol, oi, bl, bi);
   }
   const int verdict = bl > 0 ? bi : -1;
-  if (a.pk_cslot == nullptr) {
-    if (lane == 0)
-      reinterpret_cast<int2*>(a.out)[b] = make_int2(verdict, pick);
-    return;
-  }
-  const cidr::Table ct = {a.pk_cslot, a.pk_cmeta, a.s_key, a.cb_items,
-                          a.g_fam, a.g_mask, a.g_off, a.g_capmask,
-                          a.g_salt1, a.g_salt2, a.c_ct, a.c_rcap, a.c_cb,
-                          a.c_g, a.c_bk};
-  const uint4 addr = __ldg(reinterpret_cast<const uint4*>(a.a16) + b);
-  const int fam = __ldg(a.cfam + b);
-  const bool gate = a.cport != nullptr;
-  const int port = gate ? __ldg(a.cport + b) : 0;
-  const int route = cidr::first_match(ct, addr, fam, gate, port, lane);
   if (lane == 0) {
-    int32_t* o = a.out + (size_t)b * 3;
-    o[0] = verdict;
-    o[1] = pick;
-    o[2] = route < a.c_rcap ? route : -1;
+    if (route) {
+      a.out[(size_t)b * 3] = verdict;
+      a.out[(size_t)b * 3 + 1] = pick;
+    } else {
+      reinterpret_cast<int2*>(a.out)[b] = make_int2(verdict, pick);
+    }
   }
 }
 
 template <bool URI, int W>
 cudaError_t launch(const FusedArgs& a, int np, cudaStream_t s) {
   // per warp: the windows (16 B-padded), probe starts + counts, the
-  // entry list, rounded to 16 B so every warp's windows align
+  // entry list, rounded to 16 B so every warp's windows align; a route
+  // block (the route column) takes B4's block layout instead
+  const bool route = a.pk_cslot != nullptr;
   const int hpad = (a.hw + 15) & ~15, upad = URI ? (a.uw + 15) & ~15 : 0;
   const int smem_words = ((hpad + upad) / 4 + 2 * np + LIST + 3) & ~3;
-  const size_t smem = (size_t)smem_words * 4 * WARPS;
-  const dim3 grid((a.b + WARPS - 1) / WARPS), block(WARPS * 32);
+  size_t smem = (size_t)smem_words * 4 * WARPS;
+  if (route && smem < cidr::block_bytes(a.c_g, WARPS))
+    smem = cidr::block_bytes(a.c_g, WARPS);
+  const int nb = (a.b + WARPS - 1) / WARPS;  // hint blocks (and route)
+  const dim3 grid(route ? 2 * nb : nb), block(WARPS * 32);
   fused_kernel<URI, W><<<grid, block, smem, s>>>(a, np, smem_words);
   return cudaGetLastError();
 }
