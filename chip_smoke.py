@@ -7,7 +7,8 @@ classify+pick kernel B1, with its route column, and the CIDR kernel
 B4), holds them bit for bit against their plain torch tiers, serves
 hint and classify+pick bursts through ClassifyService over a 100k-rule
 Host/SNI/URI table and a 65,537-slot Maglev table over 256 weighted
-backends, ACL checks through a SecurityGroup of 5,000 TCP rules and
+backends, and again for TLS connections accepted on the port's own
+event loop, ACL checks through a SecurityGroup of 5,000 TCP rules and
 route lookups against a 50,000-route table (BASELINE config #4, not
 cut), times the kernels, and prints one JSON line per result. Phases,
 in order:
@@ -15,6 +16,8 @@ in order:
 1. environment: a CUDA device, or exit 1; the card's name and power
    limit as nvidia-smi reports them;
 2. build: nvcc of csrc/fused_classify_pick.cu and csrc/cidr_first.cu,
+   and g++ of the port's native/vtl.cpp (the host FD layer; it must
+   load as the native provider, from vproxy_tpu_torch/_build/), all
    started together, with their seconds, and per kernel instance (B1:
    uri or uri-free, compare word; B4: one) ptxas's registers and
    spills (any spill fails) and its global loads and asynchronous
@@ -32,7 +35,22 @@ in order:
    FusedPair and 4 of 512 submit_hint requests, every answer equal to
    the host index (HintIndex + maglev.pick), no failover, every query
    answered by the device, one kernel launch per classify+pick batch;
-5. CIDR kernel vs plain tier, int32-exact: B4 on the 50k route table
+5. event plane: one of the port's SelectorEventLoops accepts 4 bursts
+   of 512 loopback connections (512 open at once, one client thread
+   each, the threads in a spawned process so they do not share the
+   loop's interpreter lock) through a ServerSock on the native vtl;
+   each client writes a real TLS ClientHello (stdlib ssl), the loop
+   peeks it, parses its SNI and submits classify+pick to
+   ClassifyService over phase 4's FusedPair; the answer comes back on
+   the loop thread, which closes the connection. Every (verdict, pick) equal to the host index and
+   Maglev's host pick, every matched pick equal to the C lookup the
+   accept lanes run (vtl_maglev_pick), no failover, every query
+   answered by the device, one B1 launch per batch, every callback on
+   the loop thread; prints connections, batches, mean and max batch,
+   B1 launches, accept->delivery p50/p99 (us, on the loop thread's
+   monotonic clock) split at the submit, and the service's
+   submit->delivery percentiles, with the card's line;
+6. CIDR kernel vs plain tier, int32-exact: B4 on the 50k route table
    and the 5k ACL at B = 16 / 512 / 4096 (v4, ::v4, ::ffff:v4 and v6
    queries, an eighth of each batch pad rows, the ACL with its ports
    and with port=None), on the CPU parity sets of
@@ -44,7 +62,7 @@ in order:
    and entry windows); B1's [B, 3] form against the 3-column plain
    tier on the 100k hint table + the 50k routes, and on an ACL with
    ports;
-6. CIDR service: the SecurityGroup answers allow_async for 4 x 512
+7. CIDR service: the SecurityGroup answers allow_async for 4 x 512
    (address, port) pairs, and a 50k-route CidrMatcher answers 4 x 512
    submit_cidr(port=None), one burst mixed with port-carrying queries;
    every answer equal to CidrIndex.lookup and the linear oracle_snap,
@@ -52,7 +70,7 @@ in order:
    the device; then 4 fused_dispatch_all batches of 512 (verdict, pick
    and route in one B1 launch each), every column equal to the host
    index;
-7. times at B = 16, 512, 4096: the kernel's and the plain tier's device
+8. times at B = 16, 512, 4096: the kernel's and the plain tier's device
    time per call (profiler) with the 22.7 MB table L2-warm, as under
    steady serving; the kernel's device time with L2 flushed before each
    launch (cold: every table byte comes from HBM); wall time per call
@@ -64,12 +82,12 @@ in order:
    bound, read against the cold time; the warm time, served from L2,
    may beat it; then the warm kernel time alone at B = 512 to 8192, to
    show where it stops being set by one query's chain of loads;
-8. the same times for B4 (route table, ACL) and for B1 with its route
+9. the same times for B4 (route table, ACL) and for B1 with its route
    column, each row with its batch's cidr_design, and where one cidr
    batch of 512 spends its host time
    (address encode, upload, wrapper call with the kernel, the whole
    CidrMatcher.match round trip);
-9. the {"kernels": [...]} line (B1, B1 with the route column, B4),
+10. the {"kernels": [...]} line (B1, B1 with the route column, B4),
    then the card's line, then the device line.
 
 Any failed phase raises, and the script exits non-zero.
@@ -729,8 +747,9 @@ def _ptxas(lib: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Both libraries, one nvcc each, started together. -> {library:
-    {"build_s": seconds, "instances": _ptxas()}}."""
+    """Both kernel libraries, one nvcc each, and the port's libvtl (g++),
+    started together. -> {library: {"build_s": seconds, "instances":
+    _ptxas()}}."""
     from vproxy_tpu_torch.ops import cidr_cuda as CC
     from vproxy_tpu_torch.ops import fused_cuda as FC
 
@@ -738,11 +757,17 @@ def phase_build() -> dict:
         t0 = time.monotonic()
         return fn(), time.monotonic() - t0
 
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         futs = {"fused": ex.submit(timed, FC.build),
-                "cidr": ex.submit(timed, CC.build)}
+                "cidr": ex.submit(timed, CC.build),
+                "vtl": ex.submit(timed, native_vtl)}
         built = {k: f.result() for k, f in futs.items()}
-    out = {}
+    vtl, secs = built.pop("vtl")
+    log(f"build: libvtl (g++) {secs:.2f} s -> "
+        f"{os.path.relpath(vtl.LIB_PATH, os.path.dirname(vtl.BUILD_DIR))}"
+        f" from {os.path.relpath(vtl.SOURCE, os.path.dirname(vtl.BUILD_DIR))}"
+        f", provider {vtl.PROVIDER}")
+    out = {"vtl": {"build_s": secs}}
     for lib_name, want in (("fused", 8), ("cidr", 1)):
         lib, secs = built[lib_name]
         log(f"build: {lib_name} {secs:.2f} s -> {os.path.basename(lib)}")
@@ -944,6 +969,323 @@ def phase_service(device, rules):
     finally:
         svc.close()
     return launches, pair
+
+
+# ------------------------------------------------------ the event plane
+# The port's accept path up to the backend connect: a SelectorEventLoop
+# accepts loopback connections through the native FD layer, peeks each
+# ClientHello (the bytes stay queued), parses its SNI, classifies and
+# picks through ClassifyService (one B1 launch per batch) and gets the
+# answer back on its own thread, where it closes the connection. The
+# accept handler follows vproxy_tpu/components/tcplb.py:1035-1110.
+
+LOOP_CONCURRENCY = 512  # connections open at once (one per client thread)
+NOFILE_MIN = 1100       # two fds per open connection, and room besides
+LOOPBACK = "127.0.0.1"
+
+
+def loop_hosts(rules, n: int, seed: int) -> list:
+    """SNI hosts drawn from the table's hosts, one in five a host the
+    table lacks (the wildcard-host rules answer those), like
+    mk_queries' host mix."""
+    rnd = random.Random(seed)
+    out = []
+    for i in range(n):
+        j = rnd.randrange(len(rules))
+        host = rules[j].host
+        if host is None or host == "*" or i % 5 == 4:
+            host = f"miss{j}.ns{i % 97}.example.com"
+        out.append(host)
+    return out
+
+
+def tls_hellos(hosts) -> list:
+    """A real ClientHello per host from stdlib ssl: the first
+    do_handshake() of a client SSLObject over MemoryBIOs leaves it in
+    the outgoing BIO."""
+    import ssl
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_NONE
+    out = []
+    for h in hosts:
+        inb, outb = ssl.MemoryBIO(), ssl.MemoryBIO()
+        obj = ctx.wrap_bio(inb, outb, server_hostname=h)
+        try:
+            obj.do_handshake()
+        except ssl.SSLWantReadError:
+            pass
+        out.append(outb.read())
+    return out
+
+
+def raise_nofile() -> int:
+    """Soft RLIMIT_NOFILE up to the hard limit; -> the soft limit."""
+    import resource
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    return soft if soft != resource.RLIM_INFINITY else 1 << 30
+
+
+def native_vtl():
+    """The port's FD layer, which must be the native provider loaded
+    from the library built out of this checkout's native/vtl.cpp into
+    vproxy_tpu_torch/_build/ (never the Python pump). -> the module."""
+    from vproxy_tpu_torch.net import vtl
+    build = os.path.realpath(vtl.BUILD_DIR)
+    lib = os.path.realpath(vtl.LIB_PATH or "")
+    check(vtl.PROVIDER == "native", f"FD provider is {vtl.PROVIDER!r}")
+    check(os.path.dirname(lib) == build and
+          build == os.path.realpath(os.path.join(
+              os.path.dirname(os.path.abspath(__file__)),
+              "vproxy_tpu_torch", "_build")),
+          f"libvtl loaded from {lib}, not from {build}")
+    return vtl
+
+
+def _client(port: int, hello: bytes) -> int:
+    """One loopback client: connect, write the ClientHello, wait for the
+    server to close. -> the client's port."""
+    import socket
+    s = socket.create_connection((LOOPBACK, port), timeout=60)
+    try:
+        cport = s.getsockname()[1]
+        s.sendall(hello)
+        try:
+            s.recv(1)  # b"" on FIN; the unread hello makes it an RST
+        except ConnectionResetError:
+            pass
+        return cport
+    finally:
+        s.close()
+
+
+_CLIENTS = None  # the client process's thread pool, kept across bursts
+
+
+def _client_burst(port: int, hellos: list, concurrency: int) -> list:
+    """Runs in the client process: one connection per hello, at most
+    `concurrency` open at once. -> the clients' ports, in order."""
+    global _CLIENTS
+    if _CLIENTS is None:
+        _CLIENTS = ThreadPoolExecutor(concurrency)
+    return list(_CLIENTS.map(lambda h: _client(port, h), hellos))
+
+
+def phase_loop(device, pair, rules, bursts=BURSTS, burst=SERVICE_BATCH,
+               concurrency=LOOP_CONCURRENCY) -> tuple:
+    """Bursts of loopback TLS-hello connections through the port's event
+    loop, ServerSock and native vtl, classified and picked by
+    ClassifyService; every answer is checked against the host index and
+    Maglev's host pick, every matched pick against the C lookup the
+    accept lanes run. -> (the phase's numbers, its answers as (host,
+    client ip, client port, verdict, pick) rows)."""
+    import ctypes
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from vproxy_tpu_torch.net.connection import ServerSock
+    from vproxy_tpu_torch.net.eventloop import SelectorEventLoop
+    from vproxy_tpu_torch.net.sniff import MAX_HELLO, parse_client_hello_sni
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.rules import maglev as M
+    from vproxy_tpu_torch.rules.ir import Hint
+    from vproxy_tpu_torch.rules.service import ClassifyService
+    from vproxy_tpu_torch.utils.ip import parse_ip
+    vtl = native_vtl()
+    nofile = raise_nofile()
+    check(nofile >= NOFILE_MIN, f"RLIMIT_NOFILE {nofile} < {NOFILE_MIN}")
+    hm, mm = pair.hm, pair.mm
+    hsnap, msnap = hm.snapshot(), mm.snapshot()
+    tab = msnap[0]
+    # the table converted once, as vtl.maglev_pick converts it per call
+    # (65,537 slots: tens of ms a call), then the same C symbol per row
+    c_tab = (ctypes.c_int32 * len(tab))(*[int(x) for x in tab])
+
+    def c_pick(ip: bytes, port: int) -> int:
+        return int(vtl.LIB.vtl_maglev_pick(c_tab, len(tab), ip, len(ip),
+                                           port, 1))
+
+    plan = []
+    for k in range(bursts):
+        hosts = loop_hosts(rules, burst, seed=500 + k)
+        plan.append((hosts, tls_hellos(hosts)))
+    svc = ClassifyService(mode="device")
+    lp = SelectorEventLoop("chip-smoke-accept")
+    th = lp.loop_thread()
+    lock = threading.Lock()
+    # (burst, client port) -> answer records: a client's port is free
+    # again once the server closed, so a later client of the same burst
+    # may connect from it
+    got: dict = {}
+    faults: list = []
+    st = {"burst": 0, "rearms": 0, "answered": 0}
+    burst_done = threading.Event()
+
+    def finish(key, rec) -> None:
+        with lock:
+            got.setdefault(key, []).append(rec)
+            st["answered"] += 1
+            if st["answered"] == burst:
+                burst_done.set()
+
+    def on_accept(cfd: int, ip: str, port: int) -> None:
+        t_acc = time.monotonic_ns()
+        key = (st["burst"], port)
+        live = [True]
+
+        def abort(why: str) -> None:
+            live[0] = False
+            lp.remove(cfd)
+            vtl.close(cfd)
+            faults.append(f"{ip}:{port}: {why}")
+            finish(key, None)
+
+        def rearm() -> None:
+            if live[0] and lp.registered(cfd):
+                lp.modify(cfd, vtl.EV_READ)
+
+        def on_ev(fd: int, ev: int) -> None:
+            if ev & vtl.EV_ERROR:
+                abort("socket error before the hello")
+                return
+            try:
+                data = vtl.recv_peek(cfd, MAX_HELLO)
+            except OSError as e:
+                abort(f"peek: {e!r}")
+                return
+            if data is None:
+                return  # spurious wakeup
+            if not data:
+                abort("EOF before the hello")
+                return
+            sni, complete = parse_client_hello_sni(data)
+            if not complete:
+                # MSG_PEEK leaves the fd readable: park interest and
+                # look again shortly, as the LB's accept path does
+                st["rearms"] += 1
+                lp.modify(cfd, 0)
+                lp.delay(20, rearm)
+                return
+            live[0] = False
+            lp.remove(cfd)
+            if not sni:
+                vtl.close(cfd)
+                faults.append(f"{ip}:{port}: no SNI in a complete hello")
+                finish(key, None)
+                return
+            src = parse_ip(ip)
+            t_sub = time.monotonic_ns()
+
+            def cb(verdict: int, pick: int, _payload) -> None:
+                on_loop = threading.current_thread() is th
+                t = time.monotonic_ns()
+                vtl.close(cfd)
+                finish(key, (sni, src, verdict, pick, on_loop,
+                             (t - t_acc) / 1e3, (t_sub - t_acc) / 1e3,
+                             (t - t_sub) / 1e3))
+
+            svc.submit_classify_pick(pair, Hint.of_host(sni), src, port,
+                                     cb, loop=lp)
+
+        lp.add(cfd, vtl.EV_READ, on_ev)
+
+    srv = lp.call_sync(lambda: ServerSock(lp, LOOPBACK, 0, on_accept,
+                                          backlog=4096))
+    n = bursts * burst
+    lat, rows, reused = [], [], 0
+    # the clients' thread pool runs in a process of its own, so that its
+    # threads do not share the loop's interpreter lock
+    clients = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    try:
+        clients.submit(_client_burst, srv.port, [], concurrency).result(
+            timeout=120)  # started and warm before the first burst
+        FC.fused_classify_pick_cuda.launches = 0
+        d0, q0 = svc.stats.dispatches, svc.stats.device_queries
+        t0 = time.monotonic()
+        for k, (hosts, hellos) in enumerate(plan):
+            st["burst"] = k
+            st["answered"] = 0
+            burst_done.clear()
+            cports = clients.submit(_client_burst, srv.port, hellos,
+                                    concurrency).result(timeout=180)
+            check(burst_done.wait(120),
+                  f"loop burst {k}: {st['answered']} of {burst} answered "
+                  f"after 120 s; faults {faults[:3]}")
+            reused += sum(len(v) - 1 for kk, v in got.items() if kk[0] == k)
+            for i, cport in enumerate(cports):
+                # this client's answer: the record from its port with
+                # its SNI (two such records would have equal answers)
+                recs = got.get((k, cport), [])
+                rec = next((r for r in recs
+                            if r is not None and r[0] == hosts[i]), None)
+                check(rec is not None, f"loop burst {k} row {i}: no "
+                      f"answer for {hosts[i]!r} ({faults[:3]})")
+                recs.remove(rec)
+                sni, src, v, p, on_loop = rec[:5]
+                check(on_loop, f"loop burst {k} row {i}: callback off "
+                      f"the loop thread")
+                want = (hm.index_snap(hsnap, Hint.of_host(hosts[i])),
+                        M.pick(tab, src, cport))
+                check((v, p) == want, f"loop burst {k} row {i}: "
+                      f"{(v, p)} != host {want}")
+                rows.append((hosts[i], src, cport, v, p))
+                if v >= 0:
+                    check(p == c_pick(src, cport),
+                          f"loop burst {k} row {i}: pick {p} != the C "
+                          f"lookup {c_pick(src, cport)}")
+                lat.append(rec[5:])
+        wall_s = time.monotonic() - t0
+        launches = FC.fused_classify_pick_cuda.launches
+        batches = svc.stats.dispatches - d0
+        stats = svc.stats
+        check(not faults, f"accept faults: {faults[:5]}")
+        check(not any(got.values()),
+              f"answers no client claimed: {[r for r in got.values() if r]}")
+        check(stats.failovers == 0, f"{stats.failovers} device failovers")
+        check(stats.device_queries - q0 == n and stats.oracle_queries == 0,
+              f"device answered {stats.device_queries - q0} of {n}")
+        if device.type == "cuda":  # the plain tier serves CPU tensors
+            check(launches == batches, f"B1 launches {launches} != "
+                  f"classify+pick batches {batches}")
+        for i in range(4):  # the wrapper itself on the same table
+            src, cport = parse_ip(LOOPBACK), 40000 + i
+            check(vtl.maglev_pick(tab, src, cport) == c_pick(src, cport),
+                  "vtl.maglev_pick != its C symbol")
+
+        def pct(col: int, q: int) -> float:
+            xs = sorted(t[col] for t in lat)
+            return xs[min(len(xs) - 1, len(xs) * q // 100)]
+
+        out = {"connections": n, "bursts": bursts, "burst": burst,
+               "concurrency": concurrency,
+               "matched": sum(1 for r in rows if r[3] >= 0),
+               "batches": batches, "b1_launches": launches,
+               "mean_batch": n / max(batches, 1),
+               "max_batch": stats.max_batch,
+               "hello_rearms": st["rearms"], "client_ports_reused": reused,
+               "accept_to_delivery_p50_us": pct(0, 50),
+               "accept_to_delivery_p99_us": pct(0, 99),
+               "accept_to_submit_p50_us": pct(1, 50),
+               "accept_to_submit_p99_us": pct(1, 99),
+               "submit_to_delivery_p50_us": pct(2, 50),
+               "submit_to_delivery_p99_us": pct(2, 99),
+               "classify_latency": stats.latency_percentiles(),
+               "wall_s": wall_s, "provider": vtl.PROVIDER,
+               "libvtl": os.path.relpath(vtl.LIB_PATH,
+                                         os.path.dirname(os.path.abspath(
+                                             __file__))),
+               "nofile": nofile}
+    finally:
+        clients.shutdown()
+        try:
+            lp.call_sync(srv.close)
+        finally:
+            lp.close()
+            svc.close()
+    return out, rows
 
 
 def call_ms(fn, iters: int, reps: int = 5) -> float:
@@ -1619,11 +1961,17 @@ def phase_cidr_times(device, keep, routes, am, acl):
 
 def main() -> int:
     smi = phase_env()
+    # the native FD provider, built from this checkout: a build or load
+    # failure raises instead of falling back to the Python pump
+    os.environ["VPROXY_TPU_FD_PROVIDER"] = "native"
+    os.environ.pop("VPROXY_TPU_VTL_SO", None)
     from vproxy_tpu_torch.rules import engine as E
     device = torch.device("cuda")
     builds = phase_build()
     err, keep = phase_kernel_vs_plain(device)
     launches, pair = phase_service(device, keep[0])
+    loop, _ = phase_loop(device, pair, keep[0])
+    log(json.dumps({"loop": {**loop, "card": smi}}))
     routes, group, am, acl = cidr_tables(device)
     b4_err, rc_err = phase_cidr_vs_plain(device, keep, routes, am, acl)
     b4_launches = phase_cidr_service(routes, group, am, acl)
@@ -1649,7 +1997,10 @@ def main() -> int:
                 "batch": SERVICE_BATCH, "card": smi, **extra}
 
     log(json.dumps({"kernels": [
-        entry("fused_classify_pick", SOURCE, REPLACES, launches, err, rows,
+        entry("fused_classify_pick", SOURCE, REPLACES,
+              launches + loop["b1_launches"], err, rows,
+              launches_by_path={"service": launches,
+                                "loop": loop["b1_launches"]},
               build_s=builds["fused"]["build_s"],
               instances=builds["fused"]["instances"], by_batch=rows,
               sweep=sweep),

@@ -6,9 +6,15 @@
 * default_device() is CUDA; without a GPU it raises unless the caller
   asked for the CPU (device="cpu" or VPROXY_TPU_TORCH_DEVICE=cpu).
 * chip_smoke.py exits non-zero, printing no result, without a GPU.
+* Nothing of the port builds from or loads out of vproxy_tpu/: its vtl
+  builds its own native/vtl.cpp into its own _build/; no port file (nor
+  chip_smoke.py) holds a "vproxy_tpu" path component or, outside its
+  docstrings, a string naming vproxy_tpu/native; and importing the
+  event loop leaves jax and vproxy_tpu out of sys.modules.
 """
 import ast
 import os
+import shutil
 import subprocess
 import sys
 
@@ -103,3 +109,62 @@ def test_chip_smoke_refuses_without_gpu():
                        cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def fresh_python(code: str, **env):
+    """Run code in a fresh interpreter with only the repo on the path."""
+    full = {k: v for k, v in os.environ.items()
+            if k not in ("PYTHONPATH", "VPROXY_TPU_VTL_SO")}
+    full.update(PYTHONPATH=ROOT, **env)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=full,
+                          capture_output=True, text=True, timeout=120)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no g++")
+def test_vtl_builds_and_loads_inside_the_port():
+    r = fresh_python("from vproxy_tpu_torch.net import vtl\n"
+                     "print(vtl.PROVIDER)\nprint(vtl.SOURCE)\n"
+                     "print(vtl.LIB_PATH)\n")
+    assert r.returncode == 0, r.stderr[-2000:]
+    provider, source, lib = r.stdout.split()
+    assert provider == "native"
+    pkg = os.path.realpath(PKG) + os.sep
+    assert os.path.realpath(source) == os.path.join(pkg, "native", "vtl.cpp")
+    assert os.path.realpath(lib).startswith(os.path.join(pkg, "_build", ""))
+
+
+def docstring_nodes(tree) -> set:
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and \
+                    isinstance(first.value, ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+@pytest.mark.parametrize("rel", port_files())
+def test_no_reference_path_constant(rel):
+    """A path into the reference package would let the port build from
+    or load its files: no constant is the component "vproxy_tpu", and
+    none but a docstring names vproxy_tpu/native (chip_smoke.py's
+    REPLACES* constants cite reference kernels by file:line)."""
+    with open(os.path.join(ROOT, rel)) as f:
+        tree = ast.parse(f.read(), rel)
+    docs = docstring_nodes(tree)
+    bad = [(n.lineno, n.value) for n in ast.walk(tree)
+           if isinstance(n, ast.Constant) and isinstance(n.value, str)
+           and (n.value == "vproxy_tpu" or (
+               "vproxy_tpu/native" in n.value and id(n) not in docs))]
+    assert not bad, (rel, bad)
+
+
+def test_eventloop_import_leaves_jax_out():
+    r = fresh_python(
+        "import sys\nimport vproxy_tpu_torch.net.eventloop\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'vproxy_tpu') or "
+        "m.startswith(('jax.', 'jaxlib', 'vproxy_tpu.'))]\n"
+        "assert not bad, bad\n")
+    assert r.returncode == 0, r.stderr[-2000:]

@@ -6,9 +6,15 @@ dtype, shape and bytes. Covers compile_hint_hash, both query encoders
 (per-hint below SMALL_ENCODE, vectorized above), pack_hint_table with
 and without uri rules, Maglev build_table/flow_slots, the cuckoo hashes,
 HintIndex, _expand_patterns and the upload that carries reference
-tables over (tables_from_reference).
+tables over (tables_from_reference). Plus the replication checksums:
+HintMatcher.checksum and MaglevMatcher.checksum equal the reference's
+on the same rules and backends, across a republish, and GROUP_M reads
+the reference's knob with its default.
 """
+import os
 import random
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +24,7 @@ from test_fused import mk_ips, mk_queries, mk_rules
 from vproxy_tpu.ops import cuckoo as RCK
 from vproxy_tpu.ops import fused as RF
 from vproxy_tpu.ops import hashmatch as RH
+from vproxy_tpu.rules import engine as RE
 from vproxy_tpu.rules import index as RI
 from vproxy_tpu.rules import maglev as RM
 from vproxy_tpu.rules import oracle as RO
@@ -25,6 +32,7 @@ from vproxy_tpu.utils import failpoint as RFP
 from vproxy_tpu_torch.ops import cuckoo as CK
 from vproxy_tpu_torch.ops import fused as F
 from vproxy_tpu_torch.ops import hashmatch as H
+from vproxy_tpu_torch.rules import engine as E
 from vproxy_tpu_torch.rules import index as I
 from vproxy_tpu_torch.rules import maglev as M
 from vproxy_tpu_torch.rules import oracle as O
@@ -233,3 +241,57 @@ def test_tables_from_reference_keeps_keys_and_dtypes(what):
         assert isinstance(got[k], torch.Tensor) and got[k].device.type == "cpu"
         back = to_host(got[k])
         assert back.dtype == v.dtype and np.array_equal(back, v), k
+
+
+# ------------------------------------------------------ checksums
+
+@pytest.mark.parametrize("name", sorted(RULESETS))
+def test_hint_matcher_checksum_matches_reference(name, monkeypatch):
+    """crc32 of the published rule reprs, the same number in both
+    packages, cached per generation and moved by a republish."""
+    monkeypatch.setenv("VPROXY_TPU_INSTALL_PACE", "0")
+    rules = list(RULESETS[name]())
+    got, ref = E.HintMatcher(rules, backend="host"), \
+        RE.HintMatcher(rules, backend="host")
+    c0 = got.checksum()
+    assert c0 == ref.checksum() == got.checksum()
+    more = rules + [HintRule(host="new.example.com", port=8443)]
+    got.set_rules(more)
+    ref.set_rules(more)
+    assert got.checksum() == ref.checksum() != c0
+    got.set_rules(rules)
+    assert got.checksum() == c0
+
+
+@pytest.mark.parametrize("entries", [
+    [(f"b{i}", 1) for i in range(11)],
+    [(f"10.9.{i // 250}.{i % 250}:80", 1 + i % 4) for i in range(256)],
+    [],
+])
+def test_maglev_matcher_checksum_matches_reference(entries, monkeypatch):
+    monkeypatch.setenv("VPROXY_TPU_INSTALL_PACE", "0")
+    got = M.MaglevMatcher(entries, m=251, device="cpu")
+    ref = RM.MaglevMatcher(entries, m=251)
+    c0 = got.checksum()
+    assert c0 == ref.checksum()
+    more = entries + [("added:80", 3)]
+    got.set_backends(more)
+    ref.set_backends(more)
+    assert got.checksum() == ref.checksum() != c0
+
+
+def test_group_m_reads_the_reference_knob():
+    assert M.GROUP_M == RM.GROUP_M
+    if "VPROXY_TPU_MAGLEV_GROUP_M" not in os.environ:
+        assert M.GROUP_M == 4099
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "from vproxy_tpu_torch.rules import maglev as M\n"
+         "from vproxy_tpu.rules import maglev as RM\n"
+         "print(M.GROUP_M, RM.GROUP_M)\n"],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": root, "JAX_PLATFORMS": "cpu",
+             "VPROXY_TPU_MAGLEV_GROUP_M": "251"})
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split() == ["251", "251"]

@@ -479,6 +479,7 @@ class HintMatcher:
         # `fused` the packed tables of the fused entry
         self._pub: tuple = (None, None, [], payload, None, None)
         self._payload = payload
+        self._cksum = None  # (pub-tuple, crc32) cache — see checksum()
         self._recompile()
         with _gen_lock:
             _MATCHERS.add(self)
@@ -580,6 +581,20 @@ class HintMatcher:
 
     def size(self) -> int:
         return len(self._pub[2])
+
+    def checksum(self) -> int:
+        """u32 checksum of the published rule generation: the cluster
+        replication gate compares it across hosts, so it is the
+        reference's (crc32 over the rule reprs, independent of the
+        caps-growth history); cached per published generation."""
+        pub = self._pub
+        cached = self._cksum
+        if cached is not None and cached[0] is pub:
+            return cached[1]
+        import zlib
+        v = zlib.crc32("\n".join(map(repr, pub[2])).encode())
+        self._cksum = (pub, v)
+        return v
 
     def snapshot(self) -> tuple:
         """One consistent (table, device, rules, payload, index, fused)

@@ -41,6 +41,9 @@ FNV64_PRIME = 0x100000001B3
 _MASK64 = (1 << 64) - 1
 
 DEFAULT_M = int(os.environ.get("VPROXY_TPU_MAGLEV_M", "65537"))
+# the table size of the per-group tables (a server group's, an accept
+# lane's): the shared knob keeps its name
+GROUP_M = int(os.environ.get("VPROXY_TPU_MAGLEV_GROUP_M", "4099"))
 
 _TURN_CAP = 4096  # weighted turn-order bound (weights renormalized past it)
 
@@ -317,6 +320,13 @@ class MaglevMatcher:
 
     def size(self) -> int:
         return len(self._pub[2])
+
+    def checksum(self) -> int:
+        """u32 checksum of the published (name, weight) entries, the
+        reference's crc32."""
+        import zlib
+        return zlib.crc32(
+            "\n".join(f"{n}:{w}" for n, w in self._pub[2]).encode())
 
     def pick_one(self, ip: bytes, port: Optional[int] = None) -> int:
         return self.pick_snap(self._pub, ip, port)

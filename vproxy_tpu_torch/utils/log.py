@@ -1,12 +1,18 @@
-"""Leveled, colored, channel-based logging.
+"""Leveled, colored, channel-based logging + probe channels.
 
 Reference: base util/Logger.java:317 (leveled + colored + machine-
-parsable types), as in vproxy_tpu/utils/log.py:
+parsable types), probe channels gated by -Dprobe (Config.java:97-123),
+and `lowLevelDebug` behind asserts. Here:
 
 * `Logger("channel")` — per-subsystem logger; levels debug/info/warn/
   error/alert; `alert` is the reference's ALERT log type (operator-
-  visible events: device failover, ...).
+  visible events: device failover, loop death, OOM...).
+* probe channels — `VPROXY_TPU_PROBE=comma,separated,channels` enables
+  targeted data-path tracing with zero cost when off (one set lookup).
+  Mirrors the reference's `-Dprobe=...`.
 * level filter — `VPROXY_TPU_LOG=debug|info|warn|error` (default info).
+
+The port's copy of vproxy_tpu/utils/log.py, same names and behaviour.
 """
 from __future__ import annotations
 
@@ -27,6 +33,30 @@ _lock = threading.Lock()
 
 def _min_level() -> int:
     return _LEVELS.get(os.environ.get("VPROXY_TPU_LOG", "info"), 1)
+
+
+def _probes() -> set:
+    v = os.environ.get("VPROXY_TPU_PROBE", "")
+    return {p.strip() for p in v.split(",") if p.strip()}
+
+
+_PROBES = _probes()
+
+
+def reload_probes() -> None:
+    """Re-read VPROXY_TPU_PROBE (config hot-reload / tests)."""
+    global _PROBES
+    _PROBES = _probes()
+
+
+def probe_enabled(channel: str) -> bool:
+    return channel in _PROBES
+
+
+def probe(channel: str, msg: str) -> None:
+    """Targeted data-path trace; no-op unless the channel is enabled."""
+    if channel in _PROBES:
+        _emit("debug", f"probe/{channel}", msg)
 
 
 def _emit(level: str, channel: str, msg: str, exc: bool = False) -> None:

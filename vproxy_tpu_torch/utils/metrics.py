@@ -1,11 +1,13 @@
 """Prometheus-style metrics registry + the process-global surface.
 
 Parity: reference `vproxybase/prometheus/Metrics.java` (Counter / Gauge
-/ GaugeF with a label set, text exposition). The engine slice carries
-only the families its modules read — the classify service counters,
-the engine launch/generation gauges, the install and Maglev build
-histograms — under the same names as `vproxy_tpu`'s /metrics, so one
-scrape config reads both packages.
+/ GaugeF with a label set, text exposition). The port carries only the
+families its modules read — the classify service counters, the engine
+launch/generation gauges, the install and Maglev build histograms, the
+event-loop count and the UDP drop counter — under the same names as
+`vproxy_tpu`'s /metrics, so one scrape config reads both packages;
+GlobalInspection also keeps the registry of live event loops
+(register_loop / deregister_loop, called by net/eventloop.py).
 """
 from __future__ import annotations
 
@@ -248,9 +250,12 @@ class GlobalInspection:
 
     def __init__(self):
         self.registry = MetricsRegistry()
+        self._loops: Dict[int, object] = {}  # id(loop) -> SelectorEventLoop
         self._lock = threading.Lock()
         # (name, sorted-label-items) -> Metric for get-or-create users
         self._named: Dict[tuple, Metric] = {}
+        self.registry.gauge_f("vproxy_event_loop_count",
+                              lambda: len(self._loops))
         # micro-batch classify queue (rules/service.py): batching ratio
         # = queries / dispatches
         for k in ("queries", "dispatches", "device_queries",
@@ -277,6 +282,9 @@ class GlobalInspection:
         # in rules/engine.py and rules/maglev.py resolve to these
         self.get_histogram("vproxy_engine_swap_ms", reservoir=512)
         self.get_histogram("vproxy_maglev_build_ms", reservoir=256)
+        # silent-drop accounting (udp_drop_incr below): created eagerly
+        # so a scrape shows the zero before the first drop
+        self.get_counter("vproxy_udp_drop_total")
 
     @staticmethod
     def _classify_stat(key: str) -> float:
@@ -322,5 +330,27 @@ class GlobalInspection:
                 cls._instance = GlobalInspection()
             return cls._instance
 
+    # ----------------------------------------------------------- loops
+
+    def register_loop(self, loop) -> None:
+        with self._lock:
+            self._loops[id(loop)] = loop
+
+    def deregister_loop(self, loop) -> None:
+        with self._lock:
+            self._loops.pop(id(loop), None)
+
     def prometheus_string(self) -> str:
         return self.registry.prometheus_text()
+
+
+_UDP_DROP_CTR: Optional[Counter] = None
+
+
+def udp_drop_incr(n: int = 1) -> None:
+    """Count datagrams dropped on a full queue (net/wrapfd.py)."""
+    global _UDP_DROP_CTR
+    if _UDP_DROP_CTR is None:
+        _UDP_DROP_CTR = GlobalInspection.get().get_counter(
+            "vproxy_udp_drop_total")
+    _UDP_DROP_CTR.incr(n)
