@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the checkout's sources (the fused
-classify+pick kernel B1, with its route column, and the CIDR kernel
-B4), holds them bit for bit against their plain torch tiers, serves
-hint and classify+pick bursts through ClassifyService over a 100k-rule
-Host/SNI/URI table and a 65,537-slot Maglev table over 256 weighted
-backends, and again for TLS connections accepted on the port's own
-event loop, ACL checks through a SecurityGroup of 5,000 TCP rules and
-route lookups against a 50,000-route table (BASELINE config #4, not
+classify+pick kernel B1, with its route column and its verdict-only
+mode B3, and the CIDR kernel B4), holds them bit for bit against their
+plain torch tiers, serves hint and classify+pick bursts through
+ClassifyService over a 100k-rule Host/SNI/URI table and a 65,537-slot
+Maglev table over 256 weighted backends, and again for TLS connections
+accepted on the port's own event loop, drives the port's TcpLB end to
+end (BASELINE config #2 as far as its build budget allows, behind
+config #4's ACL), ACL checks through a SecurityGroup of 5,000 TCP rules
+and route lookups against a 50,000-route table (BASELINE config #4, not
 cut), times the kernels, and prints one JSON line per result. Phases,
 in order:
 
@@ -30,11 +32,20 @@ in order:
    words), shared_keys and random_300_b600, wide_buckets (more live
    candidates per query than the kernel lists at once), and the
    boundary sets at every compare word, each with and without its uri
-   rules;
+   rules; and B3 (the same kernel with no Maglev column: rule index and
+   level, hashmatch.hint_hash_match) in each of these cases against
+   both plain versions (hint_hash_match over the unpacked arrays,
+   fused._hint_verdict_packed over the packed table), at the 100k uri
+   table with B = 16 / 512 / 4096 (an eighth pad rows), and on that
+   table and wide_buckets cut short where JAX clamps (cut_hint_table:
+   no bucket entries, or bucket items past a fifth of the array; the
+   plain versions read the cut table grown back, clamp_grown);
 4. service: 4 bursts of 512 submit_classify_pick requests through a
    FusedPair and 4 of 512 submit_hint requests, every answer equal to
    the host index (HintIndex + maglev.pick), no failover, every query
-   answered by the device, one kernel launch per classify+pick batch;
+   answered by the device, one B1 launch per classify+pick batch and
+   one B3 launch per hint batch, never B1's cpick form for a hint
+   batch;
 5. event plane: one of the port's SelectorEventLoops accepts 4 bursts
    of 512 loopback connections (512 open at once, one client thread
    each, the threads in a spawned process so they do not share the
@@ -50,6 +61,22 @@ in order:
    B1 launches, accept->delivery p50/p99 (us, on the loop thread's
    monotonic clock) split at the submit, and the service's
    submit->delivery percentiles, with the card's line;
+5b. the TcpLB (the `tcplb` line): 256 loopback HTTP id-servers in a
+   spawned process (each answers `<id> <Host>`), an Upstream of up to
+   10,000 server groups, each with one Host rule (seeded: exact
+   domains, their subdomains by suffix, a sixteenth with a uri), group i
+   on backend i mod 256, added one by one until 10,000 or 60 s of build
+   (never under 256), behind a SecurityGroup of config #4's 5,000 TCP
+   ACL rules (default allow; the clients' address checked on CidrIndex
+   to pass); an http-splice LB serves 4 bursts of 512 concurrent
+   connections and an http (L7 http1) LB one burst of 64 keep-alive
+   connections x 4 requests, clients in a spawned process, the
+   service in "device" mode; every answer's backend equal to the
+   group the port's host index gives (any backend where no rule
+   matches), B3 launched once per hint batch, B4 once per cidr batch,
+   B1 and B3's torch tier never, no failover, the native provider;
+   prints the build, connect->first byte p50/p99, the accept-stage
+   histograms, batches per kind and launches per kernel;
 6. CIDR kernel vs plain tier, int32-exact: B4 on the 50k route table
    and the 5k ACL at B = 16 / 512 / 4096 (v4, ::v4, ::ffff:v4 and v6
    queries, an eighth of each batch pad rows, the ACL with its ports
@@ -81,13 +108,15 @@ in order:
    over the INT32 rate, whichever is larger). The bound is an HBM
    bound, read against the cold time; the warm time, served from L2,
    may beat it; then the warm kernel time alone at B = 512 to 8192, to
-   show where it stops being set by one query's chain of loads;
+   show where it stops being set by one query's chain of loads; B3's
+   rows the same way against hashmatch.hint_hash_match, its bound
+   without the Maglev slots and entries;
 9. the same times for B4 (route table, ACL) and for B1 with its route
    column, each row with its batch's cidr_design, and where one cidr
    batch of 512 spends its host time
    (address encode, upload, wrapper call with the kernel, the whole
    CidrMatcher.match round trip);
-10. the {"kernels": [...]} line (B1, B1 with the route column, B4),
+10. the {"kernels": [...]} line (B1, B1 with the route column, B4, B3),
    then the card's line, then the device line.
 
 Any failed phase raises, and the script exits non-zero.
@@ -129,6 +158,8 @@ KERNEL_B4 = "cidr_first_kernel"
 SOURCE_B4 = "vproxy_tpu_torch/csrc/cidr_first.cu"
 # B1's route column is B1's kernel; its contract is the 3-column form
 REPLACES_ROUTE = "vproxy_tpu/ops/fused.py:304"
+# B3 is B1's kernel in its verdict-only mode (a null Maglev column)
+REPLACES_B3 = "vproxy_tpu/ops/hashmatch.py:516"
 
 
 def log(msg: str) -> None:
@@ -685,6 +716,42 @@ CUTS = ("bk", "items", "slots", "meta")
 CUT_CASES = ("routes_2k", "acl_500", "acl_deep_buckets")  # cut every way
 
 
+def cut_hint_table(t: dict, how: str) -> dict:
+    """A hint table (its unpacked arrays or its packed dict: both carry
+    the same bucket item and iota arrays) cut short where the
+    reference's gathers clamp: "bucket" (a bucket cap of no entry, where
+    buckets list some: only the wildcard lists answer) or "items"
+    (bucket entries past the first fifth of hb_items / ub_items). The
+    kernel must clamp where JAX does."""
+    out = dict(t)
+    keys = ("bh_iota", "bu_iota") if how == "bucket" else ("hb_items",
+                                                          "ub_items")
+    for k in keys:
+        if k in t:
+            out[k] = t[k][:0] if how == "bucket" else \
+                t[k][: max(1, t[k].shape[0] // 5)]
+    return out
+
+
+def clamp_grown(cut: dict, full: dict) -> dict:
+    """`cut` with each item array cut short grown back to its length in
+    `full` by repeating its last entry: a gather from it at an index
+    `full` holds equals a gather from `cut` with the index clamped, as
+    JAX gathers. The hint plain tiers index with no upper clamp, so they
+    are held to a cut table through this."""
+    out = dict(cut)
+    for k, v in cut.items():
+        n = full[k].shape[0] - v.shape[0]
+        if n > 0 and k.endswith("_items"):
+            out[k] = (np.concatenate([v, np.repeat(v[-1:], n)])
+                      if isinstance(v, np.ndarray)
+                      else torch.cat([v, v[-1:].expand(n)]))
+    return out
+
+
+HINT_CUTS = ("bucket", "items")
+
+
 # -------------------------------------------------------------- phases
 
 def phase_env() -> str:
@@ -702,12 +769,15 @@ def phase_env() -> str:
 
 def instance(mangled: str) -> str:
     """A kernel's mangled name -> "uri W=16" and the like for
-    fused_kernel<URI, W>, "B4" for the CIDR kernel."""
+    fused_kernel<URI, W, PICK> (B1), "B3 uri W=16" for its verdict-only
+    instances (PICK false), "B4" for the CIDR kernel."""
     if KERNEL_B4 in mangled:
         return "B4"
-    m = re.search(r"fused_kernelILb([01])ELi(\d+)E", mangled)
-    return (f"{'uri' if m.group(1) == '1' else 'uri-free'} W={m.group(2)}"
-            if m else mangled)
+    m = re.search(r"fused_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
+    if not m:
+        return mangled
+    return (f"{'' if m.group(3) == '1' else 'B3 '}"
+            f"{'uri' if m.group(1) == '1' else 'uri-free'} W={m.group(2)}")
 
 
 def _ptxas(lib: str) -> dict:
@@ -768,7 +838,7 @@ def phase_build() -> dict:
         f" from {os.path.relpath(vtl.SOURCE, os.path.dirname(vtl.BUILD_DIR))}"
         f", provider {vtl.PROVIDER}")
     out = {"vtl": {"build_s": secs}}
-    for lib_name, want in (("fused", 8), ("cidr", 1)):
+    for lib_name, want in (("fused", 16), ("cidr", 1)):
         lib, secs = built[lib_name]
         log(f"build: {lib_name} {secs:.2f} s -> {os.path.basename(lib)}")
         kern = _ptxas(lib)
@@ -838,13 +908,62 @@ def kernel_cases():
         yield (name, *boundary(name))
 
 
+def b3_vs_plain(name, tab, ht, q, device, unpacked=None,
+                plain_ht=None) -> int:
+    """B3's kernel (B1's verdict-only mode) on the packed table `ht`
+    against both plain versions, hashmatch.hint_hash_match over the
+    unpacked arrays and fused._hint_verdict_packed over the packed table
+    (`plain_ht`, default `ht`: a cut table's plain versions read it
+    grown back, clamp_grown): int32 equality in index and level, the
+    level 0 where the index is -1. -> max |kernel - plain| over both
+    columns."""
+    from vproxy_tpu_torch.ops import fused as F
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    if unpacked is None:
+        unpacked = tables_from_reference(tab.arrays, device)
+    gi, gl = FC.hint_match_cuda(ht, q)
+    ri, rl = H.hint_hash_match(unpacked, q)
+    pi, pl = F._hint_verdict_packed(ht if plain_ht is None else plain_ht, q)
+    torch.cuda.synchronize()
+    d = max(int((gi.long() - ri.long()).abs().max()),
+            int((gl.long() - rl.long()).abs().max()))
+    log(f"B3 vs plain [{name}]: b {gi.shape[0]} r_cap "
+        f"{ht['pk_meta'].shape[0]} uri={ht.uri} word {ht.word} matched "
+        f"{int((ri >= 0).sum())} max_abs_err {d}")
+    for what, a, b_ in (("index, unpacked", gi, ri), ("level, unpacked", gl,
+                                                       rl),
+                        ("index, packed", gi, pi), ("level, packed", gl,
+                                                    pl)):
+        check(torch.equal(a, b_), f"B3 != plain ({what}) [{name}]")
+    check(bool((gl[gi < 0] == 0).all()), f"B3 level of a miss [{name}]")
+    return d
+
+
+def encode_padded(tab, hints, b: int, device) -> dict:
+    """Query tensors for `hints` padded to `b` rows the way the engine
+    pads a batch (pad rows: invalid probes, no match)."""
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.rules.engine import _PAD_CUCKOO, _pad_hint_q
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    q = _pad_hint_q(H.encode_hint_queries(hints, tab, pad_to=b), b,
+                    _PAD_CUCKOO)
+    return tables_from_reference(q, device)
+
+
 def phase_kernel_vs_plain(device):
-    """Every kernel_cases() case, int32-exact. -> (max |kernel - plain|,
+    """Every kernel_cases() case, int32-exact, for B1 and for B3 (its
+    verdict-only mode) on the same tables; B3 also at the 100k uri table
+    with B = 16 / 512 / 4096 (an eighth pad rows) and on that table and
+    wide_buckets cut short where JAX clamps (cut_hint_table, against
+    the plain tiers on clamp_grown). -> (B1 max |kernel - plain|, B3's,
     the 100k uri table pieces reused by the timing phase)."""
     from vproxy_tpu_torch.ops import fused as F
     from vproxy_tpu_torch.ops import fused_cuda as FC
     from vproxy_tpu_torch.ops.hashmatch import _PACK_I32_MAX
-    err = 0
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    err = b3_err = 0
     keep = None
     words = set()
     for name, rules, hints, caps in kernel_cases():
@@ -864,11 +983,29 @@ def phase_kernel_vs_plain(device):
             f"matched {int((ref[:, 0] >= 0).sum())}/{len(hints)} "
             f"max_abs_err {d} ({time.monotonic() - t0:.1f} s)")
         check(torch.equal(got, ref), f"kernel != plain tier [{name}]")
+        unpacked = tables_from_reference(tab.arrays, device)
+        b3_err = max(b3_err, b3_vs_plain(name, tab, ht, q, device,
+                                         unpacked))
+        if name in ("100k uri", "wide_buckets"):
+            qp = encode_padded(tab, hints, len(hints) + 8, device)
+            for how in HINT_CUTS:
+                cut = cut_hint_table(dict(ht), how)
+                b3_err = max(b3_err, b3_vs_plain(
+                    f"{name} cut {how}", tab, FC.prepare_table(cut), qp,
+                    device, clamp_grown(cut_hint_table(unpacked, how),
+                                        unpacked), clamp_grown(cut, ht)))
+        if name == "100k uri":
+            for b in TIME_BATCHES:
+                qb = encode_padded(tab, mk_queries(rules, b - b // 8,
+                                                   seed=900 + b), b, device)
+                b3_err = max(b3_err, b3_vs_plain(
+                    f"100k uri B={b}, {b // 8} pad rows", tab, ht, qb,
+                    device, unpacked))
         if keep is None:
             keep = (rules, tab, ht, mtab)
     check(len(words) == 8, f"cases ran {len(words)} of the 8 kernel "
           f"instances: {sorted(words)}")
-    return err, keep
+    return err, b3_err, keep
 
 
 def _answers(svc, submit, payloads):
@@ -940,6 +1077,8 @@ def phase_service(device, rules):
               f"kernel launches {launches}, cpick batches "
               f"{cpick_batches}, fused dispatches "
               f"{E.fused_dispatches_total() - f0}")
+        FC.hint_match_cuda.launches = 0
+        h0 = svc.stats.by_kind.get("hint", [0])[0]
         t0 = time.monotonic()
         for k in range(BURSTS):
             hints = mk_queries(rules, SERVICE_BATCH, seed=300 + k)
@@ -953,8 +1092,12 @@ def phase_service(device, rules):
         check(st.failovers == 0, f"{st.failovers} device failovers")
         check(st.device_queries == 2 * n and st.oracle_queries == 0,
               f"device answered {st.device_queries} of {2 * n}")
+        hint_batches = st.by_kind.get("hint", [0])[0] - h0
         check(FC.fused_classify_pick_cuda.launches == launches,
-              "hint bursts launched the fused kernel")
+              "hint bursts launched B1's cpick form")
+        check(FC.hint_match_cuda.launches == hint_batches > 0,
+              f"B3 launches {FC.hint_match_cuda.launches} != hint "
+              f"batches {hint_batches}")
         # the host index itself against the linear oracle (the
         # reference scan), on a sample
         sample = mk_queries(rules, 32, seed=400)
@@ -965,7 +1108,9 @@ def phase_service(device, rules):
             f"({cpick_s:.2f} s), {n} hint ({hint_s:.2f} s); "
             f"dispatches {st.dispatches} failovers {st.failovers} "
             f"device_queries {st.device_queries} max_batch "
-            f"{st.max_batch}; fused kernel launches {launches}")
+            f"{st.max_batch}; fused kernel launches {launches}, B3 "
+            f"launches {FC.hint_match_cuda.launches} for {hint_batches} "
+            f"hint batches")
     finally:
         svc.close()
     return launches, pair
@@ -1288,6 +1433,513 @@ def phase_loop(device, pair, rules, bursts=BURSTS, burst=SERVICE_BATCH,
     return out, rows
 
 
+# -------------------------------------------------------- the TcpLB path
+# The port's load balancer end to end: a TcpLB accepts loopback HTTP
+# connections, ACL-checks each against a 5k-rule SecurityGroup (B4,
+# ClassifyService's cidr kind), classifies its head against an
+# Upstream's Host/URI rules (B3, the hint kind), picks the group's
+# backend and splices the connection to it through the native pump;
+# a second LB runs the L7 http1 engine, which routes every request of a
+# keep-alive connection on its own.
+
+TCPLB_MAX_RULES = 10_000  # BASELINE config #2's target
+TCPLB_MIN_RULES = 256
+TCPLB_BUILD_S = 60.0      # the Upstream build's budget: every add publishes
+TCPLB_BACKENDS = 256
+B3_PATH_BATCHES = 32  # batches a bucket below the largest (b3_on_path)
+TCPLB_RULE_SEED, TCPLB_REQ_SEED = 61, 62
+KEEPALIVE_CONNS, KEEPALIVE_REQS = 64, 4
+
+
+def tcplb_rules(n: int, seed: int) -> list:
+    """BASELINE config #2's Host rules, one per server group (an Upstream
+    holds one rule per group), from a seeded numpy generator: distinct
+    domains under ~1,000 tenants (a request names one exactly, or a
+    subdomain of it: the suffix match), one in sixteen with a uri
+    prefix. No host "*" rule: it would match every host and leave
+    nothing to the WRR fallback, which this phase drives too."""
+    from vproxy_tpu_torch.rules.ir import HintRule
+    rng = np.random.default_rng(seed)
+    tenants = rng.integers(0, 997, n)
+    with_uri = rng.integers(0, 16, n) == 0
+    return [HintRule(host=f"s{i}.t{tenants[i]}.example.com",
+                     uri=f"/v{i % 7}" if with_uri[i] else None)
+            for i in range(n)]
+
+
+def tcplb_requests(rules, n: int, seed: int) -> list:
+    """(host, path) per request, seeded: a rule's exact host, a
+    subdomain of it, a host+uri rule's path, and one in five a host no
+    rule names (the WRR fallback answers it)."""
+    rng = np.random.default_rng(seed)
+    js = rng.integers(0, len(rules), n)
+    sub = rng.integers(0, 3, n) == 0
+    out = []
+    for k in range(n):
+        r = rules[int(js[k])]
+        if k % 5 == 4:
+            out.append((f"miss{js[k]}.nowhere.test", "/"))
+        elif r.uri is not None:
+            out.append((r.host, f"{r.uri}/items/{k}"))
+        elif sub[k]:
+            out.append((f"x{k}.{r.host}", "/"))
+        else:
+            out.append((r.host, f"/p{k}"))
+    return out
+
+
+def http_request(host: str, path: str, close: bool) -> bytes:
+    return (f"GET {path} HTTP/1.1\r\nhost: {host}\r\n" +
+            ("connection: close\r\n" if close else "") + "\r\n").encode()
+
+
+def _backend_main(n: int, conn) -> None:
+    """Runs in the backend process: n loopback HTTP id-servers (asyncio,
+    one thread). Each answers every request with `<id> <Host it saw>`
+    and keeps the connection unless the request asked to close. Sends
+    the ports down `conn`, serves until `conn` says stop."""
+    import asyncio
+    import functools
+    raise_nofile()
+
+    async def handle(reader, writer, bid):
+        try:
+            while True:
+                head = await reader.readuntil(b"\r\n\r\n")
+                host = b"?"
+                for line in head.split(b"\r\n")[1:]:
+                    k, _, v = line.partition(b":")
+                    if k.strip().lower() == b"host":
+                        host = v.strip()
+                body = b"%d %s" % (bid, host)
+                close = b"connection: close" in head.lower()
+                writer.write(b"HTTP/1.1 200 OK\r\ncontent-length: %d\r\n%s"
+                             b"\r\n%s" % (len(body), b"connection: close\r\n"
+                                          if close else b"", body))
+                await writer.drain()
+                if close:
+                    break
+        except (asyncio.IncompleteReadError, ConnectionError, OSError):
+            pass
+        finally:
+            writer.close()
+
+    async def main():
+        servers = [await asyncio.start_server(
+            functools.partial(handle, bid=i), LOOPBACK, 0, backlog=1024)
+            for i in range(n)]
+        conn.send([s.sockets[0].getsockname()[1] for s in servers])
+        await asyncio.get_running_loop().run_in_executor(None, conn.recv)
+        for s in servers:
+            s.close()
+
+    asyncio.run(main())
+
+
+def _read_response(s, buf: bytes):
+    """One HTTP response off socket s (bytes already read in `buf`). ->
+    (body, the bytes after it)."""
+    while b"\r\n\r\n" not in buf:
+        d = s.recv(65536)
+        if not d:
+            raise ConnectionError(f"EOF inside a response head: {buf!r}")
+        buf += d
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    n = next(int(line.split(b":")[1]) for line in head.split(b"\r\n")
+             if line.lower().startswith(b"content-length:"))
+    while len(rest) < n:
+        d = s.recv(65536)
+        if not d:
+            raise ConnectionError("EOF inside a response body")
+        rest += d
+    return rest[:n].decode(), rest[n:]
+
+
+def _splice_client(port: int, host: str, path: str) -> tuple:
+    """One connection, one request that asks to close. -> (client port,
+    connect->first byte seconds, response body)."""
+    import socket
+    t0 = time.monotonic()
+    s = socket.create_connection((LOOPBACK, port), timeout=60)
+    try:
+        cport = s.getsockname()[1]
+        s.sendall(http_request(host, path, close=True))
+        first = s.recv(65536)
+        t1 = time.monotonic()
+        body, _ = _read_response(s, first)
+        return cport, t1 - t0, body
+    finally:
+        s.close()
+
+
+def _keepalive_client(port: int, reqs: list) -> list:
+    """One keep-alive connection carrying `reqs` one after another. ->
+    the response bodies."""
+    import socket
+    s = socket.create_connection((LOOPBACK, port), timeout=60)
+    out, buf = [], b""
+    try:
+        for host, path in reqs:
+            s.sendall(http_request(host, path, close=False))
+            body, buf = _read_response(s, buf)
+            out.append(body)
+        return out
+    finally:
+        s.close()
+
+
+_HTTP_CLIENTS = None  # the client process's thread pool
+
+
+def _http_burst(port: int, kind: str, items: list, concurrency: int) -> list:
+    """Runs in the client process: items through `kind` ("splice": one
+    (host, path) per connection; "keepalive": a list of them per
+    connection), at most `concurrency` connections at once."""
+    global _HTTP_CLIENTS
+    if _HTTP_CLIENTS is None:
+        _HTTP_CLIENTS = ThreadPoolExecutor(concurrency)
+    if kind == "splice":
+        return list(_HTTP_CLIENTS.map(
+            lambda it: _splice_client(port, *it), items))
+    return list(_HTTP_CLIENTS.map(
+        lambda reqs: _keepalive_client(port, reqs), items))
+
+
+def b3_on_path(m, reqs, max_batch: int, device) -> dict:
+    """B3 held on the TcpLB path's own table and batch buckets: the
+    Upstream matcher `m`'s published snapshot, and the phase's requests
+    parsed as the LB parses them, encoded into every pad_batch bucket
+    from the smallest up to that of the largest hint batch the path ran
+    (`max_batch`), an eighth of each batch pad rows (one at least), at
+    most B3_PATH_BATCHES batches a bucket and every request at the
+    largest. The kernel (on the card; the packed plain tier on CPU
+    tensors) against both plain versions, int32-equal in index and
+    level, and its index against the rule the host index gives each
+    request: -1 on every miss and every pad row, level 0 there. -> the
+    check's numbers."""
+    from vproxy_tpu_torch.ops import fused as F
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.processors.http1 import HeadParser
+    from vproxy_tpu_torch.rules.service import PAD_LO, pad_batch
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    snap = m.snapshot()
+    tab, ht = snap[0], snap[5]
+    hints = []
+    for host, path in reqs:
+        p = HeadParser()
+        p.feed(http_request(host, path, close=True))
+        hints.append(p.hint())
+    want = torch.tensor([m.index_snap(snap, h) for h in hints],
+                        dtype=torch.int32)
+    unpacked = tables_from_reference(tab.arrays, device)
+    on_card = device.type == "cuda"
+    top = pad_batch(max_batch, lo=PAD_LO)
+    b, buckets, n_batches, err = pad_batch(1, lo=PAD_LO), [], 0, 0
+    while b <= top:
+        buckets.append(b)
+        rows = max(1, b - max(1, b // 8))
+        starts = list(range(0, len(hints), rows))
+        for s in starts if b == top else starts[:B3_PATH_BATCHES]:
+            hs = hints[s:s + rows]
+            q = encode_padded(tab, hs, b, device)
+            ri, rl = H.hint_hash_match(unpacked, q)
+            pi, pl = F._hint_verdict_packed(ht, q)
+            gi, gl = FC.hint_match_cuda(ht, q) if on_card else (pi, pl)
+            where = f"tcplb table, b {b}, requests {s}+{len(hs)}"
+            for what, x, y in (("index, unpacked", gi, ri),
+                               ("level, unpacked", gl, rl),
+                               ("index, packed", gi, pi),
+                               ("level, packed", gl, pl)):
+                check(torch.equal(x, y), f"B3 != plain ({what}) [{where}]")
+                err = max(err, int((x.long() - y.long()).abs().max()))
+            exp = torch.full((b,), -1, dtype=torch.int32)
+            exp[:len(hs)] = want[s:s + len(hs)]
+            check(torch.equal(gi.cpu(), exp),
+                  f"B3 != the host index's rule [{where}]")
+            check(bool((gl[gi < 0] == 0).all()), f"B3 level of a miss "
+                  f"[{where}]")
+            n_batches += 1
+        b *= 2
+    misses = int((want < 0).sum())
+    check(0 < misses < len(hints), f"{misses} of {len(hints)} requests "
+          f"match no rule")
+    out = {"r_cap": int(ht["pk_meta"].shape[0]), "buckets": buckets,
+           "batches": n_batches, "requests": len(hints), "misses": misses,
+           "max_abs_err": err}
+    log(f"B3 on the tcplb path: {out}")
+    return out
+
+
+def build_upstream(rules, elg, bports) -> tuple:
+    """Server group i (one server: backend i mod 256, health check
+    "none") joins an Upstream with rule i as its annotation, one add at
+    a time as an operator adds them, until every rule is in or the
+    build has taken TCPLB_BUILD_S (never fewer than TCPLB_MIN_RULES
+    groups): every add publishes a new generation of the whole table,
+    so the build is quadratic. -> (upstream, groups, seconds)."""
+    from vproxy_tpu_torch.components.servergroup import (HealthCheckConfig,
+                                                         ServerGroup)
+    from vproxy_tpu_torch.components.upstream import Upstream
+    ups = Upstream("u-config2")
+    hc = HealthCheckConfig(protocol="none", period_ms=600_000, up=1)
+    groups = []
+    t0 = time.monotonic()
+    for i, rule in enumerate(rules):
+        g = ServerGroup(f"g{i}", elg, hc, "wrr")
+        g.add("s", LOOPBACK, bports[i % len(bports)])
+        groups.append(g)
+        ups.add(g, annotations=rule)
+        if len(groups) >= TCPLB_MIN_RULES and \
+                time.monotonic() - t0 > TCPLB_BUILD_S:
+            break
+    return ups, groups, time.monotonic() - t0
+
+
+def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
+                burst=SERVICE_BATCH, keepalive=KEEPALIVE_CONNS,
+                n_acl=N_ACL) -> dict:
+    """The port's TcpLB main path (BASELINE config #2 as far as one
+    Upstream holds it, config #4's ACL): `bursts` bursts of `burst`
+    concurrent http-splice connections and one burst of `keepalive`
+    keep-alive connections x 4 requests through the L7 http engine,
+    every answer checked against the group the port's host index gives;
+    on the card, B3 and B4 launched once per device batch of their kind,
+    B1 and B3's torch tier never; then B3 held on the path's own table
+    and batch buckets (b3_on_path), misses included. The LBs reach ClassifyService through
+    its process-wide instance, run here in "device" mode, as the
+    reference's benchmarks run it: in "auto" mode the inline lane
+    answers a query from the host index whenever none is queued for its
+    matcher, and a query is queued only behind another, so none ever
+    reaches the device. -> the phase's numbers."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from vproxy_tpu_torch.components.elgroup import EventLoopGroup
+    from vproxy_tpu_torch.components.secgroup import SecurityGroup
+    from vproxy_tpu_torch.components.tcplb import TcpLB
+    from vproxy_tpu_torch.ops import cidr_cuda as CC
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.processors.http1 import HeadParser
+    from vproxy_tpu_torch.rules.index import CidrIndex
+    from vproxy_tpu_torch.rules.service import ClassifyService
+    from vproxy_tpu_torch.utils.ip import parse_ip
+    from vproxy_tpu_torch.utils.metrics import GlobalInspection
+    vtl = native_vtl()
+    nofile = raise_nofile()
+    check(nofile >= NOFILE_MIN, f"RLIMIT_NOFILE {nofile} < {NOFILE_MIN}")
+    mode = os.environ.get("VPROXY_TPU_CLASSIFY")
+    os.environ["VPROXY_TPU_CLASSIFY"] = "device"
+    ClassifyService.reset()
+    ctx = mp.get_context("spawn")
+    pipe, child = ctx.Pipe()
+    backends = ctx.Process(target=_backend_main,
+                           args=(TCPLB_BACKENDS, child), daemon=True)
+    backends.start()
+    clients = ProcessPoolExecutor(1, mp_context=ctx)
+    elg = EventLoopGroup("tcplb", 2)
+    groups, lbs = [], []
+    try:
+        check(pipe.poll(120), "the backend process sent no ports")
+        bports = pipe.recv()
+        acl = acl_rules(n_acl, ACL_SEED)
+        t0 = time.monotonic()
+        sg = SecurityGroup("acl-5k-allow", default_allow=True)
+        sg.extend_rules(acl)
+        acl_s = time.monotonic() - t0
+        rules = tcplb_rules(max_rules, TCPLB_RULE_SEED)
+        ups, groups, build_s = build_upstream(rules, elg, bports)
+        n = len(groups)
+        rules = rules[:n]
+        log(f"tcplb: {n} rules on {n} groups built in {build_s:.1f} s "
+            f"(target {max_rules}), ACL of {len(acl)} in "
+            f"{acl_s:.1f} s")
+        deadline = time.monotonic() + 60
+        while not all(s.healthy for g in groups for s in g.servers):
+            check(time.monotonic() < deadline, "backends never healthy")
+            time.sleep(0.05)
+        splice = TcpLB("lb-splice", elg, elg, LOOPBACK, 0, ups,
+                       protocol="http-splice", security_group=sg, lanes=0)
+        l7 = TcpLB("lb-http", elg, elg, LOOPBACK, 0, ups, protocol="http",
+                   security_group=sg, lanes=0)
+        for lb in (splice, l7):
+            lbs.append(lb)
+            lb.start()
+        # the clients' address passes the ACL: no rule's network holds
+        # it at the LBs' ports, so the default (allow) answers
+        index = CidrIndex([r.network for r in acl], acl=acl)
+        lo = parse_ip(LOOPBACK)
+        check(all(index.lookup(lo, p) == -1 for p in
+                  (splice.bind_port, l7.bind_port, 0, 80, 443, 65535)),
+              "an ACL rule matches the clients' loopback address")
+
+        def want_backend(host: str, path: str):
+            """The backend the port's host index gives this request, or
+            None when no rule matches (any group's backend then)."""
+            p = HeadParser()
+            p.feed(http_request(host, path, close=True))
+            g = ups.search_for_group(p.hint())
+            return None if g is None else int(g.alias[1:]) % TCPLB_BACKENDS
+
+        def check_body(body: str, host: str, path: str, what: str) -> bool:
+            bid, _, seen = body.partition(" ")
+            check(seen == host, f"{what}: backend saw Host {seen!r}, "
+                  f"sent {host!r}")
+            want = want_backend(host, path)
+            check(want is None or int(bid) == want,
+                  f"{what}: {host}{path} reached backend {bid}, the host "
+                  f"index gives {want}")
+            return want is not None
+
+        plan = [tcplb_requests(rules, burst, TCPLB_REQ_SEED + k)
+                for k in range(bursts)]
+        ka_reqs = tcplb_requests(rules, keepalive * KEEPALIVE_REQS, 700)
+        ka_plan = [ka_reqs[c * KEEPALIVE_REQS:(c + 1) * KEEPALIVE_REQS]
+                   for c in range(keepalive)]
+        clients.submit(_http_burst, splice.bind_port, "splice", [],
+                       max(burst, keepalive)).result(timeout=120)
+        svc = ClassifyService.get()
+        st = svc.stats
+        kinds0 = {k: list(v) for k, v in st.by_kind.items()}
+        f0 = st.failovers
+        stage_h = {s: GlobalInspection.get().get_histogram(
+            "vproxy_accept_stage_us", stage=s)
+            for s in ("acl", "classify", "backend_pick")}
+        stage0 = {s: h.state() for s, h in stage_h.items()}
+        # the main path's counts, read just after it
+        FC.hint_match_cuda.launches = 0
+        CC.cidr_first_cuda.launches = 0
+        FC.fused_classify_pick_cuda.launches = 0
+        H.hint_hash_match.cuda_calls = 0
+        t0 = time.monotonic()
+        lat, matched = [], 0
+        for k, reqs in enumerate(plan):
+            got = clients.submit(_http_burst, splice.bind_port, "splice",
+                                 reqs, burst).result(timeout=300)
+            for i, ((host, path), (_, secs, body)) in enumerate(zip(reqs,
+                                                                    got)):
+                matched += check_body(body, host, path,
+                                      f"http-splice burst {k} row {i}")
+                lat.append(secs * 1e6)
+        splice_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        ka = clients.submit(_http_burst, l7.bind_port, "keepalive",
+                            ka_plan, keepalive).result(timeout=300)
+        ka_matched = 0
+        for c, (reqs, bodies) in enumerate(zip(ka_plan, ka)):
+            check(len(bodies) == len(reqs), f"keep-alive conn {c}: "
+                  f"{len(bodies)} of {len(reqs)} answers")
+            for j, ((host, path), body) in enumerate(zip(reqs, bodies)):
+                ka_matched += check_body(body, host, path,
+                                         f"http conn {c} request {j}")
+        ka_s = time.monotonic() - t0
+        launches = {"hint_match": FC.hint_match_cuda.launches,
+                    "cidr_first": CC.cidr_first_cuda.launches,
+                    "fused_classify_pick": FC.fused_classify_pick_cuda.launches}
+        torch_tier_cuda = H.hint_hash_match.cuda_calls
+        path_b3 = b3_on_path(ups._matcher,
+                             [r for reqs in plan for r in reqs] + ka_reqs,
+                             st.by_kind.get("hint", [0, 0, 1])[2], device)
+
+        def kind(k: str) -> dict:
+            b, q, mx = st.by_kind.get(k, [0, 0, 0])
+            b0, q0 = kinds0.get(k, [0, 0, 0])[:2]
+            return {"batches": b - b0, "queries": q - q0,
+                    "mean": (q - q0) / max(b - b0, 1), "max": mx}
+
+        batches = {k: kind(k) for k in ("hint", "cidr", "cpick")}
+        on_card = device.type == "cuda"  # CPU tensors: the plain tiers
+        check(launches["hint_match"] == (batches["hint"]["batches"]
+                                         if on_card else 0) and
+              batches["hint"]["batches"] > 0,
+              f"B3 launches {launches['hint_match']} != hint batches "
+              f"{batches['hint']['batches']} (or none)")
+        check(launches["cidr_first"] == (batches["cidr"]["batches"]
+                                         if on_card else 0) and
+              batches["cidr"]["batches"] > 0,
+              f"B4 launches {launches['cidr_first']} != cidr batches "
+              f"{batches['cidr']['batches']} (or none)")
+        check(launches["fused_classify_pick"] == 0,
+              "the TcpLB path launched B1's cpick form")
+        check(torch_tier_cuda == 0, f"B3's torch tier ran on CUDA "
+              f"tensors {torch_tier_cuda} times")
+        check(st.failovers == f0, f"{st.failovers - f0} device failovers")
+        check(svc.error is None, f"the classify service closed: "
+              f"{svc.error!r}")
+
+        def pct(xs, q):
+            xs = sorted(xs)
+            return xs[min(len(xs) - 1, len(xs) * q // 100)]
+
+        stages = {}
+        for s, h in stage_h.items():
+            c1, s1, b1 = h.state()
+            c0, s0_, b0 = stage0[s]
+            d = bucket_percentile(b1, b0)
+            stages[s] = {"n": c1 - c0, "mean_us": (s1 - s0_) / max(c1 - c0,
+                                                                    1),
+                         "p50_us": d(50), "p99_us": d(99)}
+        out = {"rules": n, "rules_target": TCPLB_MAX_RULES,
+               "build_s": build_s, "acl_rules": len(acl),
+               "backends": TCPLB_BACKENDS,
+               "splice_connections": len(lat), "splice_matched": matched,
+               "splice_wall_s": splice_s,
+               "connect_to_first_byte_p50_us": pct(lat, 50),
+               "connect_to_first_byte_p99_us": pct(lat, 99),
+               "keepalive_requests": keepalive * KEEPALIVE_REQS,
+               "keepalive_matched": ka_matched, "keepalive_wall_s": ka_s,
+               "accept_stage_us": stages,
+               "classify_latency": st.latency_percentiles(),
+               "batches": batches,
+               "launches": launches, "failovers": st.failovers - f0,
+               "b3_torch_tier_cuda_calls": torch_tier_cuda,
+               "b3_on_path": path_b3,
+               "provider": vtl.PROVIDER,
+               "libvtl": os.path.relpath(vtl.LIB_PATH, os.path.dirname(
+                   os.path.abspath(__file__)))}
+    finally:
+        for lb in lbs:
+            lb.stop()
+        for g in groups:
+            g.close()
+        clients.shutdown()
+        elg.close()
+        try:
+            pipe.send("stop")
+        except OSError:
+            pass
+        backends.join(10)
+        if backends.is_alive():
+            backends.terminate()
+            backends.join(5)
+        ClassifyService.reset()
+        if mode is None:
+            os.environ.pop("VPROXY_TPU_CLASSIFY", None)
+        else:
+            os.environ["VPROXY_TPU_CLASSIFY"] = mode
+    return out
+
+
+def bucket_percentile(b1, b0):
+    """Percentile (us) of the log2-bucket delta b1 - b0 of a metrics
+    Histogram: the upper bound of the bucket that holds it (the +Inf
+    bucket reads 2**27)."""
+    d = [x - y for x, y in zip(b1, b0)]
+    total = sum(d)
+
+    def at(q: int) -> float:
+        if total <= 0:
+            return 0.0
+        want, cum = total * q / 100, 0
+        for i, n in enumerate(d):
+            cum += n
+            if cum >= want:
+                return float(1 << i)
+        return float(1 << len(d))
+    return at
+
+
 def call_ms(fn, iters: int, reps: int = 5) -> float:
     """Mean ms per call over `iters` back-to-back calls, CUDA events
     around the run: what a caller pays, host launch overhead included.
@@ -1338,17 +1990,20 @@ def device_ms(fn, iters: int, only: str = "", launches: int = 0) -> float:
                        f"kernels in five runs")
 
 
-def work(ht, q, mtab, slots):
+def work(ht, q, mtab=None, slots=None):
     """(bytes, int ops) this batch needs: every query input read once,
     the output written once, and each table row the batch's data
     touches counted once — slot + key rows of valid probes, bucket
     items of live buckets, meta + byte rows of live candidates, the
-    wildcard lists, the Maglev entries. Ops: byte compares (probe keys,
-    candidate rows) plus ~24 integer ops per live candidate."""
+    wildcard lists, the Maglev slots and entries (B1; none for B3,
+    mtab=None). Ops: byte compares (probe keys, candidate rows) plus ~24
+    integer ops per live candidate."""
     from vproxy_tpu_torch.ops import fused as F
     from vproxy_tpu_torch.ops.hashmatch import _items
     nbytes = sum(v.numel() * v.element_size() for v in q.values())
-    nbytes += slots.numel() * 8 + slots.numel() * 2 * 4
+    nbytes += q["hostb"].shape[0] * 2 * 4  # the [B, 2] output
+    if mtab is not None:
+        nbytes += slots.numel() * 8
     ops = 0
     fams = [("h", q["hp_slot1"], q["hp_len"]), ("h", q["hp_slot2"], q["hp_len"])]
     if "pk_uslot" in ht:
@@ -1377,16 +2032,24 @@ def work(ht, q, mtab, slots):
     nbytes += torch.unique(cand[live]).numel() * (
         32 + ht["pk_bytes"].shape[1])
     ops += int(live.sum()) * (ht["pk_bytes"].shape[1] + 24)
-    nbytes += torch.unique(slots).numel() * 4
+    if mtab is not None:
+        nbytes += torch.unique(slots).numel() * 4
     return nbytes, ops
 
 
 def phase_times(device, keep):
+    """B1's rows, B3's rows (its verdict-only mode against
+    hashmatch.hint_hash_match, the torch tier it replaces) and B1's
+    sweep, on the 100k uri table. -> (B1 rows, B3 rows, sweep)."""
     from vproxy_tpu_torch.ops import fused as F
     from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
     rules, tab, ht, mtab = keep
-    rows = []
-    saved = FC.fused_classify_pick_cuda.launches
+    unpacked = tables_from_reference(tab.arrays, device)
+    rows, b3_rows = [], []
+    saved = (FC.fused_classify_pick_cuda.launches,
+             FC.hint_match_cuda.launches)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     b = max(TIME_BATCHES)
     q, slots = encode(tab, mk_queries(rules, b, 499), device, seed=499)
@@ -1428,6 +2091,11 @@ def phase_times(device, keep):
                "bytes": nbytes, "int_ops": ops}
         rows.append(row)
         log("times " + json.dumps(row))
+        row = time_row(b, lambda: FC.hint_match_cuda(ht, q),
+                       lambda: H.hint_hash_match(unpacked, q), KERNEL, flush,
+                       work(ht, q))
+        b3_rows.append(row)
+        log("times B3 " + json.dumps(row))
     sweep = []
     for b in sorted(SWEEP_BATCHES + TIME_BATCHES[1:]):
         q, slots = encode(tab, mk_queries(rules, b, 500 + b), device,
@@ -1438,13 +2106,13 @@ def phase_times(device, keep):
         runs = [device_ms(kern, 200, KERNEL, 1) for _ in range(2)]
         sweep.append({"batch": b, "ms": min(runs), "ms_runs": runs})
         log("sweep " + json.dumps(sweep[-1]))
-    FC.fused_classify_pick_cuda.launches = saved
+    FC.fused_classify_pick_cuda.launches, FC.hint_match_cuda.launches = saved
     del flush
     log("clocks " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
-    return rows, sweep
+    return rows, b3_rows, sweep
 
 
 # ------------------------------------------------------------ CIDR half
@@ -1834,11 +2502,18 @@ def cidr_design(ct, a16, fam) -> dict:
             "max_entry_windows": int(windows.max())}
 
 
+def same(a, b) -> bool:
+    """torch.equal over a tensor or over the tensors of two tuples."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(map(torch.equal, a, b))
+
+
 def time_row(b, kern, plain, name, flush, work_):
     """One timing row: device ms per launch of `kern` (kernel `name`)
     L2-warm and after a 256 MB write (cold), its plain tier's, wall ms
     per call back to back, and the bound from work_ = (bytes, ops)."""
-    check(torch.equal(kern(), plain()), f"{name} != plain at B={b}")
+    check(same(kern(), plain()), f"{name} != plain at B={b}")
     p1 = device_ms(plain, 10)
     k1 = device_ms(kern, 200, name, 1)
     k2 = device_ms(kern, 200, name, 1)
@@ -1968,15 +2643,17 @@ def main() -> int:
     from vproxy_tpu_torch.rules import engine as E
     device = torch.device("cuda")
     builds = phase_build()
-    err, keep = phase_kernel_vs_plain(device)
+    err, b3_err, keep = phase_kernel_vs_plain(device)
     launches, pair = phase_service(device, keep[0])
     loop, _ = phase_loop(device, pair, keep[0])
     log(json.dumps({"loop": {**loop, "card": smi}}))
+    tcplb = phase_tcplb(device)
+    log(json.dumps({"tcplb": {**tcplb, "card": smi}}))
     routes, group, am, acl = cidr_tables(device)
     b4_err, rc_err = phase_cidr_vs_plain(device, keep, routes, am, acl)
     b4_launches = phase_cidr_service(routes, group, am, acl)
     rc_launches = phase_route_column(pair, routes)
-    rows, sweep = phase_times(device, keep)
+    rows, b3_rows, sweep = phase_times(device, keep)
     crows = phase_cidr_times(device, keep, routes, am, acl)
     log("clocks " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
@@ -2007,14 +2684,23 @@ def main() -> int:
         entry("fused_classify_pick route column", SOURCE, REPLACES_ROUTE,
               rc_launches, rc_err, crows["B1 route column"],
               by_batch=crows["B1 route column"]),
-        entry("cidr_first", SOURCE_B4, REPLACES_B4, b4_launches, b4_err,
+        entry("cidr_first", SOURCE_B4, REPLACES_B4,
+              b4_launches + tcplb["launches"]["cidr_first"], b4_err,
               crows["B4 ACL"], table="ACL 5k, ports",
+              launches_by_path={"cidr service": b4_launches,
+                                "tcplb": tcplb["launches"]["cidr_first"]},
               build_s=builds["cidr"]["build_s"],
               instances=builds["cidr"]["instances"],
               by_batch={"acl": crows["B4 ACL"],
                         "routes": crows["B4 routes"]},
               host_breakdown={"acl": crows["breakdown ACL"],
-                              "routes": crows["breakdown routes"]})]}))
+                              "routes": crows["breakdown routes"]}),
+        entry("hint_match", SOURCE, REPLACES_B3,
+              tcplb["launches"]["hint_match"], b3_err, b3_rows,
+              mode="B1's kernel, verdict-only (null Maglev column)",
+              plain="hashmatch.hint_hash_match",
+              launches_by_path={"tcplb": tcplb["launches"]["hint_match"]},
+              by_batch=b3_rows)]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

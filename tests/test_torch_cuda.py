@@ -1,4 +1,5 @@
-"""Torch port on the card: the CIDR kernels against their plain tiers.
+"""Torch port on the card: the CIDR kernels and B3 against their plain
+tiers.
 
 Every test here is marked `cuda` and asks the `cuda` fixture for the
 card, which skips without one (the CPU tier-1 run skips them all). On a
@@ -85,3 +86,70 @@ def test_cidr_matcher_serves_from_the_kernel(cuda):
     assert CC.cidr_first_cuda.launches == n0 + 1
     snap = m.snapshot()
     assert list(got) == [m.index_snap(snap, a, p) for a, p in q]
+
+
+@pytest.mark.parametrize("name", ["random_300_b600", "wide_buckets",
+                                  "boundary", "boundary_w16_hosts"])
+def test_hint_kernel_matches_plain_tiers(cuda, name):
+    """B3 (B1's verdict-only mode) == hashmatch.hint_hash_match and
+    fused._hint_verdict_packed, index and level, pad rows included, and
+    on the clamp cuts of wide_buckets."""
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    if name == "random_300_b600":
+        rules = CS.rand_rules(300, 11)
+        hints, caps = CS.rand_hints(rules, 600, 11), None
+    elif name == "wide_buckets":
+        rules, hints = CS.wide_buckets()
+        caps = None
+    else:
+        rules, hints, caps = CS.boundary(name)
+    tab, ht, _ = CS.packed_case(rules, cuda, caps)
+    q = CS.encode_padded(tab, hints, len(hints) + 8, cuda)
+    unpacked = tables_from_reference(tab.arrays, cuda)
+    assert CS.b3_vs_plain(name, tab, ht, q, cuda, unpacked) == 0
+    if name == "wide_buckets":
+        for how in CS.HINT_CUTS:
+            cut = CS.cut_hint_table(dict(ht), how)
+            assert CS.b3_vs_plain(
+                f"{name} cut {how}", tab, FC.prepare_table(cut), q, cuda,
+                CS.clamp_grown(CS.cut_hint_table(unpacked, how), unpacked),
+                CS.clamp_grown(cut, ht)) == 0
+
+
+def test_hint_matcher_serves_from_the_kernel(cuda):
+    """A HintMatcher on the card answers a batch with one B3 launch,
+    equal to its host index, and never calls the torch tier."""
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.rules import engine as E
+    rules = CS.mk_rules(3000)
+    m = E.HintMatcher(rules, backend="torch", device=cuda)
+    hints = CS.mk_queries(rules, 200, 5)
+    n0, c0 = FC.hint_match_cuda.launches, H.hint_hash_match.cuda_calls
+    got = E.to_host(m.dispatch_snap(m.snapshot(), hints, pad_to=256))
+    assert FC.hint_match_cuda.launches == n0 + 1
+    assert H.hint_hash_match.cuda_calls == c0
+    snap = m.snapshot()
+    assert got[:200].tolist() == [m.index_snap(snap, h) for h in hints]
+    assert (got[200:] == -1).all()
+
+
+
+@pytest.mark.parametrize("entry", ["hint_match_cuda",
+                                   "fused_classify_pick_cuda"])
+def test_kernel_wrapper_bad_batch_is_kernel_error(cuda, entry):
+    """A CUDA query batch the table cannot take (a host window narrower
+    than the table's) raises KernelError, never a ValueError a serving
+    layer could fail over to the host, and launches nothing."""
+    rules = CS.mk_rules(300)
+    tab, ht, mtab = CS.packed_case(rules, cuda)
+    q = CS.encode_padded(tab, CS.mk_queries(rules, 8, 5), 8, cuda)
+    q["hostb"] = q["hostb"][:, :-1].contiguous()
+    fn = getattr(FC, entry)
+    args = (ht, q) if entry == "hint_match_cuda" else (
+        ht, q, mtab, torch.zeros(8, dtype=torch.int64, device=cuda))
+    n0 = fn.launches
+    with pytest.raises(FC.KernelError) as err:
+        fn(*args)
+    assert isinstance(err.value.__cause__, ValueError)
+    assert fn.launches == n0

@@ -385,6 +385,64 @@ def test_service_kernel_error_closes_instead_of_failover(monkeypatch,
         svc.close()
 
 
+@pytest.mark.parametrize("where", ["batch", "probe"])
+@pytest.mark.parametrize("kind", ["hint", "cpick"])
+def test_service_card_dispatch_fault_never_served_from_host(monkeypatch,
+                                                            kind, where):
+    """On the card every fault of a device dispatch is a KernelError: a
+    ValueError out of a matcher on the card (meta stands in for CUDA)
+    closes the service like a refused launch, and the host index
+    (_oracle_batch) answers none of its batches. On the CPU the same
+    fault fails over (test_service_batches_vs_reference_service)."""
+    rules = mk_rules(300)
+    pair, _ = pair_of(rules, m=251)
+    pair.hm.device = torch.device("meta")
+    target = pair if kind == "cpick" else pair.hm
+    submitted = threading.Event()
+
+    def bad_batch(*a, **kw):
+        submitted.wait(10)  # every submit lands before the service closes
+        raise ValueError("fused kernel: query windows differ")
+    monkeypatch.setattr(target, "dispatch_snap", bad_batch)
+    served = []
+    monkeypatch.setattr(ClassifyService, "_oracle_batch",
+                        lambda self, *a: served.append(a) or [])
+    svc = ClassifyService(mode="device")
+    b = 24
+    hints = mk_queries(rules, b)
+    payloads = list(zip(hints, mk_ips(b), [None] * b)) \
+        if kind == "cpick" else hints
+    try:
+        if where == "batch":
+            got, evs = [None] * b, [threading.Event() for _ in payloads]
+            for i, p in enumerate(payloads):
+                def cb(*r, i=i):
+                    got[i] = r[:-1]
+                    evs[i].set()
+                if kind == "cpick":
+                    svc.submit_classify_pick(target, *p, cb)
+                else:
+                    svc.submit_hint(target, p, cb)
+            submitted.set()
+            assert all(ev.wait(30) for ev in evs)
+            assert got == [(-1, -1) if kind == "cpick" else (-1,)] * b
+        else:
+            submitted.set()
+            svc._spawn_probe(kind, target, payloads[0])
+            deadline = time.monotonic() + 10
+            while svc.error is None and time.monotonic() < deadline:
+                time.sleep(0.01)
+        assert isinstance(svc.error, FC.KernelError)
+        assert isinstance(svc.error.__cause__, ValueError)
+        st = svc.stats
+        assert not served and st.failovers == 0 \
+            and st.oracle_queries == 0 and st.device_queries == 0
+        with pytest.raises(FC.KernelError, match="query windows differ"):
+            svc.submit_hint(pair.hm, hints[0], lambda *r: None)
+    finally:
+        svc.close()
+
+
 def test_service_host_mode_and_host_backend():
     rules = mk_rules(200)
     hosts = E.HintMatcher(rules, backend="host")

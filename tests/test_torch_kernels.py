@@ -324,7 +324,7 @@ def test_fused_entry_raises_on_non_cpu_tensor(monkeypatch):
                         lambda *a: called.append(a))
     ht, q, mtab, slots = _fused_inputs("meta")
     n0 = FC.fused_classify_pick_cuda.launches
-    with pytest.raises((ValueError, RuntimeError)):
+    with pytest.raises(FC.KernelError):
         FC.fused_classify_pick(ht, q, mtab, slots)
     assert not called and FC.fused_classify_pick_cuda.launches == n0
 
@@ -354,3 +354,121 @@ def test_kernel_abi_mirror_matches_source():
     assert tuple(ints) == FC._INTS
     assert ctypes.sizeof(FC._FusedArgs) == 8 * len(ptrs) + 4 * len(
         FC._INTS) + (4 if len(FC._INTS) % 2 else 0)
+
+
+# --------------------------------------------- B3's entry (hint_match)
+
+@pytest.mark.parametrize("name", CASES)
+def test_hint_match_entry_vs_jax(name):
+    """B3's entry on CPU tensors is the plain tier: (index, level) equal
+    to hint_hash_jit, on every parity case (both _reduce_best branches,
+    the uri-free tables, the boundary sets)."""
+    rules, hints, tab, q = compile_case(name)
+    ref_i, ref_l = RH.hint_hash_jit(tab.arrays, q)
+    n0 = FC.hint_match_cuda.launches
+    got_i, got_l = FC.hint_match(up(RF.pack_hint_table(tab.arrays), "cpu"),
+                                 up(q, "cpu"))
+    assert FC.hint_match_cuda.launches == n0  # no kernel launch
+    assert got_i.dtype == got_l.dtype == torch.int32
+    assert np.array_equal(np.asarray(ref_i), got_i.numpy())
+    assert np.array_equal(np.asarray(ref_l), got_l.numpy())
+    assert (got_l.numpy()[got_i.numpy() < 0] == 0).all()
+
+
+@pytest.mark.parametrize("how", CS.HINT_CUTS)
+@pytest.mark.parametrize("name", ["mk_rules_5k_b512", "wide_buckets"])
+def test_hint_cut_tables_vs_jax(name, how):
+    """chip_smoke.py holds B3's kernel on a cut table against the plain
+    tiers on the same table grown back with its last entries
+    (clamp_grown): that equals JAX's clamped gathers on the cut table,
+    for the unpacked and the packed tier alike."""
+    rules, hints, tab, q = compile_case(name)
+    cut = CS.cut_hint_table(tab.arrays, how)
+    ref_i, ref_l = RH.hint_hash_jit(cut, q)
+    grown = CS.clamp_grown(cut, tab.arrays)
+    got_i, got_l = H.hint_hash_match(up(grown, "cpu"), up(q, "cpu"))
+    assert np.array_equal(np.asarray(ref_i), got_i.numpy())
+    assert np.array_equal(np.asarray(ref_l), got_l.numpy())
+    pk = RF.pack_hint_table(tab.arrays)
+    pk_grown = CS.clamp_grown(CS.cut_hint_table(pk, how), pk)
+    pi, pl = F._hint_verdict_packed(up(pk_grown, "cpu"), up(q, "cpu"))
+    assert torch.equal(pi, got_i) and torch.equal(pl, got_l)
+    full_i, _ = RH.hint_hash_jit(tab.arrays, q)
+    assert not np.array_equal(np.asarray(full_i), got_i.numpy())
+
+
+def test_hint_match_entry_raises_on_non_cpu_tensor(monkeypatch):
+    """A tensor off the CPU goes to the kernel or raises: the plain tier
+    is never substituted (meta tensors stand in for CUDA ones)."""
+    called = []
+    monkeypatch.setattr(F, "_hint_verdict_packed",
+                        lambda *a: called.append(a))
+    ht, q, _, _ = _fused_inputs("meta")
+    n0 = FC.hint_match_cuda.launches
+    with pytest.raises(FC.KernelError):
+        FC.hint_match(ht, q)
+    assert not called and FC.hint_match_cuda.launches == n0
+
+
+@pytest.mark.parametrize("fault", ["bad_batch", "no_card_memory"])
+@pytest.mark.parametrize("entry", ["hint_match_cuda",
+                                   "fused_classify_pick_cuda"])
+def test_kernel_wrapper_fault_on_card_is_kernel_error(monkeypatch, entry,
+                                                      fault):
+    """Whatever keeps a kernel wrapper from serving tensors off the CPU
+    raises KernelError, which no serving layer fails over to the host: a
+    query batch the table cannot take (a ValueError inside) and the
+    card out of memory for the output (torch's OutOfMemoryError). Meta
+    tensors stand in for CUDA ones, the library stands in as built; no
+    launch is counted."""
+    monkeypatch.setattr(FC, "_lib", lambda: None)
+    ht, q, mtab, slots = _fused_inputs("meta")
+    if fault == "bad_batch":
+        q["hostb"] = q["hostb"][:, :-1].contiguous()
+        cause = ValueError
+    else:
+        def no_card_memory(*a, **kw):
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        monkeypatch.setattr(torch, "empty", no_card_memory)
+        cause = torch.cuda.OutOfMemoryError
+    fn = getattr(FC, entry)
+    args = (ht, q) if entry == "hint_match_cuda" else (ht, q, mtab, slots)
+    n0 = fn.launches
+    with pytest.raises(FC.KernelError) as err:
+        fn(*args)
+    assert isinstance(err.value.__cause__, cause)
+    assert fn.launches == n0
+
+
+def test_hint_matcher_cpu_dispatch_keeps_torch_tier(monkeypatch):
+    """On the CPU, HintMatcher.dispatch_snap answers with
+    hashmatch.hint_hash_match and never reaches B3's entry."""
+    from vproxy_tpu_torch.rules import engine as E
+    monkeypatch.setattr(FC, "hint_match", lambda *a: 1 / 0)
+    rules = mk_rules(300)
+    m = E.HintMatcher(rules, backend="torch", device="cpu")
+    hints = mk_queries(rules, 40)
+    got = E.to_host(m.dispatch_snap(m.snapshot(), hints, pad_to=64))
+    want = [m.index_snap(m.snapshot(), h) for h in hints]
+    assert got[:40].tolist() == want and (got[40:] == -1).all()
+
+
+@pytest.mark.parametrize("fault", ["encode", "launch"])
+def test_hint_matcher_card_dispatch_raises_kernel_error(monkeypatch, fault):
+    """Off the CPU (meta tensors stand in for CUDA ones, the library
+    stands in as built), HintMatcher.dispatch_snap launches B3 or raises
+    KernelError: a batch that fails to encode or upload, and a launch
+    that fails, alike; the torch tier is never called."""
+    from vproxy_tpu_torch.rules import engine as E
+    monkeypatch.setattr(FC, "_lib", lambda: None)
+    rules = mk_rules(300)
+    m = E.HintMatcher(rules, backend="torch", device="meta")
+    monkeypatch.setattr(H, "hint_hash_match", lambda *a: 1 / 0)
+    if fault == "encode":
+        def bad_encode(*a):
+            raise ValueError("host window too narrow")
+        monkeypatch.setattr(E, "_fused_hint_q", bad_encode)
+    n0 = FC.hint_match_cuda.launches
+    with pytest.raises(FC.KernelError):
+        m.dispatch_snap(m.snapshot(), mk_queries(rules, 8), pad_to=8)
+    assert FC.hint_match_cuda.launches == n0

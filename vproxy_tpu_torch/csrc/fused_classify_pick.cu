@@ -23,6 +23,21 @@
 // hint block runs exactly the [B, 2] code and writes columns 0-1;
 // without a cidr table the grid, the shared memory and the work are the
 // [B, 2] kernel's.
+//
+// The verdict-only mode (B3). When the launch carries no Maglev column
+// (a null mtab) the kernel is vproxy_tpu/ops/hashmatch.py:516
+// `hint_hash_match`: it never reads `slots` or `mtab` and writes (rule
+// index, level) per query, the level 0 where the index is -1. The fold
+// already keeps the best level beside its index (max level, then the
+// least index: _reduce_best's winner in both of its branches, whatever
+// r_cap), so this mode only skips the Maglev loads and stores the level
+// where the pick would go. Its bound and chain are the [B, 2] kernel's
+// less the Maglev entry. The mode is a template flag (PICK = false:
+// 8 more instances of the same body, which the null mtab selects at
+// launch), not a run-time branch: as a run-time flag it took one more
+// register in an instance and read 3.8% slower on B1 at B = 512 in a
+// chip run (PERF.md), so B1's own instances now compile exactly
+// as before.
 
 // Bound. Per query the kernel reads its query windows and probe slots
 // (~0.3 KB), one packed cuckoo slot row + key row per valid probe, the
@@ -131,7 +146,7 @@ struct FusedArgs {
   const int32_t* up_len;    // [B, lw]
   const int32_t* up_slot1;  // [B, lw]
   const int32_t* up_slot2;  // [B, lw]
-  const int64_t* slots;     // [B] Maglev slots
+  const int64_t* slots;     // [B] Maglev slots (null: verdict-only)
   // packed tables
   const int32_t* pk_meta;   // [r_cap, 8]
   const uint8_t* pk_bytes;  // [r_cap, pk_w]
@@ -143,8 +158,9 @@ struct FusedArgs {
   const int32_t* ub_items;  // [n_ub]         (uri tables only)
   const int32_t* wh_idx;    // [n_wh]
   const int32_t* wu_idx;    // [n_wu]         (uri tables only)
-  const int32_t* mtab;      // [m]
-  int32_t* out;             // [B, 2] (verdict, pick) or [B, 3] (+ route)
+  const int32_t* mtab;      // [m], or null: verdict-only (B3)
+  int32_t* out;             // [B, 2] (verdict, pick) or [B, 3] (+ route);
+                            // verdict-only: [B, 2] (verdict, level)
   // the route column (all null without a cidr table)
   const uint8_t* a16;       // [B, 16] addresses
   const int32_t* cfam;      // [B] family, -1 for pad rows
@@ -320,7 +336,7 @@ __device__ __forceinline__ void probe_in(const FusedArgs& a, int b, int pi,
   }
 }
 
-template <bool URI, int W>
+template <bool URI, int W, bool PICK>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 fused_kernel(FusedArgs a, int np, int smem_words) {
   constexpr int HS = HOST_STEP<W>;
@@ -328,8 +344,8 @@ fused_kernel(FusedArgs a, int np, int smem_words) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   // a route block: the second half of a route-column grid (the note
-  // at the top)
-  const bool route = a.pk_cslot != nullptr;
+  // at the top); never in the verdict-only instances
+  const bool route = PICK && a.pk_cslot != nullptr;
   const int nb = (a.b + WARPS - 1) / WARPS;  // blocks per half
   if (route && (int)blockIdx.x >= nb) {
     const cidr::Table ct = {a.pk_cslot, a.pk_cmeta, a.s_key, a.cb_items,
@@ -383,7 +399,7 @@ fused_kernel(FusedArgs a, int np, int smem_words) {
   // every lane loads the Maglev slot (one broadcast), so the load is not
   // held behind a lane-0 branch past the window stores
   const long long mslot =
-      __ldg(reinterpret_cast<const long long*>(a.slots) + b);
+      PICK ? __ldg(reinterpret_cast<const long long*>(a.slots) + b) : 0;
 #pragma unroll
   for (int k = 0; k < MAX_HW / 32; ++k)
     if (lane + 32 * k < a.hw) qh[lane + 32 * k] = hb[k];
@@ -397,7 +413,8 @@ fused_kernel(FusedArgs a, int np, int smem_words) {
   // step 2: the Maglev take, and per probe its slot record and key
   // words together -> (start, live count)
   const int pick =
-      __ldg(a.mtab + (mslot < 0 ? 0 : (mslot >= a.m ? a.m - 1 : mslot)));
+      PICK ? __ldg(a.mtab + (mslot < 0 ? 0 : (mslot >= a.m ? a.m - 1 : mslot)))
+           : 0;
   const int nhp = 2 * a.maxp;
   for (int pi = lane; pi < np; pi += 32) {
     int slot = slot0, plen = plen0;
@@ -492,12 +509,12 @@ fused_kernel(FusedArgs a, int np, int smem_words) {
       a.out[(size_t)b * 3] = verdict;
       a.out[(size_t)b * 3 + 1] = pick;
     } else {
-      reinterpret_cast<int2*>(a.out)[b] = make_int2(verdict, pick);
+      reinterpret_cast<int2*>(a.out)[b] = make_int2(verdict, PICK ? pick : bl);
     }
   }
 }
 
-template <bool URI, int W>
+template <bool URI, int W, bool PICK>
 cudaError_t launch(const FusedArgs& a, int np, cudaStream_t s) {
   // per warp: the windows (16 B-padded), probe starts + counts, the
   // entry list, rounded to 16 B so every warp's windows align; a route
@@ -510,8 +527,18 @@ cudaError_t launch(const FusedArgs& a, int np, cudaStream_t s) {
     smem = cidr::block_bytes(a.c_g, WARPS);
   const int nb = (a.b + WARPS - 1) / WARPS;  // hint blocks (and route)
   const dim3 grid(route ? 2 * nb : nb), block(WARPS * 32);
-  fused_kernel<URI, W><<<grid, block, smem, s>>>(a, np, smem_words);
+  fused_kernel<URI, W, PICK><<<grid, block, smem, s>>>(a, np, smem_words);
   return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_word(const FusedArgs& a, int np, cudaStream_t s,
+                        bool uri, bool pick) {
+  if (uri)
+    return pick ? launch<true, W, true>(a, np, s)
+                : launch<true, W, false>(a, np, s);
+  return pick ? launch<false, W, true>(a, np, s)
+              : launch<false, W, false>(a, np, s);
 }
 
 bool aligned(const void* p, int w) {
@@ -525,12 +552,14 @@ extern "C" int vproxy_fused_args_size() { return (int)sizeof(FusedArgs); }
 // Launch on `stream` (PyTorch's current stream; no synchronisation).
 // uri_rules selects the uri-free instances when 0; args->word the
 // compare word (ops/fused_cuda.py word_bytes); a non-null
-// args->pk_cslot the route column (out is then [B, 3]). Returns
-// cudaGetLastError() after the launch: 0 when it was accepted;
+// args->pk_cslot the route column (out is then [B, 3]); a null
+// args->mtab the verdict-only mode (B3: out [B, 2] is (verdict, level)).
+// Returns cudaGetLastError() after the launch: 0 when it was accepted;
 // cudaErrorInvalidValue, before any launch, for a word that does not
 // divide the windows or align the byte tables, windows wider than a
-// warp copies, or a cidr table that is empty, lacks its address batch
-// or has a 16-byte row array off 16-byte alignment.
+// warp copies, a cidr table that is empty, lacks its address batch or
+// the Maglev column, or has a 16-byte row array off 16-byte alignment,
+// or a Maglev column without its slots.
 extern "C" int vproxy_fused_classify_pick(const FusedArgs* args,
                                           int uri_rules, int device,
                                           void* stream) {
@@ -548,20 +577,19 @@ extern "C" int vproxy_fused_classify_pick(const FusedArgs* args,
   const bool ok_c =
       a.pk_cslot == nullptr ||
       (a.c_ct > 0 && a.c_rcap > 0 && a.c_cb > 0 && a.c_g > 0 &&
+       a.mtab != nullptr &&
        a.cfam != nullptr && aligned(a.a16, 16) && aligned(a.pk_cslot, 16) &&
        aligned(a.pk_cmeta, 16) && aligned(a.s_key, 16) &&
        aligned(a.g_mask, 16) && a.a16 != nullptr);
-  if (!ok_c) return (int)cudaErrorInvalidValue;
+  if (!ok_c || (a.mtab != nullptr && (a.slots == nullptr || a.m <= 0)))
+    return (int)cudaErrorInvalidValue;
   const int np = 2 * a.maxp + (uri_rules ? 2 * a.lw : 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool pick = a.mtab != nullptr;
   switch (w) {
-    case 16: return (int)(uri_rules ? launch<true, 16>(a, np, s)
-                                     : launch<false, 16>(a, np, s));
-    case 8: return (int)(uri_rules ? launch<true, 8>(a, np, s)
-                                   : launch<false, 8>(a, np, s));
-    case 4: return (int)(uri_rules ? launch<true, 4>(a, np, s)
-                                   : launch<false, 4>(a, np, s));
-    default: return (int)(uri_rules ? launch<true, 1>(a, np, s)
-                                    : launch<false, 1>(a, np, s));
+    case 16: return (int)launch_word<16>(a, np, s, uri_rules, pick);
+    case 8: return (int)launch_word<8>(a, np, s, uri_rules, pick);
+    case 4: return (int)launch_word<4>(a, np, s, uri_rules, pick);
+    default: return (int)launch_word<1>(a, np, s, uri_rules, pick);
   }
 }

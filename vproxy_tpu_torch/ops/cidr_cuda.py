@@ -12,8 +12,8 @@ stream.
 
 * `cidr_first` is the entry a CIDR matcher serves with: CPU tensors
   take the plain torch tier (ops/fused.py `_cidr_first_packed`),
-  everything else the kernel. There is no fallback: a build, load or
-  launch failure raises KernelError.
+  everything else the kernel. There is no fallback: every failure to
+  serve CUDA tensors raises KernelError (fused_cuda.card_entry).
 * `prepare_table` checks a packed cidr table once and caches the
   table's half of the launch arguments; a CUDA CidrMatcher calls it
   when it publishes (which also builds the library, so a build failure
@@ -32,7 +32,7 @@ import torch
 
 from . import fused as F
 from . import fused_cuda as FC
-from .fused_cuda import KernelError
+from .fused_cuda import KernelError, card_entry
 
 SOURCE = os.path.join(os.path.dirname(FC.SOURCE), "cidr_first.cu")
 
@@ -171,6 +171,7 @@ def cidr_first(ct: dict, a16, fam, port=None):
     return cidr_first_cuda(ct, a16, fam, port)
 
 
+@card_entry("cidr kernel")
 def cidr_first_cuda(ct: dict, a16, fam, port=None):
     """Launch the B4 kernel: same contract as fused._cidr_first_packed,
     CUDA tensors only. -> int32 [B]. `ct` is best a PackedCidrTable

@@ -4,7 +4,9 @@ Replaces `vproxy_tpu/ops/fused_pallas.py` `_fused_kernel`: packed hint
 table + encoded query batch + Maglev column/slots -> int32 [B, 2]
 (verdict, pick) in ONE launch; with a packed cidr table and an address
 batch, int32 [B, 3] (verdict, pick, route), the 3-column contract of
-`vproxy_tpu/ops/fused.py` `fused_classify_pick` with `ct`. The kernel is
+`vproxy_tpu/ops/fused.py` `fused_classify_pick` with `ct`. Without a
+Maglev column the same kernel is B3, `vproxy_tpu/ops/hashmatch.py`
+`hint_hash_match`: (rule index, level) per query. The kernel is
 csrc/fused_classify_pick.cu (its header note gives the bound and the
 design); this module builds it with nvcc into a shared library with a
 plain C interface, loads it with ctypes and launches it on PyTorch's
@@ -12,8 +14,10 @@ current stream.
 
 * `fused_classify_pick` is the entry the engine serves with: CPU tensors
   take the plain torch tier (ops/fused.py), everything else the kernel.
-  There is no fallback: a build, load or launch failure raises
-  KernelError, which the serving layers never fail over to the host.
+  There is no fallback: every failure to serve CUDA tensors (a build,
+  load or launch failure, a table or batch the kernel cannot take, the
+  card out of memory for the output) raises KernelError, which the
+  serving layers never fail over to the host (`card_entry`).
 * `prepare_table` checks a packed table once and caches the table's
   half of the launch arguments; the engine calls it when a CUDA
   matcher publishes (which also builds the library, so a build failure
@@ -21,6 +25,11 @@ current stream.
 * `fused_classify_pick_cuda` is the kernel wrapper; its `launches`
   attribute counts the launches it made, `route_launches` those of
   them with the route column.
+* `hint_match` is B3's entry (HintMatcher.dispatch_snap on the card):
+  CPU tensors take the plain tier (fused._hint_verdict_packed, equal to
+  hashmatch.hint_hash_match), CUDA tensors `hint_match_cuda`, which
+  launches the kernel in its verdict-only mode (a null Maglev column:
+  no pick, the level in column 1) and counts in its own `launches`.
 * `word_bytes` picks the word the kernel compares byte windows in.
 * `build_library()` compiles a kernel source at first use into a
   directory .gitignore lists, under a file lock per library (concurrent
@@ -32,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -96,6 +106,25 @@ class KernelError(RuntimeError):
     ops/cidr_cuda.py) cannot serve: nvcc is missing or failed, the
     library does not load or does not match its ctypes mirror, or a
     launch was refused. Never answered by a fallback."""
+
+
+def card_entry(what: str):
+    """Decorator of a kernel wrapper (CUDA tensors only): whatever keeps
+    it from serving, a table or batch it cannot take (ValueError), no
+    card memory for the output (torch's OutOfMemoryError) or a refused
+    launch, raises KernelError, so no caller can take it for a fault the
+    host may answer. MemoryError (the host's) passes through."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            try:
+                return fn(*args, **kwargs)
+            except (KernelError, MemoryError):
+                raise
+            except Exception as e:
+                raise KernelError(f"{what} cannot serve: {e!r}") from e
+        return run
+    return wrap
 
 
 def _nvcc() -> str:
@@ -215,7 +244,7 @@ def prepare_table(ht: dict) -> PackedTable:
         return ht
     _lib()
     dev = ht["pk_meta"].device
-    if dev.type != "cuda":
+    if dev.type == "cpu":  # the plain tier's, never the kernel's
         raise ValueError(f"fused CUDA kernel needs CUDA tensors, got "
                          f"{dev}")
     uri = "pk_uslot" in ht
@@ -266,19 +295,12 @@ def fused_classify_pick(ht: dict, q: dict, mtab, slots, ct=None, a16=None,
     return fused_classify_pick_cuda(ht, q, mtab, slots, ct, a16, fam, port)
 
 
-def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots, ct=None,
-                             a16=None, fam=None, port=None):
-    """Launch the fused kernel: same contract as
-    fused.fused_classify_pick, CUDA tensors only. -> int32 [B, 2], or
-    [B, 3] with a cidr table `ct` (best a cidr_cuda.PackedCidrTable;
-    a plain dict is checked on every call). `ht` is best a PackedTable
-    (prepare_table); a plain dict is prepared on every call."""
-    t = prepare_table(ht)
+def _query_args(t: PackedTable, q: dict) -> _FusedArgs:
+    """Check an encoded query batch against a prepared table. -> the
+    launch arguments with the table and query halves set."""
     dev = t.device
     for k, want in _QUERY_DTYPES.items():
         _check(k, q[k], dev, want)
-    _check("slots", slots, dev, torch.int64)
-    _check("mtab", mtab, dev, torch.int32)
     b, hw = q["hostb"].shape
     uw = q["urib"].shape[1]
     maxp = q["hp_slot1"].shape[1]
@@ -294,15 +316,42 @@ def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots, ct=None,
         if tuple(q[k].shape) != shape:
             raise ValueError(f"fused kernel: {k} has shape "
                              f"{tuple(q[k].shape)}, want {shape}")
+    a = _FusedArgs.from_buffer_copy(t.args)
+    for k in _QUERY_DTYPES:
+        setattr(a, k, q[k].data_ptr())
+    a.b, a.uw, a.maxp, a.lw = b, uw, maxp, lw
+    return a
+
+
+def _launch(t: PackedTable, a: _FusedArgs, what: str) -> None:
+    err = (_LIB or _lib()).vproxy_fused_classify_pick(
+        ctypes.byref(a), int(t.uri), t.device.index or 0,
+        torch.cuda.current_stream(t.device).cuda_stream)
+    if err:
+        raise KernelError(f"{what} launch failed: CUDA error {err}")
+
+
+@card_entry("fused kernel")
+def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots, ct=None,
+                             a16=None, fam=None, port=None):
+    """Launch the fused kernel: same contract as
+    fused.fused_classify_pick, CUDA tensors only. -> int32 [B, 2], or
+    [B, 3] with a cidr table `ct` (best a cidr_cuda.PackedCidrTable;
+    a plain dict is checked on every call). `ht` is best a PackedTable
+    (prepare_table); a plain dict is prepared on every call. Raises
+    KernelError unless it launched (card_entry)."""
+    t = prepare_table(ht)
+    dev = t.device
+    a = _query_args(t, q)
+    b = a.b
+    _check("slots", slots, dev, torch.int64)
+    _check("mtab", mtab, dev, torch.int32)
     if tuple(slots.shape) != (b,) or mtab.dim() != 1:
         raise ValueError(f"fused kernel: slots must be [{b}] and mtab "
                          f"1-D, got {tuple(slots.shape)} and "
                          f"{tuple(mtab.shape)}")
     out = torch.empty((b, 2 if ct is None else 3), dtype=torch.int32,
                       device=dev)
-    a = _FusedArgs.from_buffer_copy(t.args)
-    for k in _QUERY_DTYPES:
-        setattr(a, k, q[k].data_ptr())
     if ct is not None:
         from . import cidr_cuda as CC
         c = ct if isinstance(ct, CC.PackedCidrTable) \
@@ -319,12 +368,8 @@ def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots, ct=None,
             c.ints[k] for k in CC.TABLE_INTS)
     a.slots, a.mtab, a.out = (slots.data_ptr(), mtab.data_ptr(),
                               out.data_ptr())
-    a.b, a.uw, a.maxp, a.lw, a.m = b, uw, maxp, lw, mtab.shape[0]
-    err = (_LIB or _lib()).vproxy_fused_classify_pick(
-        ctypes.byref(a), int(t.uri), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise KernelError(f"fused kernel launch failed: CUDA error {err}")
+    a.m = mtab.shape[0]
+    _launch(t, a, "fused kernel")
     fused_classify_pick_cuda.launches += 1
     if ct is not None:
         fused_classify_pick_cuda.route_launches += 1
@@ -333,3 +378,34 @@ def fused_classify_pick_cuda(ht: dict, q: dict, mtab, slots, ct=None,
 
 fused_classify_pick_cuda.launches = 0  # every launch
 fused_classify_pick_cuda.route_launches = 0  # of which [B, 3] launches
+
+
+def hint_match(ht: dict, q: dict):
+    """B3's entry: the hint verdict of every query over a packed table.
+    -> (rule index int32 [B], -1 for none; level int32 [B], 0 where the
+    index is -1), bit for bit `hashmatch.hint_hash_match`. CPU tensors
+    take the plain tier (fused._hint_verdict_packed); CUDA tensors
+    launch the kernel (hint_match_cuda), which raises unless it
+    launched."""
+    if ht["pk_meta"].device.type == "cpu":
+        return F._hint_verdict_packed(ht, q)
+    return hint_match_cuda(ht, q)
+
+
+@card_entry("hint kernel")
+def hint_match_cuda(ht: dict, q: dict):
+    """Launch the kernel in its verdict-only mode (B3): no Maglev column
+    or slots, so the launch never reads either and writes (index, level)
+    per query. CUDA tensors only. -> (idx, level), int32 [B] views of
+    one [B, 2] output. `ht` is best a PackedTable (prepare_table).
+    Raises KernelError unless it launched (card_entry)."""
+    t = prepare_table(ht)
+    a = _query_args(t, q)
+    out = torch.empty((a.b, 2), dtype=torch.int32, device=t.device)
+    a.out, a.m = out.data_ptr(), 0
+    _launch(t, a, "hint kernel")
+    hint_match_cuda.launches += 1
+    return out[:, 0], out[:, 1]
+
+
+hint_match_cuda.launches = 0  # every launch

@@ -511,8 +511,12 @@ def hint_hash_match(t: dict, q: dict):
     tables_from_reference); `q`: an encoded query batch as tensors on
     the same device. Candidates from host/uri probes + wildcard lists,
     scored with the full Hint.matchLevel formula from gathered rule
-    records.
+    records. The plain version of B3's CUDA kernel (ops/fused_cuda.py
+    hint_match); `cuda_calls` counts the calls made on CUDA tensors,
+    which only a comparison with the kernel makes.
     """
+    if q["hostb"].is_cuda:
+        hint_hash_match.cuda_calls += 1
     r_cap = t["r_active"].shape[0]
     b = q["hostb"].shape[0]
 
@@ -577,6 +581,9 @@ def hint_hash_match(t: dict, q: dict):
     level = (host_level << HOST_SHIFT) + uri_level
     level = torch.where(valid & pg, level, 0).to(torch.int32)
     return _reduce_best(level, c, r_cap)
+
+
+hint_hash_match.cuda_calls = 0  # calls on CUDA tensors
 
 
 # --------------------------------------------------------------- cidr side

@@ -7,8 +7,9 @@ VPROXY_TPU_MATCHER):
 * "torch" — DEFAULT: cuckoo-hash classify (ops/hashmatch) on the
             serving device, plus the packed tables the CUDA kernels
             read (ops/fused, ops/fused_cuda, ops/cidr_cuda). CPU tensors
-            take the plain torch tiers; on the card hint+pick, CIDR and
-            the 3-column sweep run the hand kernels.
+            take the plain torch tiers; on the card the hint verdict
+            (B3), hint+pick, CIDR and the 3-column sweep run the hand
+            kernels.
 * "host"  — the pure-Python oracle (correctness floor + latency floor
             for tiny tables).
 
@@ -77,6 +78,16 @@ def pad_batch(n: int, lo: int = 16) -> int:
 SMALL_TABLE = int(os.environ.get("VPROXY_TPU_SMALL_TABLE", "128"))
 
 
+def _install_phase(tid: int, span: str, t0_ns: int, **fields) -> None:
+    """One standby-install phase span (compile / upload / swap) on the
+    installer's trace (utils/trace) — tid 0 (constructor compiles, or
+    tracing off) records nothing."""
+    if tid:
+        from ..utils import trace
+        trace.record_span(tid, "install", span, t0_ns,
+                          time.monotonic_ns() - t0_ns, **fields)
+
+
 # batch padding at the ARRAY level: a pad row must read as "no probes,
 # no match" to the kernel. The cuckoo query arrays mark invalid probes
 # with -1 (slot/len); everything else (byte windows, flags) zero-fills —
@@ -129,12 +140,22 @@ def generation_total() -> int:
     return _GENERATION[0]
 
 
-def note_launch(n: int = 1) -> None:
+def note_launch(n: int = 1, kind: str = "", fused: bool = False) -> None:
     """Count one device program on the dispatch path (a lock-free int
     store race can only lose a count, never corrupt): fused batches move
     vproxy_engine_dispatch_launches_total by exactly 1, the unfused
-    chain by one per chained op."""
+    chain by one per chained op.
+
+    Tracing (utils/trace): when the calling thread carries a sampled
+    request's trace context, every launch site also drops a `launch`
+    marker span, so a trace shows how many programs a batch cost. One
+    branch when no context is bound."""
     _LAUNCHES[0] += n
+    from ..utils import trace
+    tid = trace.current_id()
+    if tid:
+        trace.record_span(tid, "engine", "launch", time.monotonic_ns(),
+                          0, kind=kind, fused=fused)
 
 
 def dispatch_launches_total() -> int:
@@ -289,7 +310,19 @@ class TableInstaller:
                     if serving_recent() else 0.0)
                 t0 = time.monotonic()
                 time.sleep(0)  # explicit preemption point pre-compile
-                matcher._install(args)
+                # installs are rare: when tracing is on, EVERY install
+                # gets its own trace — _recompile's phase spans
+                # (compile / upload / swap) attach through the bound
+                # context
+                from ..utils import trace
+                itid = trace.new_trace_id() if trace.enabled() else 0
+                with trace.bind(itid):
+                    matcher._install(args)
+                if itid:
+                    trace.record_span(
+                        itid, "install", "install", int(t0 * 1e9),
+                        int((time.monotonic() - t0) * 1e9),
+                        matcher=getattr(matcher, "_kind", "?"))
                 _swap_hist().observe((time.monotonic() - t0) * 1e3)
             except MemoryError as e:
                 # OOM keeps the log-then-die contract (utils/oom), but
@@ -378,7 +411,7 @@ def fused_dispatch(hm, hsnap: tuple, mm, msnap: tuple, hints,
     qd = tables_from_reference(q, fd["pk_meta"].device)
     slots = qd.pop("slots")
     from ..ops import fused_cuda as FC
-    note_launch()
+    note_launch(kind="cpick", fused=True)
     _FUSED_DISP[0] += 1
     return FC.fused_classify_pick(fd, qd, mdev, slots)
 
@@ -414,7 +447,7 @@ def fused_dispatch_all(hm, hsnap: tuple, cm, csnap: tuple, mm,
     qd = tables_from_reference(q, fd["pk_meta"].device)
     slots, a16, fam = qd.pop("slots"), qd.pop("a16"), qd.pop("fam")
     from ..ops import fused_cuda as FC
-    note_launch()
+    note_launch(kind="all", fused=True)
     _FUSED_DISP[0] += 1
     return FC.fused_classify_pick(fd, qd, mdev, slots, cfd, a16, fam, None)
 
@@ -524,6 +557,9 @@ class HintMatcher:
         return int(sum(v.numel() * v.element_size() for v in dev.values()))
 
     def _recompile(self) -> None:
+        from ..utils import trace
+        itid = trace.current_id()  # nonzero only under a traced install
+        t_ph = time.monotonic_ns() if itid else 0
         fused_dev = None
         if self.backend == "torch":
             on_card, fuse = self.device.type != "cpu", fused_enabled()
@@ -550,15 +586,22 @@ class HintMatcher:
         if len(self._rules) > SMALL_TABLE:
             from .index import HintIndex
             idx = HintIndex(self._rules)
+        _install_phase(itid, "compile", t_ph, matcher="hint",
+                       rules=len(self._rules))
+        t_ph = time.monotonic_ns() if itid else 0
         # the standby upload lands BEFORE the publish swap: the install
         # thread pays the transfer wait, never a serving thread
         sync(self.device)
+        _install_phase(itid, "upload", t_ph, matcher="hint")
         time.sleep(0)  # preemption point between compile and publish
+        t_ph = time.monotonic_ns() if itid else 0
         self._pub = (self._tab, self._dev, list(self._rules), self._payload,
                      idx, fused_dev)
         self.generation += 1
         with _gen_lock:
             _GENERATION[0] += 1
+        _install_phase(itid, "swap", t_ph, matcher="hint",
+                       generation=self.generation)
 
     def fused_stat(self) -> dict:
         """Fused-dispatch state for the operator surfaces: packed-table
@@ -623,7 +666,11 @@ class HintMatcher:
         """Encode + submit one batch against the snapshotted table
         generation: an int32 [cap] device tensor (to_host() it to
         block). pad_to: target batch shape (a pad_batch bucket); only
-        the real hints are encoded, pad rows are invalid-probe fills."""
+        the real hints are encoded, pad rows are invalid-probe fills.
+        On the card, ONE launch of B3's CUDA kernel (ops/fused_cuda.py
+        hint_match: B1's hint fold without the Maglev take) over the
+        snapshot's packed table, or KernelError; CPU tensors take the
+        torch tier (hashmatch.hint_hash_match)."""
         note_serving()
         tab, dev, rules = snap[0], snap[1], snap[2]
         if not rules or not hints:
@@ -631,10 +678,21 @@ class HintMatcher:
         if self.backend == "host":
             return np.array([oracle.search(rules, h) for h in hints],
                             np.int32)
-        note_launch()
-        q = tables_from_reference(_fused_hint_q(tab, hints, pad_to),
-                                  self.device)
-        idx, _ = H.hint_hash_match(dev, q)
+        note_launch(kind="hint")
+        if self.device.type == "cpu":
+            q = tables_from_reference(_fused_hint_q(tab, hints, pad_to),
+                                      self.device)
+            idx, _ = H.hint_hash_match(dev, q)
+            return idx
+        from ..ops import fused_cuda as FC
+        try:  # the batch's encode and upload: the card's or no one's
+            q = tables_from_reference(_fused_hint_q(tab, hints, pad_to),
+                                      self.device)
+        except MemoryError:
+            raise
+        except Exception as e:
+            raise FC.KernelError(f"hint batch upload failed: {e!r}") from e
+        idx, _ = FC.hint_match(snap[5], q)
         return idx
 
 
@@ -700,6 +758,9 @@ class CidrMatcher:
         return int(sum(v.numel() * v.element_size() for v in dev.values()))
 
     def _recompile(self) -> None:
+        from ..utils import trace
+        itid = trace.current_id()  # nonzero only under a traced install
+        t_ph = time.monotonic_ns() if itid else 0
         fused_dev = None
         if self.backend == "torch":
             tab = H.compile_cidr_hash(self._nets, acl=self._acl,
@@ -722,14 +783,21 @@ class CidrMatcher:
         if len(self._nets) > SMALL_TABLE:  # see HintMatcher._recompile
             from .index import CidrIndex
             idx = CidrIndex(self._nets, acl=self._acl)
+        _install_phase(itid, "compile", t_ph, matcher="cidr",
+                       rules=len(self._nets))
+        t_ph = time.monotonic_ns() if itid else 0
         sync(self.device)  # the standby upload lands before the swap
+        _install_phase(itid, "upload", t_ph, matcher="cidr")
         time.sleep(0)  # preemption point between compile and publish
+        t_ph = time.monotonic_ns() if itid else 0
         self._pub = (self._dev, list(self._nets),
                      None if self._acl is None else list(self._acl),
                      self._payload, None, idx, fused_dev)
         self.generation += 1
         with _gen_lock:
             _GENERATION[0] += 1
+        _install_phase(itid, "swap", t_ph, matcher="cidr",
+                       generation=self.generation)
 
     def fused_stat(self) -> dict:
         """Packed cidr-table state (see HintMatcher.fused_stat)."""
@@ -830,7 +898,7 @@ class CidrMatcher:
                 [self.oracle_snap(snap, a, None if ports is None
                                   else ports[i])
                  for i, a in enumerate(addrs)], np.int32)
-        note_launch()  # every branch below is one dispatch
+        note_launch(kind="cidr")  # every branch below is one dispatch
         # route tables (acl=None) have zeroed port-range columns: the
         # port gate must be skipped entirely or every port>0 query misses
         a16, fam, p = _cidr_q(addrs, None if acl is None else ports,

@@ -404,6 +404,10 @@ class FusedPair:
     def backend(self) -> str:
         return self.hm.backend
 
+    @property
+    def device(self):
+        return self.hm.device
+
     def size(self) -> int:
         return self.hm.size()
 

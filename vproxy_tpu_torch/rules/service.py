@@ -57,7 +57,9 @@ producing a result. The card cannot serve then, and the host does not
 quietly take over: the service logs it, answers the batches it holds
 with -1 ("no match") so callers proceed, closes, and every later submit
 raises the error (`ClassifyService.error`). That holds for every kind:
-the fused kernel (cpick) and the CIDR kernel (cidr) alike. Device
+the fused kernel (cpick), B3 (hint) and the CIDR kernel (cidr) alike.
+On the card every fault of a device dispatch is a KernelError
+(`_card_error`): the failover above is for the CPU tiers only. Device
 results reach the host only through utils/torchenv.to_host (a CUDA
 tensor cannot be np.asarray()ed — a raise there would quietly fail
 every batch over to the host).
@@ -87,6 +89,7 @@ import numpy as np
 import torch
 
 from ..ops.fused_cuda import KernelError
+from ..utils import sketch, trace
 from ..utils.log import Logger
 from ..utils.torchenv import to_host
 from .engine import SMALL_TABLE, pad_batch
@@ -123,13 +126,17 @@ def _apply_gil_slice() -> None:
 
 
 class _Req:
-    __slots__ = ("payload", "cb", "loop", "t0")
+    __slots__ = ("payload", "cb", "loop", "t0", "tid")
 
     def __init__(self, payload, cb, loop):
         self.payload = payload
         self.cb = cb
         self.loop = loop
         self.t0 = time.monotonic()
+        # the submitter's trace context rides the request so the
+        # dispatcher thread can attach its spans (queue wait, dispatch,
+        # d2h sync) to the sampled request that triggered them
+        self.tid = trace.current_id()
 
 
 class _Inflight:
@@ -161,6 +168,8 @@ class ClassifyStats:
         self.max_batch = 0
         self.budget_reroutes = 0  # lone queries sent to oracle by budget
         self.inline_fast = 0      # lone queries served by the fast lane
+        # device batches per kind: kind -> [batches, queries, max batch]
+        self.by_kind: dict[str, list[int]] = {}
         # counter read-modify-writes go through `lock` (writers are the
         # dispatcher thread AND every inline-answering submit thread)
         self.lock = threading.Lock()
@@ -178,6 +187,13 @@ class ClassifyStats:
             "vproxy_classify_latency_us", reservoir=LAT_RESERVOIR)
         self._lat_local = Histogram("classify_latency_local_us",
                                     reservoir=LAT_RESERVOIR)
+
+    def note_batch(self, kind: str, n: int) -> None:
+        """One device batch of n queries of `kind` (caller holds lock)."""
+        k = self.by_kind.setdefault(kind, [0, 0, 0])
+        k[0] += 1
+        k[1] += n
+        k[2] = max(k[2], n)
 
     def bump(self, name: str, n: int = 1) -> None:
         with self.lock:
@@ -348,6 +364,7 @@ class ClassifyService:
         the callback immediately when the submitter IS the loop thread
         (the accept path — fully synchronous), else queues it there."""
         t0 = time.monotonic()
+        tid = trace.current_id()
         snap = matcher.snapshot()
         # a host-backend matcher has no device to probe (and its
         # dispatch_snap is the O(rules) oracle — exactly the GIL-holding
@@ -367,6 +384,9 @@ class ClassifyService:
                        exc=True)
             i = (-1, -1) if kind == "cpick" else -1
         dt = time.monotonic() - t0
+        if tid:
+            trace.record_span(tid, "engine", "classify_inline",
+                              int(t0 * 1e9), int(dt * 1e9), kind=kind)
         st = self.stats
         with st.lock:
             st.oracle_queries += 1
@@ -449,6 +469,10 @@ class ClassifyService:
             except KernelError as e:
                 self._kernel_failed(e, kind, [])
             except Exception as e:
+                ke = _card_error(matcher, e)
+                if ke is not None:
+                    self._kernel_failed(ke, kind, [])
+                    continue
                 self.stats.bump("failovers")
                 self._device_down_until = time.monotonic() + self.retry_s
                 _log.alert(f"device probe failed ({e!r}); device marked "
@@ -570,18 +594,56 @@ class ClassifyService:
             self.stats.max_batch = max(self.stats.max_batch, n)
         snap = matcher.snapshot()  # ONE generation for device/oracle/payload
         lone_big = n == 1 and matcher.size() > SMALL_TABLE
+        if sketch.ON:
+            # device-plane attribution: which upstream's classify load
+            # is filling the batches (routes dim, `upstream:<alias>`
+            # keys, weight = batch occupancy)
+            own = getattr(matcher, "owner_alias", None)
+            if own:
+                sketch.update("routes", f"upstream:{own}", n,
+                              plane="engine")
+        # sampled requests in the batch: batch-shared phases (dispatch,
+        # d2h sync, host_index) attach to the FIRST one — one span, not
+        # one per request; per-request queue wait is recorded for every
+        # sampled request on BOTH serving branches
+        tids = [r.tid for r in reqs if r.tid]
+        if tids:
+            t_q = time.monotonic()
+            for r in reqs:
+                if r.tid:
+                    trace.record_span(
+                        r.tid, "engine", "queue_wait",
+                        int(r.t0 * 1e9), int((t_q - r.t0) * 1e9),
+                        kind=kind)
         if self._use_device(matcher, n):
             try:
                 t0 = time.monotonic()
-                arr = self._device_submit(kind, matcher, snap, reqs)
+                with trace.bind(tids[0] if tids else 0):
+                    # the bind makes engine-level launch markers
+                    # (rules/engine.note_launch) attach to the sampled
+                    # request's trace
+                    arr = self._device_submit(kind, matcher, snap, reqs)
+                if tids:
+                    trace.record_span(
+                        tids[0], "engine", "dispatch", int(t0 * 1e9),
+                        int((time.monotonic() - t0) * 1e9), kind=kind,
+                        batch=n)
                 return _Inflight(kind, matcher, reqs, snap, arr, t0,
                                  lone_big)
             except (MemoryError, KernelError):
                 raise  # a kernel that cannot serve is never failed over
             except Exception as e:
+                ke = _card_error(matcher, e)
+                if ke is not None:
+                    raise ke
                 self._device_failed(e, n)
         t0 = time.monotonic()
         idxs = self._oracle_batch(kind, matcher, snap, reqs)
+        if tids:
+            trace.record_span(tids[0], "engine", "host_index",
+                              int(t0 * 1e9),
+                              int((time.monotonic() - t0) * 1e9),
+                              kind=kind, batch=n)
         if lone_big:
             self._note_lone_latency("oracle", time.monotonic() - t0)
         self.stats.bump("oracle_queries", n)
@@ -611,16 +673,27 @@ class ClassifyService:
         except a CUDA fault, which raises KernelError."""
         n = len(inf.reqs)
         idxs = None
+        tids = [r.tid for r in inf.reqs if r.tid]
         try:
+            t_sync = time.monotonic()
             idxs = _pull(inf.arr)[:n]
+            if tids:
+                trace.record_span(
+                    tids[0], "engine", "d2h_sync", int(t_sync * 1e9),
+                    int((time.monotonic() - t_sync) * 1e9),
+                    kind=inf.kind, batch=n)
             if inf.lone_big:
                 self._note_lone_latency("device", time.monotonic() - inf.t0)
             with self.stats.lock:
                 self.stats.dispatches += 1
                 self.stats.device_queries += n
+                self.stats.note_batch(inf.kind, n)
         except (MemoryError, KernelError):
             raise
         except Exception as e:
+            ke = _card_error(inf.matcher, e)
+            if ke is not None:
+                raise ke
             self._device_failed(e, n)
         if idxs is None:
             t0 = time.monotonic()
@@ -766,6 +839,18 @@ class ClassifyService:
             self._cv.notify()
         with self._probe_cv:  # wake the probe worker so it exits
             self._probe_cv.notify()
+
+
+def _card_error(matcher, e: Exception) -> Optional[KernelError]:
+    """-> the KernelError that a fault `e` of a device dispatch of
+    `matcher` is on the card, where the host never answers in its
+    place; None for the CPU tiers, which fail over."""
+    dev = getattr(matcher, "device", None)
+    if dev is None or dev.type == "cpu":
+        return None
+    err = KernelError(f"device dispatch on the card failed: {e!r}")
+    err.__cause__ = e
+    return err
 
 
 def _pull(arr) -> np.ndarray:

@@ -4,10 +4,14 @@ Parity: reference `vproxybase/prometheus/Metrics.java` (Counter / Gauge
 / GaugeF with a label set, text exposition). The port carries only the
 families its modules read — the classify service counters, the engine
 launch/generation gauges, the install and Maglev build histograms, the
-event-loop count and the UDP drop counter — under the same names as
-`vproxy_tpu`'s /metrics, so one scrape config reads both packages;
-GlobalInspection also keeps the registry of live event loops
-(register_loop / deregister_loop, called by net/eventloop.py).
+event-loop count, the UDP drop counter, and what the load balancer
+reads (the accept-stage and per-connection histograms, the workload,
+trace, analytics and policing families, the LB's own counters, created
+on first use) — under the same names as `vproxy_tpu`'s /metrics, so one
+scrape config reads both packages; GlobalInspection also keeps the
+registry of live event loops (register_loop / deregister_loop, called
+by net/eventloop.py). The inspection HTTP server
+(`launch_inspection_http`) comes with the control plane.
 """
 from __future__ import annotations
 
@@ -135,8 +139,31 @@ class Histogram(Metric):
                 self._res[self._res_n % self._res_cap] = v
                 self._res_n += 1
 
+    def merge(self, bucket_deltas, sum_delta: float,
+              count_delta: int) -> None:
+        """Fold pre-bucketed counts in (the C accept-lane stage
+        histograms: native/vtl.cpp buckets with the same log2 rule and
+        python merges the per-tick deltas, so lane-served connections
+        land in the SAME series python-path connections populate). The
+        reservoir stays sample-level-only by design — percentiles fall
+        back to the bucket estimate when merged counts dominate."""
+        if count_delta <= 0:
+            return
+        with self._lock:
+            for i, d in enumerate(bucket_deltas):
+                if d:
+                    self._counts[i] += d
+            self._sum += sum_delta
+            self._count += count_delta
+
     def value(self) -> float:
         return self._count
+
+    def state(self) -> Tuple[int, float, List[int]]:
+        """(count, sum, [bucket counts]) snapshot — the workload-capture
+        delta-window primitive (utils/workload.py)."""
+        with self._lock:
+            return self._count, self._sum, list(self._counts)
 
     def sample_lines(self) -> List[str]:
         with self._lock:
@@ -285,6 +312,75 @@ class GlobalInspection:
         # silent-drop accounting (udp_drop_incr below): created eagerly
         # so a scrape shows the zero before the first drop
         self.get_counter("vproxy_udp_drop_total")
+        # span tracing (utils/trace.py + the native span rings): the
+        # zeros show before the first sampled request
+        self.registry.gauge_f("vproxy_trace_spans_total",
+                              self._trace_c_spans, plane="lane")
+        for pl in ("accept", "engine", "install", "cluster"):
+            self.registry.gauge_f("vproxy_trace_spans_total",
+                                  lambda pl=pl: self._trace_py_spans(pl),
+                                  plane=pl)
+        self.registry.gauge_f("vproxy_trace_drop_total",
+                              self._trace_c_drops, ring="lane")
+        self.registry.gauge_f("vproxy_trace_drop_total",
+                              self._trace_py_drops, ring="py")
+        # traffic analytics (utils/sketch + the native HH shards), with
+        # closed label vocabularies
+        from . import sketch as _sketch
+        for dim in _sketch.DIMS:
+            for slot in range(_sketch.TOP_SLOTS):
+                self.registry.gauge_f(
+                    "vproxy_hh_count",
+                    lambda dim=dim, slot=slot: _sketch.top_slot(dim,
+                                                                slot),
+                    dim=dim, slot=str(slot))
+        for pl in _sketch.PLANES:
+            self.registry.gauge_f(
+                "vproxy_analytics_updates_total",
+                lambda pl=pl: float(_sketch.plane_updates_total(pl)),
+                plane=pl)
+        self.registry.gauge_f("vproxy_analytics_drop_total",
+                              self._hh_overflow, reason="shard_overflow")
+        self.registry.gauge_f(
+            "vproxy_analytics_drop_total",
+            lambda: float(_sketch.merge_truncated_last()),
+            reason="merge_truncated")
+        self.registry.gauge_f(
+            "vproxy_analytics_rotations_total",
+            lambda: float(_sketch.rotations_total()))
+        self.registry.gauge_f(
+            "vproxy_analytics_enabled",
+            lambda: 1.0 if _sketch.enabled() else 0.0)
+        # admission policing (policing/engine.py): table size, installs,
+        # and policed totals over the closed action x dim grid
+        for k in ("keys", "tables_installed_total", "gossip_merges_total"):
+            self.registry.gauge_f(f"vproxy_policy_{k}",
+                                  lambda k=k: self._policing_stat(k))
+        self.registry.gauge_f("vproxy_policing_enabled",
+                              lambda: self._policing_stat("enabled"))
+        for act in ("monitor", "throttle", "shed"):
+            for dim in _sketch.DIMS:
+                self.registry.gauge_f(
+                    "vproxy_lb_policed_total",
+                    lambda act=act, dim=dim: self._policed_total(act,
+                                                                 dim),
+                    action=act, dim=dim)
+        # accept-path stage histograms: the stage vocabulary is closed,
+        # so the five series exist (at zero) before the first connection
+        for st in ("acl", "classify", "backend_pick", "handover",
+                   "total"):
+            self.get_histogram("vproxy_accept_stage_us", stage=st)
+        # workload capture (utils/workload.py): per-plane inter-arrival
+        # histograms and the process-wide per-connection series
+        from . import workload as _workload
+        for pl in _workload.PLANES:
+            self.get_histogram("vproxy_workload_interarrival_us",
+                               plane=pl)
+        self.get_histogram("vproxy_lb_conn_bytes")
+        self.get_histogram("vproxy_lb_conn_duration_ms")
+        self.registry.gauge_f(
+            "vproxy_workload_capture_enabled",
+            lambda: 1.0 if _workload.enabled() else 0.0)
 
     @staticmethod
     def _classify_stat(key: str) -> float:
@@ -297,6 +393,45 @@ class GlobalInspection:
         # a scrape never forces the engine (and torch's device) to load
         eng = sys.modules.get("vproxy_tpu_torch.rules.engine")
         return 0.0 if eng is None else float(getattr(eng, name)(*args))
+
+    @staticmethod
+    def _trace_c_spans() -> float:
+        from ..net import vtl
+        return float(vtl.trace_counters()[0])
+
+    @staticmethod
+    def _trace_c_drops() -> float:
+        from ..net import vtl
+        return float(vtl.trace_counters()[1])
+
+    @staticmethod
+    def _trace_py_spans(plane: str) -> float:
+        from . import trace
+        return float(trace.plane_spans_total(plane))
+
+    @staticmethod
+    def _trace_py_drops() -> float:
+        from . import trace
+        return float(trace.py_dropped_total())
+
+    @staticmethod
+    def _policing_stat(key: str) -> float:
+        # a scrape never forces the policing import
+        eng = sys.modules.get("vproxy_tpu_torch.policing.engine")
+        if eng is None:
+            return 0.0
+        return float(eng.default().status().get(key, 0))
+
+    @staticmethod
+    def _policed_total(action: str, dim: str) -> float:
+        eng = sys.modules.get("vproxy_tpu_torch.policing.engine")
+        return 0.0 if eng is None else float(
+            eng.default().policed_total(action=action, dim=dim))
+
+    @staticmethod
+    def _hh_overflow() -> float:
+        from ..net import vtl
+        return float(vtl.hh_counters()[1])
 
     # ------------------------------------------- named get-or-create
 
@@ -354,3 +489,74 @@ def udp_drop_incr(n: int = 1) -> None:
         _UDP_DROP_CTR = GlobalInspection.get().get_counter(
             "vproxy_udp_drop_total")
     _UDP_DROP_CTR.incr(n)
+
+
+# accept-path span timers (components/tcplb.py + components/upstream.py):
+# one histogram family, labeled by stage — acl (accept->ACL verdict),
+# classify (hint submit->index), backend_pick (group/WRR selection),
+# handover (backend connect->pump running), total (accept->pump running).
+# Local memo keeps the hot path at one dict hit; a racy double-create
+# resolves to the same metric through get_histogram's dedup.
+_ACCEPT_STAGE_HISTS: Dict[str, Histogram] = {}
+
+
+def accept_stage_observe(stage: str, seconds: float) -> None:
+    h = _ACCEPT_STAGE_HISTS.get(stage)
+    if h is None:
+        h = _ACCEPT_STAGE_HISTS[stage] = GlobalInspection.get().get_histogram(
+            "vproxy_accept_stage_us", stage=stage)
+    h.observe(seconds * 1e6)
+
+
+def accept_stage_merge(stage: str, bucket_deltas, sum_us: float,
+                       count: int) -> None:
+    """Fold C-side pre-bucketed stage counts (accept lanes,
+    vtl_lanes_stage_stat deltas) into the SAME
+    vproxy_accept_stage_us{stage=} series the python accept path
+    populates — lane-served connections stop being invisible to the
+    stage histograms."""
+    h = _ACCEPT_STAGE_HISTS.get(stage)
+    if h is None:
+        h = _ACCEPT_STAGE_HISTS[stage] = GlobalInspection.get().get_histogram(
+            "vproxy_accept_stage_us", stage=stage)
+    h.merge(bucket_deltas, sum_us, count)
+
+
+# per-connection size/duration histograms (the workload-capture
+# satellite): one process-wide aggregate pair (lb=None — what the
+# workload model reads) plus a labeled pair per LB. Memoized like the
+# stage histograms; a racy double-create dedups through _get_named.
+_CONN_HISTS: Dict[Optional[str], Tuple[Histogram, Histogram]] = {}
+
+
+def conn_hists(lb: Optional[str] = None) -> Tuple[Histogram, Histogram]:
+    """(bytes, duration_ms) histogram pair for one LB (or the process
+    aggregate when lb is None)."""
+    pair = _CONN_HISTS.get(lb)
+    if pair is None:
+        gi = GlobalInspection.get()
+        labels = {"lb": lb} if lb else {}
+        pair = _CONN_HISTS[lb] = (
+            gi.get_histogram("vproxy_lb_conn_bytes", **labels),
+            gi.get_histogram("vproxy_lb_conn_duration_ms", **labels))
+    return pair
+
+
+def conn_observe(lb: Optional[str], nbytes: float, dur_ms: float) -> None:
+    """One closed python-path session's size/duration, folded into the
+    per-LB series AND the process aggregate the workload model reads."""
+    for target in ((None, lb) if lb else (None,)):
+        hb, hd = conn_hists(target)
+        hb.observe(nbytes)
+        hd.observe(dur_ms)
+
+
+def conn_merge(lb: Optional[str], which: str, bucket_deltas,
+               sum_delta: float, count: int) -> None:
+    """Fold C-side pre-bucketed per-connection counts (accept lanes,
+    vtl_lanes_capture_stat deltas) into the SAME series the python
+    splice path populates — lane-served connections stop being
+    invisible to the conn histograms. which: "bytes" | "duration_ms"."""
+    idx = 0 if which == "bytes" else 1
+    for target in ((None, lb) if lb else (None,)):
+        conn_hists(target)[idx].merge(bucket_deltas, sum_delta, count)
