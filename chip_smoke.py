@@ -12,16 +12,18 @@ accepted on the port's own event loop, drives the port's TcpLB end to
 end (BASELINE config #2 as far as its build budget allows, behind
 config #4's ACL), ACL checks through a SecurityGroup of 5,000 TCP rules
 and route lookups against a 50,000-route table (BASELINE config #4, not
-cut), times the kernels, and prints one JSON line per result. Phases,
-in order:
+cut), then the same tables on the packed-fingerprint backend
+("torch-fp": B6 for hint batches, B7 for cidr batches), times the
+kernels, and prints one JSON line per result. Phases, in order:
 
 1. environment: a CUDA device, or exit 1; the card's name and power
    limit as nvidia-smi reports them;
-2. build: nvcc of csrc/fused_classify_pick.cu and csrc/cidr_first.cu,
-   and g++ of the port's native/vtl.cpp (the host FD layer; it must
+2. build: nvcc of csrc/fused_classify_pick.cu, csrc/cidr_first.cu,
+   csrc/fp_hint.cu and csrc/fp_cidr.cu, and g++ of the port's
+   native/vtl.cpp (the host FD layer; it must
    load as the native provider, from vproxy_tpu_torch/_build/), all
    started together, with their seconds, and per kernel instance (B1:
-   uri or uri-free, compare word; B4: one) ptxas's registers and
+   uri or uri-free, compare word; B4, B6, B7: one) ptxas's registers and
    spills (any spill fails) and its global loads and asynchronous
    copies in the SASS (cuobjdump, kept beside the library as
    <lib>.sass);
@@ -97,6 +99,30 @@ in order:
    the device; then 4 fused_dispatch_all batches of 512 (verdict, pick
    and route in one B1 launch each), every column equal to the host
    index;
+7b. the fingerprint backend (fp_tables: the 100k hint rules, the 50k
+   routes and the 5k ACL on "torch-fp"; phase_fp_kernels): B6
+   int32-exact against fphash.hint_fp_match on the 100k table (uri
+   rules) and a 100k host-only table at B = 16 / 512 / 4096, an eighth
+   pad rows, and on the CPU parity sets (um_* batches and untrimmed
+   ones both); B7 against fphash.cidr_fp_match on the routes (trie +
+   V6 groups) and the ACL (groups: its trie passes the build's touch
+   limit; ports and port=None) at every B, and on the CPU sets (a trie
+   ACL, routes without the trie, a wide route first, an ACL past 128
+   stacked rules, v6 only, mixed families); classify_fp_all's [B, 3]
+   (B6, then B7 twice into one output) against the plain tier;
+7c. fp service (the `fp_service` line): 4 x 512 submit_hint on the
+   torch-fp HintMatcher, 4 x 512 submit_classify_pick on a FusedPair
+   over it (B6 plus the Maglev take: the backend fuses nothing), 4 x
+   512 SecurityGroup allow_async on the ACL and 4 x 512 submit_cidr on
+   the routes (phase 7's queries), "device" mode; every answer equal to
+   the host index (and phase 7's linear oracle for CIDR), one B6 launch
+   per hint or cpick batch, one B7 launch per cidr batch, B1 / B3 / B4
+   never, no failover;
+7d. tcplb_fp (the `tcplb_fp` line): phase 5b's http-splice LB with
+   VPROXY_TPU_MATCHER=jax-fp, 256 groups, one burst of 512 connections
+   (and the keep-alive burst): every backend equal to the host index's
+   group, B6 and B7 launched once per batch of their kind, B1, B3, B4
+   never;
 8. times at B = 16, 512, 4096: the kernel's and the plain tier's device
    time per call (profiler) with the 22.7 MB table L2-warm, as under
    steady serving; the kernel's device time with L2 flushed before each
@@ -115,14 +141,19 @@ in order:
    column, each row with its batch's cidr_design, and where one cidr
    batch of 512 spends its host time
    (address encode, upload, wrapper call with the kernel, the whole
-   CidrMatcher.match round trip);
-10. the {"kernels": [...]} line (B1, B1 with the route column, B4, B3),
+   CidrMatcher.match round trip); and for B6 (100k table), B7 (routes,
+   ACL) and classify_fp_all (its 3 launches summed), with their plain
+   tiers and bounds (the 155.7 MB slot table is three times the L2: a
+   warm time there is not an all-L2 time);
+10. the `phase_s` line (wall seconds per phase), the {"kernels": [...]}
+   line (B1, B1 with the route column, B4, B3, B6, B7),
    then the card's line, then the device line.
 
 Any failed phase raises, and the script exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -160,6 +191,12 @@ SOURCE_B4 = "vproxy_tpu_torch/csrc/cidr_first.cu"
 REPLACES_ROUTE = "vproxy_tpu/ops/fused.py:304"
 # B3 is B1's kernel in its verdict-only mode (a null Maglev column)
 REPLACES_B3 = "vproxy_tpu/ops/hashmatch.py:516"
+# the packed-fingerprint backend: B6 (hint) and B7 (routes / ACL)
+REPLACES_B6 = "vproxy_tpu/ops/fphash.py:555"
+REPLACES_B7 = "vproxy_tpu/ops/fphash.py:1176"
+KERNEL_B6, KERNEL_B7 = "fp_hint_kernel", "fp_cidr_kernel"
+SOURCE_B6 = "vproxy_tpu_torch/csrc/fp_hint.cu"
+SOURCE_B7 = "vproxy_tpu_torch/csrc/fp_cidr.cu"
 
 
 def log(msg: str) -> None:
@@ -752,6 +789,105 @@ def clamp_grown(cut: dict, full: dict) -> dict:
 HINT_CUTS = ("bucket", "items")
 
 
+# The fingerprint backend's parity sets (tests/test_torch_fphash.py;
+# tier-1 holds these copies equal to those).
+
+def fp_member_overflow():
+    """One host shared by many (uri, port) variants: hM grows past the
+    default. -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = [HintRule(host="big.io", uri=f"/p{i}") for i in range(9)]
+    rules += [HintRule(host="big.io", port=1000 + i) for i in range(5)]
+    return rules, [Hint(host="big.io", uri="/p7/x"),
+                   Hint(host="big.io", port=1003),
+                   Hint(host="big.io", uri="/nope")]
+
+
+def fp_uri_untrimmed():
+    """Rule uris of 4 distinct lengths (lset_cap 4) and queries long
+    enough to live-probe all 4: the encoder keeps the untrimmed up_*
+    arrays and emits no um_* copies. -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = [HintRule(uri="/a"), HintRule(uri="/ab", port=443),
+             HintRule(host="x.io", uri="/abc"), HintRule(uri="/abcd"),
+             HintRule(host="*", uri="/ab"), HintRule(host="y.io")]
+    return rules, [Hint(uri="/abcdef"), Hint(host="x.io", uri="/abcd"),
+                   Hint(host="q.x.io", uri="/abcz", port=443),
+                   Hint(host="y.io", uri="/abcde"), Hint(uri="/abcd")]
+
+
+def fp_trie_first_match():
+    """A wide route before narrower ones (first match is not the longest
+    prefix), both orders. -> (nets, [addr])."""
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes, parse_ip
+    nets = [Network(parse_ip("10.0.0.0"), mask_bytes(8)),
+            Network(parse_ip("10.1.0.0"), mask_bytes(16)),
+            Network(parse_ip("10.1.2.0"), mask_bytes(24))]
+    addrs = [bytes([10, 1, 2, 3]), bytes([10, 1, 9, 9]),
+             bytes([10, 9, 9, 9]), bytes([11, 0, 0, 1]),
+             b"\x00" * 10 + b"\xff\xff" + bytes([10, 1, 2, 3])]
+    return nets + nets[::-1], addrs
+
+
+def fp_trie_acl_overlap(seed: int = 7):
+    """An ACL small enough for the trie (overlapping networks /0-/32,
+    interleaved port ranges). -> (acl, [(addr, port)])."""
+    import numpy as np
+    from vproxy_tpu_torch.rules.ir import AclRule, Proto
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes
+    rnd = random.Random(seed)
+    acl = []
+    for i in range(60):
+        ml = rnd.choice([0, 8, 16, 20, 24, 28, 32])
+        ip = bytes([10, rnd.randint(0, 3), rnd.randint(0, 255),
+                    rnd.randint(0, 255)])
+        m = mask_bytes(ml)
+        net = Network(bytes(np.frombuffer(ip, np.uint8) &
+                            np.frombuffer(m, np.uint8)), m)
+        lo = rnd.randint(0, 60000)
+        hi = min(65535, lo + rnd.choice([0, 10, 5000, 65535]))
+        r = AclRule(f"x{i}", net, Proto.TCP, lo, hi, bool(i & 1))
+        if not any(q.network == r.network and q.min_port == r.min_port
+                   and q.max_port == r.max_port for q in acl):
+            acl.append(r)
+    q = [(bytes([10, rnd.randint(0, 4), rnd.randint(0, 255),
+                 rnd.randint(0, 255)]), rnd.randint(0, 65535))
+         for _ in range(300)]
+    return acl, q
+
+
+def fp_acl_stacked(n: int = 130):
+    """n rules on one network with disjoint port ranges: a trie cell
+    lists all n (pruning keeps them), past 128, so the build starts again
+    without the trie. -> (acl, [(addr, port)])."""
+    from vproxy_tpu_torch.rules.ir import AclRule, Proto
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes, parse_ip
+    net = Network(parse_ip("10.0.0.0"), mask_bytes(8))
+    acl = [AclRule(f"s{i}", net, Proto.TCP, 10 * i, 10 * i + 5, bool(i & 1))
+           for i in range(n)]
+    acl.append(AclRule("v6", Network(parse_ip("fd00::"), mask_bytes(8)),
+                       Proto.TCP, 0, 65535, True))
+    q = [(bytes([10, i % 7, 1, 2]), 10 * (i % (n + 3)) + (i % 9))
+         for i in range(200)]
+    return acl, q + [(parse_ip("fd00::5"), 80), (bytes([11, 0, 0, 1]), 5)]
+
+
+def fp_v6_only(seed: int = 9):
+    """Only v6 routes (no V4-family pattern: the build skips the trie).
+    -> (nets, [addr])."""
+    import numpy as np
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes
+    rng = np.random.default_rng(seed)
+    nets = []
+    for _ in range(40):
+        ml = int(rng.choice([40, 48, 64, 96, 128]))
+        m = mask_bytes(ml)
+        raw = b"\xfd" + bytes([int(rng.integers(0, 4))]) + rng.bytes(14)
+        nets.append(Network(bytes(a & b for a, b in zip(raw, m)), m))
+    addrs = [n.ip[:15] + bytes([i]) for i, n in enumerate(nets)]
+    return nets, addrs + [bytes([10, 0, 0, 1]), b"\xfe" + bytes(15)]
+
+
 # -------------------------------------------------------------- phases
 
 def phase_env() -> str:
@@ -770,9 +906,12 @@ def phase_env() -> str:
 def instance(mangled: str) -> str:
     """A kernel's mangled name -> "uri W=16" and the like for
     fused_kernel<URI, W, PICK> (B1), "B3 uri W=16" for its verdict-only
-    instances (PICK false), "B4" for the CIDR kernel."""
-    if KERNEL_B4 in mangled:
-        return "B4"
+    instances (PICK false), "B4" for the CIDR kernel, "B6" and "B7" for
+    the fingerprint kernels."""
+    for kernel, name in ((KERNEL_B4, "B4"), (KERNEL_B6, "B6"),
+                         (KERNEL_B7, "B7")):
+        if kernel in mangled:
+            return name
     m = re.search(r"fused_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
     if not m:
         return mangled
@@ -817,19 +956,22 @@ def _ptxas(lib: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Both kernel libraries, one nvcc each, and the port's libvtl (g++),
+    """Every kernel library, one nvcc each, and the port's libvtl (g++),
     started together. -> {library: {"build_s": seconds, "instances":
     _ptxas()}}."""
     from vproxy_tpu_torch.ops import cidr_cuda as CC
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
     from vproxy_tpu_torch.ops import fused_cuda as FC
 
     def timed(fn):
         t0 = time.monotonic()
         return fn(), time.monotonic() - t0
 
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(5) as ex:
         futs = {"fused": ex.submit(timed, FC.build),
                 "cidr": ex.submit(timed, CC.build),
+                "fp_hint": ex.submit(timed, FPC.build_hint),
+                "fp_cidr": ex.submit(timed, FPC.build_cidr),
                 "vtl": ex.submit(timed, native_vtl)}
         built = {k: f.result() for k, f in futs.items()}
     vtl, secs = built.pop("vtl")
@@ -838,7 +980,8 @@ def phase_build() -> dict:
         f" from {os.path.relpath(vtl.SOURCE, os.path.dirname(vtl.BUILD_DIR))}"
         f", provider {vtl.PROVIDER}")
     out = {"vtl": {"build_s": secs}}
-    for lib_name, want in (("fused", 16), ("cidr", 1)):
+    for lib_name, want in (("fused", 16), ("cidr", 1), ("fp_hint", 1),
+                           ("fp_cidr", 1)):
         lib, secs = built[lib_name]
         log(f"build: {lib_name} {secs:.2f} s -> {os.path.basename(lib)}")
         kern = _ptxas(lib)
@@ -1698,7 +1841,7 @@ def build_upstream(rules, elg, bports) -> tuple:
 
 def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
                 burst=SERVICE_BATCH, keepalive=KEEPALIVE_CONNS,
-                n_acl=N_ACL) -> dict:
+                n_acl=N_ACL, matcher=None) -> dict:
     """The port's TcpLB main path (BASELINE config #2 as far as one
     Upstream holds it, config #4's ACL): `bursts` bursts of `burst`
     concurrent http-splice connections and one burst of `keepalive`
@@ -1711,7 +1854,12 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
     reference's benchmarks run it: in "auto" mode the inline lane
     answers a query from the host index whenever none is queued for its
     matcher, and a query is queued only behind another, so none ever
-    reaches the device. -> the phase's numbers."""
+    reaches the device. With matcher="jax-fp" (VPROXY_TPU_MATCHER, as
+    an operator sets it, for the phase) the Upstream and the ACL serve
+    on the fingerprint backend: B6 and B7 launch once per device batch
+    of their kind, B1, B3 and B4 never, and b3_on_path is not run (the
+    fingerprint table has no packed cuckoo half). -> the phase's
+    numbers."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1719,6 +1867,8 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
     from vproxy_tpu_torch.components.secgroup import SecurityGroup
     from vproxy_tpu_torch.components.tcplb import TcpLB
     from vproxy_tpu_torch.ops import cidr_cuda as CC
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
     from vproxy_tpu_torch.ops import fused_cuda as FC
     from vproxy_tpu_torch.ops import hashmatch as H
     from vproxy_tpu_torch.processors.http1 import HeadParser
@@ -1726,6 +1876,10 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
     from vproxy_tpu_torch.rules.service import ClassifyService
     from vproxy_tpu_torch.utils.ip import parse_ip
     from vproxy_tpu_torch.utils.metrics import GlobalInspection
+    fp = matcher == "jax-fp"
+    env_matcher = os.environ.get("VPROXY_TPU_MATCHER")
+    if matcher is not None:
+        os.environ["VPROXY_TPU_MATCHER"] = matcher
     vtl = native_vtl()
     nofile = raise_nofile()
     check(nofile >= NOFILE_MIN, f"RLIMIT_NOFILE {nofile} < {NOFILE_MIN}")
@@ -1750,6 +1904,10 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
         acl_s = time.monotonic() - t0
         rules = tcplb_rules(max_rules, TCPLB_RULE_SEED)
         ups, groups, build_s = build_upstream(rules, elg, bports)
+        want_be = "torch-fp" if fp else "torch"
+        check(ups._matcher.backend == want_be and all(
+            m.backend == want_be for m, _ in sg._tables.values()),
+            f"the tcplb matchers do not serve on {want_be!r}")
         n = len(groups)
         rules = rules[:n]
         log(f"tcplb: {n} rules on {n} groups built in {build_s:.1f} s "
@@ -1811,7 +1969,8 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
         FC.hint_match_cuda.launches = 0
         CC.cidr_first_cuda.launches = 0
         FC.fused_classify_pick_cuda.launches = 0
-        H.hint_hash_match.cuda_calls = 0
+        FPC.hint_fp_cuda.launches = FPC.cidr_fp_cuda.launches = 0
+        H.hint_hash_match.cuda_calls = FP.hint_fp_match.cuda_calls = 0
         t0 = time.monotonic()
         lat, matched = [], 0
         for k, reqs in enumerate(plan):
@@ -1837,10 +1996,13 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
         launches = {"hint_match": FC.hint_match_cuda.launches,
                     "cidr_first": CC.cidr_first_cuda.launches,
                     "fused_classify_pick": FC.fused_classify_pick_cuda.launches}
-        torch_tier_cuda = H.hint_hash_match.cuda_calls
-        path_b3 = b3_on_path(ups._matcher,
-                             [r for reqs in plan for r in reqs] + ka_reqs,
-                             st.by_kind.get("hint", [0, 0, 1])[2], device)
+        fp_launches = {"hint_fp": FPC.hint_fp_cuda.launches,
+                       "cidr_fp": FPC.cidr_fp_cuda.launches}
+        torch_tier_cuda = H.hint_hash_match.cuda_calls + \
+            FP.hint_fp_match.cuda_calls
+        path_b3 = None if fp else b3_on_path(
+            ups._matcher, [r for reqs in plan for r in reqs] + ka_reqs,
+            st.by_kind.get("hint", [0, 0, 1])[2], device)
 
         def kind(k: str) -> dict:
             b, q, mx = st.by_kind.get(k, [0, 0, 0])
@@ -1850,19 +2012,21 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
 
         batches = {k: kind(k) for k in ("hint", "cidr", "cpick")}
         on_card = device.type == "cuda"  # CPU tensors: the plain tiers
-        check(launches["hint_match"] == (batches["hint"]["batches"]
-                                         if on_card else 0) and
-              batches["hint"]["batches"] > 0,
-              f"B3 launches {launches['hint_match']} != hint batches "
-              f"{batches['hint']['batches']} (or none)")
-        check(launches["cidr_first"] == (batches["cidr"]["batches"]
-                                         if on_card else 0) and
-              batches["cidr"]["batches"] > 0,
-              f"B4 launches {launches['cidr_first']} != cidr batches "
-              f"{batches['cidr']['batches']} (or none)")
+        # the kernels that serve each kind on this backend, and the rest
+        hint_k, cidr_k, idle = (
+            ("hint_fp", "cidr_fp", ("hint_match", "cidr_first"))
+            if fp else ("hint_match", "cidr_first", ("hint_fp", "cidr_fp")))
+        counts = {**launches, **fp_launches}
+        for k, kind in ((hint_k, "hint"), (cidr_k, "cidr")):
+            check(counts[k] == (batches[kind]["batches"] if on_card else 0)
+                  and batches[kind]["batches"] > 0,
+                  f"{k} launches {counts[k]} != {kind} batches "
+                  f"{batches[kind]['batches']} (or none)")
+        check(all(counts[k] == 0 for k in idle), f"the {want_be} path "
+              f"launched another backend's kernels: {counts}")
         check(launches["fused_classify_pick"] == 0,
               "the TcpLB path launched B1's cpick form")
-        check(torch_tier_cuda == 0, f"B3's torch tier ran on CUDA "
+        check(torch_tier_cuda == 0, f"a torch tier ran on CUDA "
               f"tensors {torch_tier_cuda} times")
         check(st.failovers == f0, f"{st.failovers - f0} device failovers")
         check(svc.error is None, f"the classify service closed: "
@@ -1892,7 +2056,8 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
                "accept_stage_us": stages,
                "classify_latency": st.latency_percentiles(),
                "batches": batches,
-               "launches": launches, "failovers": st.failovers - f0,
+               "launches": launches, "fp_launches": fp_launches,
+               "backend": want_be, "failovers": st.failovers - f0,
                "b3_torch_tier_cuda_calls": torch_tier_cuda,
                "b3_on_path": path_b3,
                "provider": vtl.PROVIDER,
@@ -1914,10 +2079,12 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
             backends.terminate()
             backends.join(5)
         ClassifyService.reset()
-        if mode is None:
-            os.environ.pop("VPROXY_TPU_CLASSIFY", None)
-        else:
-            os.environ["VPROXY_TPU_CLASSIFY"] = mode
+        for k, v in (("VPROXY_TPU_CLASSIFY", mode),
+                     ("VPROXY_TPU_MATCHER", env_matcher)):
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return out
 
 
@@ -2287,9 +2454,12 @@ def phase_cidr_vs_plain(device, keep, routes, am, acl):
 _ORACLE = None  # an oracle worker's host-backend CidrMatcher
 
 
-def _oracle_init(nets, acl) -> None:
+def _oracle_init(path: str) -> None:
     global _ORACLE
+    import pickle
     from vproxy_tpu_torch.rules.engine import CidrMatcher
+    with open(path, "rb") as f:
+        nets, acl = pickle.load(f)
     _ORACLE = CidrMatcher(nets, acl=acl, backend="host")
 
 
@@ -2303,23 +2473,36 @@ def oracle_answers(pool, queries):
     return pool.map_async(_oracle_one, queries, chunksize=16)
 
 
+@contextlib.contextmanager
 def oracle_pool(snap):
     """A pool of worker processes (spawned: this process has threads),
     one per core, each holding a host-backend CidrMatcher over the
     snapshot's rule lists: the linear scan of the reference's lists
-    takes ~30 ms a query over 50k routes, too long for one core."""
+    takes ~30 ms a query over 50k routes, too long for one core. The
+    lists reach the workers through a temporary file: a spawned
+    worker's start-up arguments go through a pipe, and 50k routes there
+    make the parent wait for each worker's interpreter start in turn
+    (~2 s a worker)."""
     import multiprocessing
-    return multiprocessing.get_context("spawn").Pool(
-        min(8, os.cpu_count() or 1), initializer=_oracle_init,
-        initargs=(snap[1], snap[2]))
+    import pickle
+    import tempfile
+    with tempfile.NamedTemporaryFile(suffix=".pkl") as f:
+        pickle.dump((snap[1], snap[2]), f)
+        f.flush()
+        with multiprocessing.get_context("spawn").Pool(
+                min(8, os.cpu_count() or 1), initializer=_oracle_init,
+                initargs=(f.name,)) as pool:
+            yield pool
 
 
 def phase_cidr_service(routes, group, am, acl):
     """The CIDR main path: the SecurityGroup's allow_async and a route
     CidrMatcher's submit_cidr through ClassifyService, every answer
     equal to the CidrIndex lookup and the linear oracle (worker
-    processes, which run while the bursts are served). -> launches of
-    the CIDR kernel during the run."""
+    processes, which run while the bursts are served). -> (launches of
+    the CIDR kernel during the run, {"acl": (rules, queries, oracle
+    answers), "routes": (networks, queries, oracle answers)}: the
+    fingerprint phase holds its answers to the same oracle)."""
     from vproxy_tpu_torch.ops import cidr_cuda as CC
     from vproxy_tpu_torch.rules import engine as E
     from vproxy_tpu_torch.rules.ir import Proto
@@ -2384,7 +2567,8 @@ def phase_cidr_service(routes, group, am, acl):
                   f"route burst {k} row {i}: CidrIndex {j} != oracle")
             check(r_got[k][i] == (j,), f"route burst {k} row {i}: "
                   f"{r_got[k][i]} != {j}")
-    return launches
+    return launches, {"acl": (asnap[2], aqs, a_orc),
+                      "routes": (rsnap[1], rqs, r_orc)}
 
 
 def phase_route_column(pair, routes):
@@ -2509,16 +2693,17 @@ def same(a, b) -> bool:
     return len(a) == len(b) and all(map(torch.equal, a, b))
 
 
-def time_row(b, kern, plain, name, flush, work_):
-    """One timing row: device ms per launch of `kern` (kernel `name`)
-    L2-warm and after a 256 MB write (cold), its plain tier's, wall ms
-    per call back to back, and the bound from work_ = (bytes, ops)."""
+def time_row(b, kern, plain, name, flush, work_, launches=1):
+    """One timing row: device ms per call of `kern` (the `launches`
+    kernels of it whose name holds `name`) L2-warm and after a 256 MB
+    write (cold), its plain tier's, wall ms per call back to back, and
+    the bound from work_ = (bytes, ops)."""
     check(same(kern(), plain()), f"{name} != plain at B={b}")
     p1 = device_ms(plain, 10)
-    k1 = device_ms(kern, 200, name, 1)
-    k2 = device_ms(kern, 200, name, 1)
+    k1 = device_ms(kern, 200, name, launches)
+    k2 = device_ms(kern, 200, name, launches)
     p2 = device_ms(plain, 10)
-    c1 = device_ms(lambda: (flush.zero_(), kern()), 50, name, 1)
+    c1 = device_ms(lambda: (flush.zero_(), kern()), 50, name, launches)
     check(min(p1, p2, k1, k2, c1) > 0, "profiler saw no device time")
     kc = min(call_ms(kern, 200), call_ms(kern, 200))
     pc = call_ms(plain, 10, reps=3)
@@ -2634,6 +2819,525 @@ def phase_cidr_times(device, keep, routes, am, acl):
     return out
 
 
+# ---------------------------------------------- the fingerprint backend
+# The port's "torch-fp" backend (VPROXY_TPU_MATCHER=jax-fp): hint
+# batches launch B6 (csrc/fp_hint.cu), cidr batches B7
+# (csrc/fp_cidr.cu). On CPU tensors (the tests run these phases small)
+# the kernels' places are taken by the plain tier and no launch is
+# expected.
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fp_tables(device, n_rules=N_RULES, n_routes=N_ROUTES, n_acl=N_ACL):
+    """The fingerprint backend's serving objects, published on `device`:
+    a HintMatcher of n_rules rules (mk_rules) and a FusedPair with the
+    Maglev table over it, a route CidrMatcher of n_routes routes and a
+    SecurityGroup of the n_acl-rule TCP ACL (BASELINE config #4, not
+    cut), all on "torch-fp". -> dict of them (and the rule lists)."""
+    from vproxy_tpu_torch.components.secgroup import SecurityGroup
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import maglev as M
+    from vproxy_tpu_torch.rules.ir import Proto
+    t0 = time.monotonic()
+    rules = mk_rules(n_rules)
+    hm = E.HintMatcher(rules, backend="torch-fp", device=device)
+    t1 = time.monotonic()
+    mm = M.MaglevMatcher(backends(), m=MAGLEV_M, device=device)
+    nets = route_nets(n_routes, ROUTE_SEED)
+    routes = E.CidrMatcher(nets, backend="torch-fp", device=device)
+    t2 = time.monotonic()
+    acl = acl_rules(n_acl, ACL_SEED)
+    group = SecurityGroup("acl-fp", default_allow=False, backend="torch-fp")
+    group.extend_rules(acl)
+    am = group._tables[Proto.TCP][0]
+    log(f"fp tables: {n_rules} hint rules in {t1 - t0:.1f} s, {n_routes} "
+        f"routes in {t2 - t1:.1f} s, ACL of {n_acl} in "
+        f"{time.monotonic() - t2:.1f} s; caps hint {hm._caps}, routes "
+        f"{routes._caps}, ACL {am._caps}; bytes "
+        f"{hm.published_table_bytes()} + {routes.published_table_bytes()}"
+        f" + {am.published_table_bytes()}")
+    return {"rules": rules, "hm": hm, "mm": mm, "pair": M.FusedPair(hm, mm),
+            "nets": nets, "routes": routes, "acl": acl, "group": group,
+            "am": am}
+
+
+def fp_hint_batch(tab, hints, b: int, device) -> dict:
+    """`hints` encoded for the fingerprint table and padded to b rows as
+    the engine pads a batch (zero fill: no live probe)."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.rules.engine import _pad_hint_q
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    q = FP.encode_hint_queries_fp(hints, tab)
+    if b > len(hints):
+        q = _pad_hint_q(q, b, {})
+    return tables_from_reference(q, device)
+
+
+def b6_vs_plain(name, t, q, device) -> int:
+    """B6 against fphash.hint_fp_match on the same tensors, int32-equal
+    in index and level (on CPU tensors the plain tier against itself).
+    -> max |kernel - plain|."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    ri, rl = FP.hint_fp_match(t, q)
+    gi, gl = FPC.hint_fp_cuda(t, q) if device.type == "cuda" else (ri, rl)
+    _sync(device)
+    d = max(int((gi.long() - ri.long()).abs().max()),
+            int((gl.long() - rl.long()).abs().max()))
+    log(f"B6 vs plain [{name}]: b {gi.shape[0]} P {q['hp_slot'].shape[1]} "
+        f"U {q['up_slot'].shape[1]} um={'um_fp1' in q} E x M "
+        f"{tuple(t['h_em'].shape)} / {tuple(t['u_em'].shape)} matched "
+        f"{int((ri >= 0).sum())} max_abs_err {d}")
+    check(torch.equal(gi, ri) and torch.equal(gl, rl),
+          f"B6 != plain [{name}]")
+    return d
+
+
+def b7_vs_plain(name, t, a16, fam, port, device) -> int:
+    """B7 against fphash.cidr_fp_match, int32-equal. -> max |kernel -
+    plain|."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    ref = FP.cidr_fp_match(t, a16, fam, port)
+    got = FPC.cidr_fp_cuda(t, a16, fam, port) if device.type == "cuda" \
+        else ref
+    _sync(device)
+    d = int((got.long() - ref.long()).abs().max())
+    log(f"B7 vs plain [{name}]: b {got.shape[0]} G {t['g_fam'].shape[0]} "
+        f"E {t['e_m'].shape[0]} trie={'t_l0' in t} acl={'mrows' in t} "
+        f"port={port is not None} matched {int((ref >= 0).sum())}/"
+        f"{int((fam >= 0).sum())} max_abs_err {d}")
+    check(torch.equal(got, ref), f"B7 != plain [{name}]")
+    check(bool((got[fam < 0] == -1).all()), f"B7 pad row matched [{name}]")
+    return d
+
+
+def fp_prepared(arrays: dict, device, hint: bool):
+    """A compiled table's arrays as tensors on `device`, prepared for its
+    kernel on the card."""
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    t = tables_from_reference(arrays, device)
+    if device.type != "cuda":
+        return t
+    return FPC.prepare_hint_table(t) if hint else FPC.prepare_cidr_table(t)
+
+
+def fp_hint_cases():
+    """-> (name, rules, hints) of each B6 parity set (besides the 100k
+    tables): the cuckoo kernels' CPU sets and the fingerprint ones."""
+    rules = rand_rules(300, 11)
+    yield "random_300_b600", rules, rand_hints(rules, 600, 11)
+    for name, gen in (("shared_keys", shared_keys),
+                      ("long_hosts", long_hosts),
+                      ("wide_buckets", wide_buckets),
+                      ("member_overflow", fp_member_overflow),
+                      ("uri_untrimmed", fp_uri_untrimmed)):
+        yield (name, *gen())
+    for name in BOUNDARY_CASES:
+        rules, hints, _ = boundary(name)
+        yield name, rules, hints
+
+
+def fp_cidr_cases():
+    """-> (name, nets, acl or None, [(addr, port or None)], caps) of each
+    B7 parity set besides config #4's tables: the CPU sets of the CIDR
+    kernel (a trie ACL among them), routes without the trie, the
+    fingerprint sets (a wide route first, an ACL trie of overlaps, an
+    ACL past 128 stacked rules, v6 only)."""
+    for name, nets, acl, q in small_cidr_cases():
+        yield name, nets, acl, q, None
+    nets = route_nets(2000, 5)
+    yield ("routes_2k no_trie", nets, None,
+           [(a, None) for a, _ in cidr_queries(nets, 600, 6)],
+           {"no_trie": 1})
+    nets, addrs = fp_trie_first_match()
+    yield "trie_first_match", nets, None, [(a, None) for a in addrs], None
+    for name, (acl, q) in (("trie_acl_overlap", fp_trie_acl_overlap()),
+                           ("acl_stacked", fp_acl_stacked())):
+        yield name, [r.network for r in acl], acl, q, None
+        yield (f"{name} port=None", [r.network for r in acl], acl,
+               [(a, None) for a, _ in q], None)
+    nets, addrs = fp_v6_only()
+    yield "v6_only", nets, None, [(a, None) for a in addrs], None
+
+
+def phase_fp_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
+    """B6 and B7 int32-exact against their plain versions: B6 on the
+    published 100k table (uri rules) and a 100k host-only table at every
+    B of `batches`, an eighth of each batch pad rows, and on
+    fp_hint_cases (+8 pad rows); B7 on config #4's routes (trie + V6
+    groups) and ACL (the touch limit: V4 and V6 groups; ports and None)
+    at every B (v4, ::v4, ::ffff:v4, v6 and pad rows), and on
+    fp_cidr_cases; classify_fp_all's [B, 3] (B6, then B7 twice into one
+    output) against the plain tier at the largest B. Launch counts are
+    restored after. -> {"b6": err, "b7": err, "all": err, "layouts":
+    ...}."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    saved = (FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches)
+    hm, routes, am = tabs["hm"], tabs["routes"], tabs["am"]
+    hsnap = hm.snapshot()
+    b6 = b7 = 0
+    um_seen = set()
+    host_rules = mk_host_rules(n_host)
+    host_tab = FP.compile_hint_fp(host_rules)
+    host_t = fp_prepared(host_tab.arrays, device, True)
+    for name, tab, t, rules in (("100k uri", hsnap[0], hsnap[1],
+                                 tabs["rules"]),
+                                ("100k host-only", host_tab, host_t,
+                                 host_rules)):
+        for b in batches:
+            q = fp_hint_batch(tab, mk_queries(rules, b - b // 8,
+                                              seed=900 + b), b, device)
+            um_seen.add("um_fp1" in q)
+            b6 = max(b6, b6_vs_plain(f"{name} B={b}, {b // 8} pad rows", t,
+                                     q, device))
+    for name, rules, hints in fp_hint_cases():
+        tab = FP.compile_hint_fp(rules)
+        q = fp_hint_batch(tab, hints, len(hints) + 8, device)
+        um_seen.add("um_fp1" in q)
+        b6 = max(b6, b6_vs_plain(name, fp_prepared(tab.arrays, device, True),
+                                 q, device))
+    check(um_seen == {True, False}, f"B6 ran um_* batches {um_seen} only")
+    rt, at = routes.snapshot()[0], am.snapshot()[0]
+    layouts = {"routes": ("t_l0" in rt, int((rt["g_fam"] == 1).sum())),
+               "acl": ("t_l0" in at, int((at["g_fam"] >= 0).sum()))}
+    check(layouts["routes"][0] and layouts["routes"][1] > 0 and
+          not layouts["acl"][0] and layouts["acl"][1] > 0,
+          f"config #4's fp layouts are not trie + V6 groups (routes) and "
+          f"groups (ACL): {layouts}")
+    for b in batches:
+        real = b - b // 8
+        rq = [(a, None) for a, _ in cidr_queries(tabs["nets"], real,
+                                                  600 + b)]
+        b7 = max(b7, b7_vs_plain(f"routes 50k B={b}", rt,
+                                 *cidr_batch(rq, b, device), device))
+        aq = acl_queries(tabs["acl"], real, 700 + b)
+        b7 = max(b7, b7_vs_plain(f"ACL 5k B={b}", at,
+                                 *cidr_batch(aq, b, device), device))
+        b7 = max(b7, b7_vs_plain(
+            f"ACL 5k B={b} port=None", at,
+            *cidr_batch([(a, None) for a, _ in aq], b, device), device))
+    kinds = set()
+    for name, nets, acl, q, caps in fp_cidr_cases():
+        t = fp_prepared(FP.compile_cidr_fp(nets, acl=acl, caps=caps).arrays,
+                        device, False)
+        kinds.add(("t_l0" in t, "mrows" in t))
+        b7 = max(b7, b7_vs_plain(name, t, *cidr_batch(q, len(q) + 8,
+                                                      device), device))
+    check(len(kinds) == 4, f"B7 cases covered layouts {sorted(kinds)} (trie"
+          f" / groups x routes / ACL)")
+    b = max(batches)
+    real = b - b // 8
+    hq = fp_hint_batch(hsnap[0], mk_queries(tabs["rules"], b, seed=950),
+                       b, device)
+    aq = acl_queries(tabs["acl"], real // 2, 951)
+    addrs = [(a, p) for a, p in aq] + [
+        (a, 1024 + i) for i, (a, _) in enumerate(
+            cidr_queries(tabs["nets"], real - len(aq), 952))]
+    a16, fam, port = cidr_batch(addrs, b, device)
+    ref = FP.classify_fp_all(hsnap[1], rt, at, hq, a16, fam, port)
+    n0 = (FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches)
+    got = FPC.classify_fp_all(hsnap[1], rt, at, hq, a16, fam, port)
+    _sync(device)
+    n1 = (FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches)
+    on_card = device.type == "cuda"
+    check(n1[0] - n0[0] == (1 if on_card else 0) and
+          n1[1] - n0[1] == (2 if on_card else 0),
+          f"classify_fp_all launched B6 {n1[0] - n0[0]}, B7 "
+          f"{n1[1] - n0[1]} times")
+    err_all = int((got.long() - ref.long()).abs().max())
+    log(f"classify_fp_all vs plain [100k + config #4, B={b}]: matched "
+        f"{[int((ref[:, k] >= 0).sum()) for k in range(3)]} max_abs_err "
+        f"{err_all}")
+    check(got.shape == (b, 3) and torch.equal(got, ref),
+          "classify_fp_all != plain")
+    FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches = saved
+    return {"b6": b6, "b7": b7, "all": err_all, "layouts": layouts}
+
+
+def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
+                     cidr_oracle=None):
+    """The fingerprint backend's main path through ClassifyService in
+    "device" mode: bursts x burst submit_hint on the torch-fp
+    HintMatcher, as many submit_classify_pick on the FusedPair over it
+    (B6 plus the Maglev take: the backend fuses nothing), SecurityGroup
+    allow_async on config #4's ACL and submit_cidr on the 50k routes.
+    Every answer equal to the host index (CidrIndex and the linear
+    oracle_snap for CIDR, in worker processes); one B6 launch per hint
+    or cpick batch, one B7 launch per cidr batch, B1 / B3 / B4 never, no
+    failover. The CIDR queries and their linear-oracle answers are
+    phase 7's (`cidr_oracle`, from phase_cidr_service, over the same rule
+    lists; the scan of 50k routes takes minutes of CPU); without it the
+    oracle runs here (small tables). -> the phase's numbers."""
+    from vproxy_tpu_torch.ops import cidr_cuda as CC
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import maglev as M
+    from vproxy_tpu_torch.rules import oracle
+    from vproxy_tpu_torch.rules.ir import Proto
+    from vproxy_tpu_torch.rules.service import ClassifyService
+    hm, pair, routes, group, am, acl = (tabs[k] for k in (
+        "hm", "pair", "routes", "group", "am", "acl"))
+    n = bursts * burst
+    hsnap, msnap = hm.snapshot(), pair.mm.snapshot()
+    asnap, rsnap = am.snapshot(), routes.snapshot()
+    sub = am.snap_payload(asnap)
+    if cidr_oracle is None:
+        aqs = [acl_queries(acl, burst, 2000 + k) for k in range(bursts)]
+        rqs = [[(a, None) for a, _ in cidr_queries(rsnap[1], burst,
+                                                   2100 + k)]
+               for k in range(bursts)]
+        a_orc = [am.oracle_snap(asnap, *q) for b in aqs for q in b]
+        r_orc = [routes.oracle_snap(rsnap, *q) for b in rqs for q in b]
+    else:
+        (acl_o, aqs, a_orc), (nets_o, rqs, r_orc) = (
+            cidr_oracle["acl"], cidr_oracle["routes"])
+        check(list(map(repr, acl_o)) == list(map(repr, acl)) and
+              list(map(repr, nets_o)) == list(map(repr, rsnap[1])) and
+              len(aqs) == len(rqs) == bursts and
+              all(len(q) == burst for q in aqs + rqs),
+              "phase 7's oracle is not over these rules and bursts")
+    others = (FC.fused_classify_pick_cuda, FC.hint_match_cuda,
+              CC.cidr_first_cuda)
+    other0 = [f.launches for f in others]
+    ClassifyService.reset()
+    svc = ClassifyService.get()  # the one allow_async submits to
+    svc.mode = "device"
+    try:
+        # the main path's counts, read just after it
+        FPC.hint_fp_cuda.launches = FPC.cidr_fp_cuda.launches = 0
+        FP.hint_fp_match.cuda_calls = 0
+        f0, l0 = E.fused_dispatches_total(), E.dispatch_launches_total()
+        t0 = time.monotonic()
+        for k in range(bursts):
+            hints = mk_queries(tabs["rules"], burst, seed=2200 + k)
+            got = _answers(svc, lambda h, cb: svc.submit_hint(hm, h, cb),
+                           [(h,) for h in hints])
+            for i, h in enumerate(hints):
+                check(got[i] == (hm.index_snap(hsnap, h),),
+                      f"fp hint burst {k} row {i}")
+        hint_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        for k in range(bursts):
+            hints = mk_queries(tabs["rules"], burst, seed=2300 + k)
+            ips = mk_ips(burst, seed=2400 + k)
+            ports = [None if i % 3 == 0 else 1024 + i
+                     for i in range(burst)]
+            got = _answers(
+                svc, lambda h, ip, port, cb: svc.submit_classify_pick(
+                    pair, h, ip, port, cb), list(zip(hints, ips, ports)))
+            for i in range(burst):
+                want = (hm.index_snap(hsnap, hints[i]),
+                        M.pick(msnap[0], ips[i], ports[i]))
+                check(got[i] == want, f"fp cpick burst {k} row {i}: "
+                      f"{got[i]} != host {want}")
+        cpick_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        a_got = [_answers(svc, lambda a, p, cb: group.allow_async(
+            Proto.TCP, a, p, lambda ok: cb(ok, None)), q) for q in aqs]
+        r_got = [_answers(svc, lambda a, p, cb: svc.submit_cidr(
+            routes, a, p, cb), q) for q in rqs]
+        cidr_s = time.monotonic() - t0
+        launches = {"hint_fp": FPC.hint_fp_cuda.launches,
+                    "cidr_fp": FPC.cidr_fp_cuda.launches}
+        st = svc.stats
+        batches = {k: st.by_kind.get(k, [0])[0] for k in
+                   ("hint", "cpick", "cidr")}
+        on_card = device.type == "cuda"
+        check(st.failovers == 0, f"{st.failovers} device failovers")
+        check(st.device_queries == 4 * n and st.oracle_queries == 0,
+              f"device answered {st.device_queries} of {4 * n}")
+        check(launches["hint_fp"] == (batches["hint"] + batches["cpick"]
+                                      if on_card else 0)
+              and batches["hint"] > 0 and batches["cpick"] > 0,
+              f"B6 launches {launches['hint_fp']} != hint + cpick "
+              f"batches {batches}")
+        check(launches["cidr_fp"] == (batches["cidr"] if on_card else 0)
+              and batches["cidr"] > 0,
+              f"B7 launches {launches['cidr_fp']} != cidr batches "
+              f"{batches}")
+        check(E.fused_dispatches_total() == f0,
+              "an fp cpick batch took the fused dispatch")
+        check(E.dispatch_launches_total() - l0 == batches["hint"] +
+              2 * batches["cpick"] + batches["cidr"],
+              "engine launches != hint + 2 x cpick + cidr batches")
+        check([f.launches for f in others] == other0,
+              "the fp path launched B1, B3 or B4")
+        check(FP.hint_fp_match.cuda_calls == 0,
+              "B6's plain tier ran on CUDA tensors")
+        out = {"queries": 4 * n, "batches": batches,
+               "launches": launches, "failovers": st.failovers,
+               "max_batch": st.max_batch, "hint_wall_s": hint_s,
+               "cpick_wall_s": cpick_s, "cidr_wall_s": cidr_s,
+               "classify_latency": st.latency_percentiles()}
+        log(f"fp service: {json.dumps(out)}")
+    finally:
+        ClassifyService.reset()
+    for k in range(bursts):
+        for i, (a, p) in enumerate(aqs[k]):
+            j = am.index_snap(asnap, a, p)
+            check(j == a_orc[k * burst + i],
+                  f"fp ACL burst {k} row {i}: CidrIndex {j} != oracle")
+            want = sub[j].allow if j >= 0 else group.default_allow
+            check(a_got[k][i] == (want,), f"fp ACL burst {k} row {i}: "
+                  f"{a_got[k][i]} != {want} (rule {j})")
+        for i, (a, p) in enumerate(rqs[k]):
+            j = routes.index_snap(rsnap, a, p)
+            check(j == r_orc[k * burst + i] and r_got[k][i] == (j,),
+                  f"fp route burst {k} row {i}: {r_got[k][i]}, CidrIndex "
+                  f"{j}, oracle {r_orc[k * burst + i]}")
+    for h in mk_queries(tabs["rules"], 32, seed=2500):
+        check(hm.index_snap(hsnap, h) == oracle.search(tabs["rules"], h),
+              f"host index != linear oracle for {h}")
+    return out
+
+
+def fp_hint_work(t, q):
+    """(bytes, int ops) one B6 launch needs for this batch: every query
+    array read once and two int32 written per query, the wildcard lists
+    once, and per distinct live probe row its E fingerprint pairs, per
+    distinct matched entry its M member records. Ops: 2 per entry
+    compare, ~30 per member scored (the wildcard members every query)."""
+    b = q["hp_slot"].shape[0]
+    nbytes = sum(v.numel() * v.element_size() for v in q.values()) + b * 8
+    nbytes += (t["wh_rec"].numel() + t["wu_rec"].numel()) * 4
+    ops = b * (t["wh_rec"].shape[0] + t["wu_rec"].shape[0]) * 30
+    for pre, live, em in (("hp", q["hp_level"] > 0, t["h_em"]),
+                          ("up", q["up_score"] > 0, t["u_em"])):
+        e, m = em.shape
+        s = q[f"{pre}_slot"][live].long()
+        nbytes += torch.unique(s).numel() * e * 8
+        ents = t["rec"][s][:, : e * (2 + 4 * m)].reshape(-1, e, 2 + 4 * m)
+        ok = (ents[..., 0] == q[f"{pre}_fp1"][live][:, None]) & \
+            (ents[..., 1] == q[f"{pre}_fp2"][live][:, None])
+        hit = ok.any(dim=1)
+        entry = s[hit] * e + ok.int().argmax(dim=1)[hit]
+        nbytes += torch.unique(entry).numel() * m * 16
+        ops += s.numel() * 2 * e + int(hit.sum()) * m * 30
+    return nbytes, ops
+
+
+def fp_cidr_work(t, a16, fam, port):
+    """(bytes, int ops) one B7 launch needs for this batch: every
+    query's address, family (and port, for an ACL) read once and its
+    answer written once, the group arrays once; per V4 query of a trie
+    table the distinct cells it walks (and, for an ACL, its member row);
+    per (query, group of its family) the distinct slot rows of E x 12
+    bytes and, for an ACL, the matched entries' member rows. Ops: ~50
+    per group probe (3 hashes of 4 FNV rounds + fmix32, the mask and the
+    entry compares), ~6 per trie level, ~4 per member."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    b, g = a16.shape[0], t["g_fam"].shape[0]
+    acl = "mrows" in t
+    mk2 = t["mrows"].shape[1] if acl else 0
+    nbytes = b * (16 + 4 + 4) + (b * 4 if acl and port is not None else 0)
+    nbytes += g * 40
+    ops = 0
+    mrows = []
+    trie = (fam == 0) if "t_l0" in t else torch.zeros_like(fam,
+                                                           dtype=torch.bool)
+    if bool(trie.any()):
+        a = a16[trie].long()
+        i0 = a[:, 12] * 256 + a[:, 13]
+        v = t["t_l0"][i0].long()
+        deeper = v < 0
+        i1 = (-v[deeper] - 1) * 256 + a[deeper, 14]
+        v[deeper] = t["t_l1"][i1].long()
+        deeper = v < 0
+        i2 = (-v[deeper] - 1) * 256 + a[deeper, 15]
+        nbytes += 4 * sum(torch.unique(i).numel() for i in (i0, i1, i2))
+        ops += 6 * (i0.numel() + i1.numel() + i2.numel())
+        if acl:
+            mrows.append(FP._trie4_lookup(t, a16[trie]))
+    grp = (fam >= 0) & ~trie
+    if bool(grp.any()):
+        e = t["e_m"].shape[0]
+        aw = FP._pack_words16_dev(a16[grp])
+        masked = aw[:, None, :] & t["g_mask4"].to(torch.int64)[None]
+        hs = FP._fnv32_words_dev(masked, t["g_salt_s"])
+        slot = (t["g_off"].long()[None] + (hs & t["g_capmask"].long()[None])
+                ).clamp(0, t["rec"].shape[0] - 1)
+        gok = t["g_fam"][None] == fam[grp][:, None]
+        nbytes += torch.unique(slot[gok]).numel() * e * 12
+        ops += int(gok.sum()) * 50
+        if acl:
+            f1 = FP._u32_as_i32(FP._fnv32_words_dev(masked,
+                                                    t["g_salt_f1"]))
+            f2 = FP._u32_as_i32(FP._fnv32_words_dev(masked,
+                                                    t["g_salt_f2"]))
+            ents = t["rec"][slot].reshape(slot.shape[0], g, e, 3)
+            ok = (ents[..., 0] == f1[..., None]) & \
+                (ents[..., 1] == f2[..., None]) & gok[..., None]
+            mrows.append(ents[..., 2][ok].long())
+    if mrows:
+        rows = torch.cat(mrows)
+        rows = torch.unique(rows[rows > 0])
+        nbytes += rows.numel() * mk2 * 4
+        ops += rows.numel() * mk2 * 2
+    return nbytes, ops
+
+
+def phase_fp_times(device, tabs):
+    """B6 on the published 100k table (uri rules), B7 on config #4's
+    routes and ACL (with ports), and classify_fp_all (B6 + B7 twice) at
+    every TIME_BATCHES, with time_row: warm and cold device time, the
+    plain tier's, the wall time per call and the bound. The 100k slot
+    table is 155.7 MB, three times the 50 MB L2: a warm row is the time
+    with what the previous launch of the same batch left in L2, not an
+    all-L2 time. -> {"B6": rows, "B7 routes": rows, "B7 ACL": rows,
+    "classify_fp_all": rows}."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    hsnap = tabs["hm"].snapshot()
+    rt, at = tabs["routes"].snapshot()[0], tabs["am"].snapshot()[0]
+    saved = (FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    out = {"B6": [], "B7 routes": [], "B7 ACL": [], "classify_fp_all": []}
+    for b in TIME_BATCHES:
+        q = fp_hint_batch(hsnap[0], mk_queries(tabs["rules"], b, 2600 + b),
+                          b, device)
+        row = time_row(b, lambda: FPC.hint_fp_cuda(hsnap[1], q),
+                       lambda: FP.hint_fp_match(hsnap[1], q), KERNEL_B6,
+                       flush, fp_hint_work(hsnap[1], q))
+        out["B6"].append(row)
+        log("times B6 " + json.dumps(row))
+        for label, t, queries in (
+                ("B7 routes", rt, [(a, None) for a, _ in cidr_queries(
+                    tabs["nets"], b, 2700 + b)]),
+                ("B7 ACL", at, acl_queries(tabs["acl"], b, 2800 + b))):
+            a16, fam, port = cidr_batch(queries, b, device)
+            row = time_row(b, lambda: FPC.cidr_fp_cuda(t, a16, fam, port),
+                           lambda: FP.cidr_fp_match(t, a16, fam, port),
+                           KERNEL_B7, flush, fp_cidr_work(t, a16, fam, port))
+            out[label].append(row)
+            log(f"times {label} " + json.dumps(row))
+        aq = acl_queries(tabs["acl"], b, 2900 + b)
+        a16, fam, port = cidr_batch(aq, b, device)
+        works = [fp_hint_work(hsnap[1], q), fp_cidr_work(rt, a16, fam, None),
+                 fp_cidr_work(at, a16, fam, port)]
+        row = time_row(
+            b, lambda: FPC.classify_fp_all(hsnap[1], rt, at, q, a16, fam,
+                                           port),
+            lambda: FP.classify_fp_all(hsnap[1], rt, at, q, a16, fam, port),
+            "fp_", flush,
+            # one [B, 3] answer, the address batch read once
+            (sum(w[0] for w in works) - b * 4 - b * 20,
+             sum(w[1] for w in works)), launches=3)
+        out["classify_fp_all"].append(row)
+        log("times classify_fp_all " + json.dumps(row))
+    FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches = saved
+    del flush
+    return out
+
+
 def main() -> int:
     smi = phase_env()
     # the native FD provider, built from this checkout: a build or load
@@ -2642,19 +3346,41 @@ def main() -> int:
     os.environ.pop("VPROXY_TPU_VTL_SO", None)
     from vproxy_tpu_torch.rules import engine as E
     device = torch.device("cuda")
-    builds = phase_build()
-    err, b3_err, keep = phase_kernel_vs_plain(device)
-    launches, pair = phase_service(device, keep[0])
-    loop, _ = phase_loop(device, pair, keep[0])
+    phase_s = {}
+
+    def run(name, fn, *args, **kwargs):
+        """fn(*args, **kwargs), its wall seconds kept in phase_s."""
+        t0 = time.monotonic()
+        out = fn(*args, **kwargs)
+        phase_s[name] = time.monotonic() - t0
+        return out
+
+    builds = run("build", phase_build)
+    err, b3_err, keep = run("kernels", phase_kernel_vs_plain, device)
+    launches, pair = run("service", phase_service, device, keep[0])
+    loop, _ = run("loop", phase_loop, device, pair, keep[0])
     log(json.dumps({"loop": {**loop, "card": smi}}))
-    tcplb = phase_tcplb(device)
+    tcplb = run("tcplb", phase_tcplb, device)
     log(json.dumps({"tcplb": {**tcplb, "card": smi}}))
-    routes, group, am, acl = cidr_tables(device)
-    b4_err, rc_err = phase_cidr_vs_plain(device, keep, routes, am, acl)
-    b4_launches = phase_cidr_service(routes, group, am, acl)
-    rc_launches = phase_route_column(pair, routes)
-    rows, b3_rows, sweep = phase_times(device, keep)
-    crows = phase_cidr_times(device, keep, routes, am, acl)
+    routes, group, am, acl = run("cidr tables", cidr_tables, device)
+    b4_err, rc_err = run("cidr kernels", phase_cidr_vs_plain, device, keep,
+                         routes, am, acl)
+    b4_launches, oracle = run("cidr service", phase_cidr_service, routes,
+                              group, am, acl)
+    rc_launches = run("route column", phase_route_column, pair, routes)
+    fp = run("fp tables", fp_tables, device)
+    fp_err = run("fp kernels", phase_fp_kernels, device, fp)
+    fp_svc = run("fp service", phase_fp_service, device, fp,
+                 cidr_oracle=oracle)
+    log(json.dumps({"fp_service": {**fp_svc, "card": smi}}))
+    tcplb_fp = run("tcplb_fp", phase_tcplb, device,
+                   max_rules=TCPLB_MIN_RULES, bursts=1, matcher="jax-fp")
+    log(json.dumps({"tcplb_fp": {**tcplb_fp, "card": smi}}))
+    rows, b3_rows, sweep = run("times", phase_times, device, keep)
+    crows = run("cidr times", phase_cidr_times, device, keep, routes, am,
+                acl)
+    fp_rows = run("fp times", phase_fp_times, device, fp)
+    log(json.dumps({"phase_s": phase_s}))
     log("clocks " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],
@@ -2700,7 +3426,30 @@ def main() -> int:
               mode="B1's kernel, verdict-only (null Maglev column)",
               plain="hashmatch.hint_hash_match",
               launches_by_path={"tcplb": tcplb["launches"]["hint_match"]},
-              by_batch=b3_rows)]}))
+              by_batch=b3_rows),
+        entry("hint_fp_match", SOURCE_B6, REPLACES_B6,
+              fp_svc["launches"]["hint_fp"] +
+              tcplb_fp["fp_launches"]["hint_fp"], fp_err["b6"], fp_rows["B6"],
+              launches_by_path={
+                  "fp service": fp_svc["launches"]["hint_fp"],
+                  "tcplb_fp": tcplb_fp["fp_launches"]["hint_fp"]},
+              build_s=builds["fp_hint"]["build_s"],
+              instances=builds["fp_hint"]["instances"],
+              by_batch=fp_rows["B6"],
+              classify_fp_all={"max_abs_err": fp_err["all"],
+                               "by_batch": fp_rows["classify_fp_all"]}),
+        entry("cidr_fp_match", SOURCE_B7, REPLACES_B7,
+              fp_svc["launches"]["cidr_fp"] +
+              tcplb_fp["fp_launches"]["cidr_fp"], fp_err["b7"],
+              fp_rows["B7 ACL"], table="ACL 5k, ports",
+              launches_by_path={
+                  "fp service": fp_svc["launches"]["cidr_fp"],
+                  "tcplb_fp": tcplb_fp["fp_launches"]["cidr_fp"]},
+              build_s=builds["fp_cidr"]["build_s"],
+              instances=builds["fp_cidr"]["instances"],
+              layouts=fp_err["layouts"],
+              by_batch={"acl": fp_rows["B7 ACL"],
+                        "routes": fp_rows["B7 routes"]})]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

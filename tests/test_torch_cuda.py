@@ -1,5 +1,5 @@
-"""Torch port on the card: the CIDR kernels and B3 against their plain
-tiers.
+"""Torch port on the card: the CIDR kernels, B3 and the fingerprint
+kernels (B6, B7) against their plain tiers.
 
 Every test here is marked `cuda` and asks the `cuda` fixture for the
 card, which skips without one (the CPU tier-1 run skips them all). On a
@@ -153,3 +153,80 @@ def test_kernel_wrapper_bad_batch_is_kernel_error(cuda, entry):
         fn(*args)
     assert isinstance(err.value.__cause__, ValueError)
     assert fn.launches == n0
+
+
+# ---------------------------------------------- the fingerprint kernels
+
+def test_fp_hint_kernel_matches_plain_tier(cuda):
+    """B6 == fphash.hint_fp_match, int32 in index and level, on the
+    fingerprint parity sets (8 pad rows each), um_* batches and
+    untrimmed ones both."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    seen = set()
+    for name, rules, hints in CS.fp_hint_cases():
+        tab = FP.compile_hint_fp(rules)
+        q = CS.fp_hint_batch(tab, hints, len(hints) + 8, cuda)
+        seen.add("um_fp1" in q)
+        assert CS.b6_vs_plain(name, CS.fp_prepared(tab.arrays, cuda, True),
+                              q, cuda) == 0, name
+    assert seen == {True, False}
+
+
+def test_fp_cidr_kernel_matches_plain_tier(cuda):
+    """B7 == fphash.cidr_fp_match on every layout (trie or groups, route
+    or ACL, with ports and without), pad rows included."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    for name, nets, acl, q, caps in CS.fp_cidr_cases():
+        t = CS.fp_prepared(FP.compile_cidr_fp(nets, acl=acl,
+                                              caps=caps).arrays, cuda, False)
+        assert CS.b7_vs_plain(name, t, *CS.cidr_batch(q, len(q) + 8, cuda),
+                              cuda) == 0, name
+
+
+def test_fp_matchers_serve_from_the_kernels(cuda):
+    """torch-fp matchers on the card answer through B6 and B7 (one
+    launch a batch) what the host index answers, and classify_fp_all
+    is one B6 and two B7 launches."""
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    tabs = CS.fp_tables(cuda, n_rules=3000, n_routes=2000, n_acl=500)
+    hm, routes, am = tabs["hm"], tabs["routes"], tabs["am"]
+    hints = CS.mk_queries(tabs["rules"], 200)
+    n0 = (FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches)
+    got = hm.match(hints)
+    assert list(got) == [hm.index_snap(hm.snapshot(), h) for h in hints]
+    addrs = [a for a, _ in CS.cidr_queries(tabs["nets"], 200, 3)]
+    got = routes.match(addrs)
+    assert list(got) == [routes.index_snap(routes.snapshot(), a)
+                         for a in addrs]
+    assert (FPC.hint_fp_cuda.launches - n0[0],
+            FPC.cidr_fp_cuda.launches - n0[1]) == (1, 1)
+    snap = hm.snapshot()
+    q = CS.fp_hint_batch(snap[0], hints, 256, cuda)
+    a16, fam, port = CS.cidr_batch(CS.acl_queries(tabs["acl"], 200, 4), 256,
+                                   cuda)
+    rt, at = routes.snapshot()[0], am.snapshot()[0]
+    from vproxy_tpu_torch.ops import fphash as FP
+    got = FPC.classify_fp_all(snap[1], rt, at, q, a16, fam, port)
+    assert torch.equal(got, FP.classify_fp_all(snap[1], rt, at, q, a16,
+                                               fam, port))
+    assert (FPC.hint_fp_cuda.launches - n0[0],
+            FPC.cidr_fp_cuda.launches - n0[1]) == (2, 3)
+
+
+@pytest.mark.parametrize("entry", ["hint", "cidr"])
+def test_fp_kernel_bad_batch_is_kernel_error(cuda, entry):
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    rules, hints = CS.fp_member_overflow()
+    tab = FP.compile_hint_fp(rules)
+    if entry == "hint":
+        q = CS.fp_hint_batch(tab, hints, 8, cuda)
+        q["hlen"] = q["hlen"][:4]
+        with pytest.raises(FC.KernelError):
+            FPC.hint_fp_cuda(CS.fp_prepared(tab.arrays, cuda, True), q)
+    else:
+        nets, addrs = CS.fp_trie_first_match()
+        t = CS.fp_prepared(FP.compile_cidr_fp(nets).arrays, cuda, False)
+        a16, fam, _ = CS.cidr_batch([(a, None) for a in addrs], 8, cuda)
+        with pytest.raises(FC.KernelError):
+            FPC.cidr_fp_cuda(t, a16, fam[:4])

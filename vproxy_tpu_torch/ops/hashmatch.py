@@ -82,6 +82,12 @@ class HashHintTable:
     caps: dict = field(default_factory=dict)  # all static caps for reuse
 
 
+class CapsExceeded(Exception):
+    """A caps-reusing recompile outgrew the reused shapes: the caller
+    rebuilds with fresh caps (the fingerprint backend's compilers raise
+    it under `strict`, ops/fphash.py)."""
+
+
 def _prune_list(rules, items, sig):
     seen, keep = set(), []
     for i in sorted(items):

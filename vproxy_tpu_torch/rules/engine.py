@@ -10,11 +10,17 @@ VPROXY_TPU_MATCHER):
             take the plain torch tiers; on the card the hint verdict
             (B3), hint+pick, CIDR and the 3-column sweep run the hand
             kernels.
+* "torch-fp" — the packed-fingerprint tables (ops/fphash, the
+            reference's "jax-fp"): one slot row per probe, verified by a
+            64-bit fingerprint pair. CPU tensors take the plain torch
+            tier; on the card hint batches launch B6 and cidr batches B7
+            (ops/fphash_cuda). It fuses nothing: classify+pick is B6
+            plus the Maglev take, the reference's two-dispatch chain.
 * "host"  — the pure-Python oracle (correctness floor + latency floor
             for tiny tables).
 
-The reference's fingerprint, dense and mesh-sharded backends are later
-slices of the port.
+The reference's dense and mesh-sharded backends are later slices of the
+port.
 
 Rule updates never stall serving: set_rules() hands the new rule list to
 a process-wide background installer (TableInstaller) that compiles and
@@ -44,21 +50,29 @@ from .ir import AclRule, Hint, HintRule
 _log = Logger("engine")
 
 
-BACKENDS = ("torch", "host")
+BACKENDS = ("torch", "torch-fp", "host")
+DEVICE_BACKENDS = ("torch", "torch-fp")  # the ones with a serving device
+
+# VPROXY_TPU_MATCHER speaks the reference's names; this package serves
+# each under its own. Names whose slice is not ported yet ("jax-dense",
+# "jax-sharded", "jax-fp-sharded", anything else) serve "torch".
+_MATCHER_ENV = {"host": "host", "jax": "torch", "jax-fp": "torch-fp"}
 
 
 def _check_backend(backend: str) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (this package "
-                         f"serves 'torch' and 'host')")
+                         f"serves {', '.join(map(repr, BACKENDS))})")
     return backend
 
 
 def default_backend() -> str:
-    """VPROXY_TPU_MATCHER=host selects the oracle; every other value
-    serves the torch backend (the port's counterpart of "jax")."""
-    return "host" if os.environ.get("VPROXY_TPU_MATCHER") == "host" \
-        else "torch"
+    """VPROXY_TPU_MATCHER, read as the reference reads it: "host"
+    selects the oracle, "jax-fp" the fingerprint backend ("torch-fp"),
+    every other value the cuckoo backend ("torch", the counterpart of
+    "jax")."""
+    return _MATCHER_ENV.get(os.environ.get("VPROXY_TPU_MATCHER", ""),
+                            "torch")
 
 
 def pad_batch(n: int, lo: int = 16) -> int:
@@ -497,7 +511,7 @@ class HintMatcher:
                  backend: Optional[str] = None, payload=None, device=None):
         self.backend = _check_backend(backend or default_backend())
         self.device = default_device(device) \
-            if self.backend == "torch" else None
+            if self.backend in DEVICE_BACKENDS else None
         self._rules: list[HintRule] = list(rules)
         self._dev: Optional[dict] = None
         self._tab = None  # hash-path table meta
@@ -580,6 +594,20 @@ class HintMatcher:
                 # build failure stops the publish (KernelError)
                 from ..ops import fused_cuda as FC
                 fused_dev = FC.prepare_table(fused_dev)
+        elif self.backend == "torch-fp":
+            from ..ops import fphash as FP
+            try:
+                self._tab = FP.compile_hint_fp(self._rules, caps=self._caps)
+            except H.CapsExceeded:
+                # the update outgrew the reused shapes: a fresh build
+                self._tab = FP.compile_hint_fp(self._rules)
+            self._caps = self._tab.caps
+            self._dev = tables_from_reference(self._tab.arrays, self.device)
+            if self.device.type != "cpu":
+                # checked once per publish, and B6 built: a build
+                # failure stops the publish (KernelError)
+                from ..ops import fphash_cuda as FPC
+                self._dev = FPC.prepare_hint_table(self._dev)
         idx = None
         # small tables answer lone queries with the linear oracle, so
         # the index build only pays for itself past SMALL_TABLE
@@ -670,7 +698,8 @@ class HintMatcher:
         On the card, ONE launch of B3's CUDA kernel (ops/fused_cuda.py
         hint_match: B1's hint fold without the Maglev take) over the
         snapshot's packed table, or KernelError; CPU tensors take the
-        torch tier (hashmatch.hint_hash_match)."""
+        torch tier (hashmatch.hint_hash_match). A "torch-fp" matcher
+        launches B6 instead (_dispatch_fp)."""
         note_serving()
         tab, dev, rules = snap[0], snap[1], snap[2]
         if not rules or not hints:
@@ -679,21 +708,48 @@ class HintMatcher:
             return np.array([oracle.search(rules, h) for h in hints],
                             np.int32)
         note_launch(kind="hint")
+        if self.backend == "torch-fp":
+            return self._dispatch_fp(tab, dev, hints, pad_to)
+        q = self._upload(lambda: _fused_hint_q(tab, hints, pad_to))
         if self.device.type == "cpu":
-            q = tables_from_reference(_fused_hint_q(tab, hints, pad_to),
-                                      self.device)
             idx, _ = H.hint_hash_match(dev, q)
             return idx
         from ..ops import fused_cuda as FC
-        try:  # the batch's encode and upload: the card's or no one's
-            q = tables_from_reference(_fused_hint_q(tab, hints, pad_to),
-                                      self.device)
+        idx, _ = FC.hint_match(snap[5], q)
+        return idx
+
+    def _dispatch_fp(self, tab, dev, hints, pad_to: Optional[int]):
+        """A "torch-fp" batch: the fingerprint encode (pad rows zero:
+        no probe is live), then B6 on the card, the plain tier on the
+        CPU. The member mode is resolved per dispatch, as the reference
+        resolves it (checked; both compute the one function its three
+        lowerings agree on)."""
+        from ..ops import fphash as FP
+        mode = FP.default_member_mode()
+
+        def encode():
+            q = FP.encode_hint_queries_fp(hints, tab)
+            if pad_to and pad_to > len(hints):
+                q = _pad_hint_q(q, pad_to, {})
+            return q
+        q = self._upload(encode)
+        if self.device.type == "cpu":
+            return FP.hint_fp_match(dev, q, mode)[0]
+        from ..ops import fphash_cuda as FPC
+        return FPC.hint_fp_cuda(dev, q)[0]
+
+    def _upload(self, encode) -> dict:
+        """encode() -> the batch's tensors on the serving device. On the
+        card a failure is the card's, never the host's: KernelError."""
+        try:
+            return tables_from_reference(encode(), self.device)
         except MemoryError:
             raise
         except Exception as e:
-            raise FC.KernelError(f"hint batch upload failed: {e!r}") from e
-        idx, _ = FC.hint_match(snap[5], q)
-        return idx
+            if self.device.type == "cpu":
+                raise
+            from ..ops.fused_cuda import KernelError
+            raise KernelError(f"hint batch upload failed: {e!r}") from e
 
 
 class CidrMatcher:
@@ -707,7 +763,7 @@ class CidrMatcher:
                  device=None):
         self.backend = _check_backend(backend or default_backend())
         self.device = default_device(device) \
-            if self.backend == "torch" else None
+            if self.backend in DEVICE_BACKENDS else None
         self._nets = list(networks)
         self._acl = list(acl) if acl is not None else None
         self._dev: Optional[dict] = None
@@ -779,6 +835,19 @@ class CidrMatcher:
                 # build failure stops the publish (KernelError)
                 from ..ops import cidr_cuda as CC
                 fused_dev = CC.prepare_table(fused_dev)
+        elif self.backend == "torch-fp":
+            from ..ops import fphash as FP
+            try:
+                tab = FP.compile_cidr_fp(self._nets, acl=self._acl,
+                                         caps=self._caps)
+            except H.CapsExceeded:
+                tab = FP.compile_cidr_fp(self._nets, acl=self._acl)
+            self._caps = tab.caps
+            self._dev = tables_from_reference(tab.arrays, self.device)
+            if self.device.type != "cpu":
+                # checked once per publish, and B7 built (KernelError)
+                from ..ops import fphash_cuda as FPC
+                self._dev = FPC.prepare_cidr_table(self._dev)
         idx = None
         if len(self._nets) > SMALL_TABLE:  # see HintMatcher._recompile
             from .index import CidrIndex
@@ -885,8 +954,9 @@ class CidrMatcher:
         """Encode + submit one batch against the snapshotted table
         generation: an int32 [cap] tensor (to_host() it to block). On
         the card, ONE launch of the CIDR kernel (ops/cidr_cuda.py) over
-        the packed table; CPU tensors take the torch tier
-        (hashmatch.cidr_hash_match). pad_to: pad the encoded arrays to
+        the packed table, or of B7 (ops/fphash_cuda.py) on a "torch-fp"
+        matcher; CPU tensors take the torch tiers
+        (hashmatch.cidr_hash_match, fphash.cidr_fp_match). pad_to: pad the encoded arrays to
         this batch bucket (family -1 marks pad rows — matches no
         group)."""
         note_serving()
@@ -907,6 +977,9 @@ class CidrMatcher:
         if p is not None:
             q["port"] = p
         q = tables_from_reference(q, self.device)
+        if self.backend == "torch-fp":
+            from ..ops import fphash_cuda as FPC
+            return FPC.cidr_fp(dev, q["a16"], q["fam"], q.get("port"))
         if self.device.type == "cpu":
             return H.cidr_hash_match(dev, q["a16"], q["fam"], q.get("port"))
         from ..ops import cidr_cuda as CC
