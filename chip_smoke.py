@@ -108,16 +108,25 @@ kernels, and prints one JSON line per result. Phases, in order:
    V6 groups) and the ACL (groups: its trie passes the build's touch
    limit; ports and port=None) at every B, and on the CPU sets (a trie
    ACL, routes without the trie, a wide route first, an ACL past 128
-   stacked rules, v6 only, mixed families); classify_fp_all's [B, 3]
-   (B6, then B7 twice into one output) against the plain tier;
+   stacked rules, v6 only, mixed families, 129 v6 groups, last-entry
+   matches, a V4 ACL without the trie past one member window), on
+   tables cut where the reference clamps or with rows twice as wide
+   (fp_table_variant) and on batches cut where B6 clamps a member's
+   index (cut_fp_query); classify_fp_all's [B, 3] (B6, then B7 twice
+   into one output) against the plain tier; the `fp_design` line: per
+   case, the lane rounds, list windows, chain of dependent global-load
+   steps and last-entry matches of the kernels' designs
+   (fp_hint_design, fp_cidr_design); the phase fails unless both
+   kernels' cases take a second round and a second window and match a
+   last entry;
 7c. fp service (the `fp_service` line): 4 x 512 submit_hint on the
    torch-fp HintMatcher, 4 x 512 submit_classify_pick on a FusedPair
    over it (B6 plus the Maglev take: the backend fuses nothing), 4 x
    512 SecurityGroup allow_async on the ACL and 4 x 512 submit_cidr on
    the routes (phase 7's queries), "device" mode; every answer equal to
    the host index (and phase 7's linear oracle for CIDR), one B6 launch
-   per hint or cpick batch, one B7 launch per cidr batch, B1 / B3 / B4
-   never, no failover;
+   per hint or cpick batch, one Maglev take (B5) per cpick batch, one B7
+   launch per cidr batch, B1 / B3 / B4 never, no failover;
 7d. tcplb_fp (the `tcplb_fp` line): phase 5b's http-splice LB with
    VPROXY_TPU_MATCHER=jax-fp, 256 groups, one burst of 512 connections
    (and the keep-alive burst): every backend equal to the host index's
@@ -143,13 +152,21 @@ kernels, and prints one JSON line per result. Phases, in order:
    (address encode, upload, wrapper call with the kernel, the whole
    CidrMatcher.match round trip); and for B6 (100k table), B7 (routes,
    ACL) and classify_fp_all (its 3 launches summed), with their plain
-   tiers and bounds (the 155.7 MB slot table is three times the L2: a
-   warm time there is not an all-L2 time);
+   tiers, bounds and designs (the 155.7 MB slot table is three times
+   the L2: a warm time there is not an all-L2 time), and the Maglev take
+   (B5) every fp cpick batch runs beside B6 (the `b5_take` line);
 10. the `phase_s` line (wall seconds per phase), the {"kernels": [...]}
    line (B1, B1 with the route column, B4, B3, B6, B7),
    then the card's line, then the device line.
 
 Any failed phase raises, and the script exits non-zero.
+
+    python3 chip_smoke.py --ab DIR
+
+times B6, B7 and classify_fp_all of this checkout against a parent
+commit's fp_hint.cu and fp_cidr.cu (in DIR), in one process on the same
+tables and batches, in turns (parent, change, change, parent), warm and
+cold, after holding both to the plain tier (the `fp_ab` line).
 """
 from __future__ import annotations
 
@@ -789,6 +806,59 @@ def clamp_grown(cut: dict, full: dict) -> dict:
 HINT_CUTS = ("bucket", "items")
 
 
+def fp_table_variant(t: dict, how: str) -> dict:
+    """A fingerprint table's arrays changed where the kernels take a
+    path no compiled table of the cases reaches. Cut short where the
+    reference's gathers clamp: "rec" (slot rows past the first third),
+    "mrows" (ACL member rows past the first third), "trie" (t_l1 and
+    t_l2 past their first subtable); or "wide" (CIDR rows of twice E
+    entries, every entry moved into the second half, where B7 loads
+    them in a second step). The kernels must answer as the plain tier."""
+    out = dict(t)
+    if how == "trie":
+        out["t_l1"], out["t_l2"] = t["t_l1"][:256], t["t_l2"][:256]
+    elif how == "wide":
+        rec = t["rec"]
+        out["rec"] = np.concatenate([np.zeros_like(rec), rec], axis=1)
+        out["e_m"] = np.zeros((2 * t["e_m"].shape[0], 1), np.int32)
+    else:
+        assert how in ("rec", "mrows")
+        out[how] = t[how][: max(1, t[how].shape[0] // 3)]
+    return out
+
+
+def cut_fp_query(q: dict, how: str) -> dict:
+    """An encoded hint batch cut short where B6 clamps a member's index
+    into the query's arrays, with the other path to the same rules shut
+    so the clamped read decides the answer: "um" (the uri-side
+    fingerprints cut to 2 lset positions, the second the query's longest
+    live prefix; the uri probes dead) or "hmeta" (the rolling host
+    fingerprints cut to 5 host lengths, the fifth the whole host; the
+    host probes dead)."""
+    out = dict(q)
+    rows = torch.arange(q["hlen"].shape[0], device=q["hlen"].device)
+    if how == "um":
+        um = [q.get(f"um_{k}", q[f"up_{k}"]) for k in ("fp1", "fp2", "score")]
+        last = ((um[2] > 0).sum(dim=1) - 1).clamp(min=0)
+        for k, v in zip(("fp1", "fp2", "score"), um):
+            out[f"um_{k}"] = torch.stack([v[:, 0], v[rows, last]], dim=1)
+        out["up_score"] = torch.zeros_like(q["up_score"])
+    else:
+        assert how == "hmeta"
+        hm = q["q_hmeta"]
+        at = q["hlen"].clamp(max=hm.shape[1] - 1).long()
+        out["q_hmeta"] = torch.cat([hm[:, :4], hm[rows, at][:, None]], dim=1)
+        out["hp_level"] = torch.zeros_like(q["hp_level"])
+    return out
+
+
+FP_VARIANTS = {"routes_2k": ("rec", "trie", "wide"),
+               "acl_500": ("rec", "mrows", "trie", "wide"),
+               "acl_deep_buckets no_trie": ("rec", "mrows", "wide")}
+FP_QUERY_CUTS = {"random_300_b600": ("um", "hmeta"),
+                 "boundary": ("um", "hmeta")}
+
+
 # The fingerprint backend's parity sets (tests/test_torch_fphash.py;
 # tier-1 holds these copies equal to those).
 
@@ -886,6 +956,94 @@ def fp_v6_only(seed: int = 9):
         nets.append(Network(bytes(a & b for a, b in zip(raw, m)), m))
     addrs = [n.ip[:15] + bytes([i]) for i, n in enumerate(nets)]
     return nets, addrs + [bytes([10, 0, 0, 1]), b"\xfe" + bytes(15)]
+
+
+def fp_v6_all_masks(seed: int = 19):
+    """A v6 route at every prefix length /0-/128 over one address, in
+    random order: 129 groups of one family (B7's lanes take them in
+    three rounds); 200 addresses under it at every depth, every 8th
+    random. -> (nets, [addr])."""
+    import numpy as np
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes
+    rng = np.random.default_rng(seed)
+    base = b"\xfd" + rng.bytes(15)
+
+    def net(ml):
+        m = mask_bytes(ml)
+        return Network(bytes(a & b for a, b in zip(base, m)) +
+                       bytes(16 - len(m)), m)
+
+    def under(ml):
+        keep = ((1 << ml) - 1) << (128 - ml)
+        r = int.from_bytes(rng.bytes(16), "big") & ~keep
+        return ((int.from_bytes(base, "big") & keep) | r).to_bytes(16, "big")
+    nets = [net(int(ml)) for ml in rng.permutation(129)]
+    addrs = [b"\xfd" + rng.bytes(15) if i % 8 == 7 else
+             under(int(rng.integers(129))) for i in range(200)]
+    return nets, addrs
+
+
+def fp_last_entry_routes(n: int = 400, seed: int = 17):
+    """n random v6 /48 routes (one group, rows of several entries) and
+    an address under each: every key is matched, the last of a full
+    slot row among them. -> (nets, [addr])."""
+    import numpy as np
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes
+    rng = np.random.default_rng(seed)
+    nets = [Network(b"\xfd" + rng.bytes(5) + bytes(10), mask_bytes(48))
+            for _ in range(n)]
+    return nets, [nt.ip[:15] + bytes([i % 256]) for i, nt in enumerate(nets)]
+
+
+def fp_last_entry(n: int = 300):
+    """n host rules and n uri rules, each queried by its own key: the
+    last entry of a full slot row is matched, on both sides (rows of 3
+    entries, not a power of two). -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = [HintRule(host=f"n{i}.last.io") for i in range(n)]
+    rules += [HintRule(uri=f"/last/{i}") for i in range(n)]
+    return rules, [Hint(host=f"n{i}.last.io", uri=f"/last/{i}")
+                   for i in range(n)]
+
+
+def fp_probe_rounds(seed: int = 13):
+    """1,500 host rules of up to 28 one-letter labels (a 64-byte host
+    window) and queries 30 labels deeper: 33 host probes x hE entries,
+    more (probe, entry) pairs than B6's lanes take in one round, the uri
+    probes' pairs past it; every 4th query matches only a uri rule. ->
+    (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rnd = random.Random(seed)
+    labels = "abcdefgh"
+    rules = [HintRule(host=".".join(rnd.choice(labels) for _ in range(
+        rnd.randint(1, 27))) + f".t{i % 40}.io",
+        uri=rnd.choice([None, "/api", "/v2/x"])) for i in range(1500)]
+    rules += [HintRule(uri="/only"), HintRule(uri="/only/deeper")]
+    hints = []
+    for i in range(64):
+        r = rules[rnd.randrange(1500)]
+        pre = ".".join(rnd.choice(labels) for _ in range(30))
+        if i % 4 == 3:  # no host rule: only the uri probes answer
+            hints.append(Hint(host=f"{pre}.none.io", uri="/only/deeper/x"))
+        else:
+            hints.append(Hint(host=f"{pre}.{r.host}",
+                              uri=rnd.choice(["/api/x", "/v2/xyz", None])))
+    return rules, hints
+
+
+def fp_wildcards():
+    """48 host="*" rules (distinct uris and ports) and 48 uri="*" rules
+    (distinct ports): 128 wildcard members, so every query's members
+    pass one list window of B6. -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = [HintRule(host="*", uri=f"/w{i}", port=i % 3) for i in range(48)]
+    rules += [HintRule(host=f"h{i}.io", uri="*", port=1000 + i)
+              for i in range(48)]
+    rules += [HintRule(host=f"h{i}.io", uri=f"/w{i}") for i in range(0, 48, 3)]
+    hints = [Hint(host=f"h{i % 60}.io", uri=f"/w{(7 * i) % 60}/q",
+                  port=(i % 3, 1000 + i % 50)[i % 2]) for i in range(60)]
+    return rules, hints + [Hint(host="*", uri="*"), Hint(uri="/w5"),
+                           Hint(host="x.h3.io")]
 
 
 # -------------------------------------------------------------- phases
@@ -2127,11 +2285,13 @@ def call_ms(fn, iters: int, reps: int = 5) -> float:
     return best
 
 
-def device_ms(fn, iters: int, only: str = "", launches: int = 0) -> float:
+def device_ms(fn, iters: int, only: str = "", launches: int = 0,
+              exclude: str = "") -> float:
     """Mean device ms per call: the CUDA kernels' own time, summed over
     every kernel one call launches whose name holds `only` (all when
-    empty) (torch.profiler / CUPTI). 0.0 when the profiler saw no such
-    device activity. With `launches` > 0 the profiler must have seen
+    empty) and not `exclude` (torch.profiler / CUPTI). 0.0 when the
+    profiler saw no such device activity. With `launches` > 0 the
+    profiler must have seen
     iters x launches such kernels: a run that lost events would read
     low, so it is run again (CUPTI on the H100 host drops its
     records now and then), and the phase fails after five."""
@@ -2145,7 +2305,7 @@ def device_ms(fn, iters: int, only: str = "", launches: int = 0) -> float:
             torch.cuda.synchronize()
         us, n = 0.0, 0
         for ev in prof.key_averages():
-            if only in ev.key:
+            if only in ev.key and not (exclude and exclude in ev.key):
                 us += getattr(ev, "self_device_time_total",
                               getattr(ev, "self_cuda_time_total", 0.0))
                 n += ev.count
@@ -2650,6 +2810,20 @@ def cidr_work(ct, a16, fam, port):
     return nbytes, ops
 
 
+def _cu_ints(source: str, *names: str) -> list:
+    """The values of `constexpr int NAME = n;` in a kernel source (a
+    path in the repo, or an absolute one)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           source)) as f:
+        src = f.read()
+    return [int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in names]
+
+
+def _ceil(x, d):
+    return (x + d - 1) // d
+
+
 def cidr_design(ct, a16, fam) -> dict:
     """What the CIDR routine's design depends on, for one batch, from the
     table and the batch with torch ops on their device (cidr_first.cuh:
@@ -2660,11 +2834,7 @@ def cidr_design(ct, a16, fam) -> dict:
     takes for one query."""
     from vproxy_tpu_torch.ops import fused_cuda as FC
     from vproxy_tpu_torch.ops.hashmatch import _cidr_slots
-    with open(FC.CIDR_HEADER) as f:
-        src = f.read()
-    probes, entries = (int(re.search(rf"constexpr int {k} = (\d+);",
-                                     src).group(1))
-                       for k in ("PROBES", "ENTRIES"))
+    probes, entries = _cu_ints(FC.CIDR_HEADER, "PROBES", "ENTRIES")
     per_round, per_window = 32 * probes, 32 * entries
     n_ct, bk = ct["pk_cslot"].shape[0], ct["bk_iota"].shape[0]
     masked, gok, slots = _cidr_slots(ct, a16, fam)
@@ -2916,6 +3086,129 @@ def b7_vs_plain(name, t, a16, fam, port, device) -> int:
     return d
 
 
+def _fp_probe_hits(t, q) -> list:
+    """Per probe side of a B6 batch, host then uri: (E, M, the live
+    probes [B, X], their slots clamped to the table [B, X], which of the
+    slot row's E entries match the probe's fingerprints [B, X, E])."""
+    out = []
+    for pre, live, em in (("hp", q["hp_level"] > 0, t["h_em"]),
+                          ("up", q["up_score"] > 0, t["u_em"])):
+        e, m = em.shape
+        s = q[f"{pre}_slot"].clamp(0, t["rec"].shape[0] - 1).long()
+        ents = t["rec"][s][..., : e * (2 + 4 * m)].reshape(
+            *s.shape, e, 2 + 4 * m)
+        ok = (ents[..., 0] == q[f"{pre}_fp1"][..., None]) & \
+            (ents[..., 1] == q[f"{pre}_fp2"][..., None]) & live[..., None]
+        out.append((e, m, live, s, ok))
+    return out
+
+
+def fp_hint_design(t, q) -> dict:
+    """What B6's design depends on, for one batch, from the table and
+    the batch with torch ops on their device (csrc/fp_hint.cu: a probe
+    takes 2^s (probe, entry) slots, 2^s >= max(hE, uE), a lane PAIRS
+    slots per round, a warp lists 32 x MEMBERS members per window, the
+    wildcard members in round 0): the (probe, entry) pairs and slots and
+    the lane rounds, the most members and list windows of one query, its
+    longest chain of dependent global-load steps as the header counts
+    them (the staged query, then per round the pairs and each window of
+    members), and the live probes matched on the last entry of their
+    row."""
+    pairs_, members_ = _cu_ints(SOURCE_B6, "PAIRS", "MEMBERS")
+    per_round, per_window = 32 * pairs_, 32 * members_
+    b, p = q["hp_slot"].shape
+    (he, hm), (ue, um) = t["h_em"].shape, t["u_em"].shape
+    u = q["up_slot"].shape[1]
+    ep = 1 << (max(he, ue) - 1).bit_length()  # entry slots per probe
+    rounds = max(1, _ceil((p + u) * ep, per_round))
+    mem = torch.zeros(b, rounds, dtype=torch.int64, device=q["hp_slot"].device)
+    mem[:, 0] = t["wh_rec"].shape[0] + t["wu_rec"].shape[0]
+    last = 0
+    for p0, (e, m, _, _, ok) in zip((0, p), _fp_probe_hits(t, q)):
+        dev = ok.device
+        x = (p0 + torch.arange(ok.shape[1], device=dev))[:, None] * ep + \
+            torch.arange(e, device=dev)[None]
+        mem.scatter_add_(1, (x.reshape(-1) // per_round)[None].expand(b, -1),
+                         ok.reshape(b, -1).long() * m)
+        last += int(ok[..., e - 1].sum()) if e > 1 else 0
+    windows = _ceil(mem, per_window)
+    return {"pairs": p * he + u * ue, "slots": (p + u) * ep,
+            "rounds": rounds,
+            "max_members": int(mem.sum(dim=1).max()),
+            "max_windows": int(windows.sum(dim=1).max()),
+            "max_chain": int((1 + rounds + windows.sum(dim=1)).max()),
+            "last_entry_matches": last}
+
+
+def _fp_group_hits(t, a16, fam) -> tuple:
+    """For a B7 batch: the queries that walk the trie [B], the (query,
+    group) pairs B7 probes (the query's family, off the trie) [B, G],
+    their slots clamped to the table [B, G], the slot rows' entries [B,
+    G, E, 3] and which of them match the pair's fingerprints [B, G,
+    E]."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    b, e = a16.shape[0], t["e_m"].shape[0]
+    trie = (fam == 0) & ("t_l0" in t)
+    gok = (t["g_fam"][None] >= 0) & (t["g_fam"][None] == fam[:, None]) & \
+        ~trie[:, None]
+    masked = FP._pack_words16_dev(a16)[:, None, :] & \
+        t["g_mask4"].to(torch.int64)[None]
+    slot = (t["g_off"].long()[None] + (
+        FP._fnv32_words_dev(masked, t["g_salt_s"]) &
+        t["g_capmask"].long()[None])).clamp(0, t["rec"].shape[0] - 1)
+    ents = t["rec"][slot].reshape(b, -1, e, 3)
+    f1, f2 = (FP._u32_as_i32(FP._fnv32_words_dev(masked, t[k]))
+              for k in ("g_salt_f1", "g_salt_f2"))
+    ok = (ents[..., 0] == f1[..., None]) & (ents[..., 1] == f2[..., None]) \
+        & gok[..., None]
+    return trie, gok, slot, ents, ok
+
+
+def fp_cidr_design(t, a16, fam) -> dict:
+    """What B7's design depends on, for one batch (csrc/fp_cidr.cu: a
+    lane takes GROUPS live groups per round and ENTRIES entries of a
+    row per load, a warp deals 32 x PAIRS member pairs per window): over
+    the batch's queries, the most live groups and lane rounds, member
+    rows, member pairs and list windows of one query (ACL), its longest
+    chain of dependent global-load steps as the header counts them, and
+    the (query, group) matches on the last entry of a slot row."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    groups_, entries_, pairs_ = _cu_ints(SOURCE_B7, "GROUPS", "ENTRIES",
+                                         "PAIRS")
+    e = t["e_m"].shape[0]
+    acl, has_trie = "mrows" in t, "t_l0" in t
+    trie, gok, _, ents, ok = _fp_group_hits(t, a16, fam)
+    ng = gok.long().sum(dim=1)
+    rounds = _ceil(ng, 32 * groups_)
+    last = int(ok[..., e - 1].sum()) if e > 1 else 0
+    steps = torch.where(trie, 1, 1 + rounds * _ceil(e, entries_))
+    if has_trie:  # the walk: t_l0, then t_l1 / t_l2 when the cell says
+        a = a16.long()
+        v = t["t_l0"][a[:, 12] * 256 + a[:, 13]].long()
+        levels = 1 + (v < 0).long()
+        i1 = ((-v - 1).clamp(min=0) * 256 + a[:, 14]).clamp(
+            max=t["t_l1"].shape[0] - 1)
+        v = torch.where(v < 0, t["t_l1"][i1].long(), v)
+        levels += (v < 0).long()
+        steps = torch.where(trie, steps + levels, steps)
+    rows = torch.zeros_like(ng)
+    if acl:
+        nm, mk = t["mrows"].shape[0], t["mrows"].shape[1] // 2
+        mrow = torch.where(ok, ents[..., 2], 0).amax(dim=2).clamp(0, nm - 1)
+        rows = (mrow != 0).long().sum(dim=1)
+        if has_trie:
+            cell = FP._trie4_lookup(t, a16).clamp(0, nm - 1)
+            rows = torch.where(trie, (cell != 0).long(), rows)
+        windows = _ceil(rows * mk, 32 * pairs_)
+    else:
+        mk, windows = 0, torch.zeros_like(ng)
+    steps = torch.where(fam >= 0, steps + windows, 1)
+    return {"max_groups": int(ng.max()), "max_rounds": int(rounds.max()),
+            "max_rows": int(rows.max()), "max_pairs": int(rows.max()) * mk,
+            "max_windows": int(windows.max()),
+            "max_chain": int(steps.max()), "last_entry_matches": last}
+
+
 def fp_prepared(arrays: dict, device, hint: bool):
     """A compiled table's arrays as tensors on `device`, prepared for its
     kernel on the card."""
@@ -2929,14 +3222,19 @@ def fp_prepared(arrays: dict, device, hint: bool):
 
 def fp_hint_cases():
     """-> (name, rules, hints) of each B6 parity set (besides the 100k
-    tables): the cuckoo kernels' CPU sets and the fingerprint ones."""
+    tables): the cuckoo kernels' CPU sets and the fingerprint ones (past
+    one round of (probe, entry) pairs, a last-entry match on both sides,
+    128 wildcard members)."""
     rules = rand_rules(300, 11)
     yield "random_300_b600", rules, rand_hints(rules, 600, 11)
     for name, gen in (("shared_keys", shared_keys),
                       ("long_hosts", long_hosts),
                       ("wide_buckets", wide_buckets),
                       ("member_overflow", fp_member_overflow),
-                      ("uri_untrimmed", fp_uri_untrimmed)):
+                      ("uri_untrimmed", fp_uri_untrimmed),
+                      ("probe_rounds", fp_probe_rounds),
+                      ("last_entry", fp_last_entry),
+                      ("wildcards", fp_wildcards)):
         yield (name, *gen())
     for name in BOUNDARY_CASES:
         rules, hints, _ = boundary(name)
@@ -2948,7 +3246,9 @@ def fp_cidr_cases():
     B7 parity set besides config #4's tables: the CPU sets of the CIDR
     kernel (a trie ACL among them), routes without the trie, the
     fingerprint sets (a wide route first, an ACL trie of overlaps, an
-    ACL past 128 stacked rules, v6 only)."""
+    ACL past 128 stacked rules, v6 only, 129 v6 groups in three lane
+    rounds, a last-entry match, a V4 ACL without the trie whose queries
+    match several member rows, past one list window)."""
     for name, nets, acl, q in small_cidr_cases():
         yield name, nets, acl, q, None
     nets = route_nets(2000, 5)
@@ -2964,6 +3264,13 @@ def fp_cidr_cases():
                [(a, None) for a, _ in q], None)
     nets, addrs = fp_v6_only()
     yield "v6_only", nets, None, [(a, None) for a in addrs], None
+    for name, gen in (("v6_all_masks", fp_v6_all_masks),
+                      ("last_entry_routes", fp_last_entry_routes)):
+        nets, addrs = gen()
+        yield name, nets, None, [(a, None) for a in addrs], None
+    acl, q = acl_deep_buckets()
+    yield ("acl_deep_buckets no_trie", [r.network for r in acl], acl, q,
+           {"no_trie": 1})
 
 
 def phase_fp_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
@@ -2984,6 +3291,7 @@ def phase_fp_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
     hsnap = hm.snapshot()
     b6 = b7 = 0
     um_seen = set()
+    design = {"b6": {}, "b7": {}}
     host_rules = mk_host_rules(n_host)
     host_tab = FP.compile_hint_fp(host_rules)
     host_t = fp_prepared(host_tab.arrays, device, True)
@@ -2997,12 +3305,19 @@ def phase_fp_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
             um_seen.add("um_fp1" in q)
             b6 = max(b6, b6_vs_plain(f"{name} B={b}, {b // 8} pad rows", t,
                                      q, device))
+            design["b6"][f"{name} B={b}"] = fp_hint_design(t, q)
     for name, rules, hints in fp_hint_cases():
         tab = FP.compile_hint_fp(rules)
         q = fp_hint_batch(tab, hints, len(hints) + 8, device)
         um_seen.add("um_fp1" in q)
-        b6 = max(b6, b6_vs_plain(name, fp_prepared(tab.arrays, device, True),
-                                 q, device))
+        t = fp_prepared(tab.arrays, device, True)
+        b6 = max(b6, b6_vs_plain(name, t, q, device))
+        design["b6"][name] = fp_hint_design(t, q)
+        b6 = max(b6, b6_vs_plain(f"{name} rec cut", fp_prepared(
+            fp_table_variant(tab.arrays, "rec"), device, True), q, device))
+        for how in FP_QUERY_CUTS.get(name, ()):
+            b6 = max(b6, b6_vs_plain(f"{name} {how} cut", t,
+                                     cut_fp_query(q, how), device))
     check(um_seen == {True, False}, f"B6 ran um_* batches {um_seen} only")
     rt, at = routes.snapshot()[0], am.snapshot()[0]
     layouts = {"routes": ("t_l0" in rt, int((rt["g_fam"] == 1).sum())),
@@ -3015,23 +3330,36 @@ def phase_fp_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
         real = b - b // 8
         rq = [(a, None) for a, _ in cidr_queries(tabs["nets"], real,
                                                   600 + b)]
-        b7 = max(b7, b7_vs_plain(f"routes 50k B={b}", rt,
-                                 *cidr_batch(rq, b, device), device))
-        aq = acl_queries(tabs["acl"], real, 700 + b)
-        b7 = max(b7, b7_vs_plain(f"ACL 5k B={b}", at,
-                                 *cidr_batch(aq, b, device), device))
-        b7 = max(b7, b7_vs_plain(
-            f"ACL 5k B={b} port=None", at,
-            *cidr_batch([(a, None) for a, _ in aq], b, device), device))
+        ab = cidr_batch(acl_queries(tabs["acl"], real, 700 + b), b, device)
+        for name, t, batch in (
+                (f"routes 50k B={b}", rt, cidr_batch(rq, b, device)),
+                (f"ACL 5k B={b}", at, ab)):
+            b7 = max(b7, b7_vs_plain(name, t, *batch, device))
+            design["b7"][name] = fp_cidr_design(t, *batch[:2])
+        b7 = max(b7, b7_vs_plain(f"ACL 5k B={b} port=None", at, *ab[:2],
+                                 None, device))
     kinds = set()
     for name, nets, acl, q, caps in fp_cidr_cases():
-        t = fp_prepared(FP.compile_cidr_fp(nets, acl=acl, caps=caps).arrays,
-                        device, False)
+        arrays = FP.compile_cidr_fp(nets, acl=acl, caps=caps).arrays
+        t = fp_prepared(arrays, device, False)
         kinds.add(("t_l0" in t, "mrows" in t))
-        b7 = max(b7, b7_vs_plain(name, t, *cidr_batch(q, len(q) + 8,
-                                                      device), device))
+        batch = cidr_batch(q, len(q) + 8, device)
+        b7 = max(b7, b7_vs_plain(name, t, *batch, device))
+        design["b7"][name] = fp_cidr_design(t, *batch[:2])
+        for how in FP_VARIANTS.get(name, ()):
+            b7 = max(b7, b7_vs_plain(f"{name} {how}", fp_prepared(
+                fp_table_variant(arrays, how), device, False), *batch,
+                device))
     check(len(kinds) == 4, f"B7 cases covered layouts {sorted(kinds)} (trie"
           f" / groups x routes / ACL)")
+    log(json.dumps({"fp_design": design}))
+    for k, rounds in (("b6", "rounds"), ("b7", "max_rounds")):
+        d = design[k].values()
+        check(max(x[rounds] for x in d) > 1 and
+              max(x["max_windows"] for x in d) > 1 and
+              sum(x["last_entry_matches"] for x in d) > 0,
+              f"{k.upper()}'s cases take no second lane round, no second "
+              f"list window or no last-entry match (fp_design)")
     b = max(batches)
     real = b - b // 8
     hq = fp_hint_batch(hsnap[0], mk_queries(tabs["rules"], b, seed=950),
@@ -3058,7 +3386,8 @@ def phase_fp_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
     check(got.shape == (b, 3) and torch.equal(got, ref),
           "classify_fp_all != plain")
     FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches = saved
-    return {"b6": b6, "b7": b7, "all": err_all, "layouts": layouts}
+    return {"b6": b6, "b7": b7, "all": err_all, "layouts": layouts,
+            "design": design}
 
 
 def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
@@ -3070,8 +3399,9 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
     allow_async on config #4's ACL and submit_cidr on the 50k routes.
     Every answer equal to the host index (CidrIndex and the linear
     oracle_snap for CIDR, in worker processes); one B6 launch per hint
-    or cpick batch, one B7 launch per cidr batch, B1 / B3 / B4 never, no
-    failover. The CIDR queries and their linear-oracle answers are
+    or cpick batch and one Maglev take (B5) per cpick batch, one B7
+    launch per cidr batch, B1 / B3 / B4 never, no failover. The CIDR
+    queries and their linear-oracle answers are
     phase 7's (`cidr_oracle`, from phase_cidr_service, over the same rule
     lists; the scan of 50k routes takes minutes of CPU); without it the
     oracle runs here (small tables). -> the phase's numbers."""
@@ -3114,7 +3444,7 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
     try:
         # the main path's counts, read just after it
         FPC.hint_fp_cuda.launches = FPC.cidr_fp_cuda.launches = 0
-        FP.hint_fp_match.cuda_calls = 0
+        FP.hint_fp_match.cuda_calls = M._device_take.calls = 0
         f0, l0 = E.fused_dispatches_total(), E.dispatch_launches_total()
         t0 = time.monotonic()
         for k in range(bursts):
@@ -3148,6 +3478,7 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
         cidr_s = time.monotonic() - t0
         launches = {"hint_fp": FPC.hint_fp_cuda.launches,
                     "cidr_fp": FPC.cidr_fp_cuda.launches}
+        takes = M._device_take.calls
         st = svc.stats
         batches = {k: st.by_kind.get(k, [0])[0] for k in
                    ("hint", "cpick", "cidr")}
@@ -3160,6 +3491,8 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
               and batches["hint"] > 0 and batches["cpick"] > 0,
               f"B6 launches {launches['hint_fp']} != hint + cpick "
               f"batches {batches}")
+        check(takes == batches["cpick"],
+              f"Maglev takes {takes} != cpick batches {batches}")
         check(launches["cidr_fp"] == (batches["cidr"] if on_card else 0)
               and batches["cidr"] > 0,
               f"B7 launches {launches['cidr_fp']} != cidr batches "
@@ -3174,7 +3507,8 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
         check(FP.hint_fp_match.cuda_calls == 0,
               "B6's plain tier ran on CUDA tensors")
         out = {"queries": 4 * n, "batches": batches,
-               "launches": launches, "failovers": st.failovers,
+               "launches": launches, "maglev_takes": takes,
+               "failovers": st.failovers,
                "max_batch": st.max_batch, "hint_wall_s": hint_s,
                "cpick_wall_s": cpick_s, "cidr_wall_s": cidr_s,
                "classify_latency": st.latency_percentiles()}
@@ -3210,14 +3544,9 @@ def fp_hint_work(t, q):
     nbytes = sum(v.numel() * v.element_size() for v in q.values()) + b * 8
     nbytes += (t["wh_rec"].numel() + t["wu_rec"].numel()) * 4
     ops = b * (t["wh_rec"].shape[0] + t["wu_rec"].shape[0]) * 30
-    for pre, live, em in (("hp", q["hp_level"] > 0, t["h_em"]),
-                          ("up", q["up_score"] > 0, t["u_em"])):
-        e, m = em.shape
-        s = q[f"{pre}_slot"][live].long()
+    for e, m, live, s, ok in _fp_probe_hits(t, q):
+        s, ok = s[live], ok[live]
         nbytes += torch.unique(s).numel() * e * 8
-        ents = t["rec"][s][:, : e * (2 + 4 * m)].reshape(-1, e, 2 + 4 * m)
-        ok = (ents[..., 0] == q[f"{pre}_fp1"][live][:, None]) & \
-            (ents[..., 1] == q[f"{pre}_fp2"][live][:, None])
         hit = ok.any(dim=1)
         entry = s[hit] * e + ok.int().argmax(dim=1)[hit]
         nbytes += torch.unique(entry).numel() * m * 16
@@ -3257,26 +3586,11 @@ def fp_cidr_work(t, a16, fam, port):
         ops += 6 * (i0.numel() + i1.numel() + i2.numel())
         if acl:
             mrows.append(FP._trie4_lookup(t, a16[trie]))
-    grp = (fam >= 0) & ~trie
-    if bool(grp.any()):
-        e = t["e_m"].shape[0]
-        aw = FP._pack_words16_dev(a16[grp])
-        masked = aw[:, None, :] & t["g_mask4"].to(torch.int64)[None]
-        hs = FP._fnv32_words_dev(masked, t["g_salt_s"])
-        slot = (t["g_off"].long()[None] + (hs & t["g_capmask"].long()[None])
-                ).clamp(0, t["rec"].shape[0] - 1)
-        gok = t["g_fam"][None] == fam[grp][:, None]
-        nbytes += torch.unique(slot[gok]).numel() * e * 12
-        ops += int(gok.sum()) * 50
-        if acl:
-            f1 = FP._u32_as_i32(FP._fnv32_words_dev(masked,
-                                                    t["g_salt_f1"]))
-            f2 = FP._u32_as_i32(FP._fnv32_words_dev(masked,
-                                                    t["g_salt_f2"]))
-            ents = t["rec"][slot].reshape(slot.shape[0], g, e, 3)
-            ok = (ents[..., 0] == f1[..., None]) & \
-                (ents[..., 1] == f2[..., None]) & gok[..., None]
-            mrows.append(ents[..., 2][ok].long())
+    _, gok, slot, ents, ok = _fp_group_hits(t, a16, fam)
+    nbytes += torch.unique(slot[gok]).numel() * t["e_m"].shape[0] * 12
+    ops += int(gok.sum()) * 50
+    if acl:
+        mrows.append(ents[..., 2][ok].long())
     if mrows:
         rows = torch.cat(mrows)
         rows = torch.unique(rows[rows > 0])
@@ -3292,21 +3606,25 @@ def phase_fp_times(device, tabs):
     plain tier's, the wall time per call and the bound. The 100k slot
     table is 155.7 MB, three times the 50 MB L2: a warm row is the time
     with what the previous launch of the same batch left in L2, not an
-    all-L2 time. -> {"B6": rows, "B7 routes": rows, "B7 ACL": rows,
-    "classify_fp_all": rows}."""
+    all-L2 time. Each B6 / B7 row carries its batch's design
+    (fp_hint_design / fp_cidr_design); b5_row times the Maglev take
+    beside them. -> {"B6": rows, "B7 routes": rows, "B7 ACL": rows,
+    "classify_fp_all": rows, "B5": rows}."""
     from vproxy_tpu_torch.ops import fphash as FP
     from vproxy_tpu_torch.ops import fphash_cuda as FPC
     hsnap = tabs["hm"].snapshot()
     rt, at = tabs["routes"].snapshot()[0], tabs["am"].snapshot()[0]
     saved = (FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    out = {"B6": [], "B7 routes": [], "B7 ACL": [], "classify_fp_all": []}
+    out = {"B6": [], "B7 routes": [], "B7 ACL": [], "classify_fp_all": [],
+           "B5": []}
     for b in TIME_BATCHES:
         q = fp_hint_batch(hsnap[0], mk_queries(tabs["rules"], b, 2600 + b),
                           b, device)
         row = time_row(b, lambda: FPC.hint_fp_cuda(hsnap[1], q),
                        lambda: FP.hint_fp_match(hsnap[1], q), KERNEL_B6,
                        flush, fp_hint_work(hsnap[1], q))
+        row["design"] = fp_hint_design(hsnap[1], q)
         out["B6"].append(row)
         log("times B6 " + json.dumps(row))
         for label, t, queries in (
@@ -3317,6 +3635,7 @@ def phase_fp_times(device, tabs):
             row = time_row(b, lambda: FPC.cidr_fp_cuda(t, a16, fam, port),
                            lambda: FP.cidr_fp_match(t, a16, fam, port),
                            KERNEL_B7, flush, fp_cidr_work(t, a16, fam, port))
+            row["design"] = fp_cidr_design(t, a16, fam)
             out[label].append(row)
             log(f"times {label} " + json.dumps(row))
         aq = acl_queries(tabs["acl"], b, 2900 + b)
@@ -3333,9 +3652,149 @@ def phase_fp_times(device, tabs):
              sum(w[1] for w in works)), launches=3)
         out["classify_fp_all"].append(row)
         log("times classify_fp_all " + json.dumps(row))
+        row = b5_row(b, tabs["pair"].mm, flush)
+        out["B5"].append(row)
+        log("times B5 " + json.dumps(row))
     FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches = saved
     del flush
     return out
+
+
+def b5_row(b, mm, flush) -> dict:
+    """The Maglev take (B5, rules/maglev.py _device_take) that every fp
+    cpick batch runs beside B6: its device time per call for b flows
+    (the slots' host-to-device copy, the clamp and the gather) L2-warm
+    and after a 256 MB write (cold), wall ms per call back to back, and
+    its bound: b slots read, b column entries gathered, b picks written
+    (16 bytes a flow) over the HBM rate. It is itself one PyTorch
+    indexing call, so it is its own library time."""
+    from vproxy_tpu_torch.rules import maglev as M
+    tab, dev = mm.snapshot()[:2]
+    ips = mk_ips(b, seed=3000 + b)
+    slots = M.flow_slots(len(tab), ips, [1024 + i for i in range(b)])
+    calls = M._device_take.calls
+    got = M._device_take(dev, slots)
+    check(np.array_equal(got.cpu().numpy(), tab[np.clip(slots, 0,
+                                                        len(tab) - 1)]),
+          f"B5 take != the host table at B={b}")
+    take = lambda: M._device_take(dev, slots)  # noqa: E731
+    w1, w2 = device_ms(take, 200), device_ms(take, 200)
+    c1 = device_ms(lambda: (flush.zero_(), take()), 50, exclude="Fill")
+    check(min(w1, w2, c1) > 0, "profiler saw no B5 device time")
+    M._device_take.calls = calls  # timing calls are no main-path takes
+    return {"batch": b, "ms": min(w1, w2), "ms_runs": [w1, w2],
+            "cold_ms": c1, "call_ms": call_ms(take, 200),
+            "library_ms": min(w1, w2),
+            "bound_ms": b * 16 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def _parent_lib(kind: str, parent_dir: str):
+    """The parent commit's B6 ("hint") or B7 ("cidr") built from its
+    source in parent_dir and loaded as ops/fphash_cuda.py loads this
+    checkout's (the same argument struct, checked by size)."""
+    import ctypes
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    path = FC.build_library(os.path.join(parent_dir, f"fp_{kind}.cu"),
+                            f"libfp{kind}_parent", "fp")
+    lib = ctypes.CDLL(path)
+    args = FPC._FpHintArgs if kind == "hint" else FPC._FpCidrArgs
+    size = getattr(lib, f"vproxy_fp_{kind}_args_size")
+    size.restype = ctypes.c_int
+    fn = getattr(lib, f"vproxy_fp_{kind}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(args), ctypes.c_int, ctypes.c_void_p]
+    check(size() == ctypes.sizeof(args), f"parent {kind} ABI differs")
+    log(f"build: parent fp_{kind}.cu -> {os.path.basename(path)}")
+    return lib, path
+
+
+def phase_fp_ab(device, tabs, parent_dir: str) -> list:
+    """B6 and B7 of this checkout against the parent commit's (its
+    fp_hint.cu and fp_cidr.cu in parent_dir) on the same tables and
+    batches as phase_fp_times, in turns (parent, change, change,
+    parent), warm and cold (256 MB written before each launch), at
+    every TIME_BATCHES; both held int32-equal to the plain tier first.
+    -> rows."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    libs = {k: _parent_lib(k, parent_dir) for k in ("hint", "cidr")}
+    for k, (_, path) in libs.items():
+        for name, inst in _ptxas(path).items():
+            log(f"  ptxas: parent {name}: {inst}")
+    hsnap = tabs["hm"].snapshot()
+    rt, at = tabs["routes"].snapshot()[0], tabs["am"].snapshot()[0]
+    saved = (FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+
+    def parent(fn, kinds):
+        def run():
+            own = {k: FPC._LIBS[k] for k in kinds}
+            FPC._LIBS.update({k: libs[k][0] for k in kinds})
+            try:
+                return fn()
+            finally:
+                FPC._LIBS.update(own)
+        return run
+
+    rows = []
+    for b in TIME_BATCHES:
+        q = fp_hint_batch(hsnap[0], mk_queries(tabs["rules"], b, 2600 + b),
+                          b, device)
+        rq = cidr_batch([(a, None) for a, _ in cidr_queries(
+            tabs["nets"], b, 2700 + b)], b, device)
+        aq = cidr_batch(acl_queries(tabs["acl"], b, 2800 + b), b, device)
+        cases = (
+            ("B6", KERNEL_B6, 1, ("hint",),
+             lambda: FPC.hint_fp_cuda(hsnap[1], q),
+             lambda: FP.hint_fp_match(hsnap[1], q)),
+            ("B7 routes", KERNEL_B7, 1, ("cidr",),
+             lambda: FPC.cidr_fp_cuda(rt, *rq),
+             lambda: FP.cidr_fp_match(rt, *rq)),
+            ("B7 ACL", KERNEL_B7, 1, ("cidr",),
+             lambda: FPC.cidr_fp_cuda(at, *aq),
+             lambda: FP.cidr_fp_match(at, *aq)),
+            ("classify_fp_all", "fp_", 3, ("hint", "cidr"),
+             lambda: FPC.classify_fp_all(hsnap[1], rt, at, q, *aq),
+             lambda: FP.classify_fp_all(hsnap[1], rt, at, q, *aq)))
+        for label, name, n, kinds, kern, plain in cases:
+            old = parent(kern, kinds)
+            ref = plain()
+            check(same(kern(), ref) and same(old(), ref),
+                  f"{label} (this checkout or the parent) != plain at B={b}")
+            warm = [device_ms(f, 200, name, n) for f in (old, kern, kern,
+                                                         old)]
+            cold = [device_ms(lambda f=f: (flush.zero_(), f()), 50, name, n)
+                    for f in (old, kern, kern, old)]
+            row = {"batch": b, "kernel": label,
+                   "parent_ms": [warm[0], warm[3]], "ms": warm[1:3],
+                   "parent_cold_ms": [cold[0], cold[3]],
+                   "cold_ms": cold[1:3],
+                   "warm_speedup": min(warm[0], warm[3]) / min(warm[1:3]),
+                   "cold_speedup": min(cold[0], cold[3]) / min(cold[1:3])}
+            rows.append(row)
+            log("ab " + json.dumps(row))
+    FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches = saved
+    del flush
+    return rows
+
+
+def main_ab(parent_dir: str) -> int:
+    """`chip_smoke.py --ab DIR`: build this checkout's kernels and the
+    parent's B6 / B7 (DIR holds its fp_hint.cu and fp_cidr.cu), publish
+    the fingerprint tables and time both in one process (phase_fp_ab);
+    prints the `fp_ab` line, the card's line and the device line."""
+    smi = phase_env()
+    device = torch.device("cuda")
+    phase_build()
+    tabs = fp_tables(device)
+    rows = phase_fp_ab(device, tabs, parent_dir)
+    log(json.dumps({"fp_ab": rows, "card": smi}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def main() -> int:
@@ -3380,6 +3839,11 @@ def main() -> int:
     crows = run("cidr times", phase_cidr_times, device, keep, routes, am,
                 acl)
     fp_rows = run("fp times", phase_fp_times, device, fp)
+    log(json.dumps({"b5_take": {
+        "replaces": "vproxy_tpu/rules/maglev.py:235",
+        "source": "vproxy_tpu_torch/rules/maglev.py (_device_take)",
+        "launches": fp_svc["maglev_takes"], "by_batch": fp_rows["B5"],
+        "card": smi}}))
     log(json.dumps({"phase_s": phase_s}))
     log("clocks " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
@@ -3458,4 +3922,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"]:
+        sys.exit(main_ab(sys.argv[2]))
     sys.exit(main())

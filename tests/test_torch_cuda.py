@@ -160,27 +160,36 @@ def test_kernel_wrapper_bad_batch_is_kernel_error(cuda, entry):
 def test_fp_hint_kernel_matches_plain_tier(cuda):
     """B6 == fphash.hint_fp_match, int32 in index and level, on the
     fingerprint parity sets (8 pad rows each), um_* batches and
-    untrimmed ones both."""
+    untrimmed ones both, each also on its slot table cut short, and on
+    the batches cut where a member's index into them is clamped."""
     from vproxy_tpu_torch.ops import fphash as FP
     seen = set()
     for name, rules, hints in CS.fp_hint_cases():
         tab = FP.compile_hint_fp(rules)
         q = CS.fp_hint_batch(tab, hints, len(hints) + 8, cuda)
         seen.add("um_fp1" in q)
-        assert CS.b6_vs_plain(name, CS.fp_prepared(tab.arrays, cuda, True),
-                              q, cuda) == 0, name
+        t = CS.fp_prepared(tab.arrays, cuda, True)
+        assert CS.b6_vs_plain(name, t, q, cuda) == 0, name
+        assert CS.b6_vs_plain(name, CS.fp_prepared(CS.fp_table_variant(
+            tab.arrays, "rec"), cuda, True), q, cuda) == 0, name
+        for how in CS.FP_QUERY_CUTS.get(name, ()):
+            assert CS.b6_vs_plain(name, t, CS.cut_fp_query(q, how),
+                                  cuda) == 0, (name, how)
     assert seen == {True, False}
 
 
 def test_fp_cidr_kernel_matches_plain_tier(cuda):
     """B7 == fphash.cidr_fp_match on every layout (trie or groups, route
-    or ACL, with ports and without), pad rows included."""
+    or ACL, with ports and without), pad rows included, and on the table
+    variants (cut where the reference clamps, rows twice as wide)."""
     from vproxy_tpu_torch.ops import fphash as FP
     for name, nets, acl, q, caps in CS.fp_cidr_cases():
-        t = CS.fp_prepared(FP.compile_cidr_fp(nets, acl=acl,
-                                              caps=caps).arrays, cuda, False)
-        assert CS.b7_vs_plain(name, t, *CS.cidr_batch(q, len(q) + 8, cuda),
-                              cuda) == 0, name
+        arrays = FP.compile_cidr_fp(nets, acl=acl, caps=caps).arrays
+        batch = CS.cidr_batch(q, len(q) + 8, cuda)
+        for how in (None, *CS.FP_VARIANTS.get(name, ())):
+            t = CS.fp_prepared(arrays if how is None else
+                               CS.fp_table_variant(arrays, how), cuda, False)
+            assert CS.b7_vs_plain(name, t, *batch, cuda) == 0, (name, how)
 
 
 def test_fp_matchers_serve_from_the_kernels(cuda):

@@ -187,6 +187,95 @@ def fp_v6_only(seed: int = 9):
     return nets, addrs + [bytes([10, 0, 0, 1]), b"\xfe" + bytes(15)]
 
 
+
+def fp_v6_all_masks(seed: int = 19):
+    """A v6 route at every prefix length /0-/128 over one address, in
+    random order: 129 groups of one family (B7's lanes take them in
+    three rounds); 200 addresses under it at every depth, every 8th
+    random. -> (nets, [addr])."""
+    import numpy as np
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes
+    rng = np.random.default_rng(seed)
+    base = b"\xfd" + rng.bytes(15)
+
+    def net(ml):
+        m = mask_bytes(ml)
+        return Network(bytes(a & b for a, b in zip(base, m)) +
+                       bytes(16 - len(m)), m)
+
+    def under(ml):
+        keep = ((1 << ml) - 1) << (128 - ml)
+        r = int.from_bytes(rng.bytes(16), "big") & ~keep
+        return ((int.from_bytes(base, "big") & keep) | r).to_bytes(16, "big")
+    nets = [net(int(ml)) for ml in rng.permutation(129)]
+    addrs = [b"\xfd" + rng.bytes(15) if i % 8 == 7 else
+             under(int(rng.integers(129))) for i in range(200)]
+    return nets, addrs
+
+
+def fp_last_entry_routes(n: int = 400, seed: int = 17):
+    """n random v6 /48 routes (one group, rows of several entries) and
+    an address under each: every key is matched, the last of a full
+    slot row among them. -> (nets, [addr])."""
+    import numpy as np
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes
+    rng = np.random.default_rng(seed)
+    nets = [Network(b"\xfd" + rng.bytes(5) + bytes(10), mask_bytes(48))
+            for _ in range(n)]
+    return nets, [nt.ip[:15] + bytes([i % 256]) for i, nt in enumerate(nets)]
+
+
+def fp_last_entry(n: int = 300):
+    """n host rules and n uri rules, each queried by its own key: the
+    last entry of a full slot row is matched, on both sides (rows of 3
+    entries, not a power of two). -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = [HintRule(host=f"n{i}.last.io") for i in range(n)]
+    rules += [HintRule(uri=f"/last/{i}") for i in range(n)]
+    return rules, [Hint(host=f"n{i}.last.io", uri=f"/last/{i}")
+                   for i in range(n)]
+
+
+def fp_probe_rounds(seed: int = 13):
+    """1,500 host rules of up to 28 one-letter labels (a 64-byte host
+    window) and queries 30 labels deeper: 33 host probes x hE entries,
+    more (probe, entry) pairs than B6's lanes take in one round, the uri
+    probes' pairs past it; every 4th query matches only a uri rule. ->
+    (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rnd = random.Random(seed)
+    labels = "abcdefgh"
+    rules = [HintRule(host=".".join(rnd.choice(labels) for _ in range(
+        rnd.randint(1, 27))) + f".t{i % 40}.io",
+        uri=rnd.choice([None, "/api", "/v2/x"])) for i in range(1500)]
+    rules += [HintRule(uri="/only"), HintRule(uri="/only/deeper")]
+    hints = []
+    for i in range(64):
+        r = rules[rnd.randrange(1500)]
+        pre = ".".join(rnd.choice(labels) for _ in range(30))
+        if i % 4 == 3:  # no host rule: only the uri probes answer
+            hints.append(Hint(host=f"{pre}.none.io", uri="/only/deeper/x"))
+        else:
+            hints.append(Hint(host=f"{pre}.{r.host}",
+                              uri=rnd.choice(["/api/x", "/v2/xyz", None])))
+    return rules, hints
+
+
+def fp_wildcards():
+    """48 host="*" rules (distinct uris and ports) and 48 uri="*" rules
+    (distinct ports): 128 wildcard members, so every query's members
+    pass one list window of B6. -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = [HintRule(host="*", uri=f"/w{i}", port=i % 3) for i in range(48)]
+    rules += [HintRule(host=f"h{i}.io", uri="*", port=1000 + i)
+              for i in range(48)]
+    rules += [HintRule(host=f"h{i}.io", uri=f"/w{i}") for i in range(0, 48, 3)]
+    hints = [Hint(host=f"h{i % 60}.io", uri=f"/w{(7 * i) % 60}/q",
+                  port=(i % 3, 1000 + i % 50)[i % 2]) for i in range(60)]
+    return rules, hints + [Hint(host="*", uri="*"), Hint(uri="/w5"),
+                           Hint(host="x.h3.io")]
+
+
 # ------------------------------------------------------------- the cases
 
 # the boundary sets with their uri rules (their host-only variants add
@@ -195,7 +284,7 @@ HINT_CASES = tuple(c for c in CS.BOUNDARY_CASES
                    if not c.endswith("_hosts")) + (
     "host_only_b96", "long_hosts", "mk_rules_5k_b512", "random_300_b600",
     "shared_keys", "wide_buckets", "member_overflow", "uri_untrimmed",
-    "no_host_rules")
+    "no_host_rules", "probe_rounds", "last_entry", "wildcards")
 
 
 def hint_case(name):
@@ -204,6 +293,8 @@ def hint_case(name):
         return fp_member_overflow()
     if name == "uri_untrimmed":
         return fp_uri_untrimmed()
+    if name in ("probe_rounds", "last_entry", "wildcards"):
+        return globals()[f"fp_{name}"]()
     if name == "no_host_rules":
         return ([HintRule(port=443), HintRule(uri="/a"),
                  HintRule(host="h.io")],
@@ -330,12 +421,18 @@ CIDR_CASES = ("route_200", "acl_port_buckets", "mixed_families",
               "routes_2k", "acl_500", "acl_500_portless", "empty",
               "v6_many_masks", "acl_deep_buckets", "routes_2k_no_trie",
               "routes_2k_env_no_trie", "trie_first_match",
-              "trie_acl_overlap", "acl_stacked", "v6_only", "acl_5k")
+              "trie_acl_overlap", "acl_stacked", "v6_only", "acl_5k",
+              "v6_all_masks", "last_entry_routes", "acl_deep_buckets_no_trie")
 
 
 @functools.lru_cache(maxsize=None)
 def fp_cidr_case(name):
     """-> (nets, acl or None, addrs, ports or None, caps, env no_trie)."""
+    if name == "acl_deep_buckets_no_trie":
+        return (*cidr_case("acl_deep_buckets"), {"no_trie": 1}, False)
+    if name in ("v6_all_masks", "last_entry_routes"):
+        nets, addrs = globals()[f"fp_{name}"]()
+        return nets, None, addrs, None, None, False
     if name.endswith("no_trie"):
         nets, acl, addrs, ports = cidr_case("routes_2k")
         return nets, acl, addrs, ports, \
@@ -413,6 +510,43 @@ def test_cidr_fp_match_vs_jax(name, gate):
                           None if p is None else torch.from_numpy(p))
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
     assert (got[len(addrs):] == -1).all()
+
+
+FP_VARIANTS = tuple((n, h) for n, hows in CS.FP_VARIANTS.items()
+                    for h in hows)
+
+
+@pytest.mark.parametrize("name,how", FP_VARIANTS)
+def test_cidr_fp_match_variant_vs_jax(name, how):
+    """The plain tier against the reference on chip_smoke's table
+    variants, which take B7's other paths: cut short where the reference
+    clamps (slot rows, member rows, trie subtables), or rows twice as
+    wide with every entry in the second half."""
+    rt, pt, (nets, acl, addrs, ports) = cidr_compiled(name.replace(" ", "_"))
+    rv, pv = (CS.fp_table_variant(t.arrays, how) for t in (rt, pt))
+    same_arrays(rv, pv)
+    a16, fam, p = cidr_batch(addrs, ports)
+    want = np.asarray(RFP.cidr_fp_jit(rv, a16, fam, p))
+    got = F.cidr_fp_match(up(pv, "cpu"), torch.from_numpy(a16),
+                          torch.from_numpy(fam),
+                          None if p is None else torch.from_numpy(p))
+    assert np.array_equal(got.numpy(), want)
+    assert (got[: len(addrs)] >= 0).any()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["random_300_b600", "wildcards"])
+def test_hint_fp_match_rec_cut_vs_jax(name, mode):
+    """The plain tier against the reference on a slot table cut short
+    where the reference clamps a probe's slot (chip_smoke's "rec"
+    variant)."""
+    _, hints, rt, pt = hint_compiled(name)
+    q = padded(F.encode_hint_queries_fp(hints, pt))
+    rv, pv = (CS.fp_table_variant(t.arrays, "rec") for t in (rt, pt))
+    ri, rl = RFP.hint_fp_jit(rv, q, mode=mode)
+    gi, gl = F.hint_fp_match(up(pv, "cpu"), up(q, "cpu"), mode=mode)
+    assert np.array_equal(np.asarray(ri), gi.numpy())
+    assert np.array_equal(np.asarray(rl), gl.numpy())
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -510,7 +644,9 @@ def test_chip_smoke_carries_the_fp_cases():
     file's generators: the same source."""
     for fn in ("fp_member_overflow", "fp_uri_untrimmed",
                "fp_trie_first_match", "fp_trie_acl_overlap",
-               "fp_acl_stacked", "fp_v6_only"):
+               "fp_acl_stacked", "fp_v6_only", "fp_v6_all_masks",
+               "fp_last_entry_routes", "fp_last_entry", "fp_probe_rounds",
+               "fp_wildcards"):
         assert inspect.getsource(getattr(CS, fn)) == \
             inspect.getsource(globals()[fn]), fn
 

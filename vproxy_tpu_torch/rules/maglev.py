@@ -228,9 +228,13 @@ def _remap_gauge():
 
 def _device_take(dev_table, slots: np.ndarray):
     """Device gather of the pick column at host-computed slots, clamped
-    like jnp.take(mode="clip")."""
+    like jnp.take(mode="clip"). `calls` counts the calls."""
+    _device_take.calls += 1
     s = torch.from_numpy(np.asarray(slots, np.int64)).to(dev_table.device)
     return dev_table[s.clamp(0, dev_table.shape[0] - 1)]
+
+
+_device_take.calls = 0
 
 
 class MaglevMatcher:
