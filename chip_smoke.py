@@ -13,7 +13,9 @@ end (BASELINE config #2 as far as its build budget allows, behind
 config #4's ACL), ACL checks through a SecurityGroup of 5,000 TCP rules
 and route lookups against a 50,000-route table (BASELINE config #4, not
 cut), then the same tables on the packed-fingerprint backend
-("torch-fp": B6 for hint batches, B7 for cidr batches), times the
+("torch-fp": B6 for hint batches, B7 for cidr batches), boots the port
+as an operator runs it (`python -m vproxy_tpu_torch`, one config built
+by command, DNS-as-LB, Socks5 and the TcpLB served from it), times the
 kernels, and prints one JSON line per result. Phases, in order:
 
 1. environment: a CUDA device, or exit 1; the card's name and power
@@ -67,7 +69,7 @@ kernels, and prints one JSON line per result. Phases, in order:
    spawned process (each answers `<id> <Host>`), an Upstream of up to
    10,000 server groups, each with one Host rule (seeded: exact
    domains, their subdomains by suffix, a sixteenth with a uri), group i
-   on backend i mod 256, added one by one until 10,000 or 60 s of build
+   on backend i mod 256, added one by one until 10,000 or 15 s of build
    (never under 256), behind a SecurityGroup of config #4's 5,000 TCP
    ACL rules (default allow; the clients' address checked on CidrIndex
    to pass); an http-splice LB serves 4 bursts of 512 concurrent
@@ -132,6 +134,25 @@ kernels, and prints one JSON line per result. Phases, in order:
    (and the keep-alive burst): every backend equal to the host index's
    group, B6 and B7 launched once per batch of their kind, B1, B3, B4
    never;
+7e. control (the `control` line): the port as an operator runs it.
+   `python -m vproxy_tpu_torch` boots in a child process (temporary
+   VPROXY_TPU_HOME, "device" classify mode) with a resp-controller, an
+   http-controller and the inspection server; one operator config is
+   built by command only (RESP, the frontends over HTTP): an Upstream
+   of phase 5b's Host rules, one server group each on a loopback
+   address of its own at id-server i mod 256, until 10,000 groups or
+   60 s (never under 256), one security group with config #4's ACL as
+   TCP rules and as UDP rules (each until 5,000 or 30 s, never under
+   512), a dns-server, a socks5-server and an http-splice tcp-lb on
+   them; 4 x 4,096 DNS queries (512 in flight), 2 x 512 Socks5 domain
+   CONNECTs with an HTTP request each, 2 x 512 http-splice connections
+   from a spawned client process; every answer the group the port's
+   host index gives (or the DNS server's own answer where no rule
+   holds the name); from the child's /metrics: launches == device
+   batches, no fused (B1) dispatch, no failover, every query answered
+   by the device; SIGTERM: exit 0, no config written. `control_fp`:
+   the same on VPROXY_TPU_MATCHER=jax-fp (B6, B7) at 256 groups, an
+   ACL of 128 rules of each protocol, one burst of each kind;
 8. times at B = 16, 512, 4096: the kernel's and the plain tier's device
    time per call (profiler) with the 22.7 MB table L2-warm, as under
    steady serving; the kernel's device time with L2 flushed before each
@@ -1745,7 +1766,8 @@ def phase_loop(device, pair, rules, bursts=BURSTS, burst=SERVICE_BATCH,
 
 TCPLB_MAX_RULES = 10_000  # BASELINE config #2's target
 TCPLB_MIN_RULES = 256
-TCPLB_BUILD_S = 60.0      # the Upstream build's budget: every add publishes
+TCPLB_BUILD_S = 15.0      # the Upstream build's budget: every add publishes
+# (the `control` phase builds the same Upstream for its full 60 s)
 TCPLB_BACKENDS = 256
 B3_PATH_BATCHES = 32  # batches a bucket below the largest (b3_on_path)
 TCPLB_RULE_SEED, TCPLB_REQ_SEED = 61, 62
@@ -1794,8 +1816,8 @@ def http_request(host: str, path: str, close: bool) -> bytes:
             ("connection: close\r\n" if close else "") + "\r\n").encode()
 
 
-def _backend_main(n: int, conn) -> None:
-    """Runs in the backend process: n loopback HTTP id-servers (asyncio,
+def _backend_main(n: int, conn, host: str = LOOPBACK) -> None:
+    """Runs in the backend process: n HTTP id-servers on `host` (asyncio,
     one thread). Each answers every request with `<id> <Host it saw>`
     and keeps the connection unless the request asked to close. Sends
     the ports down `conn`, serves until `conn` says stop."""
@@ -1827,7 +1849,7 @@ def _backend_main(n: int, conn) -> None:
 
     async def main():
         servers = [await asyncio.start_server(
-            functools.partial(handle, bid=i), LOOPBACK, 0, backlog=1024)
+            functools.partial(handle, bid=i), host, 0, backlog=1024)
             for i in range(n)]
         conn.send([s.sockets[0].getsockname()[1] for s in servers])
         await asyncio.get_running_loop().run_in_executor(None, conn.recv)
@@ -2243,6 +2265,631 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    return out
+
+
+# ------------------------------------------------------------- control
+# The port's process entry and control plane, driven as an operator
+# drives them: `python -m vproxy_tpu_torch` in a child process, one
+# operator config built by command over RESP (and a few over HTTP): an
+# Upstream of Host rules (BASELINE config #3's DNS-as-LB records as far
+# as the build allows) and one SecurityGroup holding config #4's ACL as
+# TCP and as UDP rules, then a dns-server, a socks5-server and a tcp-lb
+# on them; DNS, Socks5 and http-splice traffic from a spawned client
+# process, every answer checked against the port's host index, the
+# kernels' launches read from the child's /metrics scrape.
+
+CONTROL_MAX_GROUPS = 10_000  # records built against config #3's 100k
+CONTROL_MIN_GROUPS = 256
+CONTROL_BUILD_S = 60.0       # the Upstream's budget: every add publishes
+CONTROL_MIN_ACL = 512        # rules of each protocol, at least
+CONTROL_ACL_BUILD_S = 30.0   # each protocol's budget: every add compiles
+CONTROL_FP_ACL = 128  # the fp run's ACL: each add recompiles the fp table
+CONTROL_WORKERS = 4
+CONTROL_QUERY_SEED = 81
+DNS_BURSTS, DNS_BURST, DNS_INFLIGHT = 4, 4096, 512
+S5_BURSTS, LB_BURSTS = 2, 2
+RESP_PASSWORD = "chip-smoke"
+
+
+def group_addr(i: int) -> str:
+    """Group i's one server: a loopback address of its own (never
+    127.0.0.1, the clients' address), so a DNS answer names its group."""
+    return f"127.{1 + i // 62_500}.{1 + i // 250 % 250}.{1 + i % 250}"
+
+
+class Resp:
+    """A redis-protocol client of the port's resp-controller: one
+    command line per call, -> its reply (str or list); an error reply
+    raises."""
+
+    def __init__(self, port: int, password: str):
+        import socket
+        self.s = socket.create_connection((LOOPBACK, port), timeout=60)
+        self.buf = b""
+        check(self.cmd(f"AUTH {password}") == "OK", "RESP AUTH refused")
+
+    def cmd(self, line: str):
+        parts = [p.encode() for p in line.split()]
+        self.s.sendall(b"*%d\r\n" % len(parts) + b"".join(
+            b"$%d\r\n%s\r\n" % (len(p), p) for p in parts))
+        return self._read(line)
+
+    def _line(self) -> bytes:
+        while b"\r\n" not in self.buf:
+            d = self.s.recv(65536)
+            check(bool(d), "the resp-controller closed the connection")
+            self.buf += d
+        line, self.buf = self.buf.split(b"\r\n", 1)
+        return line
+
+    def _read(self, what: str):
+        line = self._line()
+        t, rest = line[:1], line[1:].decode()
+        if t == b"-":
+            raise RuntimeError(f"chip smoke failed: `{what}`: {rest}")
+        if t in (b"+", b":"):
+            return rest
+        if t == b"$":
+            n = int(rest)
+            while len(self.buf) < n + 2:
+                d = self.s.recv(65536)
+                check(bool(d), "the resp-controller closed the connection")
+                self.buf += d
+            out, self.buf = self.buf[:n].decode(), self.buf[n + 2:]
+            return out
+        if t == b"*":
+            return [self._read(what) for _ in range(int(rest))]
+        raise RuntimeError(f"chip smoke failed: RESP reply {line!r}")
+
+    def close(self) -> None:
+        self.s.close()
+
+
+def http_json(port: int, path: str, body=None):
+    """GET (or POST `body` as JSON) on the child's http-controller."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://{LOOPBACK}:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def scrape(port: int) -> dict:
+    """The child's inspection server /metrics -> {series: value}."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://{LOOPBACK}:{port}/metrics",
+                                timeout=60) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            k, _, v = line.rpartition(" ")
+            out[k] = float(v)
+    return out
+
+
+def dns_plan(rules, n: int, seed: int) -> list:
+    """(qname, qtype) per query, seeded: A and SRV for record names with
+    Zipf popularity (exact names, and subdomains under the suffix
+    rules), a sixteenth IP literals and who.am.i.vproxy.local, a
+    sixteenth names no rule holds."""
+    rng = np.random.default_rng(seed)
+    ranks = np.minimum(rng.zipf(1.2, n), len(rules)) - 1
+    perm = rng.permutation(len(rules))
+    kind = rng.integers(0, 16, n)
+    sub = rng.integers(0, 4, n) == 0
+    srv = rng.integers(0, 3, n) == 0
+    out = []
+    for k in range(n):
+        if kind[k] == 0:
+            out.append((f"{10 + k % 200}.{k % 250}.{k // 250 % 250}.9."
+                        if k % 2 else "who.am.i.vproxy.local.", "A"))
+        elif kind[k] == 1:
+            out.append((f"n{k}.nowhere{k % 13}.test.", "A"))
+        else:
+            host = rules[int(perm[ranks[k]])].host
+            out.append(((f"x{k % 97}.{host}." if sub[k] else f"{host}."),
+                        "SRV" if srv[k] else "A"))
+    return out
+
+
+DNS_RESEND_S, DNS_TRIES = 1.0, 5
+
+
+def udp_rcvbuf_errors() -> int:
+    """The kernel's count of UDP datagrams dropped on a full socket
+    receive buffer (/proc/net/snmp), or -1 where it cannot be read."""
+    try:
+        with open("/proc/net/snmp") as f:
+            rows = [ln.split() for ln in f if ln.startswith("Udp:")]
+        return int(rows[1][rows[0].index("RcvbufErrors")])
+    except (OSError, IndexError, ValueError):
+        return -1
+
+
+def _dns_burst(port: int, packets: list, inflight: int) -> list:
+    """Runs in the client process: every query datagram to the DNS
+    server, at most `inflight` unanswered at once, each resent after
+    DNS_RESEND_S without an answer (DNS_TRIES tries: UDP may drop, and a
+    DNS client resends). -> (response, seconds from the first send,
+    tries) per query."""
+    import select
+    import socket
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+    s.setblocking(False)
+    by_id = {int.from_bytes(p[:2], "big"): i for i, p in enumerate(packets)}
+    out = [None] * len(packets)
+    pending = {}  # id -> [t first sent, t last sent, tries]
+    nxt = 0
+    try:
+        while nxt < len(packets) or pending:
+            now = time.monotonic()
+            while nxt < len(packets) and len(pending) < inflight:
+                s.sendto(packets[nxt], (LOOPBACK, port))
+                pending[int.from_bytes(packets[nxt][:2], "big")] = \
+                    [now, now, 1]
+                nxt += 1
+            if select.select([s], [], [], 0.05)[0]:
+                while True:
+                    try:
+                        data = s.recv(65536)
+                    except BlockingIOError:
+                        break
+                    qid = int.from_bytes(data[:2], "big")
+                    ent = pending.pop(qid, None)
+                    if ent is not None:
+                        out[by_id[qid]] = (data, time.monotonic() - ent[0],
+                                           ent[2])
+            now = time.monotonic()
+            for qid, ent in list(pending.items()):
+                if now - ent[1] > DNS_RESEND_S:
+                    if ent[2] >= DNS_TRIES:
+                        raise RuntimeError(f"DNS query {qid}: no answer "
+                                           f"in {DNS_TRIES} tries")
+                    s.sendto(packets[by_id[qid]], (LOOPBACK, port))
+                    ent[1], ent[2] = now, ent[2] + 1
+    finally:
+        s.close()
+    return out
+
+
+def _socks5_client(port: int, host: str, path: str) -> tuple:
+    """One Socks5 CONNECT to host:80, then one HTTP request that asks to
+    close. -> (reply code, connect->first byte seconds, response body)."""
+    import socket
+    t0 = time.monotonic()
+    s = socket.create_connection((LOOPBACK, port), timeout=60)
+    try:
+        s.sendall(b"\x05\x01\x00")
+        greet = b""
+        while len(greet) < 2:
+            d = s.recv(2 - len(greet))
+            if not d:
+                raise ConnectionError("EOF in the Socks5 greeting")
+            greet += d
+        if greet != b"\x05\x00":
+            raise ConnectionError(f"Socks5 greeting {greet!r}")
+        h = host.encode()
+        s.sendall(b"\x05\x01\x00\x03" + bytes([len(h)]) + h + b"\x00\x50")
+        rep = b""
+        while len(rep) < 10:
+            d = s.recv(10 - len(rep))
+            if not d:
+                break
+            rep += d
+        if len(rep) < 2 or rep[1] != 0:
+            return (rep[1] if len(rep) > 1 else -1), None, None
+        s.sendall(http_request(host, path, close=True))
+        first = s.recv(65536)
+        t1 = time.monotonic()
+        body, _ = _read_response(s, first)
+        return 0, t1 - t0, body
+    finally:
+        s.close()
+
+
+def _socks5_burst(port: int, items: list, concurrency: int) -> list:
+    """Runs in the client process: one Socks5 session per (host, path)."""
+    global _HTTP_CLIENTS
+    if _HTTP_CLIENTS is None:
+        _HTTP_CLIENTS = ThreadPoolExecutor(concurrency)
+    return list(_HTTP_CLIENTS.map(lambda it: _socks5_client(port, *it),
+                                  items))
+
+
+def _boot_child(args: list, env: dict, err_path: str):
+    """Start `python -m vproxy_tpu_torch args` and read the addresses it
+    prints. -> (process, {"resp-controller": port, ...})."""
+    import select
+    with open(err_path, "w") as err:
+        p = subprocess.Popen([sys.executable, "-m", "vproxy_tpu_torch",
+                              *args], env=env, stdout=subprocess.PIPE,
+                             stderr=err, cwd=env["PYTHONPATH"])
+    want = ("resp-controller", "http-controller", "global-inspection")
+    ports, buf = {}, b""
+    deadline = time.monotonic() + 180
+    while len(ports) < len(want):
+        if p.poll() is not None or time.monotonic() > deadline:
+            with open(err_path) as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"chip smoke failed: the port did not boot "
+                               f"(rc {p.poll()}): {tail}")
+        if select.select([p.stdout], [], [], 0.5)[0]:
+            buf += os.read(p.stdout.fileno(), 4096)
+            *lines, buf = buf.split(b"\n")
+            for line in lines:
+                for w in want:
+                    if line.decode().startswith(w + " on "):
+                        ports[w] = int(line.rsplit(b":", 1)[1])
+    return p, ports
+
+
+def phase_control(device, max_groups=CONTROL_MAX_GROUPS,
+                  dns_bursts=DNS_BURSTS, s5_bursts=S5_BURSTS,
+                  lb_bursts=LB_BURSTS, min_acl=CONTROL_MIN_ACL,
+                  max_acl=N_ACL, matcher=None, dns_burst=DNS_BURST,
+                  conn_burst=SERVICE_BATCH) -> dict:
+    """The port as an operator runs it. Boots `python -m vproxy_tpu_torch
+    noLoadLast noSave noStdIOController` with a resp-controller, an
+    http-controller and the inspection server in a child process (a
+    temporary VPROXY_TPU_HOME; the checkout on PYTHONPATH; the card
+    host has no jax, so the boot itself shows the entry imports none;
+    VPROXY_TPU_CLASSIFY=device: in the default "auto" mode the inline
+    lane answers every lone query from the host index and nothing
+    reaches the card, PERF.md §7), builds one operator config by command
+    only: an event-loop group, then server groups, each with one server
+    on its own loopback address (group_addr) at id-server i mod 256 and
+    health check "none", added with one Host rule each (tcplb_rules:
+    exact domains, suffix rules for wildcard records, a sixteenth with a
+    uri) to one Upstream until `max_groups` or CONTROL_BUILD_S (never
+    under CONTROL_MIN_GROUPS); one security group (default allow) with
+    config #4's ACL (acl_rules, seed 42) as TCP rules and again as UDP
+    rules, each until `max_acl` or CONTROL_ACL_BUILD_S (never under
+    `min_acl`); a dns-server, a socks5-server and an http-splice tcp-lb
+    on them (over HTTP). Then, from one spawned client process:
+    `dns_bursts` x `dns_burst` UDP queries (DNS_INFLIGHT in flight,
+    dns_plan), `s5_bursts` x `conn_burst` Socks5 domain CONNECTs with
+    an HTTP request each, `lb_bursts` x `conn_burst` http-splice
+    connections. Every DNS
+    answer is the address (A) or the server (SRV) of the group the
+    port's host index (HintIndex over the published rules) gives the
+    name, or the DNS server's own answer where no rule holds it (IP
+    literals echoed, who.am.i answered, NXDOMAIN otherwise: a dns-server
+    built by command has no recursive resolver); every Socks5 and TcpLB
+    answer comes from that group's id-server (a Socks5 CONNECT no rule
+    holds is refused, a TcpLB request no rule holds takes the WRR
+    fallback). From the child's /metrics (it is a real process: no
+    in-process hook reaches it): launches == device batches, no fused
+    (B1) dispatch, no failover, every query answered by the device.
+    The scrape has no per-kind batch count (the reference's families
+    carry none), so the phase infers B3 and B4 from it: each batch was
+    one launch and none a fused one, and on this backend (`list-detail
+    upstream`: `backend torch`, fused tier `cuda`) a hint batch's one
+    launch is B3 and a cidr batch's B4 (with matcher="jax-fp": `backend
+    torch-fp`, B6 and B7). SIGTERM at the end: the child exits 0 and
+    writes no config (noSave). With a CPU `device` (the tier-1
+    rehearsal) the child's matchers run on the CPU too
+    (VPROXY_TPU_TORCH_DEVICE=cpu): the plain tiers, no kernel. -> the
+    phase's numbers."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from vproxy_tpu_torch.dns import packet as P
+    from vproxy_tpu_torch.processors.http1 import HeadParser
+    from vproxy_tpu_torch.rules.engine import HintMatcher
+    from vproxy_tpu_torch.rules.index import CidrIndex, HintIndex
+    from vproxy_tpu_torch.rules.ir import Hint, Proto
+    from vproxy_tpu_torch.utils.ip import is_ip_literal, parse_ip
+    fp = matcher == "jax-fp"
+    root = os.path.dirname(os.path.abspath(__file__))
+    check(raise_nofile() >= NOFILE_MIN, "RLIMIT_NOFILE too low")
+    home = tempfile.mkdtemp(prefix="vproxy-home-")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("VPROXY_TPU_TORCH_DEVICE", "VPROXY_TPU_MATCHER")}
+    env.update(PYTHONPATH=root, VPROXY_TPU_HOME=home,
+               VPROXY_TPU_CLASSIFY="device", VPROXY_TPU_FD_PROVIDER="native")
+    if matcher is not None:
+        env["VPROXY_TPU_MATCHER"] = matcher
+    if device.type == "cpu":
+        env["VPROXY_TPU_TORCH_DEVICE"] = "cpu"
+    ctx = mp.get_context("spawn")
+    pipe, child_end = ctx.Pipe()
+    backends = ctx.Process(target=_backend_main,
+                           args=(TCPLB_BACKENDS, child_end, "0.0.0.0"),
+                           daemon=True)
+    backends.start()
+    clients = ProcessPoolExecutor(1, mp_context=ctx)
+    child = None
+    try:
+        check(pipe.poll(120), "the backend process sent no ports")
+        bports = pipe.recv()
+        t0 = time.monotonic()
+        child, ports = _boot_child(
+            ["noLoadLast", "noSave", "noStdIOController", "workers",
+             str(CONTROL_WORKERS), "resp-controller", f"{LOOPBACK}:0",
+             RESP_PASSWORD, "http-controller", f"{LOOPBACK}:0",
+             "globalInspection", f"{LOOPBACK}:0"], env,
+            os.path.join(home, "stderr.log"))
+        boot_s = time.monotonic() - t0
+        resp = Resp(ports["resp-controller"], RESP_PASSWORD)
+        hport, iport = ports["http-controller"], ports["global-inspection"]
+        clients.submit(_http_burst, hport, "splice", [],
+                       conn_burst).result(timeout=120)  # the pool starts
+
+        # ---- the operator config, by command
+        n_cmds, t0 = 0, time.monotonic()
+        for line in ("add event-loop-group elg-hc",
+                     "add event-loop hc0 to event-loop-group elg-hc",
+                     "add upstream u0"):
+            check(resp.cmd(line) == "OK", line)
+            n_cmds += 1
+        rules = tcplb_rules(max_groups, TCPLB_RULE_SEED)
+        n = 0
+        for i, r in enumerate(rules):
+            anno = {"vproxy/hint-host": r.host}
+            if r.uri is not None:
+                anno["vproxy/hint-uri"] = r.uri
+            for line in (
+                    f"add server-group g{i} timeout 1000 period 600000 up 1 "
+                    "down 1 protocol none event-loop-group elg-hc",
+                    f"add server s to server-group g{i} address "
+                    f"{group_addr(i)}:{bports[i % len(bports)]} weight 10",
+                    f"add server-group g{i} to upstream u0 weight 10 "
+                    f"annotations {json.dumps(anno, separators=(',', ':'))}"):
+                check(resp.cmd(line) == "OK", line)
+                n_cmds += 1
+            n = i + 1
+            if n >= CONTROL_MIN_GROUPS and \
+                    time.monotonic() - t0 > CONTROL_BUILD_S:
+                break
+        rules = rules[:n]
+        groups_s = time.monotonic() - t0
+        check(resp.cmd("add security-group acl default allow") == "OK",
+              "add security-group")
+        n_cmds += 1
+        acl = acl_rules(max_acl, ACL_SEED)
+        acl_n, acl_s = {}, {}
+        for proto in ("tcp", "udp"):
+            t1 = time.monotonic()
+            k = 0
+            for k, r in enumerate(acl, 1):
+                line = (f"add security-group-rule {proto}{k} to "
+                        f"security-group acl network {r.network} protocol "
+                        f"{proto} port-range {r.min_port},{r.max_port} "
+                        f"default {'allow' if r.allow else 'deny'}")
+                check(resp.cmd(line) == "OK", line)
+                n_cmds += 1
+                if k >= min_acl and time.monotonic() - t1 > \
+                        CONTROL_ACL_BUILD_S:
+                    break
+            acl_n[proto], acl_s[proto] = k, time.monotonic() - t1
+        for body in (
+                {"command": "add dns-server d0 address 127.0.0.1:0 "
+                            "upstream u0 security-group acl"},
+                {"command": "add socks5-server s5 address 127.0.0.1:0 "
+                            "upstream u0 security-group acl"},
+                {"command": "add tcp-lb lb0 address 127.0.0.1:0 upstream u0 "
+                            "protocol http-splice security-group acl "
+                            "lanes 0"}):
+            check(http_json(hport, "/api/v1/command", body)["result"] ==
+                  "OK", body["command"])
+            n_cmds += 1
+        build_s = time.monotonic() - t0
+
+        def addr_of(module: str) -> int:
+            return int(http_json(hport, f"/api/v1/module/{module}")[0][
+                "address"].rsplit(":", 1)[1])
+        dns_port, s5_port, lb_port = (addr_of(m) for m in (
+            "dns-server", "socks5-server", "tcp-lb"))
+        ups = resp.cmd("list-detail upstream")[0]
+        want_be = "torch-fp" if fp else "torch"
+        log(f"control: {n} groups in {groups_s:.1f} s, ACL {acl_n} in "
+            f"{acl_s}, {n_cmds} commands in {build_s:.1f} s; {ups}")
+        check(f" backend {want_be} rules {n} " in ups,
+              f"the upstream does not serve {n} rules on {want_be}: {ups}")
+        check(fp or device.type != "cuda" or "fused on(cuda," in ups,
+              f"the fused tier is not the CUDA kernel: {ups}")
+        # the child published exactly these rules: the port's checksum of
+        # the same list (independent of the backend) equals its own
+        local = HintMatcher(rules, backend="host")
+        check(f"checksum {local.checksum():#010x}" in ups,
+              f"the child's rules differ from the phase's: {ups}")
+        index = HintIndex(rules)
+        lo = parse_ip(LOOPBACK)
+        for proto, pr in (("tcp", Proto.TCP), ("udp", Proto.UDP)):
+            sub = acl[:acl_n[proto]]
+            ci = CidrIndex([r.network for r in sub], acl=sub)
+            check(all(ci.lookup(lo, p) == -1 for p in
+                      (dns_port, s5_port, lb_port)),
+                  f"a {proto} ACL rule matches the clients' address")
+
+        # ---- traffic
+        m0 = scrape(iport)
+        dns_q0 = http_json(hport, "/api/v1/module/dns-server")[0]["queries"]
+        rng_seed = CONTROL_QUERY_SEED
+        dns_lat, first_lat, answers, tries, dns_wall = [], [], 0, 0, 0.0
+        drops0 = udp_rcvbuf_errors()
+
+        def dns_want(qname: str, qtype: str):
+            """(rcode, [(rtype, rdata)]) the DNS server owes this query."""
+            d = qname.rstrip(".")
+            g = index.lookup(Hint.of_host(d))
+            if g >= 0:
+                if qtype == "SRV":
+                    return 0, [(P.SRV, (0, 10, bports[g % len(bports)],
+                                        group_addr(g) + "."))]
+                return 0, [(P.A, parse_ip(group_addr(g)))]
+            if is_ip_literal(d):
+                return 0, [(P.A, parse_ip(d))]
+            if d == "who.am.i.vproxy.local":
+                return 0, [(P.A, lo)]
+            return 3, []
+
+        for b in range(dns_bursts):
+            plan = dns_plan(rules, dns_burst, rng_seed + b)
+            pkts = [P.Packet(id=i, rd=True, questions=[
+                P.Question(q, getattr(P, t))]).encode()
+                for i, (q, t) in enumerate(plan)]
+            t1 = time.monotonic()
+            got = clients.submit(_dns_burst, dns_port, pkts,
+                                 DNS_INFLIGHT).result(timeout=600)
+            dns_wall += time.monotonic() - t1
+            for i, ((q, t), (data, secs, n_try)) in enumerate(zip(plan,
+                                                                 got)):
+                resp_p = P.parse(data)
+                rc, want = dns_want(q, t)
+                have = [(a.rtype, a.rdata) for a in resp_p.answers]
+                check(resp_p.id == i and resp_p.rcode == rc and have == want,
+                      f"DNS burst {b} query {i} {q} {t}: rcode "
+                      f"{resp_p.rcode} {have}, the host index gives {rc} "
+                      f"{want}")
+                answers += bool(have)
+                dns_lat.append(secs * 1e6)
+                if n_try == 1:
+                    first_lat.append(secs * 1e6)
+                tries += n_try - 1
+        rcvbuf_drops = udp_rcvbuf_errors() - drops0
+
+        def s5_items(k: int) -> list:
+            rng = np.random.default_rng(rng_seed + 100 + k)
+            out = []
+            for j in range(conn_burst):
+                r = rules[int(rng.integers(len(rules)))]
+                host = (f"miss{j}.nowhere.test" if j % 10 == 9 else
+                        f"y{j}.{r.host}" if j % 3 == 0 else r.host)
+                out.append((host, f"/s5/{j}"))
+            return out
+
+        s5_lat, s5_refused = [], 0
+        t1 = time.monotonic()
+        for k in range(s5_bursts):
+            items = s5_items(k)
+            got = clients.submit(_socks5_burst, s5_port, items,
+                                 conn_burst).result(timeout=300)
+            for j, ((host, path), (rep, secs, body)) in enumerate(
+                    zip(items, got)):
+                g = index.lookup(Hint.of_host_port(host, 80))
+                if g < 0:
+                    check(rep == 2, f"Socks5 {host}: reply {rep}, no rule "
+                          f"holds it (want 2)")
+                    s5_refused += 1
+                    continue
+                bid, _, seen = (body or "").partition(" ")
+                check(rep == 0 and seen == host and
+                      int(bid) == g % TCPLB_BACKENDS,
+                      f"Socks5 burst {k} row {j} {host}: reply {rep}, "
+                      f"body {body!r}, the host index gives group {g}")
+                s5_lat.append(secs * 1e6)
+        s5_wall = time.monotonic() - t1
+
+        lb_lat, lb_matched = [], 0
+        t1 = time.monotonic()
+        for k in range(lb_bursts):
+            reqs = tcplb_requests(rules, conn_burst, rng_seed + 200 + k)
+            got = clients.submit(_http_burst, lb_port, "splice", reqs,
+                                 conn_burst).result(timeout=300)
+            for j, ((host, path), (_, secs, body)) in enumerate(zip(reqs,
+                                                                    got)):
+                p = HeadParser()
+                p.feed(http_request(host, path, close=True))
+                g = index.lookup(p.hint())
+                bid, _, seen = body.partition(" ")
+                check(seen == host and (g < 0 or
+                                        int(bid) == g % TCPLB_BACKENDS),
+                      f"tcp-lb burst {k} row {j} {host}{path}: body "
+                      f"{body!r}, the host index gives group {g}")
+                lb_matched += g >= 0
+                lb_lat.append(secs * 1e6)
+        lb_wall = time.monotonic() - t1
+
+        # ---- the child's own counts
+        m1 = scrape(iport)
+
+        def d(k: str) -> float:
+            return m1.get(k, 0.0) - m0.get(k, 0.0)
+        dns_q = http_json(hport, "/api/v1/module/dns-server")[0][
+            "queries"] - dns_q0
+        accepted = {kind: int(resp.cmd(f"list accepted-conn-count in "
+                                       f"{kind}")[0])
+                    for kind in ("socks5-server s5", "tcp-lb lb0")}
+        launches, batches = d("vproxy_engine_dispatch_launches_total"), \
+            d("vproxy_classify_dispatches")
+        queries, dev_q = d("vproxy_classify_queries"), \
+            d("vproxy_classify_device_queries")
+        cidr_q = dns_q + sum(accepted.values())
+        check(launches == batches > 0, f"{launches} launches for {batches} "
+              f"device batches")
+        check(d("vproxy_engine_fused_dispatches_total") == 0,
+              "a fused (B1) dispatch ran on the control path")
+        check(d("vproxy_classify_failovers") == 0, "device failovers")
+        check(d("vproxy_classify_oracle_queries") == 0 and dev_q == queries,
+              f"{queries - dev_q} queries not answered by the device")
+        check(dev_q > cidr_q > 0, f"{dev_q} device queries, {cidr_q} ACL "
+              f"checks")
+
+        def pct(xs, q):
+            xs = sorted(xs)
+            return xs[min(len(xs) - 1, len(xs) * q // 100)] if xs else None
+
+        hint_k, cidr_k = (("hint_fp_match (B6)", "cidr_fp_match (B7)") if fp
+                          else ("hint_match (B3)", "cidr_first (B4)"))
+        out = {"backend": want_be, "boot_s": boot_s,
+               "groups": n, "groups_target": max_groups,
+               "groups_build_s": groups_s, "acl_rules": acl_n,
+               "acl_target": max_acl, "acl_build_s": acl_s,
+               "commands": n_cmds, "build_s": build_s,
+               "commands_per_s": n_cmds / build_s,
+               "dns_queries": len(dns_lat), "dns_answered": answers,
+               "dns_resends": tries, "udp_rcvbuf_drops": rcvbuf_drops,
+               "dns_p50_us": pct(dns_lat, 50), "dns_p99_us": pct(dns_lat, 99),
+               "dns_first_try_p50_us": pct(first_lat, 50),
+               "dns_first_try_p99_us": pct(first_lat, 99),
+               "dns_answers_per_s": len(dns_lat) / max(dns_wall, 1e-9),
+               "socks5_sessions": len(s5_lat), "socks5_refused": s5_refused,
+               "socks5_p50_us": pct(s5_lat, 50),
+               "socks5_p99_us": pct(s5_lat, 99), "socks5_wall_s": s5_wall,
+               "tcplb_connections": len(lb_lat), "tcplb_matched": lb_matched,
+               "tcplb_p50_us": pct(lb_lat, 50),
+               "tcplb_p99_us": pct(lb_lat, 99), "tcplb_wall_s": lb_wall,
+               "queries": {"total": queries, "device": dev_q,
+                           "cidr (datagrams + accepts)": cidr_q,
+                           "hint (the rest)": dev_q - cidr_q},
+               "batches": {"hint + cidr": batches,
+                           "mean": dev_q / max(batches, 1),
+                           "max": m1.get("vproxy_classify_max_batch")},
+               "launches": {f"{hint_k} + {cidr_k}": launches,
+                            "fused (B1)": d(
+                                "vproxy_engine_fused_dispatches_total")},
+               "failovers": d("vproxy_classify_failovers")}
+
+        # ---- SIGTERM: a clean exit that writes no config
+        resp.close()
+        child.send_signal(15)
+        rc = child.wait(120)
+        check(rc == 0, f"the port exited {rc} on SIGTERM")
+        check(not os.path.exists(os.path.join(home, "vproxy.last")),
+              "the port saved a config though started with noSave")
+        out["exit"] = rc
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait(10)
+        clients.shutdown()
+        try:
+            pipe.send("stop")
+        except OSError:
+            pass
+        backends.join(10)
+        if backends.is_alive():
+            backends.terminate()
+            backends.join(5)
+        shutil.rmtree(home, ignore_errors=True)
     return out
 
 
@@ -3835,6 +4482,13 @@ def main() -> int:
     tcplb_fp = run("tcplb_fp", phase_tcplb, device,
                    max_rules=TCPLB_MIN_RULES, bursts=1, matcher="jax-fp")
     log(json.dumps({"tcplb_fp": {**tcplb_fp, "card": smi}}))
+    control = run("control", phase_control, device)
+    log(json.dumps({"control": {**control, "card": smi}}))
+    control_fp = run("control_fp", phase_control, device,
+                     max_groups=CONTROL_MIN_GROUPS, dns_bursts=1,
+                     s5_bursts=1, lb_bursts=1, min_acl=CONTROL_FP_ACL,
+                     max_acl=CONTROL_FP_ACL, matcher="jax-fp")
+    log(json.dumps({"control_fp": {**control_fp, "card": smi}}))
     rows, b3_rows, sweep = run("times", phase_times, device, keep)
     crows = run("cidr times", phase_cidr_times, device, keep, routes, am,
                 acl)

@@ -1,5 +1,6 @@
 """Torch port on the card: the CIDR kernels, B3 and the fingerprint
-kernels (B6, B7) against their plain tiers.
+kernels (B6, B7) against their plain tiers, and the control plane's DNS
+server and Socks5 answered through B3 and B4.
 
 Every test here is marked `cuda` and asks the `cuda` fixture for the
 card, which skips without one (the CPU tier-1 run skips them all). On a
@@ -239,3 +240,89 @@ def test_fp_kernel_bad_batch_is_kernel_error(cuda, entry):
         a16, fam, _ = CS.cidr_batch([(a, None) for a in addrs], 8, cuda)
         with pytest.raises(FC.KernelError):
             FPC.cidr_fp_cuda(t, a16, fam[:4])
+
+
+def test_dns_and_socks5_answered_by_b3_gated_by_b4(cuda, monkeypatch,
+                                                   tmp_path):
+    """The port's control plane on the card: an operator config built by
+    command (an Upstream with one Host rule, a security group with TCP
+    and UDP rules, a dns-server and a socks5-server on them), the
+    service in "device" mode. One DNS query is gated by B4 (the UDP
+    ACL) and answered by B3 (the rrsets lookup); one Socks5 CONNECT by
+    domain is gated by B4 (the TCP ACL) and routed by B3 to the group's
+    backend. B1's cpick form never runs."""
+    import socket
+    import threading
+
+    from vproxy_tpu_torch.control.app import Application
+    from vproxy_tpu_torch.control.command import Command
+    from vproxy_tpu_torch.dns import packet as P
+    from vproxy_tpu_torch.rules.service import ClassifyService
+
+    monkeypatch.setenv("VPROXY_TPU_CLASSIFY", "device")
+    monkeypatch.setenv("VPROXY_TPU_HOME", str(tmp_path))
+    ClassifyService.reset()
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(4)
+
+    def serve():
+        try:
+            c, _ = srv.accept()
+            c.sendall(b"S5B")
+            c.close()
+        except OSError:
+            pass
+    threading.Thread(target=serve, daemon=True).start()
+    app = Application.create(workers=1)
+    try:
+        for line in (
+                "add upstream u0",
+                "add server-group g0 timeout 500 period 60000 up 1 down 1 "
+                "protocol none",
+                f"add server s0 to server-group g0 address "
+                f"127.0.0.1:{srv.getsockname()[1]}",
+                'add server-group g0 to upstream u0 annotations '
+                '{"vproxy/hint-host":"svc.example.com"}',
+                "add security-group acl default allow",
+                "add security-group-rule t0 to security-group acl network "
+                "10.0.0.0/8 protocol tcp port-range 0,65535 default deny",
+                "add security-group-rule u0 to security-group acl network "
+                "10.0.0.0/8 protocol udp port-range 0,65535 default deny",
+                "add dns-server d0 address 127.0.0.1:0 upstream u0 "
+                "security-group acl",
+                "add socks5-server s5 address 127.0.0.1:0 upstream u0 "
+                "security-group acl"):
+            assert Command.execute(app, line) == "OK", line
+        assert "backend torch " in Command.execute(
+            app, "list-detail upstream")[0]
+        counts = (FC.hint_match_cuda, CC.cidr_first_cuda,
+                  FC.fused_classify_pick_cuda)
+        for k in counts:
+            k.launches = 0
+        u = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        u.settimeout(10)
+        u.sendto(P.Packet(id=5, rd=True, questions=[
+            P.Question("svc.example.com.", P.A)]).encode(),
+            ("127.0.0.1", app.dns_servers["d0"].bind_port))
+        resp = P.parse(u.recvfrom(4096)[0])
+        u.close()
+        assert resp.id == 5 and [a.rdata for a in resp.answers] == \
+            [bytes([127, 0, 0, 1])]
+        assert [k.launches for k in counts] == [1, 1, 0]
+        c = socket.create_connection(
+            ("127.0.0.1", app.socks5_servers["s5"].bind_port), timeout=10)
+        c.sendall(b"\x05\x01\x00")
+        assert c.recv(2) == b"\x05\x00"
+        c.sendall(b"\x05\x01\x00\x03\x0fsvc.example.com\x00\x50")
+        rep = c.recv(10)
+        assert rep[:2] == b"\x05\x00"
+        assert c.recv(10) == b"S5B"
+        c.close()
+        assert [k.launches for k in counts] == [2, 2, 0]
+        svc = ClassifyService.get()
+        assert svc.stats.failovers == 0 and svc.error is None
+    finally:
+        app.close()
+        srv.close()
+        ClassifyService.reset()

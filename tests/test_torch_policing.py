@@ -225,10 +225,35 @@ def test_trace_bind_context_parity():
 
 # ------------------------------------------------------------ workload
 
+@pytest.fixture
+def _zero_conn_hists():
+    """Both packages' process-global conn histograms (the aggregate the
+    capture window reads, and the test's per-LB pair) start from zero
+    and get their earlier state back afterwards. Earlier tests in the
+    same process fill the two packages' aggregates to different sums,
+    and a capture is the difference of two cumulative sums: over
+    different bases the same observations round differently."""
+    saved = []
+    for mt in (RM, M):
+        for lb in (None, "lb-w"):
+            for h in mt.conn_hists(lb):
+                with h._lock:
+                    saved.append((h, h._count, h._sum, list(h._counts)))
+                    h._count, h._sum = 0, 0.0
+                    h._counts = [0] * len(h._counts)
+    yield
+    for h, count, total, counts in saved:
+        with h._lock:
+            h._count, h._sum, h._counts = count, total, counts
+
+
+@pytest.mark.usefixtures("_zero_conn_hists")
 def test_workload_capture_export_parity():
     """A capture window fed the same arrivals (pre-bucketed, as the C
     lanes fold them), connection sizes and heavy hitters exports the
-    same model, up to the window's wall-clock fields."""
+    same model, up to the window's wall-clock fields. The workload
+    sessions and sketch dimensions start fresh (_fresh), the conn
+    histograms from zero (_zero_conn_hists)."""
     rng = random.Random(41)
     nb = 28  # log2 buckets + the +Inf bucket
     feeds = []

@@ -1,22 +1,26 @@
-"""Prometheus-style metrics registry + the process-global surface.
+"""Prometheus-style metrics registry + global inspection surface.
 
 Parity: reference `vproxybase/prometheus/Metrics.java` (Counter / Gauge
-/ GaugeF with a label set, text exposition). The port carries only the
-families its modules read — the classify service counters, the engine
-launch/generation gauges, the install and Maglev build histograms, the
-event-loop count, the UDP drop counter, and what the load balancer
-reads (the accept-stage and per-connection histograms, the workload,
-trace, analytics and policing families, the LB's own counters, created
-on first use) — under the same names as `vproxy_tpu`'s /metrics, so one
-scrape config reads both packages; GlobalInspection also keeps the
-registry of live event loops (register_loop / deregister_loop, called
-by net/eventloop.py). The inspection HTTP server
-(`launch_inspection_http`) comes with the control plane.
+/ GaugeF with a label set, text exposition) and `GlobalInspection.java:
+24-205`: one process-global surface collecting direct-memory bytes,
+per-loop thread registry, stack-trace dump and open-FD dump, exposed
+over HTTP (`getPrometheusString():177`,
+`GlobalInspectionHttpServerLauncher.java:9` — /metrics, /lsof, /jstack).
+
+The port's copy of vproxy_tpu/utils/metrics.py: the same family names
+(one scrape config reads both packages; a scrape of either lists the
+same families for the same resources) and the same inspection server
+(`launch_inspection_http`). The cluster families read 0 and /cluster
+answers {"enabled": false}: no cluster node boots in the port yet
+(ROADMAP Queue A item 8). The reference's `bench_snapshot` (read by
+its bench scripts only) is not carried over.
 """
 from __future__ import annotations
 
+import os
 import sys
 import threading
+import traceback
 from typing import Callable, Dict, List, Optional, Tuple
 
 
@@ -281,14 +285,52 @@ class GlobalInspection:
         self._lock = threading.Lock()
         # (name, sorted-label-items) -> Metric for get-or-create users
         self._named: Dict[tuple, Metric] = {}
+        self.direct_memory_bytes = self.registry.gauge(
+            "vproxy_direct_memory_bytes_current")
         self.registry.gauge_f("vproxy_event_loop_count",
                               lambda: len(self._loops))
+        self.registry.gauge_f("vproxy_open_fd_count",
+                              lambda: len(self._open_fds()))
+        self.registry.gauge_f("vproxy_thread_count",
+                              lambda: threading.active_count())
         # micro-batch classify queue (rules/service.py): batching ratio
         # = queries / dispatches
         for k in ("queries", "dispatches", "device_queries",
                   "oracle_queries", "failovers", "max_batch"):
             self.registry.gauge_f(
                 f"vproxy_classify_{k}", lambda k=k: self._classify_stat(k))
+        # native splice-pump counters (native/vtl.cpp): bytes spliced,
+        # write syscalls, short writes, TLS handshakes
+        for i, k in enumerate(("bytes", "splice_calls", "short_writes",
+                               "tls_handshakes")):
+            self.registry.gauge_f(f"vproxy_pump_{k}_total",
+                                  lambda i=i: self._pump_counter(i))
+        # switch flow-cache counters (native/vtl.cpp's flow table): the
+        # switch is not ported yet, so they read the library's zeros
+        for i, k in enumerate(("hit", "miss", "evict", "stale")):
+            self.registry.gauge_f(f"vproxy_switch_flowcache_{k}_total",
+                                  lambda i=i: self._flowcache_counter(i))
+        self.registry.gauge_f("vproxy_switch_native_fwd_total",
+                              lambda: self._flowcache_counter(4))
+        try:  # the reason-index contract lives in net/vtl.py
+            from ..net.vtl import FLOW_DROP_REASONS as _fc_reasons
+        except Exception:  # provider import failure: labels still exist
+            _fc_reasons = ("acl_deny", "same_iface", "route_miss",
+                           "unknown_vni", "egress_short_write", "other")
+        for j, r in enumerate(_fc_reasons):
+            self.registry.gauge_f("vproxy_switch_native_drop_total",
+                                  lambda j=j: self._flowcache_counter(5 + j),
+                                  reason=r)
+        # accept-lane counters (native/vtl.cpp accept lanes): accepts
+        # taken by lanes, sessions served wholly in C, punts by reason
+        self.registry.gauge_f("vproxy_lane_accepted_total",
+                              lambda: self._lane_counter(0))
+        self.registry.gauge_f("vproxy_lane_served_total",
+                              lambda: self._lane_counter(1))
+        for j, r in enumerate(("classic", "stale", "connect_fail")):
+            self.registry.gauge_f("vproxy_lane_punt_total",
+                                  lambda j=j: self._lane_counter(2 + j),
+                                  reason=r)
         # classify-engine generation installs and fused-dispatch
         # accounting (rules/engine.py)
         self.registry.gauge_f("vproxy_engine_generation",
@@ -305,6 +347,22 @@ class GlobalInspection:
         self.registry.gauge_f("vproxy_engine_fused_dispatches_total",
                               lambda: self._engine_stat(
                                   "fused_dispatches_total"))
+        # cluster plane: the reference's families, 0 until a cluster
+        # node boots, which no node does in the port yet
+        for k in ("peers_up", "generation", "generation_lag",
+                  "steps_total", "barrier_stalls_total"):
+            self.registry.gauge_f(f"vproxy_cluster_{k}", lambda: 0.0)
+        # event-loop health: worst timer slip and longest single callback
+        # across all live loops since the previous scrape; reading
+        # resets the window
+        self.registry.gauge_f("vproxy_loop_timer_slip_us_max",
+                              lambda: self._loop_health("slip"))
+        self.registry.gauge_f("vproxy_loop_callback_us_max",
+                              lambda: self._loop_health("cb"))
+        # maglev table-compiler accounting (rules/maglev.py): a scrape
+        # shows the zeros before any build
+        self.get_counter("vproxy_maglev_table_builds_total")
+        self.get_gauge("vproxy_maglev_remap_fraction")
         # pre-registered with their reservoirs: the get_histogram calls
         # in rules/engine.py and rules/maglev.py resolve to these
         self.get_histogram("vproxy_engine_swap_ms", reservoir=512)
@@ -387,6 +445,31 @@ class GlobalInspection:
         svc = sys.modules.get("vproxy_tpu_torch.rules.service")
         inst = None if svc is None else svc.ClassifyService._instance
         return 0.0 if inst is None else float(getattr(inst.stats, key))
+
+    @staticmethod
+    def _pump_counter(i: int) -> float:
+        from ..net import vtl
+        return float(vtl.pump_counters()[i])
+
+    @staticmethod
+    def _flowcache_counter(i: int) -> float:
+        from ..net import vtl
+        return float(vtl.flowcache_counters()[i])
+
+    @staticmethod
+    def _lane_counter(i: int) -> float:
+        from ..net import vtl
+        return float(vtl.lane_counters()[i])
+
+    def _loop_health(self, key: str) -> float:
+        with self._lock:
+            loops = list(self._loops.values())
+        worst = 0.0
+        for lp in loops:
+            take = getattr(lp, "take_health", None)
+            if take is not None:
+                worst = max(worst, take(key))
+        return worst * 1e6
 
     @staticmethod
     def _engine_stat(name: str, *args) -> float:
@@ -478,6 +561,37 @@ class GlobalInspection:
     def prometheus_string(self) -> str:
         return self.registry.prometheus_text()
 
+    # ------------------------------------------------------------ dumps
+
+    @staticmethod
+    def _open_fds() -> List[str]:
+        try:
+            return sorted(os.listdir("/proc/self/fd"), key=int)
+        except OSError:
+            return []
+
+    def open_fd_dump(self) -> str:
+        """lsof analog: fd -> target (GlobalInspection.java:196-205)."""
+        lines = []
+        for fd in self._open_fds():
+            try:
+                target = os.readlink(f"/proc/self/fd/{fd}")
+            except OSError:
+                target = "?"
+            lines.append(f"{fd}\t{target}")
+        return "\n".join(lines) + "\n"
+
+    @staticmethod
+    def stack_trace_dump() -> str:
+        """jstack analog (GlobalInspection.java:181-194)."""
+        names = {t.ident: t.name for t in threading.enumerate()}
+        out = []
+        for tid, frame in sys._current_frames().items():
+            out.append(f'Thread "{names.get(tid, "?")}" id={tid}')
+            out.extend(l.rstrip() for l in traceback.format_stack(frame))
+            out.append("")
+        return "\n".join(out)
+
 
 _UDP_DROP_CTR: Optional[Counter] = None
 
@@ -560,3 +674,124 @@ def conn_merge(lb: Optional[str], which: str, bucket_deltas,
     idx = 0 if which == "bytes" else 1
     for target in ((None, lb) if lb else (None,)):
         conn_hists(target)[idx].merge(bucket_deltas, sum_delta, count)
+
+
+def launch_inspection_http(loop, ip: str, port: int):
+    """Serve /metrics, /lsof, /jstack, /events, /healthz — the
+    reference's `-Dglobal_inspection=host:port` server (Main.java:
+    85-104) plus the flight-recorder dump. Returns the HttpServer
+    (close() to stop)."""
+    from ..lib.vserver import HttpServer
+    from . import failpoint, lifecycle
+    from .events import FlightRecorder
+
+    gi = GlobalInspection.get()
+    srv = HttpServer(loop)
+    srv.get("/metrics", lambda ctx: ctx.resp
+            .header("Content-Type", "text/plain; version=0.0.4")
+            .end(gi.prometheus_string()))
+    srv.get("/lsof", lambda ctx: ctx.resp
+            .header("Content-Type", "text/plain").end(gi.open_fd_dump()))
+    srv.get("/jstack", lambda ctx: ctx.resp
+            .header("Content-Type", "text/plain").end(gi.stack_trace_dump()))
+
+    def events(ctx) -> None:
+        try:
+            last = int(ctx.req.query.get("n", "0"))
+        except ValueError:
+            last = 0
+        try:  # ?trace=<id>: only events cross-referencing that trace
+            tid = int(ctx.req.query.get("trace", "0"))
+        except ValueError:
+            tid = 0
+        # ?plane=<p>: only events of that plane (utils/events.plane_of
+        # — the analytics drill-down filter)
+        plane = ctx.req.query.get("plane") or None
+
+        # ?since=&until=: monotonic-ns bounds, the SAME clock trace
+        # spans stamp t_ns with — a capture window joins against
+        # recorder events without clock arithmetic
+        def _ns(key):
+            try:
+                v = int(ctx.req.query.get(key, "0"))
+            except ValueError:
+                v = 0
+            return v or None
+
+        ctx.resp.end(FlightRecorder.get().snapshot(
+            last, trace=tid or None, plane=plane,
+            since=_ns("since"), until=_ns("until")))
+
+    srv.get("/events", events)
+
+    def analytics(ctx) -> None:
+        # the heavy-hitter plane (utils/sketch): local top tables (one
+        # shared assembly across all three serving surfaces)
+        from . import sketch as SK
+        out = SK.snapshot()
+        # per-node policed attribution (the enforcement half of the
+        # analytics loop — what the detected heavy hitters COST them)
+        from ..policing import engine as PE
+        out["policing"] = {"self": PE.default().policed_by_node(),
+                           "peers": {}}
+        ctx.resp.end(out)
+
+    srv.get("/analytics", analytics)
+
+    def policing_ep(ctx) -> None:
+        # the Guardian enforcement surface (policing/engine.py):
+        # engine status + declared policies + the live enforcement
+        # table (per-key buckets with origin/ttl — local vs gossiped)
+        from ..policing import engine as PE
+        eng = PE.default()
+        st = eng.status()
+        st["policy_list"] = eng.list_policies()
+        st["table"] = eng.table_snapshot()
+        st["policed_by_node"] = eng.policed_by_node()
+        st["shed_receipt"] = eng.shed_receipt()
+        ctx.resp.end(st)
+
+    srv.get("/policing", policing_ep)
+
+    def workload_ep(ctx) -> None:
+        # the capture artifact (utils/workload): the current window's
+        # fitted model — tools/replay.py consumes this live
+        from . import workload as WL
+        ctx.resp.end(WL.export_model())
+
+    srv.get("/workload", workload_ep)
+
+    def trace_ep(ctx) -> None:
+        # GET /trace -> recent trace summaries; ?id=<trace> -> that
+        # trace's spans (start-time ordered); ?n= bounds the list
+        from . import trace as TR
+        try:
+            tid = int(ctx.req.query.get("id", "0"))
+        except ValueError:
+            tid = 0
+        if tid:
+            ctx.resp.end({"trace": tid, "spans": TR.get_trace(tid)})
+            return
+        try:
+            last = int(ctx.req.query.get("n", "64"))
+        except ValueError:
+            last = 64
+        ctx.resp.end({"sample_every": TR.sample_every(),
+                      "traces": TR.summaries(last)})
+
+    srv.get("/trace", trace_ep)
+    srv.get("/faults", lambda ctx: ctx.resp.end(failpoint.active()))
+
+    srv.get("/cluster", lambda ctx: ctx.resp.end({"enabled": False}))
+
+    def healthz(ctx) -> None:
+        # draining flips to 503 so upstream LB health probes steer away
+        # while in-flight sessions finish (utils/lifecycle)
+        if lifecycle.is_draining():
+            ctx.resp.status(503).end(b"draining")
+        else:
+            ctx.resp.end(b"OK")
+
+    srv.get("/healthz", healthz)
+    srv.listen(port, ip)
+    return srv
