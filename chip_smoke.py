@@ -15,8 +15,10 @@ and route lookups against a 50,000-route table (BASELINE config #4, not
 cut), then the same tables on the packed-fingerprint backend
 ("torch-fp": B6 for hint batches, B7 for cidr batches), boots the port
 as an operator runs it (`python -m vproxy_tpu_torch`, one config built
-by command, DNS-as-LB, Socks5 and the TcpLB served from it), times the
-kernels, and prints one JSON line per result. Phases, in order:
+by command, DNS-as-LB, Socks5 and the TcpLB served from it), replays
+config #4's traffic through the port's virtual switch (routes and ACL
+on B4, then on B7), times the kernels, and prints one JSON line per
+result. Phases, in order:
 
 1. environment: a CUDA device, or exit 1; the card's name and power
    limit as nvidia-smi reports them;
@@ -143,7 +145,7 @@ kernels, and prints one JSON line per result. Phases, in order:
    address of its own at id-server i mod 256, until 10,000 groups or
    60 s (never under 256), one security group with config #4's ACL as
    TCP rules and as UDP rules (each until 5,000 or 30 s, never under
-   512), a dns-server, a socks5-server and an http-splice tcp-lb on
+   256), a dns-server, a socks5-server and an http-splice tcp-lb on
    them; 4 x 4,096 DNS queries (512 in flight), 2 x 512 Socks5 domain
    CONNECTs with an HTTP request each, 2 x 512 http-splice connections
    from a spawned client process; every answer the group the port's
@@ -153,6 +155,26 @@ kernels, and prints one JSON line per result. Phases, in order:
    by the device; SIGTERM: exit 0, no config written. `control_fp`:
    the same on VPROXY_TPU_MATCHER=jax-fp (B6, B7) at 256 groups, an
    ACL of 128 rules of each protocol, one burst of each kind;
+7f. switch (the `switch` line): BASELINE config #4 on the port's
+   virtual switch. The port's Application builds it in process by
+   Command.execute: a security group, `add switch`, vpc 1 and vpc 2
+   (10.0.0.0/8), a remote-switch link to a loopback receiver, then
+   UDP ACL rules and routes one command each until 20 s (never under
+   512 of each), the rest of the 5,000 rules and 50,000 routes in bulk
+   (bench_switch.py's build_world); 16,384 VXLAN datagrams from 64
+   loopback senders (an eighth in deny /24s, an eighth in allow /24s),
+   destinations over every route and a sixteenth under none, replayed
+   in 1,024-datagram bursts (a) on the object path (B4 once per ACL
+   batch and once per route batch), (b) through the switch's UDP
+   socket on the default data plane (the numpy fast path and the
+   native flow cache, twice: its device launches are recorded, 0
+   expected) and (c) on the object path of a second switch built with
+   VPROXY_TPU_MATCHER=jax-fp (B7 once per batch); every outcome the
+   host indexes' (CidrIndex: the ACL at the switch's port, then the
+   routes), the egress bytes of every run identical, the drop
+   counters equal to the prediction; prints packets/s per run, the
+   `CidrMatcher.match` round trip's p50/p99 and encode share, launches
+   per kernel and the build's counts and seconds;
 8. times at B = 16, 512, 4096: the kernel's and the plain tier's device
    time per call (profiler) with the 22.7 MB table L2-warm, as under
    steady serving; the kernel's device time with L2 flushed before each
@@ -177,7 +199,8 @@ kernels, and prints one JSON line per result. Phases, in order:
    the L2: a warm time there is not an all-L2 time), and the Maglev take
    (B5) every fp cpick batch runs beside B6 (the `b5_take` line);
 10. the `phase_s` line (wall seconds per phase), the {"kernels": [...]}
-   line (B1, B1 with the route column, B4, B3, B6, B7),
+   line (B1, B1 with the route column, B4, B3, B6, B7; B4's and B7's
+   launches include the `switch` phase's),
    then the card's line, then the device line.
 
 Any failed phase raises, and the script exits non-zero.
@@ -244,6 +267,12 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip smoke failed: {what}")
+
+
+def pct(xs, q):
+    """The q-th percentile of xs (nearest rank), None for no values."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, len(xs) * q // 100)] if xs else None
 
 
 # ------------------------------------------------------------ workload
@@ -2212,10 +2241,6 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
         check(svc.error is None, f"the classify service closed: "
               f"{svc.error!r}")
 
-        def pct(xs, q):
-            xs = sorted(xs)
-            return xs[min(len(xs) - 1, len(xs) * q // 100)]
-
         stages = {}
         for s, h in stage_h.items():
             c1, s1, b1 = h.state()
@@ -2282,7 +2307,7 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
 CONTROL_MAX_GROUPS = 10_000  # records built against config #3's 100k
 CONTROL_MIN_GROUPS = 256
 CONTROL_BUILD_S = 60.0       # the Upstream's budget: every add publishes
-CONTROL_MIN_ACL = 512        # rules of each protocol, at least
+CONTROL_MIN_ACL = 256        # rules of each protocol, at least
 CONTROL_ACL_BUILD_S = 30.0   # each protocol's budget: every add compiles
 CONTROL_FP_ACL = 128  # the fp run's ACL: each add recompiles the fp table
 CONTROL_WORKERS = 4
@@ -2833,10 +2858,6 @@ def phase_control(device, max_groups=CONTROL_MAX_GROUPS,
         check(dev_q > cidr_q > 0, f"{dev_q} device queries, {cidr_q} ACL "
               f"checks")
 
-        def pct(xs, q):
-            xs = sorted(xs)
-            return xs[min(len(xs) - 1, len(xs) * q // 100)] if xs else None
-
         hint_k, cidr_k = (("hint_fp_match (B6)", "cidr_fp_match (B7)") if fp
                           else ("hint_match (B3)", "cidr_first (B4)"))
         out = {"backend": want_be, "boot_s": boot_s,
@@ -2891,6 +2912,571 @@ def phase_control(device, max_groups=CONTROL_MAX_GROUPS,
             backends.join(5)
         shutil.rmtree(home, ignore_errors=True)
     return out
+
+
+# ------------------------------------------------------------ switch
+# BASELINE config #4 on the port's virtual switch, as bench_switch.py's
+# build_world lays it out: vpc 1 and vpc 2 (both 10.0.0.0/8), 50,000
+# /24 routes in vpc 1 into vni 2, a bare-VXLAN ACL of 5,000 UDP /24
+# rules (even rules allow, odd deny, every port; default allow), the
+# gateway 10.0.0.1 in vpc 1 and a source address in vpc 2.
+
+SWITCH_PACKETS = 16_384
+SWITCH_BUILD_S = 20.0   # each command build's budget: every add republishes
+SWITCH_MIN_CMD = 512    # rules of each command build, at least
+SWITCH_SEED = 404
+SWITCH_SENDERS = 64     # outer senders: 8 in deny /24s, 8 in allow, 48 out
+SWITCH_CHUNK = 256      # datagrams in flight on the loopback run
+SWITCH_DST_MACS = 16
+SWITCH_GW = "10.0.0.1"
+SWITCH_SRC2 = "10.255.255.254"
+
+
+def switch_acl(n: int) -> list:
+    """bench_switch.build_world's bare ACL: rule i is UDP, every port,
+    allow when i is even, over the /24 the bench gives it with 127 for
+    its first byte 172 (127.16-35.x.0/24 at 5,000 rules), so that a
+    loopback sender can sit inside a rule's network."""
+    from vproxy_tpu_torch.rules.ir import AclRule, Proto
+    from vproxy_tpu_torch.utils.ip import Network
+    return [AclRule(f"a{i}", Network.parse(
+        f"127.{16 + (i >> 8) % 220}.{i & 255}.0/24"), Proto.UDP, 0, 65535,
+        (i & 1) == 0) for i in range(n)]
+
+
+def switch_routes(n: int) -> list:
+    """bench_switch.build_world's routes: 10.a.b.0/24 -> vni 2, a = 1 +
+    (i >> 8) mod 200, b = i mod 256 (a <= 196 at 50,000 routes)."""
+    from vproxy_tpu_torch.rules.ir import RouteRule
+    from vproxy_tpu_torch.utils.ip import Network
+    return [RouteRule(f"r{i}", Network.parse(
+        f"10.{1 + (i >> 8) % 200}.{i & 255}.0/24"), to_vni=2)
+        for i in range(n)]
+
+
+def switch_senders(acl: list, seed: int) -> list:
+    """SWITCH_SENDERS outer sender addresses on loopback: the first
+    eighth inside the /24s of random deny rules, the next eighth inside
+    random allow rules, the rest (127.250.0.k) outside every rule."""
+    rng = random.Random(seed)
+    eighth = SWITCH_SENDERS // 8
+    deny = [j for j in range(len(acl)) if not acl[j].allow]
+    allow = [j for j in range(len(acl)) if acl[j].allow]
+    out = []
+    for k in range(SWITCH_SENDERS):
+        if k < 2 * eighth:
+            j = rng.choice(deny if k < eighth else allow)
+            net = str(acl[j].network).split("/")[0].rsplit(".", 1)[0]
+            out.append(f"{net}.{2 + k}")
+        else:
+            out.append(f"127.250.0.{k}")
+    return out
+
+
+def switch_traffic(routes: list, n: int, seed: int) -> list:
+    """n VXLAN datagrams into vni 1, packet i from sender i mod
+    SWITCH_SENDERS (its own inner mac and address): inner IPv4 UDP to
+    the gateway's mac, to an address under a random route (a sixteenth
+    of them under no route: 10.200-254.x.y), the packet's index in the
+    first 4 payload bytes. -> [(datagram, sender index, dst)]."""
+    from vproxy_tpu_torch.utils.ip import parse_ip
+    from vproxy_tpu_torch.vswitch.packets import Ethernet, Ipv4, Vxlan
+    from vproxy_tpu_torch.vswitch.switch import synthetic_mac
+    rng = random.Random(seed)
+    gw_mac = synthetic_mac(1, parse_ip(SWITCH_GW))
+    misses = set(rng.sample(range(n), n // 16))
+    out = []
+    for i in range(n):
+        k = i % SWITCH_SENDERS
+        if i in misses:
+            dst = bytes([10, rng.randrange(200, 255), rng.randrange(256),
+                         rng.randrange(1, 255)])
+        else:
+            net = routes[rng.randrange(len(routes))].rule.ip
+            dst = net[:3] + bytes([rng.randrange(1, 255)])
+        ip = Ipv4(src=bytes([10, 0, 1, 1 + k]), dst=dst, proto=17,
+                  payload=i.to_bytes(4, "big") + b"x" * 14, ttl=64)
+        eth = Ethernet(gw_mac, bytes([2, 0xaa, 0, 0, 0, k]), 0x0800, b"",
+                       packet=ip)
+        out.append((Vxlan(1, eth).to_bytes(), k, dst))
+    return out
+
+
+def switch_dst_mac(dst: bytes) -> bytes:
+    return bytes([2, 0xfe, 0, 0, 0, dst[3] % SWITCH_DST_MACS])
+
+
+class _Receiver:
+    """A loopback UDP socket the switch egresses to (a remote-switch
+    link), drained by a thread of its own: datagram bytes in arrival
+    order."""
+
+    def __init__(self, vtl):
+        self.vtl = vtl
+        self.fd = vtl.udp_bind(LOOPBACK, 0)
+        vtl.set_rcvbuf(self.fd, 8 << 20)
+        self.port = vtl.sock_name(self.fd)[1]
+        self.got: list = []
+        self._stop = False
+        self._th = threading.Thread(target=self._run, daemon=True)
+        self._th.start()
+
+    def _run(self) -> None:
+        while not self._stop:
+            if self.vtl.wait_readable(self.fd, 50) <= 0:
+                continue
+            while True:
+                r = self.vtl.recvmmsg(self.fd)
+                if not r:
+                    break
+                self.got.extend(d for d, _, _ in r)
+
+    def wait(self, n: int, timeout: float = 30.0) -> None:
+        deadline = time.monotonic() + timeout
+        while len(self.got) < n:
+            check(time.monotonic() < deadline,
+                  f"switch egress: {len(self.got)} of {n} datagrams "
+                  f"arrived (UDP receive-buffer drops "
+                  f"{udp_rcvbuf_errors()})")
+            time.sleep(0.001)
+
+    def take(self) -> list:
+        out, self.got = self.got, []
+        return out
+
+    def close(self) -> None:
+        self._stop = True
+        self._th.join(5)
+        self.vtl.close(self.fd)
+
+
+def _switch_counts() -> dict:
+    """The switch's drop counters by reason (swmetrics), its rx total,
+    and the native flow table's drops by reason."""
+    from vproxy_tpu_torch.net import vtl
+    from vproxy_tpu_torch.vswitch import swmetrics as SM
+    out = {r: SM._ctr("vproxy_switch_drops_total", reason=r).value()
+           for r in SM.DROP_REASONS}
+    out["rx"] = SM._ctr("vproxy_switch_rx_total").value()
+    fc = vtl.flowcache_counters()
+    for j, r in enumerate(vtl.FLOW_DROP_REASONS):
+        out[f"native {r}"] = fc[5 + j]
+    out["native hits"] = fc[0]
+    return out
+
+
+def _kernel_counters():
+    from vproxy_tpu_torch.ops import cidr_cuda as CC
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    return {"cidr_first": CC.cidr_first_cuda,
+            "cidr_fp_match": FPC.cidr_fp_cuda,
+            "hint_fp_match": FPC.hint_fp_cuda,
+            "fused_classify_pick": FC.fused_classify_pick_cuda,
+            "hint_match": FC.hint_match_cuda}
+
+
+@contextlib.contextmanager
+def _match_timer(acl_m, route_m, calls: list):
+    """Times every CidrMatcher.match round trip (and its address encode,
+    engine._cidr_q) while the block runs: calls gets (which, rows,
+    round trip ns, encode ns) per call."""
+    from vproxy_tpu_torch.rules import engine as E
+    match, cidr_q = E.CidrMatcher.match, E._cidr_q
+    enc = [0]
+
+    def timed_q(*a, **kw):
+        t0 = time.perf_counter_ns()
+        try:
+            return cidr_q(*a, **kw)
+        finally:
+            enc[0] += time.perf_counter_ns() - t0
+
+    def timed(self, addrs, ports=None):
+        enc[0] = 0
+        t0 = time.perf_counter_ns()
+        out = match(self, addrs, ports)
+        which = ("acl" if self is acl_m else
+                 "routes" if self is route_m else "other")
+        calls.append((which, len(addrs), time.perf_counter_ns() - t0,
+                      enc[0]))
+        return out
+
+    E.CidrMatcher.match, E._cidr_q = timed, timed_q
+    try:
+        yield
+    finally:
+        E.CidrMatcher.match, E._cidr_q = match, cidr_q
+
+
+def phase_switch(device, n_routes=N_ROUTES, n_acl=N_ACL,
+                 n_packets=SWITCH_PACKETS, build_s=SWITCH_BUILD_S,
+                 min_cmd=SWITCH_MIN_CMD) -> dict:
+    """BASELINE config #4 through the port's virtual switch. The port's
+    Application builds it in process with Command.execute: a security
+    group (default allow), `add switch` on it, vpc 1 and vpc 2, their
+    gateway and source addresses, a remote-switch link to a loopback
+    receiver, then `add security-group-rule` (UDP) and `add route` one
+    by one until all are in or `build_s` passes (never under `min_cmd`
+    each: every add republishes its whole table), and the rest of the
+    5,000 rules and 50,000 routes in bulk as bench_switch.py's
+    build_world does (SecurityGroup.extend_rules, one _sync_routes).
+    The vpc 2 arp and mac entries of every destination are recorded as
+    build_world records them. Traffic: `n_packets` datagrams
+    (switch_traffic), replayed three times in RECV_BURST bursts:
+
+    (a) the object path (the switch's fast path detached, which is what
+        VPROXY_TPU_SWITCH_FASTPATH=0 builds): Switch._input_batch on the
+        loop thread per burst, as bench_switch.replay does; one B4
+        launch per burst for the ACL (allow_batch) and one per burst
+        for the routes (route_lookup_batch), the CidrMatcher round trip
+        of each timed;
+    (b) the default data plane (the numpy fast path and the native flow
+        cache) through the switch's own UDP socket: the datagrams sent
+        from their senders' loopback addresses, SWITCH_CHUNK in flight,
+        twice (the second pass meets the flow entries of the first);
+        its device launches are recorded, not checked;
+    (c) (a) on a second switch and security group built with
+        VPROXY_TPU_MATCHER=jax-fp (the config in bulk): one B7 launch
+        per ACL and per route batch.
+
+    Every datagram's outcome equals what the host indexes predict
+    (CidrIndex over the ACL at the switch's port, then over the routes):
+    dropped as acl_deny or route_miss, or delivered into vni 2 with its
+    destination's mac, the vpc 2 source's synthetic mac, TTL 63 and a
+    valid header checksum; the egress bytes of (a), both passes of (b)
+    and (c) are identical; the drop counters (swmetrics, plus the native
+    table's in (b)) equal the predicted counts, and no other reason
+    counts. On the CPU (the tier-1 rehearsal) the matchers run the plain
+    tiers: the engine's dispatches are checked, and no kernel launches.
+    -> the phase's numbers."""
+    from vproxy_tpu_torch.control.app import Application
+    from vproxy_tpu_torch.control.command import Command
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules.index import CidrIndex
+    from vproxy_tpu_torch.rules.ir import Proto
+    from vproxy_tpu_torch.utils.ip import parse_ip
+    from vproxy_tpu_torch.vswitch import packets as P
+    from vproxy_tpu_torch.vswitch import swmetrics as SM
+    from vproxy_tpu_torch.vswitch.switch import synthetic_mac
+    vtl = native_vtl()
+    on_card = device.type == "cuda"
+    saved_env = {k: os.environ.get(k) for k in (
+        "VPROXY_TPU_MATCHER", "VPROXY_TPU_SWITCH_FASTPATH",
+        "VPROXY_TPU_INSTALL_PACE")}
+    # batch loads with no serving beside them: unpaced installs
+    os.environ["VPROXY_TPU_INSTALL_PACE"] = "0"
+    for k in ("VPROXY_TPU_MATCHER", "VPROXY_TPU_SWITCH_FASTPATH"):
+        os.environ.pop(k, None)
+    acl, routes = switch_acl(n_acl), switch_routes(n_routes)
+    senders = switch_senders(acl, SWITCH_SEED)
+    traffic = switch_traffic(routes, n_packets, SWITCH_SEED + 1)
+    rx = _Receiver(vtl)
+    socks = []
+    app = Application.create(workers=1)
+    run = Command.execute
+    try:
+        for ip in senders:
+            fd = vtl.udp_bind(ip, 0)
+            socks.append((fd, (ip, vtl.sock_name(fd)[1])))
+
+        def world(sw_name, sg_name, by_command):
+            t0 = time.monotonic()
+            for line in (
+                    f"add security-group {sg_name} default allow",
+                    f"add switch {sw_name} address {LOOPBACK}:0 "
+                    f"security-group {sg_name}",
+                    f"add vpc 1 to switch {sw_name} v4network 10.0.0.0/8",
+                    f"add vpc 2 to switch {sw_name} v4network 10.0.0.0/8",
+                    f"add ip {SWITCH_GW} to vpc 1 in switch {sw_name}",
+                    f"add ip {SWITCH_SRC2} to vpc 2 in switch {sw_name}",
+                    f"add switch out to switch {sw_name} address "
+                    f"{LOOPBACK}:{rx.port}"):
+                check(run(app, line) == "OK", line)
+            sw, sg = app.switches[sw_name], app.security_groups[sg_name]
+            n1, n2 = sw.networks[1], sw.networks[2]
+            acl_n = route_n = 0
+            t1 = time.monotonic()
+            if by_command:
+                for r in acl:
+                    check(run(app, (
+                        f"add security-group-rule {r.alias} to "
+                        f"security-group {sg_name} network {r.network} "
+                        f"protocol udp port-range 0,65535 default "
+                        f"{'allow' if r.allow else 'deny'}")) == "OK",
+                        r.alias)
+                    acl_n += 1
+                    if acl_n >= min_cmd and time.monotonic() - t1 > build_s:
+                        break
+            acl_s = time.monotonic() - t1
+            t1 = time.monotonic()
+            if by_command:
+                for r in routes:
+                    check(run(app, (
+                        f"add route {r.alias} to vpc 1 in switch {sw_name} "
+                        f"network {r.rule} vni 2")) == "OK", r.alias)
+                    route_n += 1
+                    if route_n >= min_cmd and \
+                            time.monotonic() - t1 > build_s:
+                        break
+            route_s = time.monotonic() - t1
+            t1 = time.monotonic()
+            if acl_n < len(acl):
+                sg.extend_rules(acl[acl_n:])
+            if route_n < len(routes):
+                n1.routes.rules_v4.extend(routes[route_n:])
+                n1._sync_routes()
+            bulk_s = time.monotonic() - t1
+            out_if = sw.ifaces[("remote", "out")][0]
+            for _, _, dst in traffic:
+                n2.arps.record(dst, switch_dst_mac(dst))
+            for m in range(SWITCH_DST_MACS):
+                n2.macs.record(bytes([2, 0xfe, 0, 0, 0, m]), out_if)
+            check([r.alias for r in n1.routes.rules_v4] ==
+                  [r.alias for r in routes], "route table order")
+            check([r.alias for r in sg.rules] == [r.alias for r in acl],
+                  "ACL order")
+            return sw, sg, {
+                "acl_by_command": acl_n, "acl_command_s": acl_s,
+                "routes_by_command": route_n, "routes_command_s": route_s,
+                "bulk_s": bulk_s, "build_s": time.monotonic() - t0}
+
+        sw, sg, build = world("sw0", "swacl", True)
+        n1 = sw.networks[1]
+        acl_m, route_m = sg._tables[Proto.UDP][0], n1._matcher_v4
+        want_be = "torch"
+        check(acl_m.backend == route_m.backend == want_be,
+              f"the switch's matchers serve on {acl_m.backend!r} / "
+              f"{route_m.backend!r}, not {want_be!r}")
+        log(f"switch: ACL {build['acl_by_command']} by command in "
+            f"{build['acl_command_s']:.1f} s, routes "
+            f"{build['routes_by_command']} by command in "
+            f"{build['routes_command_s']:.1f} s, the rest in bulk in "
+            f"{build['bulk_s']:.1f} s (of {len(acl)} and {len(routes)})")
+
+        # ---- the host indexes' prediction
+        acl_idx = CidrIndex([r.network for r in acl], acl=acl)
+        route_idx = CidrIndex([r.rule for r in routes])
+
+        def allowed(k, port):
+            j = acl_idx.lookup(parse_ip(senders[k]), port)
+            return acl[j].allow if j >= 0 else True
+
+        def predict(port):
+            ok = [allowed(k, port) for k in range(SWITCH_SENDERS)]
+            outcome = []
+            for _, k, dst in traffic:
+                outcome.append("acl_deny" if not ok[k] else
+                               "route_miss" if route_idx.lookup(dst) < 0
+                               else "fwd")
+            return outcome
+
+        outcome = predict(sw.bind_port)
+        want = {r: outcome.count(r) for r in ("acl_deny", "route_miss")}
+        fwd = outcome.count("fwd")
+        check(min(want.values()) > 0 and fwd > 0,
+              f"the traffic holds every outcome: {want}, {fwd} delivered")
+        src2_mac = synthetic_mac(2, parse_ip(SWITCH_SRC2))
+
+        def verify(datagrams, what):
+            """-> {packet index: egress bytes}, each checked against its
+            packet's prediction."""
+            got = {}
+            for d in datagrams:
+                vx = P.Vxlan.parse(d)
+                e = vx.ether
+                ip = e.packet
+                check(vx.vni == 2 and e.ether_type == 0x0800 and
+                      isinstance(ip, P.Ipv4), f"{what}: not IPv4 in vni 2")
+                i = int.from_bytes(bytes(ip.payload[:4]), "big")
+                check(0 <= i < len(traffic) and i not in got,
+                      f"{what}: egress of packet {i} twice or unknown")
+                _, k, dst = traffic[i]
+                check(outcome[i] == "fwd",
+                      f"{what}: packet {i} egressed, predicted "
+                      f"{outcome[i]}")
+                check(e.dst == switch_dst_mac(dst) and e.src == src2_mac,
+                      f"{what}: packet {i} macs")
+                check(ip.dst == dst and ip.src == bytes([10, 0, 1, 1 + k])
+                      and ip.ttl == 63 and ip.proto == 17 and
+                      bytes(ip.payload) == i.to_bytes(4, "big") + b"x" * 14,
+                      f"{what}: packet {i} header or payload")
+                check(P.checksum(d[22:42]) == 0,
+                      f"{what}: packet {i} header checksum")
+                got[i] = d
+            check(len(got) == fwd,
+                  f"{what}: {len(got)} delivered, predicted {fwd}")
+            return got
+
+        def drops(c0, c1, what, native=False):
+            d = {r: c1[r] - c0[r] for r in c1}
+            seen = {r: d[r] + (d.get(f"native {r}", 0) if native else 0)
+                    for r in SM.DROP_REASONS}
+            if native:
+                seen["other"] = d["native other"]
+            check(seen == {**{r: 0 for r in seen}, **want},
+                  f"{what}: drops {seen}, predicted {want}")
+            return seen
+
+        bursts = [traffic[i:i + sw.RECV_BURST]
+                  for i in range(0, len(traffic), sw.RECV_BURST)]
+        burst_outcomes = [outcome[i:i + sw.RECV_BURST]
+                          for i in range(0, len(traffic), sw.RECV_BURST)]
+        route_batches = sum(any(o != "acl_deny" for o in b)
+                            for b in burst_outcomes)
+
+        def replay(sw_, acl_m_, route_m_, what):
+            """One object-path run: -> (egress, numbers)."""
+            kern = _kernel_counters()
+            for f in kern.values():
+                f.launches = 0
+            disp0 = E.dispatch_launches_total()
+            c0 = _switch_counts()
+            calls, busy = [], 0.0
+            with _match_timer(acl_m_, route_m_, calls):
+                n_out = 0
+                for b, outs in zip(bursts, burst_outcomes):
+                    dg = [(d, socks[k][1][0], socks[k][1][1])
+                          for d, k, _ in b]
+                    t0 = time.perf_counter()
+                    sw_.loop.call_sync(lambda: sw_._input_batch(dg),
+                                       timeout=600)
+                    busy += time.perf_counter() - t0
+                    n_out += outs.count("fwd")
+                    rx.wait(n_out)
+            launches = {k: f.launches for k, f in kern.items()}
+            disp = E.dispatch_launches_total() - disp0
+            seen = drops(c0, _switch_counts(), what)
+            egress = verify(rx.take(), what)
+            acl_calls = [c for c in calls if c[0] == "acl"]
+            route_calls = [c for c in calls if c[0] == "routes"]
+            check(len(acl_calls) == len(bursts) and
+                  len(route_calls) == route_batches and
+                  len(calls) == len(acl_calls) + len(route_calls),
+                  f"{what}: {len(acl_calls)} ACL and {len(route_calls)} "
+                  f"route batches, predicted {len(bursts)} and "
+                  f"{route_batches}")
+            check(disp == len(calls), f"{what}: {disp} engine dispatches "
+                  f"for {len(calls)} batches")
+            rtt = [c[2] / 1e3 for c in calls]
+            share = [c[3] / c[2] for c in calls]
+            return egress, {
+                "packets": len(traffic), "bursts": len(bursts),
+                "pps": len(traffic) / busy, "busy_s": busy,
+                "acl_batches": len(acl_calls),
+                "route_batches": len(route_calls),
+                "launches": launches, "engine_dispatches": disp,
+                "drops": seen,
+                "match_rtt_us": {"p50": pct(rtt, 50), "p99": pct(rtt, 99),
+                                 "encode_share_p50": pct(share, 50),
+                                 "acl_p50": pct([c[2] / 1e3 for c in
+                                                  acl_calls], 50),
+                                 "routes_p50": pct([c[2] / 1e3 for c in
+                                                     route_calls], 50)}}
+
+        # ---- (a) the object path on "torch"
+        fastpath, sw.fastpath = sw.fastpath, None
+        try:
+            ego_a, run_a = replay(sw, acl_m, route_m, "object path")
+        finally:
+            sw.fastpath = fastpath
+        b4 = run_a["launches"]["cidr_first"]
+        if on_card:
+            check(b4 == run_a["acl_batches"] + run_a["route_batches"],
+                  f"B4 launches {b4} != ACL + route batches")
+            check(sum(run_a["launches"].values()) == b4,
+                  f"other kernels launched: {run_a['launches']}")
+        log(f"switch (a): {run_a['pps']:.0f} packets/s, B4 {b4}, match "
+            f"p50 {run_a['match_rtt_us']['p50']:.0f} us")
+
+        # ---- (b) the default data plane over the switch's UDP socket
+        check(sw.fastpath is not None, "the switch has no fast path")
+        check(sw.flow_handle() is not None or not vtl.flowcache_supported(),
+              "the native flow cache is off")
+        kern = _kernel_counters()
+        for f in kern.values():
+            f.launches = 0
+        disp0 = E.dispatch_launches_total()
+        passes = []
+        for p in range(2):
+            c0 = _switch_counts()
+            t0 = time.perf_counter()
+            n_out = sent = 0
+            for i in range(0, len(traffic), SWITCH_CHUNK):
+                for d, k, _ in traffic[i:i + SWITCH_CHUNK]:
+                    vtl.sendto(socks[k][0], d, LOOPBACK, sw.bind_port)
+                sent += len(traffic[i:i + SWITCH_CHUNK])
+                n_out += outcome[i:i + SWITCH_CHUNK].count("fwd")
+                rx.wait(n_out)
+            deadline = time.monotonic() + 30
+            while _switch_counts()["rx"] - c0["rx"] < sent:
+                check(time.monotonic() < deadline,
+                      "the switch did not take every datagram "
+                      f"(UDP receive-buffer drops {udp_rcvbuf_errors()})")
+                time.sleep(0.001)
+            wall = time.perf_counter() - t0
+            c1 = _switch_counts()
+            seen = drops(c0, c1, f"default plane, pass {p + 1}",
+                         native=True)
+            egress = verify(rx.take(), f"default plane, pass {p + 1}")
+            check(egress == ego_a, f"default plane, pass {p + 1}: egress "
+                  "bytes differ from the object path's")
+            passes.append({"pps": len(traffic) / wall, "wall_s": wall,
+                           "flow_hits": c1["native hits"] -
+                           c0["native hits"], "drops": seen})
+        run_b = {"chunk": SWITCH_CHUNK, "passes": passes,
+                 "launches": {k: f.launches for k, f in kern.items()},
+                 "engine_dispatches": E.dispatch_launches_total() - disp0,
+                 "flowcache": sw.flowcache_info()}
+        log(f"switch (b): {passes[0]['pps']:.0f} / {passes[1]['pps']:.0f} "
+            f"packets/s, device launches {run_b['launches']}, engine "
+            f"dispatches {run_b['engine_dispatches']}")
+
+        # ---- (c) the object path on "torch-fp"
+        os.environ["VPROXY_TPU_MATCHER"] = "jax-fp"
+        os.environ["VPROXY_TPU_SWITCH_FASTPATH"] = "0"
+        try:
+            sw_fp, sg_fp, build_fp = world("sw1", "swacl-fp", False)
+        finally:
+            os.environ.pop("VPROXY_TPU_MATCHER", None)
+            os.environ.pop("VPROXY_TPU_SWITCH_FASTPATH", None)
+        check(sw_fp.fastpath is None, "the fp switch has a fast path")
+        acl_fp = sg_fp._tables[Proto.UDP][0]
+        route_fp = sw_fp.networks[1]._matcher_v4
+        check(acl_fp.backend == route_fp.backend == "torch-fp",
+              "the fp switch's matchers do not serve on 'torch-fp'")
+        check(predict(sw_fp.bind_port) == outcome,
+              "the fp switch's port changes the prediction")
+        ego_c, run_c = replay(sw_fp, acl_fp, route_fp, "object path, fp")
+        check(ego_c == ego_a, "fp object path: egress bytes differ")
+        b7 = run_c["launches"]["cidr_fp_match"]
+        if on_card:
+            check(b7 == run_c["acl_batches"] + run_c["route_batches"],
+                  f"B7 launches {b7} != ACL + route batches")
+            check(sum(run_c["launches"].values()) == b7,
+                  f"other kernels launched: {run_c['launches']}")
+        log(f"switch (c): {run_c['pps']:.0f} packets/s, B7 {b7}")
+        return {"routes": len(routes), "acl_rules": len(acl),
+                "build": {**build, "acl_target": len(acl),
+                          "routes_target": len(routes),
+                          "min_by_command": min_cmd,
+                          "command_budget_s": build_s},
+                "build_fp_bulk_s": build_fp["bulk_s"],
+                "packets": len(traffic), "senders": SWITCH_SENDERS,
+                "outcomes": {"delivered": fwd, **want},
+                "object_torch": run_a, "default_plane": run_b,
+                "object_fp": run_c,
+                "launches": {"cidr_first": b4, "cidr_fp_match": b7}}
+    finally:
+        app.close()
+        rx.close()
+        for fd, _ in socks:
+            vtl.close(fd)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def bucket_percentile(b1, b0):
@@ -4489,6 +5075,8 @@ def main() -> int:
                      s5_bursts=1, lb_bursts=1, min_acl=CONTROL_FP_ACL,
                      max_acl=CONTROL_FP_ACL, matcher="jax-fp")
     log(json.dumps({"control_fp": {**control_fp, "card": smi}}))
+    switch = run("switch", phase_switch, device)
+    log(json.dumps({"switch": {**switch, "card": smi}}))
     rows, b3_rows, sweep = run("times", phase_times, device, keep)
     crows = run("cidr times", phase_cidr_times, device, keep, routes, am,
                 acl)
@@ -4529,10 +5117,12 @@ def main() -> int:
               rc_launches, rc_err, crows["B1 route column"],
               by_batch=crows["B1 route column"]),
         entry("cidr_first", SOURCE_B4, REPLACES_B4,
-              b4_launches + tcplb["launches"]["cidr_first"], b4_err,
+              b4_launches + tcplb["launches"]["cidr_first"] +
+              switch["launches"]["cidr_first"], b4_err,
               crows["B4 ACL"], table="ACL 5k, ports",
               launches_by_path={"cidr service": b4_launches,
-                                "tcplb": tcplb["launches"]["cidr_first"]},
+                                "tcplb": tcplb["launches"]["cidr_first"],
+                                "switch": switch["launches"]["cidr_first"]},
               build_s=builds["cidr"]["build_s"],
               instances=builds["cidr"]["instances"],
               by_batch={"acl": crows["B4 ACL"],
@@ -4558,11 +5148,13 @@ def main() -> int:
                                "by_batch": fp_rows["classify_fp_all"]}),
         entry("cidr_fp_match", SOURCE_B7, REPLACES_B7,
               fp_svc["launches"]["cidr_fp"] +
-              tcplb_fp["fp_launches"]["cidr_fp"], fp_err["b7"],
+              tcplb_fp["fp_launches"]["cidr_fp"] +
+              switch["launches"]["cidr_fp_match"], fp_err["b7"],
               fp_rows["B7 ACL"], table="ACL 5k, ports",
               launches_by_path={
                   "fp service": fp_svc["launches"]["cidr_fp"],
-                  "tcplb_fp": tcplb_fp["fp_launches"]["cidr_fp"]},
+                  "tcplb_fp": tcplb_fp["fp_launches"]["cidr_fp"],
+                  "switch": switch["launches"]["cidr_fp_match"]},
               build_s=builds["fp_cidr"]["build_s"],
               instances=builds["fp_cidr"]["instances"],
               layouts=fp_err["layouts"],

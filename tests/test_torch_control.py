@@ -3,10 +3,12 @@ the matchers on the CPU.
 
 * ported reference cases, each run on both packages (`pkg`):
   tests/test_control.py (3), test_controllers.py (2), test_resp_matrix.py
-  (2, over the ported resource types; the types whose subsystems are not
-  ported yet are listed exactly in NOT_PORTED and each refuses over
+  (2, over the ported resource types, the switch's among them; the
+  types whose subsystems are not ported yet, the cluster plane and the
+  docker plugin, are listed exactly in NOT_PORTED and each refuses over
   RESP), test_control_extras.py's inventory, resolver/dns-cache,
-  controller-resource, timeout/persist and socks5-update cases,
+  controller-resource, timeout/persist and socks5-update cases (its
+  switch cases are in test_torch_vswitch.py),
   test_tls.py::test_tls_command_grammar,
   test_drain_overload.py::test_healthz_flips_to_draining, test_apps.py's
   two Simple-mode cases and its ServerAddressUpdater case, and
@@ -21,11 +23,11 @@ the matchers on the CPU.
   and the routes answer alike;
 * the process entry: `python -m vproxy_tpu_torch` with
   VPROXY_TPU_TORCH_DEVICE=cpu hosting a tcp-lb, a socks5-server, a
-  dns-server and both controllers from a config file, serving each
-  once, then saving its config on SIGTERM (tests/test_boot_all.py less
-  the switch, which is not ported yet); without a GPU and without the
-  host asked for, it exits non-zero, as it does for the cluster plane
-  and the deployable apps not ported yet.
+  dns-server, a switch and both controllers from a config file, serving
+  each once, then saving its config on SIGTERM (tests/test_boot_all.py);
+  without a GPU and without the host asked for, it exits non-zero, as
+  it does for the cluster plane, the matcher backends and the
+  deployable apps not ported yet.
 """
 import json
 import os
@@ -365,14 +367,28 @@ MATRIX = [
      "update socks5-server s5 timeout 9000", "remove socks5-server s5"),
     ("add dns-server dns0 address 127.0.0.1:0 upstream ups0 ttl 5",
      "ups0", "update dns-server dns0 ttl 9", "remove dns-server dns0"),
+    ("add switch sw0 address 127.0.0.1:0", "127.0.0.1", None,
+     "remove switch sw0"),
+    ("add vpc 7 to switch sw0 v4network 172.16.0.0/16", "172.16",
+     None, "remove vpc 7 from switch sw0"),
+    ("add ip 172.16.0.21 to vpc 7 in switch sw0", "172.16.0.21", None,
+     "remove ip 172.16.0.21 from vpc 7 in switch sw0"),
+    ("add route rt0 to vpc 7 in switch sw0 network 172.17.0.0/16 vni 7",
+     "172.17", None, "remove route rt0 from vpc 7 in switch sw0"),
+    ("add user u001 to switch sw0 password pw1 vni 7", None, None,
+     "remove user u001 from switch sw0"),
+    ("add user-client uc1 to switch sw0 password pw1 vni 7 address "
+     "127.0.0.1:18472", None, None,
+     "remove user-client uc1 from switch sw0"),
+    # the remote-switch link, listed as an iface
+    ("add switch rsw0 to switch sw0 address 127.0.0.1:18473",
+     None, None, "remove switch rsw0 from switch sw0"),
 ]
 
 # the types whose subsystem the port does not have yet, each with the
 # ROADMAP Queue A item that ports it: exactly these refuse, so the list
 # cannot grow unnoticed
 NOT_PORTED = {
-    "switch": 7, "vpc": 7, "iface": 7, "route": 7, "arp": 7, "user": 7,
-    "user-client": 7, "tap": 7, "ip": 7, "proxy": 7,
     "cluster-node": 8,
     "docker-network-plugin-controller": 10,
 }
@@ -381,8 +397,9 @@ NOT_PORTED = {
 # own cases below): the reference matrix's list, less the not-ported
 UNCREATABLE = {
     "server-sock", "session", "connection", "bytes-in", "bytes-out",
-    "accepted-conn-count", "dns-cache", "resolver", "resp-controller",
-    "http-controller", "event-log", "trace", "analytics",
+    "accepted-conn-count", "dns-cache", "resolver", "proxy", "iface",
+    "arp", "tap", "resp-controller", "http-controller", "event-log",
+    "trace", "analytics",
 }
 
 
@@ -411,6 +428,8 @@ def test_resp_crud_matrix(pkg, resp):
         rtype, alias = add.split()[1:3]
         ctx = add.split(" to ", 1)[1] if " to " in add else None
         suffix = f" in {ctx}" if ctx else ""
+        if rtype == "switch" and ctx:  # remote link: listed as an iface
+            rtype, alias = "iface", f"remote:{alias}"
         lst = c.cmd(*f"list {rtype}{suffix}".split())
         assert any(alias in str(x) for x in lst), (add, lst)
         det = c.cmd(*f"list-detail {rtype}{suffix}".split())
@@ -428,6 +447,11 @@ def test_resp_crud_matrix(pkg, resp):
         assert c.cmd(*remove.split()) == "OK", remove
         rtype, alias = remove.split()[1:3]
         ctx = remove.split(" from ", 1)[1] if " from " in remove else None
+        if rtype == "switch" and ctx:
+            lst = c.cmd(*f"list iface in {ctx}".split())
+            assert not any(f"remote:{alias}" in str(x)
+                           for x in (lst or [])), (remove, lst)
+            continue
         lst = c.cmd(*(f"list {rtype}" + (f" in {ctx}" if ctx else ""))
                     .split())
         assert not any(str(x) == alias or str(x).startswith(alias + " ")
@@ -439,6 +463,11 @@ def test_resp_crud_matrix(pkg, resp):
         assert set(app2.tcp_lbs) == {"lb0"}
         assert set(app2.socks5_servers) == {"s5"}
         assert set(app2.dns_servers) == {"dns0"}
+        assert set(app2.switches) == {"sw0"}
+        sw2 = app2.switches["sw0"]
+        assert 7 in sw2.networks
+        assert sw2.users  # u001 came back
+        assert any(r.alias == "rt0" for r in sw2.networks[7].routes.rules)
         assert app2.tcp_lbs["lb0"].timeout_ms == 9000
     finally:
         app2.close()
@@ -529,7 +558,8 @@ def test_resp_and_http_controller_resources(pkg, app):
 
 def test_update_socks5(pkg, app):
     """test_control_extras.py::test_update_switch_and_socks5's socks5
-    half (the switch is not ported yet)."""
+    half (its switch half is test_torch_vswitch.py's
+    test_update_switch)."""
     run(app, "add upstream uu0")
     run(app, "add security-group sgu default allow")
     run(app, "add socks5-server s5u address 127.0.0.1:0 upstream uu0")
@@ -1129,12 +1159,13 @@ def _port_env(home, **extra):
 
 
 def test_boot_from_config_serves_and_saves_on_sigterm(tmp_path):
-    """tests/test_boot_all.py less the switch (not ported yet): one
-    `python -m vproxy_tpu_torch` process, the matchers on the CPU
-    (VPROXY_TPU_TORCH_DEVICE=cpu), hosts a tcp-lb, a socks5-server, a
-    dns-server and both controllers from a config file, serves one
-    request of each, takes a mutation over RESP, and on SIGTERM exits 0
-    having saved its config."""
+    """tests/test_boot_all.py: one `python -m vproxy_tpu_torch`
+    process, the matchers on the CPU (VPROXY_TPU_TORCH_DEVICE=cpu),
+    hosts a tcp-lb, a socks5-server, a dns-server, a switch and both
+    controllers from a config file, serves one request of each (the
+    switch answers an ARP request for its vpc's gateway ip), takes a
+    mutation over RESP, and on SIGTERM exits 0 having saved its
+    config."""
     import select
     backend = IdServer("BOOT", http=True)
     cfg = tmp_path / "boot.cfg"
@@ -1149,6 +1180,9 @@ def test_boot_from_config_serves_and_saves_on_sigterm(tmp_path):
         "add tcp-lb lb0 address 127.0.0.1:0 upstream u0 protocol tcp",
         "add socks5-server s50 address 127.0.0.1:0 upstream u0",
         "add dns-server d0 address 127.0.0.1:0 upstream u0",
+        "add switch sw0 address 127.0.0.1:0",
+        "add vpc 3 to switch sw0 v4network 10.3.0.0/16",
+        "add ip 10.3.0.1 to vpc 3 in switch sw0",
     ]) + "\n")
     home = tmp_path / "home"
     p = subprocess.Popen(
@@ -1236,8 +1270,27 @@ def test_boot_from_config_serves_and_saves_on_sigterm(tmp_path):
 
         cli = RespClient(resp_port, password="pw")
         assert cli.cmd("list", "tcp-lb") == ["lb0"]
+        sw_port = int(cli.cmd("list-detail", "switch")[0].split()[3]
+                      .rsplit(":", 1)[1])
         assert cli.cmd("add", "upstream", "u9") == "OK"
         cli.close()
+
+        # the switch: an ARP request for the vpc's synthetic ip, sent
+        # as plain VXLAN, is answered with that ip's mac
+        from vproxy_tpu_torch.vswitch import packets as vp
+        from vproxy_tpu_torch.vswitch.switch import synthetic_mac
+        gw, mac = socket.inet_aton("10.3.0.1"), b"\x02\x00\x00\x00\x00\x07"
+        arp = vp.Arp(vp.ARP_REQUEST, mac, socket.inet_aton("10.3.0.7"),
+                     b"\x00" * 6, gw)
+        u = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        u.settimeout(5)
+        u.sendto(vp.Vxlan(3, vp.Ethernet(vp.BROADCAST_MAC, mac,
+                                         vp.ETHER_TYPE_ARP, b"", arp))
+                 .to_bytes(), ("127.0.0.1", sw_port))
+        reply = vp.Vxlan.parse(u.recvfrom(4096)[0])
+        u.close()
+        assert reply.vni == 3 and reply.ether.dst == mac
+        assert reply.ether.src == synthetic_mac(3, gw)
 
         p.send_signal(signal.SIGTERM)
         assert p.wait(30) == 0
@@ -1245,6 +1298,8 @@ def test_boot_from_config_serves_and_saves_on_sigterm(tmp_path):
         assert "add tcp-lb lb0" in saved and "add socks5-server s50" in saved
         assert "add dns-server d0" in saved
         assert "add upstream u9" in saved  # the live mutation persisted
+        assert "add vpc 3 to switch sw0" in saved
+        assert "add ip 10.3.0.1 to vpc 3 in switch sw0" in saved
     finally:
         if p.poll() is None:
             p.kill()
@@ -1260,15 +1315,25 @@ REFUSALS = {
                    "ROADMAP Queue A item 10"),
     "kcptun": ({"VPROXY_TPU_TORCH_DEVICE": "cpu"}, ["kcptun"],
                "ROADMAP Queue A item 10"),
+    "jax-dense": ({"VPROXY_TPU_TORCH_DEVICE": "cpu",
+                   "VPROXY_TPU_MATCHER": "jax-dense"}, [],
+                  "ROADMAP Queue A item 9"),
+    "jax-sharded": ({"VPROXY_TPU_TORCH_DEVICE": "cpu",
+                     "VPROXY_TPU_MATCHER": "jax-sharded"}, [],
+                    "ROADMAP Queue A item 8"),
+    "jax-fp-sharded": ({"VPROXY_TPU_TORCH_DEVICE": "cpu",
+                        "VPROXY_TPU_MATCHER": "jax-fp-sharded"}, [],
+                       "ROADMAP Queue A item 8"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_entry_refuses(case, tmp_path):
     """Without a GPU, and without the CPU or the host asked for, the
-    entry exits non-zero with torchenv's message; the cluster plane and
-    the deployable apps not ported yet are refused, never ignored.
-    Nothing is served and no config is written."""
+    entry exits non-zero with torchenv's message; the cluster plane,
+    the matcher backends and the deployable apps not ported yet are
+    refused, never ignored. Nothing is served and no config is
+    written."""
     env, args, msg = REFUSALS[case]
     if case == "no-GPU" and torch.cuda.is_available():
         pytest.skip("a GPU is present: the entry would boot")

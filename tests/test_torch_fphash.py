@@ -867,11 +867,19 @@ def test_port_cidr_fp_trie_fallback_no_trie_cap():
 
 def test_default_backend_reads_the_reference_names(monkeypatch):
     for env, want in (("jax-fp", "torch-fp"), ("host", "host"),
-                      ("jax", "torch"), ("jax-dense", "torch"),
-                      ("jax-sharded", "torch"), ("jax-fp-sharded", "torch"),
-                      ("", "torch")):
+                      ("jax", "torch"), ("", "torch")):
         monkeypatch.setenv("VPROXY_TPU_MATCHER", env)
         assert E.default_backend() == want, env
+    # the reference backends not ported yet are refused with their
+    # ROADMAP item, never served by "torch"
+    for env, item in (("jax-dense", 9), ("jax-sharded", 8),
+                      ("jax-fp-sharded", 8)):
+        monkeypatch.setenv("VPROXY_TPU_MATCHER", env)
+        with pytest.raises(ValueError,
+                           match=f"ROADMAP Queue A item {item}"):
+            E.default_backend()
+        with pytest.raises(ValueError, match="not ported yet"):
+            E.CidrMatcher(route_nets(20, 3))
     monkeypatch.delenv("VPROXY_TPU_MATCHER")
     assert E.default_backend() == "torch"
     monkeypatch.setenv("VPROXY_TPU_MATCHER", "jax-fp")

@@ -16,8 +16,8 @@ control-plane isolation (doc/architecture.md:64-66).
 The port's copy of vproxy_tpu/control/command.py: the same grammar
 (ACTIONS, TYPES, PARAM_KEYS, FLAGS, the bare verbs) and the same
 resource-type inventory. The handlers of the types whose subsystems
-are not ported yet (NOT_PORTED: the virtual switch, the cluster plane,
-the docker plugin) raise CmdError("<type>: not ported yet (ROADMAP
+are not ported yet (NOT_PORTED: the cluster plane, the docker plugin)
+raise CmdError("<type>: not ported yet (ROADMAP
 Queue A item N)") for every action; everything else is the
 reference's. No cluster node can boot in the port, so `app.cluster`
 stays None and the leader/follower replication hook of
@@ -333,6 +333,17 @@ def _anno_to_rule(anno_json: str) -> HintRule:
         raise CmdError(f"annotations must be json: {e}")
     return HintRule(host=d.get(ANNO_HOST), port=int(d.get(ANNO_PORT, 0)),
                     uri=d.get(ANNO_URI))
+
+
+def _anno_dict(raw: str) -> dict:
+    """Generic annotations param (json object) for vpc/tap resources."""
+    try:
+        d = json.loads(raw)
+    except json.JSONDecodeError:
+        raise CmdError(f"bad annotations json {raw!r}")
+    if not isinstance(d, dict):
+        raise CmdError("annotations must be a json object")
+    return d
 
 
 def _rule_to_anno(rule: HintRule) -> str:
@@ -863,6 +874,298 @@ def _h_dns(app: Application, c: Command):
     raise CmdError(f"unsupported action {c.action} for dns-server")
 
 
+# ------------------------------------------------------------- vswitch
+
+def _ctx_switch(app: Application, c: Command):
+    chain = ([c.target] if c.target else []) + c.contexts
+    for kind, alias in chain:
+        if kind == "switch":
+            return _need(app.switches, alias, "switch")
+    raise CmdError(f"{c.type} requires `in/to switch <name>`")
+
+
+def _ctx_vpc(app: Application, c: Command):
+    """Resolve `... in vpc <vni> in switch <sw>` chains."""
+    sw = _ctx_switch(app, c)
+    chain = ([c.target] if c.target else []) + c.contexts
+    for kind, alias in chain:
+        if kind == "vpc":
+            try:
+                vni = int(alias)
+            except ValueError:
+                raise CmdError(f"bad vni {alias!r}")
+            if vni not in sw.networks:
+                raise CmdError(f"vpc {vni} not found in switch {sw.alias}")
+            return sw, sw.networks[vni]
+    raise CmdError(f"{c.type} requires `in vpc <vni> in switch <name>`")
+
+
+def _h_switch(app: Application, c: Command):
+    from ..vswitch.switch import Switch
+    if c.action == "add" and c.target is not None:
+        # remote switch link: add switch sw1 to switch sw0 address ip:port
+        sw = _ctx_switch(app, c)
+        ip, port = _addr(c.params["address"])
+        sw.add_remote_switch(c.alias, ip, port)
+        return "OK"
+    if c.action == "add":
+        if c.alias in app.switches:
+            raise CmdError(f"switch {c.alias} already exists")
+        ip, port = _addr(c.params["address"])
+        elg = _opt_elg(app, c, "elg", app.worker_elg)
+        secg = _opt_secg(app, c)
+        sw = Switch(c.alias, elg.next(), ip, port,
+                    mac_table_timeout_ms=int(c.params.get("mac-table-timeout",
+                                                          300_000)),
+                    arp_table_timeout_ms=int(c.params.get("arp-table-timeout",
+                                                          4 * 3600_000)),
+                    bare_vxlan_access=secg, elg=elg)
+        sw.start()
+        app.switches[c.alias] = sw
+        return "OK"
+    if c.action in ("list", "list-detail"):
+        if c.action == "list":
+            return list(app.switches.keys())
+
+        def fc_str(s) -> str:
+            fc = s.flowcache_info()
+            if fc is None:
+                return "off"
+            state = "on" if fc["active"] else "idle"
+            return (f"{state}(size={fc['size']},used={fc['used']},"
+                    f"gen={fc['gen']},hit-rate={fc['hit_rate']})")
+        return [f"{s.alias} -> bind {s.bind_ip}:{s.bind_port} "
+                f"mac-table-timeout {s.mac_table_timeout_ms} "
+                f"arp-table-timeout {s.arp_table_timeout_ms} "
+                f"bare-vxlan-access {s.bare_access.alias} "
+                f"flowcache {fc_str(s)}"
+                for s in app.switches.values()]
+    if c.action == "update":
+        sw = _need(app.switches, c.alias, "switch")
+        # hot-set table timeouts (SwitchHandle update): existing VPC
+        # tables adopt the new TTLs immediately
+        if "mac-table-timeout" in c.params:
+            sw.mac_table_timeout_ms = _pos_int(c, "mac-table-timeout")
+            for net in sw.networks.values():
+                net.macs.timeout_ms = sw.mac_table_timeout_ms
+        if "arp-table-timeout" in c.params:
+            sw.arp_table_timeout_ms = _pos_int(c, "arp-table-timeout")
+            for net in sw.networks.values():
+                net.arps.timeout_ms = sw.arp_table_timeout_ms
+        return "OK"
+    if c.action in ("remove", "force-remove"):
+        if c.target is not None:
+            sw = _ctx_switch(app, c)
+            try:
+                sw.remove_iface(f"remote:{c.alias}")
+            except KeyError:
+                raise CmdError(f"remote switch {c.alias!r} not found")
+            return "OK"
+        sw = _need(app.switches, c.alias, "switch")
+        # vpc proxies bound to this switch die with it
+        for key in [k for k in app.vpc_proxies if k[0] == c.alias]:
+            for p in app.vpc_proxies.pop(key).values():
+                p.close()
+        sw.stop()
+        del app.switches[c.alias]
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for switch")
+
+
+def _h_vpc(app: Application, c: Command):
+    sw = _ctx_switch(app, c)
+    if c.action == "add":
+        try:
+            vni = int(c.alias)
+        except ValueError:
+            raise CmdError(f"bad vni {c.alias!r}")
+        if "v4network" not in c.params:
+            raise CmdError("vpc requires v4network")
+        v6 = Network.parse(c.params["v6network"]) if "v6network" in c.params else None
+        anno = _anno_dict(c.params["annotations"]) if "annotations" in c.params else None
+        try:
+            sw.add_network(vni, Network.parse(c.params["v4network"]), v6,
+                           annotations=anno)
+        except ValueError as e:
+            raise CmdError(str(e))
+        return "OK"
+    if c.action in ("list", "list-detail"):
+        if c.action == "list":
+            return [str(v) for v in sw.networks]
+        return [f"{n.vni} -> v4network {n.v4net}"
+                + (f" v6network {n.v6net}" if n.v6net else "")
+                + (f" annotations {json.dumps(n.annotations, separators=(',', ':'))}"
+                   if n.annotations else "")
+                for n in sw.networks.values()]
+    if c.action in ("remove", "force-remove"):
+        try:
+            vni = int(c.alias)
+            sw.del_network(vni)
+        except (KeyError, ValueError):
+            raise CmdError(f"vpc {c.alias!r} not found")
+        for p in app.vpc_proxies.pop((sw.alias, vni), {}).values():
+            p.close()
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for vpc")
+
+
+def _h_iface(app: Application, c: Command):
+    sw = _ctx_switch(app, c)
+    if c.action in ("list", "list-detail"):
+        return [i.name for i in sw.list_ifaces()]
+    if c.action in ("remove", "force-remove"):
+        try:
+            sw.remove_iface(c.alias)
+        except KeyError:
+            raise CmdError(f"iface {c.alias!r} not found")
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for iface")
+
+
+def _h_route(app: Application, c: Command):
+    from ..rules.ir import RouteRule
+    sw, net = _ctx_vpc(app, c)
+    if c.action == "add":
+        network = Network.parse(c.params["network"])
+        if "vni" in c.params:
+            rule = RouteRule(c.alias, network, to_vni=int(c.params["vni"]))
+        elif "via" in c.params:
+            rule = RouteRule(c.alias, network,
+                             via_ip=_parse_ip_str(c.params["via"]))
+        else:
+            raise CmdError("route requires `vni <n>` or `via <ip>`")
+        try:
+            net.add_route(rule)
+        except ValueError as e:
+            raise CmdError(str(e))
+        return "OK"
+    if c.action in ("list", "list-detail"):
+        if c.action == "list":
+            return [r.alias for r in net.routes.rules]
+        out = []
+        for r in net.routes.rules:
+            tgt = f"vni {r.to_vni}" if r.to_vni else \
+                f"via {format_ip(r.via_ip)}"
+            out.append(f"{r.alias} -> network {r.rule} {tgt}")
+        return out
+    if c.action in ("remove", "force-remove"):
+        try:
+            net.remove_route(c.alias)
+        except KeyError:
+            raise CmdError(f"route {c.alias!r} not found")
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for route")
+
+
+def _h_arp(app: Application, c: Command):
+    sw, net = _ctx_vpc(app, c)
+    if c.action == "add":
+        # alias is the mac; `ip` given via address param? use network-less ip
+        if "address" not in c.params:
+            raise CmdError("arp add requires `address <ip>`")
+        net.arps.record(_parse_ip_str(c.params["address"]),
+                        _parse_mac_str(c.alias))
+        return "OK"
+    if c.action in ("list", "list-detail"):
+        macs = {m: getattr(i, "name", "?") for m, i in net.macs.entries()}
+        out = []
+        for ip_s, mac_s in net.arps.entries():
+            out.append(f"{mac_s} -> ip {ip_s} iface {macs.get(mac_s, '?')}")
+        return out
+    raise CmdError(f"unsupported action {c.action} for arp")
+
+
+def _h_user(app: Application, c: Command):
+    sw = _ctx_switch(app, c)
+    if c.action == "add":
+        if "password" not in c.params or "vni" not in c.params:
+            raise CmdError("user requires `password <p>` and `vni <n>`")
+        try:
+            sw.add_user(c.alias, c.params["password"], int(c.params["vni"]))
+        except ValueError as e:
+            raise CmdError(str(e))
+        return "OK"
+    from ..vswitch.switch import display_user_name
+    if c.action in ("list", "list-detail"):
+        if c.action == "list":
+            return [display_user_name(u) for u in sw.users]
+        return [f"{display_user_name(u)} -> vni {vni}"
+                for u, (_, vni, _pw) in sw.users.items()]
+    if c.action in ("remove", "force-remove"):
+        try:
+            sw.del_user(c.alias)
+        except KeyError:
+            raise CmdError(f"user {c.alias!r} not found")
+        except ValueError as e:  # format-invalid alias, e.g. too short
+            raise CmdError(str(e))
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for user")
+
+
+def _h_ucli(app: Application, c: Command):
+    sw = _ctx_switch(app, c)
+    if c.action == "add":
+        for k in ("password", "vni", "address"):
+            if k not in c.params:
+                raise CmdError(f"user-client requires `{k}`")
+        ip, port = _addr(c.params["address"])
+        sw.add_user_client(c.alias, c.params["password"],
+                           int(c.params["vni"]), ip, port)
+        return "OK"
+    if c.action in ("list", "list-detail"):
+        return [i.name for i in sw.list_ifaces() if i.name.startswith("ucli:")]
+    if c.action in ("remove", "force-remove"):
+        try:
+            sw.remove_iface(f"ucli:{c.alias}")
+        except KeyError:
+            raise CmdError(f"user-client {c.alias!r} not found")
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for user-client")
+
+
+def _h_tap(app: Application, c: Command):
+    sw = _ctx_switch(app, c)
+    if c.action == "add":
+        if "vni" not in c.params:
+            raise CmdError("tap requires `vni <n>`")
+        anno = _anno_dict(c.params["annotations"]) if "annotations" in c.params else None
+        try:
+            iface = sw.add_tap(c.alias, int(c.params["vni"]),
+                               post_script=c.params.get("post-script"),
+                               annotations=anno)
+        except OSError as e:
+            raise CmdError(str(e))
+        return iface.dev
+    if c.action in ("list", "list-detail"):
+        return [i.name for i in sw.list_ifaces() if i.name.startswith("tap:")]
+    if c.action in ("remove", "force-remove"):
+        try:
+            sw.remove_iface(f"tap:{c.alias}")
+        except KeyError:
+            raise CmdError(f"tap {c.alias!r} not found")
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for tap")
+
+
+def _h_ip(app: Application, c: Command):
+    from ..vswitch.switch import synthetic_mac
+    from ..vswitch.packets import mac_str, parse_mac
+    sw, net = _ctx_vpc(app, c)
+    if c.action == "add":
+        ip = _parse_ip_str(c.alias)
+        mac = (_parse_mac_str(c.params["mac"]) if "mac" in c.params
+               else synthetic_mac(net.vni, ip))
+        net.ips.add(ip, mac)
+        return "OK"
+    if c.action in ("list", "list-detail"):
+        return [f"{format_ip(ip)} -> mac {mac_str(mac)}"
+                for ip, mac in net.ips.ips().items()]
+    if c.action in ("remove", "force-remove"):
+        net.ips.remove(_parse_ip_str(c.alias))
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for ip")
+
+
 def _nonneg_int(c: "Command", key: str, what: str = "") -> int:
     """Non-negative integer param; 0 is meaningful (max-sessions 0 =
     restore the default ceiling, on add and update alike)."""
@@ -885,6 +1188,22 @@ def _pos_int(c: "Command", key: str, what: str = "") -> int:
     if v <= 0:
         raise CmdError(f"{what or key} must be positive, got {v}")
     return v
+
+
+def _parse_ip_str(s: str) -> bytes:
+    from ..utils.ip import parse_ip as _p
+    try:
+        return _p(s)
+    except (OSError, ValueError):
+        raise CmdError(f"bad ip {s!r}")
+
+
+def _parse_mac_str(s: str) -> bytes:
+    from ..vswitch.packets import PacketError, parse_mac
+    try:
+        return parse_mac(s)
+    except (PacketError, ValueError):
+        raise CmdError(f"bad mac {s!r}")
 
 
 def _all_lbs(app: Application) -> dict:
@@ -1192,6 +1511,41 @@ def _h_dnscache(app: Application, c: Command):
     raise CmdError(f"unsupported action {c.action} for dns-cache")
 
 
+def _h_proxy(app: Application, c: Command):
+    """`add proxy <ip:port> to vpc <vni> in switch <sw> address <tgt>`
+    — in-VPC user-space listener bridged to a host address
+    (vswitch/ProxyHolder)."""
+    from ..vswitch.proxy import VpcProxy
+
+    sw, net = _ctx_vpc(app, c)  # validates the vpc exists in the switch
+    key = (sw.alias, net.vni)
+    store = app.vpc_proxies.get(key, {})
+    if c.action == "add":
+        if c.alias in store:
+            raise CmdError(f"proxy {c.alias} already exists")
+        lip, lport = _addr(c.alias)
+        if "address" not in c.params:
+            raise CmdError("proxy requires `address <target ip:port>`")
+        tip, tport = _addr(c.params["address"])
+        try:
+            p = VpcProxy(sw, net.vni, lip, lport, tip, tport)
+        except OSError as e:
+            raise CmdError(f"proxy listen failed: {e}")
+        app.vpc_proxies.setdefault(key, {})[c.alias] = p
+        return "OK"
+    if c.action == "list":
+        return list(store.keys())
+    if c.action == "list-detail":
+        return [f"{p.alias} -> {p.target[0]}:{p.target[1]} "
+                f"sessions={p.sessions}" for p in store.values()]
+    if c.action in ("remove", "force-remove"):
+        p = _need(store, c.alias, "proxy")
+        p.close()
+        del store[c.alias]
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for proxy")
+
+
 def _h_respc(app: Application, c: Command):
     from .resp import RESPController
     if c.action == "add":
@@ -1246,8 +1600,6 @@ def _h_httpc(app: Application, c: Command):
 # resource types whose subsystem is not ported yet -> the ROADMAP
 # Queue A item that ports it
 NOT_PORTED = {
-    "switch": 7, "vpc": 7, "iface": 7, "route": 7, "arp": 7, "user": 7,
-    "user-client": 7, "tap": 7, "ip": 7, "proxy": 7,
     "cluster-node": 8,
     "docker-network-plugin-controller": 10,
 }
@@ -1267,7 +1619,7 @@ _HANDLERS = {
     "cluster-node": _not_ported,
     "resolver": _h_resolver,
     "dns-cache": _h_dnscache,
-    "proxy": _not_ported,
+    "proxy": _h_proxy,
     "resp-controller": _h_respc,
     "http-controller": _h_httpc,
     "docker-network-plugin-controller": _not_ported,
@@ -1279,15 +1631,15 @@ _HANDLERS = {
     "security-group": _h_secg,
     "security-group-rule": _h_secgr,
     "cert-key": _h_ck,
-    "switch": _not_ported,
-    "vpc": _not_ported,
-    "iface": _not_ported,
-    "route": _not_ported,
-    "arp": _not_ported,
-    "user": _not_ported,
-    "user-client": _not_ported,
-    "tap": _not_ported,
-    "ip": _not_ported,
+    "switch": _h_switch,
+    "vpc": _h_vpc,
+    "iface": _h_iface,
+    "route": _h_route,
+    "arp": _h_arp,
+    "user": _h_user,
+    "user-client": _h_ucli,
+    "tap": _h_tap,
+    "ip": _h_ip,
     "tcp-lb": _h_tl,
     "socks5-server": _h_socks5,
     "dns-server": _h_dns,

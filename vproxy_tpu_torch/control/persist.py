@@ -10,6 +10,7 @@ a file saved by either package loads in the other.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Optional
 
@@ -93,10 +94,56 @@ def current_config(app: Application) -> str:
                      else f" security-group {d.security_group.alias}")
         lines.append(f"add dns-server {d.alias} address {d.bind_ip}:{d.bind_port} "
                      f"upstream {d.rrsets.alias} ttl {d.ttl}{secg_part}")
-    # the reference emits switches (with their vpcs, ips, routes, users,
-    # remote switches and taps) and docker plugin controllers here; the
-    # port has neither until ROADMAP Queue A items 7 and 10 land, and
-    # their add commands refuse, so no app can hold one
+    for sw in app.switches.values():
+        secg_part = ("" if sw.bare_access.alias == "(allow-all)"
+                     else f" security-group {sw.bare_access.alias}")
+        lines.append(
+            f"add switch {sw.alias} address {sw.bind_ip}:{sw.bind_port} "
+            f"mac-table-timeout {sw.mac_table_timeout_ms} "
+            f"arp-table-timeout {sw.arp_table_timeout_ms}{secg_part}")
+        for net in sw.networks.values():
+            v6 = f" v6network {net.v6net}" if net.v6net else ""
+            anno = (" annotations " + json.dumps(net.annotations,
+                                                 separators=(",", ":"))
+                    if net.annotations else "")
+            lines.append(f"add vpc {net.vni} to switch {sw.alias} "
+                         f"v4network {net.v4net}{v6}{anno}")
+            from ..utils.ip import format_ip
+            from ..vswitch.packets import mac_str
+            from ..vswitch.switch import synthetic_mac
+            for ip, mac in net.ips.ips().items():
+                # non-default macs (e.g. the docker gateway mac) must
+                # survive the replay or post-reload Joins break
+                mac_part = ("" if mac == synthetic_mac(net.vni, ip)
+                            else f" mac {mac_str(mac)}")
+                lines.append(f"add ip {format_ip(ip)} to vpc {net.vni} "
+                             f"in switch {sw.alias}{mac_part}")
+            for r in net.routes.rules:
+                tgt = f"vni {r.to_vni}" if r.to_vni else \
+                    f"via {format_ip(r.via_ip)}"
+                lines.append(f"add route {r.alias} to vpc {net.vni} "
+                             f"in switch {sw.alias} network {r.rule} {tgt}")
+        from ..vswitch.switch import display_user_name
+        for user, (_key, vni, password) in sw.users.items():
+            lines.append(f"add user {display_user_name(user)} "
+                         f"to switch {sw.alias} "
+                         f"password {password} vni {vni}")
+        for iface in sw.list_ifaces():
+            if iface.name.startswith("remote:"):
+                lines.append(
+                    f"add switch {iface.alias} to switch {sw.alias} "
+                    f"address {iface.remote[0]}:{iface.remote[1]}")
+            elif iface.name.startswith("tap:"):
+                ps = (f" post-script {iface.post_script}"
+                      if iface.post_script else "")
+                anno = (" annotations " + json.dumps(
+                    iface.annotations, separators=(",", ":"))
+                    if iface.annotations else "")
+                lines.append(f"add tap {iface.dev} to switch {sw.alias} "
+                             f"vni {iface.local_side_vni}{ps}{anno}")
+    # the reference emits docker plugin controllers here; the port has
+    # none until ROADMAP Queue A item 10 lands, and their add command
+    # refuses, so no app can hold one
     from ..policing import engine as _policing
     for p in _policing.default().list_policies():
         tenant_part = f" tenant={p['tenant']}" if p["tenant"] else ""

@@ -5,9 +5,11 @@ and default controller ports. It serves on the CUDA device: without a
 GPU it exits 1 with torchenv's message, unless the caller asks for the
 host (VPROXY_TPU_TORCH_DEVICE=cpu: the matchers on the CPU;
 VPROXY_TPU_MATCHER=host: no device matcher at all). Not carried over
-yet: the jax.distributed bring-up (VPROXY_TPU_DIST_*) and the cluster
+yet: the jax.distributed bring-up (VPROXY_TPU_DIST_*), the cluster
 plane (VPROXY_TPU_CLUSTER_PEERS is refused, ROADMAP Queue A item 8),
-and the deployable apps other than `simple` (refused, item 10).
+the matcher backends VPROXY_TPU_MATCHER=jax-dense (refused, item 9),
+jax-sharded and jax-fp-sharded (refused, item 8), and the deployable
+apps other than `simple` (refused, item 10).
 
 Parity: app/Main.java: default controllers (resp on 16309, http on
 18776, both on 127.0.0.1 — Main.java:319-337), load-last-config at boot,
@@ -83,6 +85,14 @@ def main(argv: list[str] | None = None) -> int:
     from .utils.oom import install as install_oom
     install_oom()
 
+    # a reference backend not ported yet is refused, never served by
+    # another
+    from .rules.engine import default_backend
+    try:
+        default_backend()
+    except ValueError as e:
+        print(f"vproxy_tpu_torch: {e}", file=sys.stderr)
+        return 1
     # the serving device: the card, unless the caller asked for the host
     if os.environ.get("VPROXY_TPU_MATCHER") != "host":
         from .utils.torchenv import default_device

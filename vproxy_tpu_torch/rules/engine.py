@@ -54,9 +54,11 @@ BACKENDS = ("torch", "torch-fp", "host")
 DEVICE_BACKENDS = ("torch", "torch-fp")  # the ones with a serving device
 
 # VPROXY_TPU_MATCHER speaks the reference's names; this package serves
-# each under its own. Names whose slice is not ported yet ("jax-dense",
-# "jax-sharded", "jax-fp-sharded", anything else) serve "torch".
+# each under its own. The reference backends not ported yet are refused
+# with the ROADMAP Queue A item that ports them; any other value serves
+# "torch".
 _MATCHER_ENV = {"host": "host", "jax": "torch", "jax-fp": "torch-fp"}
+UNPORTED_BACKENDS = {"jax-dense": 9, "jax-sharded": 8, "jax-fp-sharded": 8}
 
 
 def _check_backend(backend: str) -> str:
@@ -69,10 +71,14 @@ def _check_backend(backend: str) -> str:
 def default_backend() -> str:
     """VPROXY_TPU_MATCHER, read as the reference reads it: "host"
     selects the oracle, "jax-fp" the fingerprint backend ("torch-fp"),
-    every other value the cuckoo backend ("torch", the counterpart of
-    "jax")."""
-    return _MATCHER_ENV.get(os.environ.get("VPROXY_TPU_MATCHER", ""),
-                            "torch")
+    "jax-dense", "jax-sharded" and "jax-fp-sharded" raise ValueError
+    (not ported yet), every other value the cuckoo backend ("torch",
+    the counterpart of "jax")."""
+    env = os.environ.get("VPROXY_TPU_MATCHER", "")
+    if env in UNPORTED_BACKENDS:
+        raise ValueError(f"VPROXY_TPU_MATCHER={env}: not ported yet "
+                         f"(ROADMAP Queue A item {UNPORTED_BACKENDS[env]})")
+    return _MATCHER_ENV.get(env, "torch")
 
 
 def pad_batch(n: int, lo: int = 16) -> int:

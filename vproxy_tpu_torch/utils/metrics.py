@@ -305,8 +305,7 @@ class GlobalInspection:
                                "tls_handshakes")):
             self.registry.gauge_f(f"vproxy_pump_{k}_total",
                                   lambda i=i: self._pump_counter(i))
-        # switch flow-cache counters (native/vtl.cpp's flow table): the
-        # switch is not ported yet, so they read the library's zeros
+        # switch flow-cache counters (native/vtl.cpp's flow table)
         for i, k in enumerate(("hit", "miss", "evict", "stale")):
             self.registry.gauge_f(f"vproxy_switch_flowcache_{k}_total",
                                   lambda i=i: self._flowcache_counter(i))
