@@ -13,7 +13,9 @@ end (BASELINE config #2 as far as its build budget allows, behind
 config #4's ACL), ACL checks through a SecurityGroup of 5,000 TCP rules
 and route lookups against a 50,000-route table (BASELINE config #4, not
 cut), then the same tables on the packed-fingerprint backend
-("torch-fp": B6 for hint batches, B7 for cidr batches), boots the port
+("torch-fp": B6 for hint batches, B7 for cidr batches) and on the
+dense backend ("torch-dense": B9 for hint and cidr batches; both
+unfused backends take the Maglev column with B5), boots the port
 as an operator runs it (`python -m vproxy_tpu_torch`, one config built
 by command, DNS-as-LB, Socks5 and the TcpLB served from it), replays
 config #4's traffic through the port's virtual switch (routes and ACL
@@ -23,11 +25,13 @@ result. Phases, in order:
 1. environment: a CUDA device, or exit 1; the card's name and power
    limit as nvidia-smi reports them;
 2. build: nvcc of csrc/fused_classify_pick.cu, csrc/cidr_first.cu,
-   csrc/fp_hint.cu and csrc/fp_cidr.cu, and g++ of the port's
+   csrc/fp_hint.cu, csrc/fp_cidr.cu, csrc/dense_match.cu and
+   csrc/maglev_take.cu, and g++ of the port's
    native/vtl.cpp (the host FD layer; it must
    load as the native provider, from vproxy_tpu_torch/_build/), all
    started together, with their seconds, and per kernel instance (B1:
-   uri or uri-free, compare word; B4, B6, B7: one) ptxas's registers and
+   uri or uri-free, compare word; B9: hint and cidr; B4, B5, B6, B7:
+   one) ptxas's registers and
    spills (any spill fails) and its global loads and asynchronous
    copies in the SASS (cuobjdump, kept beside the library as
    <lib>.sass);
@@ -129,13 +133,34 @@ result. Phases, in order:
    512 SecurityGroup allow_async on the ACL and 4 x 512 submit_cidr on
    the routes (phase 7's queries), "device" mode; every answer equal to
    the host index (and phase 7's linear oracle for CIDR), one B6 launch
-   per hint or cpick batch, one Maglev take (B5) per cpick batch, one B7
-   launch per cidr batch, B1 / B3 / B4 never, no failover;
+   per hint or cpick batch, one Maglev take (B5, a kernel launch) per
+   cpick batch, one B7 launch per cidr batch, B1 / B3 / B4 never, no
+   failover;
 7d. tcplb_fp (the `tcplb_fp` line): phase 5b's http-splice LB with
    VPROXY_TPU_MATCHER=jax-fp, 256 groups, one burst of 512 connections
    (and the keep-alive burst): every backend equal to the host index's
    group, B6 and B7 launched once per batch of their kind, B1, B3, B4
    never;
+7d2. the dense backend (dense_tables: the 100k hint rules, a Maglev
+   table of 65,537 slots, the 50k routes and the 5k ACL, built with
+   VPROXY_TPU_MATCHER=jax-dense; the `dense_kernels` line): B9 int32-
+   exact against the plain tier (matchers.hint_match_chunked /
+   cidr_first_match_chunked) on the 100k table (uri rules) and a 100k
+   host-only table at B = 16 / 512 / 4096 (an eighth pad rows), on
+   config #4's routes and ACL (ports and port=None) at every B, on the
+   CPU parity sets (dense_hint_cases: a cross-chunk tie, the max-length
+   host suffix and an over-long host query, the boundary sets;
+   dense_cidr_cases: mixed families, v4-mapped v6 among them);
+   classify_all's five outputs (B9 three times) against the plain
+   tier; B5 against torch indexing and maglev.pick with slots past both
+   ends, at every B;
+7d3. dense service (the `dense_service` line): 4 x 512 each of
+   submit_hint, submit_classify_pick (a FusedPair: B9 plus B5),
+   SecurityGroup allow_async and submit_cidr on the dense tables,
+   "device" mode; every answer equal to the host index (and phase 7's
+   linear oracle for CIDR); one B9 launch per hint or cidr batch, one
+   B9 and one B5 per cpick batch, B1 / B3 / B4 / B6 / B7 never, no
+   fused dispatch, no failover, B9's plain tier never on the card;
 7e. control (the `control` line): the port as an operator runs it.
    `python -m vproxy_tpu_torch` boots in a child process (temporary
    VPROXY_TPU_HOME, "device" classify mode) with a resp-controller, an
@@ -197,10 +222,16 @@ result. Phases, in order:
    ACL) and classify_fp_all (its 3 launches summed), with their plain
    tiers, bounds and designs (the 155.7 MB slot table is three times
    the L2: a warm time there is not an all-L2 time), and the Maglev take
-   (B5) every fp cpick batch runs beside B6 (the `b5_take` line);
+   (B5) every unfused cpick batch runs (the `b5_take` line: the kernel
+   alone, with its slots' host-to-device copy, and torch indexing, its
+   plain version and library yardstick); and for B9 on the 100k hint
+   table, the routes, the ACL and classify_all (its 3 launches summed)
+   with their plain tiers, bounds (dense_hint_work / dense_cidr_work)
+   and the count step's GEMM alone (dense_library_ms);
 10. the `phase_s` line (wall seconds per phase), the {"kernels": [...]}
-   line (B1, B1 with the route column, B4, B3, B6, B7; B4's and B7's
-   launches include the `switch` phase's),
+   line (B1, B1 with the route column, B4, B3, B6, B7, B5, B9; B4's and
+   B7's launches include the `switch` phase's, B5's the fp and dense
+   services'),
    then the card's line, then the device line.
 
 Any failed phase raises, and the script exits non-zero.
@@ -258,6 +289,13 @@ REPLACES_B7 = "vproxy_tpu/ops/fphash.py:1176"
 KERNEL_B6, KERNEL_B7 = "fp_hint_kernel", "fp_cidr_kernel"
 SOURCE_B6 = "vproxy_tpu_torch/csrc/fp_hint.cu"
 SOURCE_B7 = "vproxy_tpu_torch/csrc/fp_cidr.cu"
+# the dense backend: B9 (hint, routes / ACL) and the Maglev take B5
+REPLACES_B9 = "vproxy_tpu/ops/matchers.py:33"
+KERNEL_B9_HINT, KERNEL_B9_CIDR = "dense_hint_kernel", "dense_cidr_kernel"
+SOURCE_B9 = "vproxy_tpu_torch/csrc/dense_match.cu"
+REPLACES_B5 = "vproxy_tpu/rules/maglev.py:235"
+KERNEL_B5 = "maglev_take_kernel"
+SOURCE_B5 = "vproxy_tpu_torch/csrc/maglev_take.cu"
 
 
 def log(msg: str) -> None:
@@ -1115,9 +1153,11 @@ def instance(mangled: str) -> str:
     """A kernel's mangled name -> "uri W=16" and the like for
     fused_kernel<URI, W, PICK> (B1), "B3 uri W=16" for its verdict-only
     instances (PICK false), "B4" for the CIDR kernel, "B6" and "B7" for
-    the fingerprint kernels."""
+    the fingerprint kernels, "B9 hint" and "B9 cidr" for the dense
+    ones, "B5" for the Maglev take."""
     for kernel, name in ((KERNEL_B4, "B4"), (KERNEL_B6, "B6"),
-                         (KERNEL_B7, "B7")):
+                         (KERNEL_B7, "B7"), (KERNEL_B9_HINT, "B9 hint"),
+                         (KERNEL_B9_CIDR, "B9 cidr"), (KERNEL_B5, "B5")):
         if kernel in mangled:
             return name
     m = re.search(r"fused_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
@@ -1168,18 +1208,22 @@ def phase_build() -> dict:
     started together. -> {library: {"build_s": seconds, "instances":
     _ptxas()}}."""
     from vproxy_tpu_torch.ops import cidr_cuda as CC
+    from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import fphash_cuda as FPC
     from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import take_cuda as TC
 
     def timed(fn):
         t0 = time.monotonic()
         return fn(), time.monotonic() - t0
 
-    with ThreadPoolExecutor(5) as ex:
+    with ThreadPoolExecutor(7) as ex:
         futs = {"fused": ex.submit(timed, FC.build),
                 "cidr": ex.submit(timed, CC.build),
                 "fp_hint": ex.submit(timed, FPC.build_hint),
                 "fp_cidr": ex.submit(timed, FPC.build_cidr),
+                "dense": ex.submit(timed, DC.build),
+                "take": ex.submit(timed, TC.build),
                 "vtl": ex.submit(timed, native_vtl)}
         built = {k: f.result() for k, f in futs.items()}
     vtl, secs = built.pop("vtl")
@@ -1189,7 +1233,7 @@ def phase_build() -> dict:
         f", provider {vtl.PROVIDER}")
     out = {"vtl": {"build_s": secs}}
     for lib_name, want in (("fused", 16), ("cidr", 1), ("fp_hint", 1),
-                           ("fp_cidr", 1)):
+                           ("fp_cidr", 1), ("dense", 2), ("take", 1)):
         lib, secs = built[lib_name]
         log(f"build: {lib_name} {secs:.2f} s -> {os.path.basename(lib)}")
         kern = _ptxas(lib)
@@ -4096,20 +4140,23 @@ def same(a, b) -> bool:
     return len(a) == len(b) and all(map(torch.equal, a, b))
 
 
-def time_row(b, kern, plain, name, flush, work_, launches=1):
+def time_row(b, kern, plain, name, flush, work_, launches=1, iters=200,
+             cold_iters=50, plain_iters=10):
     """One timing row: device ms per call of `kern` (the `launches`
     kernels of it whose name holds `name`) L2-warm and after a 256 MB
     write (cold), its plain tier's, wall ms per call back to back, and
-    the bound from work_ = (bytes, ops)."""
+    the bound from work_ = (bytes, ops). `iters`, `cold_iters` and
+    `plain_iters` are the calls each timing averages over."""
     check(same(kern(), plain()), f"{name} != plain at B={b}")
-    p1 = device_ms(plain, 10)
-    k1 = device_ms(kern, 200, name, launches)
-    k2 = device_ms(kern, 200, name, launches)
-    p2 = device_ms(plain, 10)
-    c1 = device_ms(lambda: (flush.zero_(), kern()), 50, name, launches)
+    p1 = device_ms(plain, plain_iters)
+    k1 = device_ms(kern, iters, name, launches)
+    k2 = device_ms(kern, iters, name, launches)
+    p2 = device_ms(plain, plain_iters)
+    c1 = device_ms(lambda: (flush.zero_(), kern()), cold_iters, name,
+                   launches)
     check(min(p1, p2, k1, k2, c1) > 0, "profiler saw no device time")
-    kc = min(call_ms(kern, 200), call_ms(kern, 200))
-    pc = call_ms(plain, 10, reps=3)
+    kc = min(call_ms(kern, iters), call_ms(kern, iters))
+    pc = call_ms(plain, plain_iters, reps=3)
     nbytes, ops = work_
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = ops / INT_OPS_PER_S * 1e3
@@ -4642,6 +4689,7 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
     from vproxy_tpu_torch.ops import fphash as FP
     from vproxy_tpu_torch.ops import fphash_cuda as FPC
     from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import take_cuda as TC
     from vproxy_tpu_torch.rules import engine as E
     from vproxy_tpu_torch.rules import maglev as M
     from vproxy_tpu_torch.rules import oracle
@@ -4678,6 +4726,7 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
         # the main path's counts, read just after it
         FPC.hint_fp_cuda.launches = FPC.cidr_fp_cuda.launches = 0
         FP.hint_fp_match.cuda_calls = M._device_take.calls = 0
+        TC.maglev_take_cuda.launches = 0
         f0, l0 = E.fused_dispatches_total(), E.dispatch_launches_total()
         t0 = time.monotonic()
         for k in range(bursts):
@@ -4712,6 +4761,7 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
         launches = {"hint_fp": FPC.hint_fp_cuda.launches,
                     "cidr_fp": FPC.cidr_fp_cuda.launches}
         takes = M._device_take.calls
+        b5 = TC.maglev_take_cuda.launches
         st = svc.stats
         batches = {k: st.by_kind.get(k, [0])[0] for k in
                    ("hint", "cpick", "cidr")}
@@ -4724,8 +4774,10 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
               and batches["hint"] > 0 and batches["cpick"] > 0,
               f"B6 launches {launches['hint_fp']} != hint + cpick "
               f"batches {batches}")
-        check(takes == batches["cpick"],
-              f"Maglev takes {takes} != cpick batches {batches}")
+        check(takes == batches["cpick"] and b5 == (
+            batches["cpick"] if on_card else 0),
+              f"Maglev takes {takes}, B5 launches {b5} != cpick batches "
+              f"{batches}")
         check(launches["cidr_fp"] == (batches["cidr"] if on_card else 0)
               and batches["cidr"] > 0,
               f"B7 launches {launches['cidr_fp']} != cidr batches "
@@ -4741,7 +4793,7 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
               "B6's plain tier ran on CUDA tensors")
         out = {"queries": 4 * n, "batches": batches,
                "launches": launches, "maglev_takes": takes,
-               "failovers": st.failovers,
+               "maglev_take_launches": b5, "failovers": st.failovers,
                "max_batch": st.max_batch, "hint_wall_s": hint_s,
                "cpick_wall_s": cpick_s, "cidr_wall_s": cidr_s,
                "classify_latency": st.latency_percentiles()}
@@ -4894,31 +4946,44 @@ def phase_fp_times(device, tabs):
 
 
 def b5_row(b, mm, flush) -> dict:
-    """The Maglev take (B5, rules/maglev.py _device_take) that every fp
-    cpick batch runs beside B6: its device time per call for b flows
-    (the slots' host-to-device copy, the clamp and the gather) L2-warm
-    and after a 256 MB write (cold), wall ms per call back to back, and
-    its bound: b slots read, b column entries gathered, b picks written
-    (16 bytes a flow) over the HBM rate. It is itself one PyTorch
-    indexing call, so it is its own library time."""
+    """The Maglev take (B5, csrc/maglev_take.cu) that every unfused cpick
+    batch runs (on "torch-fp" and "torch-dense"): for b flows, the
+    kernel's device time alone (the slots already on the card) L2-warm
+    and after a 256 MB write (cold); the device time of the kernel with
+    its slots' host-to-device copy (rules/maglev.py _device_take, what a
+    batch pays: the copy timed apart from the kernel); torch indexing
+    on the same device slots (mtab[slots.clamp(0, M - 1)], the plain
+    version and the library yardstick, one PyTorch indexing call with
+    its clamp); wall ms per call back to back; and the bound: b slots
+    read, b column entries gathered, b picks written (16 bytes a flow)
+    over the HBM rate."""
+    from vproxy_tpu_torch.ops import take_cuda as TC
     from vproxy_tpu_torch.rules import maglev as M
     tab, dev = mm.snapshot()[:2]
     ips = mk_ips(b, seed=3000 + b)
     slots = M.flow_slots(len(tab), ips, [1024 + i for i in range(b)])
-    calls = M._device_take.calls
-    got = M._device_take(dev, slots)
-    check(np.array_equal(got.cpu().numpy(), tab[np.clip(slots, 0,
-                                                        len(tab) - 1)]),
-          f"B5 take != the host table at B={b}")
-    take = lambda: M._device_take(dev, slots)  # noqa: E731
-    w1, w2 = device_ms(take, 200), device_ms(take, 200)
-    c1 = device_ms(lambda: (flush.zero_(), take()), 50, exclude="Fill")
-    check(min(w1, w2, c1) > 0, "profiler saw no B5 device time")
-    M._device_take.calls = calls  # timing calls are no main-path takes
-    return {"batch": b, "ms": min(w1, w2), "ms_runs": [w1, w2],
-            "cold_ms": c1, "call_ms": call_ms(take, 200),
-            "library_ms": min(w1, w2),
-            "bound_ms": b * 16 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    s = torch.from_numpy(slots).to(dev.device)
+    saved = (M._device_take.calls, TC.maglev_take_cuda.launches)
+    kern = lambda: TC.maglev_take_cuda(dev, s)  # noqa: E731
+    plain = lambda: TC.take_plain(dev, s)  # noqa: E731
+    with_copy = lambda: M._device_take(dev, slots)  # noqa: E731
+    check(same(kern(), plain()) and np.array_equal(
+        with_copy().cpu().numpy(), tab[np.clip(slots, 0, len(tab) - 1)]),
+        f"B5 take != the host table at B={b}")
+    w1 = device_ms(kern, 200, KERNEL_B5, 1)
+    w2 = device_ms(kern, 200, KERNEL_B5, 1)
+    c1 = device_ms(lambda: (flush.zero_(), kern()), 50, KERNEL_B5, 1)
+    cp = min(device_ms(with_copy, 200), device_ms(with_copy, 200))
+    p1 = min(device_ms(plain, 200), device_ms(plain, 200))
+    check(min(w1, w2, c1, cp, p1) > 0, "profiler saw no B5 device time")
+    row = {"batch": b, "ms": min(w1, w2), "ms_runs": [w1, w2],
+           "cold_ms": c1, "with_copy_ms": cp, "copy_ms": cp - min(w1, w2),
+           "plain_ms": p1, "library_ms": p1, "call_ms": call_ms(kern, 200),
+           "with_copy_call_ms": call_ms(with_copy, 200),
+           "bound_ms": b * 16 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    # timing calls are no main-path takes
+    M._device_take.calls, TC.maglev_take_cuda.launches = saved
+    return row
 
 
 def _parent_lib(kind: str, parent_dir: str):
@@ -5030,6 +5095,635 @@ def main_ab(parent_dir: str) -> int:
     return 0
 
 
+# ------------------------------------------------- the dense backend (B9)
+# "torch-dense" (the reference's "jax-dense"): every query against every
+# rule, B9 (csrc/dense_match.cu) on the card over a packed word layout
+# published beside the reference's bit-plane arrays; its classify+pick
+# is B9 plus the Maglev take (B5, csrc/maglev_take.cu).
+
+
+def dense_cross_chunk_tie():
+    """A 9,000-rule table (two MATCH_CHUNK chunks of the plain tier, many
+    rule ranges of the kernel) whose best answers tie across them: the
+    same host at rules 5 and 8,500, the same suffix parent at 100 and
+    8,800, and a port-gated copy first. -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = [HintRule(host=f"h{i}.io") for i in range(9000)]
+    rules[5] = rules[8500] = HintRule(host="dup.example.com")
+    rules[100] = rules[8800] = HintRule(host="example.net")
+    rules[2] = HintRule(host="dup.example.com", port=443)
+    rules[8999] = HintRule(host="h8999.io", uri="/x")
+    return rules, [
+        Hint.of_host("dup.example.com"), Hint.of_host_port(
+            "dup.example.com", 443), Hint.of_host("a.example.net"),
+        Hint.of_host("h8999.io"), Hint(host="h8999.io", uri="/x/y"),
+        Hint.of_host("h8998.io"), Hint.of_host("nope.org")]
+
+
+def dense_max_host_suffix():
+    """test_matchers.py's max-length suffix and over-long query cases: a
+    64-byte rule host matched by suffix and exactly, and a query host
+    past MAX_HOST that must not exact-match a 64-byte rule but still
+    suffix-matches a short one. -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    h64 = ("a" * 62) + ".b"
+    rules = [HintRule(host=h64), HintRule(host="x" * 64),
+             HintRule(host="corp.example.com")]
+    return rules, [Hint.of_host("sub." + h64), Hint.of_host(h64),
+                   Hint.of_host("a" * 80 + ".corp.example.com"),
+                   Hint.of_host("x" * 64), Hint.of_host("x" * 65),
+                   Hint.of_host("y" + "x" * 64)]
+
+
+def dense_v4_mapped():
+    """v4 networks and v6 networks over ::ffff:v4 and ::v4, queried in
+    all three forms. -> (nets, addrs)."""
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes, parse_ip
+    nets = [Network(parse_ip("10.1.0.0"), mask_bytes(16)),
+            Network(parse_ip("::ffff:10.2.0.0"), mask_bytes(112)),
+            Network(parse_ip("::10.3.0.0"), mask_bytes(112)),
+            Network(parse_ip("10.0.0.0"), mask_bytes(8))]
+    addrs = []
+    for a in ("10.1.2.3", "10.2.2.3", "10.3.2.3", "10.9.9.9", "11.0.0.1"):
+        addrs += [parse_ip(a), parse_ip("::ffff:" + a), parse_ip("::" + a)]
+    return nets, addrs
+
+
+def dense_hint_cases():
+    """-> (name, rules, hints) of each B9 hint parity set besides the
+    100k tables: the cuckoo kernels' CPU sets, a cross-chunk tie, the
+    max-length host suffix and over-long host query, and the boundary
+    sets."""
+    rules = rand_rules(300, 11)
+    yield "random_300_b600", rules, rand_hints(rules, 600, 11)
+    for name, gen in (("shared_keys", shared_keys),
+                      ("long_hosts", long_hosts),
+                      ("wide_buckets", wide_buckets),
+                      ("cross_chunk_tie", dense_cross_chunk_tie),
+                      ("max_host_suffix", dense_max_host_suffix)):
+        yield (name, *gen())
+    for name in BOUNDARY_CASES:
+        rules, hints, _ = boundary(name)
+        yield name, rules, hints
+
+
+def dense_cidr_cases():
+    """-> (name, nets, acl or None, [(addr, port or None)]) of each B9
+    cidr parity set besides config #4's tables: the CPU sets of the CIDR
+    kernels (mixed families among them) and v4-mapped v6."""
+    yield from small_cidr_cases()
+    nets, addrs = dense_v4_mapped()
+    yield "v4_mapped_v6", nets, None, [(a, None) for a in addrs]
+
+
+def dense_prepared(arrays: dict, device, hint: bool):
+    """A compiled dense table's arrays published on `device` as a
+    "torch-dense" matcher publishes them, with the kernel's packed
+    layout on the card."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.rules.engine import _dense_table
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    t = _dense_table(arrays, device)
+    if device.type == "cuda":
+        pack = DC.pack_dense_hint_table if hint else DC.pack_dense_cidr_table
+        prep = DC.prepare_hint if hint else DC.prepare_cidr
+        t.packed = prep(tables_from_reference(pack(arrays), device))
+    return t
+
+
+def dense_tables(device, n_rules=N_RULES, n_routes=N_ROUTES, n_acl=N_ACL):
+    """The dense backend's serving objects, built as VPROXY_TPU_MATCHER=
+    jax-dense builds them (no backend named): a HintMatcher of n_rules
+    rules (mk_rules) and a FusedPair with a Maglev table of MAGLEV_M
+    slots over BACKENDS backends, a route CidrMatcher of n_routes
+    routes and a SecurityGroup of the n_acl-rule TCP ACL (BASELINE
+    config #4, not cut). -> dict of them (and the rule lists)."""
+    from vproxy_tpu_torch.components.secgroup import SecurityGroup
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import maglev as M
+    from vproxy_tpu_torch.rules.ir import Proto
+    saved = os.environ.get("VPROXY_TPU_MATCHER")
+    os.environ["VPROXY_TPU_MATCHER"] = "jax-dense"
+    try:
+        t0 = time.monotonic()
+        rules = mk_rules(n_rules)
+        hm = E.HintMatcher(rules, device=device)
+        t1 = time.monotonic()
+        mm = M.MaglevMatcher(backends(), m=MAGLEV_M, device=device)
+        nets = route_nets(n_routes, ROUTE_SEED)
+        routes = E.CidrMatcher(nets, device=device)
+        t2 = time.monotonic()
+        acl = acl_rules(n_acl, ACL_SEED)
+        group = SecurityGroup("acl-dense", default_allow=False)
+        group.extend_rules(acl)
+        am = group._tables[Proto.TCP][0]
+    finally:
+        if saved is None:
+            os.environ.pop("VPROXY_TPU_MATCHER", None)
+        else:
+            os.environ["VPROXY_TPU_MATCHER"] = saved
+    for m in (hm, routes, am):
+        dev = m.snapshot()[1 if m is hm else 0]
+        check(m.backend == "torch-dense" and isinstance(dev, DC.DenseTable)
+              and (dev.packed is not None) == (device.type == "cuda"),
+              f"VPROXY_TPU_MATCHER=jax-dense built {m.backend}, not a "
+              f"published dense table")
+    packed = [m.snapshot()[1 if m is hm else 0].packed for m in
+              (hm, routes, am)]
+    log(f"dense tables: {n_rules} hint rules in {t1 - t0:.1f} s, "
+        f"{n_routes} routes in {t2 - t1:.1f} s, ACL of {n_acl} in "
+        f"{time.monotonic() - t2:.1f} s; published bytes "
+        f"{hm.published_table_bytes()} + {routes.published_table_bytes()}"
+        f" + {am.published_table_bytes()}, packed bytes "
+        f"{[sum(v.numel() * v.element_size() for v in p.values()) if p else 0 for p in packed]}")
+    return {"rules": rules, "hm": hm, "mm": mm, "pair": M.FusedPair(hm, mm),
+            "nets": nets, "routes": routes, "acl": acl, "group": group,
+            "am": am}
+
+
+def dense_hint_batch(hints, b: int, device) -> dict:
+    """`hints` encoded as the dense engine encodes a batch (ops/tables
+    encode_hints), padded to b rows with empty Hint()s."""
+    from vproxy_tpu_torch.ops import tables as T
+    from vproxy_tpu_torch.rules.ir import Hint
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    hints = list(hints) + [Hint()] * (b - len(hints))
+    return tables_from_reference(T.encode_hints(hints), device)
+
+
+def _dense_plain_hint(t, q):
+    from vproxy_tpu_torch.ops import matchers as MT
+    return MT.hint_match_chunked(t, q["host"], q["has_host"],
+                                 MT.unpack_bits(q["uri"]), q["has_uri"],
+                                 q["port"])
+
+
+def b9_vs_plain(name, t, q=None, device=None, a16=None, fam=None,
+                port=None) -> int:
+    """B9 (hint when `q` is given, else cidr) against its plain tier
+    (matchers.hint_match_chunked / cidr_first_match_chunked) on the same
+    tensors, int32-equal (on CPU tensors the plain tier against itself).
+    -> max |kernel - plain|."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import matchers as MT
+    on_card = device.type == "cuda"
+    if q is not None:
+        ref = _dense_plain_hint(t, q)
+        got = DC.hint_dense_cuda(t, q) if on_card else ref
+        b, what = q["host"].shape[0], "hint"
+    else:
+        ref = (MT.cidr_first_match_chunked(t, a16, fam, port),)
+        got = (DC.cidr_dense_cuda(t, a16, fam, port),) if on_card else ref
+        b, what = a16.shape[0], "cidr"
+    _sync(device)
+    d = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+    n = t.packed.n if on_card else None
+    log(f"B9 {what} vs plain [{name}]: b {b} live rules {n} grid "
+        f"{DC.grid(b, n) if on_card else None} matched "
+        f"{int((ref[0] >= 0).sum())} max_abs_err {d}")
+    check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+          f"B9 {what} != plain [{name}]")
+    if fam is not None:
+        check(bool((got[0][fam < 0] == -1).all()),
+              f"B9 pad row matched [{name}]")
+    return d
+
+
+def b5_vs_plain(mm, b: int, device) -> int:
+    """B5 against torch indexing (take_plain) and maglev.pick on the host
+    table, for b flows whose slots run past both ends of the table every
+    few rows (the clip). -> max |kernel - plain|."""
+    from vproxy_tpu_torch.ops import take_cuda as TC
+    from vproxy_tpu_torch.rules import maglev as M
+    tab, dev = mm.snapshot()[:2]
+    ips = mk_ips(b, seed=3100 + b)
+    ports = [None if i % 3 == 0 else 2048 + i for i in range(b)]
+    slots = M.flow_slots(len(tab), ips, ports)
+    slots[::5] = -1 - np.arange(len(slots[::5]))
+    slots[2::7] = len(tab) + np.arange(len(slots[2::7]))
+    s = torch.from_numpy(slots).to(device)
+    ref = TC.take_plain(dev, s)
+    got = TC.maglev_take_cuda(dev, s) if device.type == "cuda" else ref
+    _sync(device)
+    d = int((got.long() - ref.long()).abs().max())
+    host = [M.pick(tab, ips[i], ports[i]) for i in range(b)]
+    clip = tab[np.clip(slots, 0, len(tab) - 1)]
+    log(f"B5 vs plain [B={b}, {len(slots[::5]) + len(slots[2::7])} slots "
+        f"past the ends]: max_abs_err {d}")
+    check(torch.equal(got, ref), f"B5 != torch indexing at B={b}")
+    check(np.array_equal(got.cpu().numpy(), clip), f"B5 != the host table "
+          f"at B={b}")
+    keep = np.ones(b, bool)
+    keep[::5] = keep[2::7] = False
+    check(all(int(got[i]) == host[i] for i in np.flatnonzero(keep)),
+          f"B5 != maglev.pick at B={b}")
+    return d
+
+
+def phase_dense_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
+    """B9 int32-exact against its plain tier: hint on the published 100k
+    table (uri rules) and a 100k host-only table at every B of
+    `batches`, an eighth of each batch pad rows, and on dense_hint_cases
+    (+8 pad rows); cidr on config #4's routes and ACL (ports and None)
+    at every B (v4, ::v4, ::ffff:v4, v6 and pad rows) and on
+    dense_cidr_cases; classify_all's five outputs (B9 three times, the
+    allow gather) against the plain tier at the largest B; B5 against
+    torch indexing and maglev.pick at every B. Launch counts are
+    restored after. -> {"b9": err, "all": err, "b5": err}."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import matchers as MT
+    from vproxy_tpu_torch.ops import tables as T
+    from vproxy_tpu_torch.ops import take_cuda as TC
+    counters = (DC.hint_dense_cuda, DC.cidr_dense_cuda, TC.maglev_take_cuda)
+    saved = [f.launches for f in counters]
+    hsnap = tabs["hm"].snapshot()
+    b9 = 0
+    host_rules = mk_host_rules(n_host)
+    host_t = dense_prepared(MT.table_arrays(T.compile_hint_rules(
+        host_rules)), device, True)
+    for name, t, rules in (("100k uri", hsnap[1], tabs["rules"]),
+                           ("100k host-only", host_t, host_rules)):
+        for b in batches:
+            q = dense_hint_batch(mk_queries(rules, b - b // 8, seed=900 + b),
+                                 b, device)
+            b9 = max(b9, b9_vs_plain(f"{name} B={b}, {b // 8} pad rows", t,
+                                     q, device))
+    del host_t
+    for name, rules, hints in dense_hint_cases():
+        t = dense_prepared(MT.table_arrays(T.compile_hint_rules(rules)),
+                           device, True)
+        b9 = max(b9, b9_vs_plain(name, t, dense_hint_batch(
+            hints, len(hints) + 8, device), device))
+    rt, at = tabs["routes"].snapshot()[0], tabs["am"].snapshot()[0]
+    for b in batches:
+        real = b - b // 8
+        rq = [(a, None) for a, _ in cidr_queries(tabs["nets"], real,
+                                                  600 + b)]
+        a16, fam, port = cidr_batch(acl_queries(tabs["acl"], real, 700 + b),
+                                    b, device)
+        for name, t, batch in (
+                (f"routes 50k B={b}", rt, cidr_batch(rq, b, device)),
+                (f"ACL 5k B={b}", at, (a16, fam, port)),
+                (f"ACL 5k B={b} port=None", at, (a16, fam, None))):
+            b9 = max(b9, b9_vs_plain(name, t, None, device, *batch))
+    for name, nets, acl, q in dense_cidr_cases():
+        t = dense_prepared(MT.table_arrays(T.compile_cidr_rules(
+            nets, acl=acl)), device, False)
+        b9 = max(b9, b9_vs_plain(name, t, None, device,
+                                 *cidr_batch(q, len(q) + 8, device)))
+    b = max(batches)
+    real = b - b // 8
+    hq = dense_hint_batch(mk_queries(tabs["rules"], real, seed=950), b,
+                          device)
+    rq = dict(zip(("addr", "family"), cidr_batch(
+        [(a, None) for a, _ in cidr_queries(tabs["nets"], real, 952)], b,
+        device)[:2]))
+    aq = dict(zip(("addr", "family", "port"), cidr_batch(
+        acl_queries(tabs["acl"], real, 951), b, device)))
+    ref = MT.classify_all(hsnap[1], rt, at, hq, rq, aq)
+    n0 = [f.launches for f in counters]
+    got = MT.classify_dense(hsnap[1], rt, at, hq, rq, aq)
+    _sync(device)
+    n1 = [f.launches for f in counters]
+    on_card = device.type == "cuda"
+    check(n1[0] - n0[0] == (1 if on_card else 0) and
+          n1[1] - n0[1] == (2 if on_card else 0),
+          f"classify_dense launched B9 hint {n1[0] - n0[0]}, cidr "
+          f"{n1[1] - n0[1]} times")
+    err_all = max(int((g.long() - r.long()).abs().max())
+                  for g, r in zip(got, ref))
+    log(f"classify_all vs plain [100k + config #4, B={b}]: matched "
+        f"{[int((r >= 0).sum()) for r in ref[:4]]} allowed "
+        f"{int(ref[4].sum())} max_abs_err {err_all}")
+    check(len(got) == 5 and all(torch.equal(g, r) for g, r in
+                                zip(got, ref)), "classify_dense != plain")
+    b5 = max(b5_vs_plain(tabs["mm"], b, device) for b in batches)
+    for f, n in zip(counters, saved):
+        f.launches = n
+    return {"b9": b9, "all": err_all, "b5": b5}
+
+
+def phase_dense_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
+                        cidr_oracle=None):
+    """The dense backend's main path through ClassifyService in "device"
+    mode: bursts x burst submit_hint on the torch-dense HintMatcher, as
+    many submit_classify_pick on the FusedPair over it (B9 plus the
+    Maglev take, B5: the backend fuses nothing), SecurityGroup
+    allow_async on config #4's ACL and submit_cidr on the 50k routes.
+    Every answer equal to the host index (HintIndex + maglev.pick;
+    CidrIndex and phase 7's linear oracle for CIDR, `cidr_oracle`, or
+    oracle_snap here without it); one B9 launch per hint or cidr batch,
+    one B9 and one B5 launch per cpick batch, B1 / B3 / B4 / B6 / B7
+    never, no failover, every query answered by the device. -> the
+    phase's numbers."""
+    from vproxy_tpu_torch.ops import cidr_cuda as CC
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import matchers as MT
+    from vproxy_tpu_torch.ops import take_cuda as TC
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import maglev as M
+    from vproxy_tpu_torch.rules import oracle
+    from vproxy_tpu_torch.rules.ir import Proto
+    from vproxy_tpu_torch.rules.service import ClassifyService
+    hm, pair, routes, group, am, acl = (tabs[k] for k in (
+        "hm", "pair", "routes", "group", "am", "acl"))
+    n = bursts * burst
+    hsnap, msnap = hm.snapshot(), pair.mm.snapshot()
+    asnap, rsnap = am.snapshot(), routes.snapshot()
+    sub = am.snap_payload(asnap)
+    if cidr_oracle is None:
+        aqs = [acl_queries(acl, burst, 2000 + k) for k in range(bursts)]
+        rqs = [[(a, None) for a, _ in cidr_queries(rsnap[1], burst,
+                                                   2100 + k)]
+               for k in range(bursts)]
+        a_orc = [am.oracle_snap(asnap, *q) for b in aqs for q in b]
+        r_orc = [routes.oracle_snap(rsnap, *q) for b in rqs for q in b]
+    else:
+        (acl_o, aqs, a_orc), (nets_o, rqs, r_orc) = (
+            cidr_oracle["acl"], cidr_oracle["routes"])
+        check(list(map(repr, acl_o)) == list(map(repr, acl)) and
+              list(map(repr, nets_o)) == list(map(repr, rsnap[1])) and
+              len(aqs) == len(rqs) == bursts and
+              all(len(q) == burst for q in aqs + rqs),
+              "phase 7's oracle is not over these rules and bursts")
+    others = (FC.fused_classify_pick_cuda, FC.hint_match_cuda,
+              CC.cidr_first_cuda, FPC.hint_fp_cuda, FPC.cidr_fp_cuda)
+    other0 = [f.launches for f in others]
+    ClassifyService.reset()
+    svc = ClassifyService.get()  # the one allow_async submits to
+    svc.mode = "device"
+    try:
+        # the main path's counts, read just after it
+        DC.hint_dense_cuda.launches = DC.cidr_dense_cuda.launches = 0
+        TC.maglev_take_cuda.launches = M._device_take.calls = 0
+        MT.hint_match_chunked.cuda_calls = 0
+        MT.cidr_first_match_chunked.cuda_calls = 0
+        f0, l0 = E.fused_dispatches_total(), E.dispatch_launches_total()
+        t0 = time.monotonic()
+        for k in range(bursts):
+            hints = mk_queries(tabs["rules"], burst, seed=2200 + k)
+            got = _answers(svc, lambda h, cb: svc.submit_hint(hm, h, cb),
+                           [(h,) for h in hints])
+            for i, h in enumerate(hints):
+                check(got[i] == (hm.index_snap(hsnap, h),),
+                      f"dense hint burst {k} row {i}")
+        hint_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        for k in range(bursts):
+            hints = mk_queries(tabs["rules"], burst, seed=2300 + k)
+            ips = mk_ips(burst, seed=2400 + k)
+            ports = [None if i % 3 == 0 else 1024 + i
+                     for i in range(burst)]
+            got = _answers(
+                svc, lambda h, ip, port, cb: svc.submit_classify_pick(
+                    pair, h, ip, port, cb), list(zip(hints, ips, ports)))
+            for i in range(burst):
+                want = (hm.index_snap(hsnap, hints[i]),
+                        M.pick(msnap[0], ips[i], ports[i]))
+                check(got[i] == want, f"dense cpick burst {k} row {i}: "
+                      f"{got[i]} != host {want}")
+        cpick_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        a_got = [_answers(svc, lambda a, p, cb: group.allow_async(
+            Proto.TCP, a, p, lambda ok: cb(ok, None)), q) for q in aqs]
+        r_got = [_answers(svc, lambda a, p, cb: svc.submit_cidr(
+            routes, a, p, cb), q) for q in rqs]
+        cidr_s = time.monotonic() - t0
+        launches = {"hint_dense": DC.hint_dense_cuda.launches,
+                    "cidr_dense": DC.cidr_dense_cuda.launches,
+                    "maglev_take": TC.maglev_take_cuda.launches}
+        takes = M._device_take.calls
+        st = svc.stats
+        batches = {k: st.by_kind.get(k, [0])[0] for k in
+                   ("hint", "cpick", "cidr")}
+        on_card = device.type == "cuda"
+        check(st.failovers == 0, f"{st.failovers} device failovers")
+        check(st.device_queries == 4 * n and st.oracle_queries == 0,
+              f"device answered {st.device_queries} of {4 * n}")
+        check(all(v > 0 for v in batches.values()),
+              f"a kind formed no batch: {batches}")
+        check(launches["hint_dense"] == (batches["hint"] + batches["cpick"]
+                                         if on_card else 0),
+              f"B9 hint launches {launches['hint_dense']} != hint + cpick "
+              f"batches {batches}")
+        check(takes == batches["cpick"] and launches["maglev_take"] == (
+            batches["cpick"] if on_card else 0),
+              f"Maglev takes {takes}, B5 launches "
+              f"{launches['maglev_take']} != cpick batches {batches}")
+        check(launches["cidr_dense"] == (batches["cidr"] if on_card else 0),
+              f"B9 cidr launches {launches['cidr_dense']} != cidr batches "
+              f"{batches}")
+        check(E.fused_dispatches_total() == f0,
+              "a dense cpick batch took the fused dispatch")
+        check(E.dispatch_launches_total() - l0 == batches["hint"] +
+              2 * batches["cpick"] + batches["cidr"],
+              "engine launches != hint + 2 x cpick + cidr batches")
+        check([f.launches for f in others] == other0,
+              "the dense path launched B1, B3, B4, B6 or B7")
+        check(MT.hint_match_chunked.cuda_calls ==
+              MT.cidr_first_match_chunked.cuda_calls == 0,
+              "B9's plain tier ran on CUDA tensors")
+        out = {"backend": hm.backend, "queries": 4 * n, "batches": batches,
+               "launches": launches, "maglev_takes": takes,
+               "failovers": st.failovers, "max_batch": st.max_batch,
+               "hint_wall_s": hint_s, "cpick_wall_s": cpick_s,
+               "cidr_wall_s": cidr_s,
+               "classify_latency": st.latency_percentiles()}
+        log(f"dense service: {json.dumps(out)}")
+    finally:
+        ClassifyService.reset()
+    for k in range(bursts):
+        for i, (a, p) in enumerate(aqs[k]):
+            j = am.index_snap(asnap, a, p)
+            check(j == a_orc[k * burst + i],
+                  f"dense ACL burst {k} row {i}: CidrIndex {j} != oracle")
+            want = sub[j].allow if j >= 0 else group.default_allow
+            check(a_got[k][i] == (want,), f"dense ACL burst {k} row {i}: "
+                  f"{a_got[k][i]} != {want} (rule {j})")
+        for i, (a, p) in enumerate(rqs[k]):
+            j = routes.index_snap(rsnap, a, p)
+            check(j == r_orc[k * burst + i] and r_got[k][i] == (j,),
+                  f"dense route burst {k} row {i}: {r_got[k][i]}, "
+                  f"CidrIndex {j}, oracle {r_orc[k * burst + i]}")
+    for h in mk_queries(tabs["rules"], 32, seed=2500):
+        check(hm.index_snap(hsnap, h) == oracle.search(tabs["rules"], h),
+              f"host index != linear oracle for {h}")
+    return out
+
+
+def _meta_fields(meta):
+    """The packed hint meta's flags and live word counts (int64)."""
+    x = meta[:, 0].long()
+    return x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, (x >> 24) & 0xFF
+
+
+def dense_hint_work(t, q):
+    """(bytes, int ops) one B9 hint launch needs for this batch: the
+    query arrays read once and two int32 written per query; per active
+    rule its meta row (16 B), its live host words (16 B each: exact and
+    suffix mask and value) when it has a host pattern and its live uri
+    words (8 B each) when it has a uri pattern, read once. Ops: every
+    query compares every such word, 2 int ops a word and pattern (the
+    (q ^ v) & m and the OR into the pattern's mismatch). On the CPU
+    (no packed layout) the counts come from the same pack."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    p = t.packed
+    if p is None:
+        p = {k: torch.from_numpy(v) for k, v in DC.pack_dense_hint_table(
+            {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+             for k, v in t.items()}).items()}
+    b = q["host"].shape[0]
+    nbytes = sum(v.numel() * v.element_size() for v in q.values()) + b * 8
+    flags, ne, ns, nu = _meta_fields(p["meta"])
+    active = (flags & DC.F_ACTIVE) != 0
+    host = active & ((flags & (DC.F_EXACT | DC.F_SUFFIX)) != 0)
+    uri = active & ((flags & DC.F_URI) != 0)
+    hw = torch.where(host, torch.maximum(ne, ns), 0)
+    uw = torch.where(uri, nu + (nu & 1), 0)  # compared two words at a time
+    nbytes += int(active.sum()) * 16 + int(hw.sum()) * 16 + \
+        int(uw.sum()) * 8
+    return nbytes, b * (int(hw.sum()) * 2 * 2 + int(uw.sum()) * 2)
+
+
+def dense_cidr_work(t, a16, fam, port):
+    """(bytes, int ops) one B9 cidr launch needs for this batch: every
+    query's address, family (and port) read once and its answer written
+    once; per query, the rules up to its first match (all live rules
+    without one) whose port gate holds, and of each the valid slots of
+    its family: 8 ops a slot (4 masked word compares and the ORs); the
+    rows up to the last rule any query reaches, read once (16 B of meta,
+    32 B a valid slot). Pad rows (family -1) need nothing."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import matchers as MT
+    p = t.packed
+    if p is None:
+        p = {k: torch.from_numpy(v) for k, v in DC.pack_dense_cidr_table(
+            {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+             for k, v in t.items()}).items()}
+    b, n = a16.shape[0], p["meta"].shape[0]
+    nbytes = b * (16 + 4 + 4) + (b * 4 if port is not None else 0)
+    first = MT.cidr_first_match_chunked(t, a16, fam, port)
+    x = p["meta"][:, 0].long()
+    live = fam >= 0
+    stop = torch.where(first >= 0, first.long() + 1, n)[live]
+    slots = torch.zeros(b, dtype=torch.int64, device=a16.device)
+    for f in (0, 1):
+        cnt = sum((((x >> s) & 1) == 1) & (((x >> (3 + s)) & 1) == f)
+                  for s in range(3)).long()        # [n] slots of family f
+        sel = live & (fam == f)
+        if not bool(sel.any()) or n == 0:
+            continue
+        st = torch.where(first >= 0, first.long() + 1, n)[sel]
+        if port is None:
+            csum = torch.cat([cnt.new_zeros(1), cnt.cumsum(0)])
+            slots[sel] = csum[st]
+        else:
+            qp = port[sel].long()[:, None]
+            ok = (p["meta"][:, 1][None] <= qp) & (qp <= p["meta"][:, 2][None])
+            ok &= torch.arange(n, device=ok.device)[None] < st[:, None]
+            slots[sel] = (ok.long() * cnt[None]).sum(1)
+    reach = int(stop.max()) if stop.numel() else 0
+    valid = sum(((x[:reach] >> s) & 1) for s in range(3))
+    nbytes += reach * 16 + int(valid.sum()) * 32
+    return nbytes, int(slots.sum()) * 8
+
+
+def dense_library_ms(t, q=None, a16=None) -> float:
+    """The library yardstick of B9: the count step alone, the reference's
+    float32 mismatch GEMM as torch.matmul (TF32 allowed, as
+    bitmatch.mismatch_counts runs it) at this batch's shapes: host
+    [B, 528] x [528, 2 cap] and uri [B, 1024] x [1024, cap] for a hint
+    batch, [B, 128] x [128, 3 cap] for a cidr one, into preallocated
+    outputs; no bias, compare, level or reduction. Device ms per call."""
+    from vproxy_tpu_torch.ops.bitmatch import unpack_bits
+    torch.backends.cuda.matmul.allow_tf32 = True
+    if q is not None:
+        pairs = [(unpack_bits(q["host"]), t["host_w"].float()),
+                 (unpack_bits(q["uri"]), t["uri_w"].float())]
+    else:
+        pairs = [(unpack_bits(a16), t["w"].float())]
+    outs = [torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32,
+                        device=a.device) for a, w in pairs]
+
+    def gemm():
+        for (a, w), o in zip(pairs, outs):
+            torch.matmul(a, w, out=o)
+    # two runs that saw device time (the profiler drops its records now
+    # and then, and cuBLAS's kernel count per call is not ours to check)
+    ms = []
+    for _ in range(5):
+        t = device_ms(gemm, 5)
+        ms += [t] if t > 0 else []
+        if len(ms) == 2:
+            break
+    check(len(ms) == 2, "the profiler saw no GEMM device time in five runs")
+    del pairs, outs
+    return min(ms)
+
+
+def phase_dense_times(device, tabs):
+    """B9 on the published 100k hint table (uri rules), config #4's
+    routes and ACL (with ports), and classify_all (B9 three times, its
+    launches summed) at every TIME_BATCHES, with time_row at fewer
+    iterations (the kernel takes milliseconds, its plain tier tens to
+    hundreds): warm and cold device time, the plain tier's, the wall
+    time per call and the bound (dense_work: the larger of the live
+    packed words' bytes over the HBM rate and the compared words' int
+    ops over INT_OPS_PER_S); beside each row the count step's GEMM alone
+    (dense_library_ms) and the launch grid. -> {"B9 hint": rows, "B9
+    routes": rows, "B9 ACL": rows, "classify_all": rows}."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import matchers as MT
+    saved = (DC.hint_dense_cuda.launches, DC.cidr_dense_cuda.launches)
+    ht = tabs["hm"].snapshot()[1]
+    rt, at = tabs["routes"].snapshot()[0], tabs["am"].snapshot()[0]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    out = {"B9 hint": [], "B9 routes": [], "B9 ACL": [], "classify_all": []}
+    iters = {"iters": 20, "cold_iters": 10, "plain_iters": 2}
+    for b in TIME_BATCHES:
+        q = dense_hint_batch(mk_queries(tabs["rules"], b, 2600 + b), b,
+                             device)
+        row = time_row(b, lambda: DC.hint_dense_cuda(ht, q),
+                       lambda: _dense_plain_hint(ht, q), KERNEL_B9_HINT,
+                       flush, dense_hint_work(ht, q), **iters)
+        row["library_ms"] = dense_library_ms(ht, q=q)
+        row["grid"] = DC.grid(b, ht.packed.n)
+        out["B9 hint"].append(row)
+        log("times B9 hint " + json.dumps(row))
+        for label, t, queries in (
+                ("B9 routes", rt, [(a, None) for a, _ in cidr_queries(
+                    tabs["nets"], b, 2700 + b)]),
+                ("B9 ACL", at, acl_queries(tabs["acl"], b, 2800 + b))):
+            a16, fam, port = cidr_batch(queries, b, device)
+            row = time_row(
+                b, lambda: DC.cidr_dense_cuda(t, a16, fam, port),
+                lambda: MT.cidr_first_match_chunked(t, a16, fam, port),
+                KERNEL_B9_CIDR, flush, dense_cidr_work(t, a16, fam, port),
+                **iters)
+            row["library_ms"] = dense_library_ms(t, a16=a16)
+            row["grid"] = DC.grid(b, t.packed.n)
+            out[label].append(row)
+            log(f"times {label} " + json.dumps(row))
+        aq = cidr_batch(acl_queries(tabs["acl"], b, 2900 + b), b, device)
+        rq, acq = {"addr": aq[0], "family": aq[1]}, dict(zip(
+            ("addr", "family", "port"), aq))
+        works = [dense_hint_work(ht, q), dense_cidr_work(rt, *aq[:2], None),
+                 dense_cidr_work(at, *aq)]
+        row = time_row(
+            b, lambda: MT.classify_dense(ht, rt, at, q, rq, acq),
+            lambda: MT.classify_all(ht, rt, at, q, rq, acq), "dense_",
+            flush, (sum(w[0] for w in works) - b * 24,  # one address batch
+                    sum(w[1] for w in works)), launches=3, **iters)
+        out["classify_all"].append(row)
+        log("times classify_all " + json.dumps(row))
+    DC.hint_dense_cuda.launches, DC.cidr_dense_cuda.launches = saved
+    del flush
+    return out
+
+
 def main() -> int:
     smi = phase_env()
     # the native FD provider, built from this checkout: a build or load
@@ -5065,6 +5759,12 @@ def main() -> int:
     fp_svc = run("fp service", phase_fp_service, device, fp,
                  cidr_oracle=oracle)
     log(json.dumps({"fp_service": {**fp_svc, "card": smi}}))
+    dense = run("dense tables", dense_tables, device)
+    dense_err = run("dense kernels", phase_dense_kernels, device, dense)
+    log(json.dumps({"dense_kernels": {**dense_err, "card": smi}}))
+    dense_svc = run("dense service", phase_dense_service, device, dense,
+                    cidr_oracle=oracle)
+    log(json.dumps({"dense_service": {**dense_svc, "card": smi}}))
     tcplb_fp = run("tcplb_fp", phase_tcplb, device,
                    max_rules=TCPLB_MIN_RULES, bursts=1, matcher="jax-fp")
     log(json.dumps({"tcplb_fp": {**tcplb_fp, "card": smi}}))
@@ -5081,11 +5781,14 @@ def main() -> int:
     crows = run("cidr times", phase_cidr_times, device, keep, routes, am,
                 acl)
     fp_rows = run("fp times", phase_fp_times, device, fp)
+    dense_rows = run("dense times", phase_dense_times, device, dense)
+    b5_launches = {"fp service": fp_svc["maglev_take_launches"],
+                   "dense service": dense_svc["launches"]["maglev_take"]}
     log(json.dumps({"b5_take": {
-        "replaces": "vproxy_tpu/rules/maglev.py:235",
-        "source": "vproxy_tpu_torch/rules/maglev.py (_device_take)",
-        "launches": fp_svc["maglev_takes"], "by_batch": fp_rows["B5"],
-        "card": smi}}))
+        "replaces": REPLACES_B5, "source": SOURCE_B5,
+        "max_abs_err": dense_err["b5"], "launches": b5_launches,
+        "maglev_takes": fp_svc["maglev_takes"] + dense_svc["maglev_takes"],
+        "by_batch": fp_rows["B5"], "card": smi}}))
     log(json.dumps({"phase_s": phase_s}))
     log("clocks " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
@@ -5159,7 +5862,33 @@ def main() -> int:
               instances=builds["fp_cidr"]["instances"],
               layouts=fp_err["layouts"],
               by_batch={"acl": fp_rows["B7 ACL"],
-                        "routes": fp_rows["B7 routes"]})]}))
+                        "routes": fp_rows["B7 routes"]}),
+        entry("maglev_take", SOURCE_B5, REPLACES_B5,
+              sum(b5_launches.values()), dense_err["b5"], fp_rows["B5"],
+              library_ms=at(fp_rows["B5"], "library_ms"),
+              library_what="torch indexing, mtab[slots.clamp(0, M - 1)] "
+              "(the plain version)",
+              with_copy_ms=at(fp_rows["B5"], "with_copy_ms"),
+              launches_by_path=b5_launches,
+              build_s=builds["take"]["build_s"],
+              instances=builds["take"]["instances"],
+              by_batch=fp_rows["B5"]),
+        entry("dense_match", SOURCE_B9, REPLACES_B9,
+              dense_svc["launches"]["hint_dense"] +
+              dense_svc["launches"]["cidr_dense"],
+              max(dense_err["b9"], dense_err["all"]), dense_rows["B9 hint"],
+              table="100k hint rules (mk_rules), uri rules",
+              library_ms=at(dense_rows["B9 hint"], "library_ms"),
+              library_what="the count step only: the float32 mismatch "
+              "GEMMs as torch.matmul (TF32 allowed), no bias, compare, "
+              "level or reduction",
+              launches_by_path={
+                  "dense service hint + cpick":
+                      dense_svc["launches"]["hint_dense"],
+                  "dense service cidr": dense_svc["launches"]["cidr_dense"]},
+              build_s=builds["dense"]["build_s"],
+              instances=builds["dense"]["instances"],
+              by_batch=dense_rows)]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,9 @@ the matchers on the CPU.
   each once, then saving its config on SIGTERM (tests/test_boot_all.py);
   without a GPU and without the host asked for, it exits non-zero, as
   it does for the cluster plane, the matcher backends and the
-  deployable apps not ported yet.
+  deployable apps not ported yet; VPROXY_TPU_MATCHER=jax-dense boots it
+  on the dense backend, and the command script over its resp-controller
+  answers what the reference's does.
 """
 import json
 import os
@@ -1315,9 +1317,6 @@ REFUSALS = {
                    "ROADMAP Queue A item 10"),
     "kcptun": ({"VPROXY_TPU_TORCH_DEVICE": "cpu"}, ["kcptun"],
                "ROADMAP Queue A item 10"),
-    "jax-dense": ({"VPROXY_TPU_TORCH_DEVICE": "cpu",
-                   "VPROXY_TPU_MATCHER": "jax-dense"}, [],
-                  "ROADMAP Queue A item 9"),
     "jax-sharded": ({"VPROXY_TPU_TORCH_DEVICE": "cpu",
                      "VPROXY_TPU_MATCHER": "jax-sharded"}, [],
                     "ROADMAP Queue A item 8"),
@@ -1347,6 +1346,78 @@ def test_entry_refuses(case, tmp_path):
     assert msg in r.stderr, r.stderr[-2000:]
     assert "resp-controller on" not in r.stdout
     assert not (tmp_path / "vproxy.last").exists()
+
+
+def _resp_script(port: int, lines: list) -> list:
+    """Every line over RESP: its reply, or the error's text."""
+    cli = RespClient(port, password="pw")
+    out = []
+    try:
+        for line in lines:
+            try:
+                out.append(cli.cmd(*line.split()))
+            except RuntimeError as e:
+                out.append(f"ERR {e}")
+    finally:
+        cli.close()
+    return out
+
+
+def test_entry_serves_jax_dense_like_the_reference(tmp_path, monkeypatch):
+    """VPROXY_TPU_MATCHER=jax-dense boots `python -m vproxy_tpu_torch`
+    on the CPU on its dense backend ("torch-dense"), and the command
+    script over its resp-controller answers what the reference answers
+    over its own on "jax-dense" (in process, the same ports one after
+    the other): equal but for the masked tokens."""
+    import select
+    ports = {"lb": free_port(), "s5": free_port(),
+             "dns": free_port(socket.SOCK_DGRAM), "http": free_port()}
+    lines = command_script(ports, free_port())
+    monkeypatch.setenv("VPROXY_TPU_MATCHER", "jax-dense")
+    ref_app = mod("vproxy_tpu", "control.app").Application.create(workers=2)
+    ctl = mod("vproxy_tpu", "control.resp").RESPController(
+        ref_app, "127.0.0.1", 0, password="pw")
+    ctl.start()
+    try:
+        ref = _resp_script(ctl.bind_port, lines)
+    finally:
+        ctl.stop()
+        ref_app.close()
+        mod("vproxy_tpu", "policing.engine").default().set_policies([])
+    monkeypatch.delenv("VPROXY_TPU_MATCHER")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "vproxy_tpu_torch", "noLoadLast", "noSave",
+         "noStdIOController", "resp-controller", "127.0.0.1:0", "pw"],
+        cwd=REPO, env=_port_env(tmp_path, VPROXY_TPU_TORCH_DEVICE="cpu",
+                                VPROXY_TPU_MATCHER="jax-dense"),
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        resp_port, buf = None, ""
+        deadline = time.time() + 60
+        while time.time() < deadline and resp_port is None:
+            r, _, _ = select.select([p.stdout], [], [], 0.5)
+            if not r:
+                continue
+            chunk = os.read(p.stdout.fileno(), 4096).decode()
+            if not chunk:
+                break
+            buf += chunk
+            for line in buf.split("\n")[:-1]:
+                if line.startswith("resp-controller on "):
+                    resp_port = int(line.rsplit(":", 1)[1])
+        assert resp_port, buf
+        got = _resp_script(resp_port, lines)
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(30) == 0
+    finally:
+        if p.poll() is None:
+            p.kill()
+    for line, a, b in zip(lines, ref, got):
+        assert mask(a) == mask(b), (line, a, b)
+    ups = lines.index("list-detail upstream")
+    assert "backend torch-dense rules" in got[ups][0]
+    assert "backend jax-dense rules" in ref[ups][0]
+    assert sum(isinstance(x, str) and x.startswith("ERR ") for x in got) >= 5
 
 
 def test_entry_boots_on_the_host_when_asked(tmp_path):

@@ -1,6 +1,7 @@
-"""Torch port on the card: the CIDR kernels, B3 and the fingerprint
-kernels (B6, B7) against their plain tiers, and the control plane's DNS
-server and Socks5 answered through B3 and B4.
+"""Torch port on the card: the CIDR kernels, B3, the fingerprint
+kernels (B6, B7), the dense kernels (B9) and the Maglev take (B5)
+against their plain tiers, and the control plane's DNS server and
+Socks5 answered through B3 and B4.
 
 Every test here is marked `cuda` and asks the `cuda` fixture for the
 card, which skips without one (the CPU tier-1 run skips them all). On a
@@ -240,6 +241,111 @@ def test_fp_kernel_bad_batch_is_kernel_error(cuda, entry):
         a16, fam, _ = CS.cidr_batch([(a, None) for a in addrs], 8, cuda)
         with pytest.raises(FC.KernelError):
             FPC.cidr_fp_cuda(t, a16, fam[:4])
+
+
+# --------------------------------- the dense kernels (B9) and B5
+
+def test_dense_hint_kernel_matches_plain_tier(cuda):
+    """B9 hint == matchers.hint_match_chunked, int32 in index and level,
+    on the dense parity sets (8 pad rows each): a cross-chunk tie, the
+    max-length host suffix and over-long host query, the boundary
+    sets."""
+    from vproxy_tpu_torch.ops import matchers as MT
+    from vproxy_tpu_torch.ops import tables as T
+    for name, rules, hints in CS.dense_hint_cases():
+        t = CS.dense_prepared(MT.table_arrays(T.compile_hint_rules(rules)),
+                              cuda, True)
+        q = CS.dense_hint_batch(hints, len(hints) + 8, cuda)
+        assert CS.b9_vs_plain(name, t, q, cuda) == 0, name
+
+
+def test_dense_cidr_kernel_matches_plain_tier(cuda):
+    """B9 cidr == matchers.cidr_first_match_chunked on the CPU parity
+    sets (routes, ACL with ports and without, mixed families, v4-mapped
+    v6), pad rows included."""
+    from vproxy_tpu_torch.ops import matchers as MT
+    from vproxy_tpu_torch.ops import tables as T
+    for name, nets, acl, q in CS.dense_cidr_cases():
+        t = CS.dense_prepared(MT.table_arrays(T.compile_cidr_rules(
+            nets, acl=acl)), cuda, False)
+        batch = CS.cidr_batch(q, len(q) + 8, cuda)
+        assert CS.b9_vs_plain(name, t, None, cuda, *batch) == 0, name
+
+
+def test_dense_matchers_serve_from_the_kernels(cuda):
+    """VPROXY_TPU_MATCHER=jax-dense matchers on the card answer through
+    B9 (one launch a batch) what the host index answers; a cpick is B9
+    plus one B5 launch; classify_dense is one hint and two cidr
+    launches, equal to classify_all."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import matchers as MT
+    from vproxy_tpu_torch.ops import take_cuda as TC
+    from vproxy_tpu_torch.rules import maglev as M
+    tabs = CS.dense_tables(cuda, n_rules=3000, n_routes=2000, n_acl=500)
+    hm, routes, am = tabs["hm"], tabs["routes"], tabs["am"]
+    hints = CS.mk_queries(tabs["rules"], 200)
+    n0 = (DC.hint_dense_cuda.launches, DC.cidr_dense_cuda.launches,
+          TC.maglev_take_cuda.launches)
+    assert list(hm.match(hints)) == [hm.index_snap(hm.snapshot(), h)
+                                     for h in hints]
+    addrs = [a for a, _ in CS.cidr_queries(tabs["nets"], 200, 3)]
+    assert list(routes.match(addrs)) == [
+        routes.index_snap(routes.snapshot(), a) for a in addrs]
+    ips = CS.mk_ips(200)
+    v, p, _, _ = M.classify_and_pick(hm, tabs["mm"], hints, ips)
+    assert list(v) == [hm.index_snap(hm.snapshot(), h) for h in hints]
+    assert list(p) == [M.pick(tabs["mm"].snapshot()[0], ip) for ip in ips]
+    assert (DC.hint_dense_cuda.launches - n0[0],
+            DC.cidr_dense_cuda.launches - n0[1],
+            TC.maglev_take_cuda.launches - n0[2]) == (2, 1, 1)
+    q = CS.dense_hint_batch(hints, 256, cuda)
+    aq = dict(zip(("addr", "family", "port"), CS.cidr_batch(
+        CS.acl_queries(tabs["acl"], 200, 4), 256, cuda)))
+    rq = {"addr": aq["addr"], "family": aq["family"]}
+    ht, rt, at = hm.snapshot()[1], routes.snapshot()[0], am.snapshot()[0]
+    got = MT.classify_dense(ht, rt, at, q, rq, aq)
+    for g, w in zip(got, MT.classify_all(ht, rt, at, q, rq, aq)):
+        assert torch.equal(g, w)
+    assert (DC.hint_dense_cuda.launches - n0[0],
+            DC.cidr_dense_cuda.launches - n0[1]) == (3, 3)
+
+
+@pytest.mark.parametrize("b", [16, 512, 4096])
+def test_maglev_take_kernel_matches_plain_and_pick(cuda, b):
+    """B5 == torch indexing and maglev.pick, slots past both ends
+    clipped."""
+    from vproxy_tpu_torch.rules import maglev as M
+    mm = M.MaglevMatcher(CS.backends(), m=CS.MAGLEV_M, device=cuda)
+    assert CS.b5_vs_plain(mm, b, cuda) == 0
+
+
+@pytest.mark.parametrize("entry", ["hint", "cidr", "take"])
+def test_dense_and_take_bad_batch_is_kernel_error(cuda, entry):
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import matchers as MT
+    from vproxy_tpu_torch.ops import tables as T
+    from vproxy_tpu_torch.ops import take_cuda as TC
+    if entry == "hint":
+        rules, hints = CS.dense_max_host_suffix()
+        t = CS.dense_prepared(MT.table_arrays(T.compile_hint_rules(rules)),
+                              cuda, True)
+        q = CS.dense_hint_batch(hints, 8, cuda)
+        q["port"] = q["port"][:4]
+        with pytest.raises(FC.KernelError):
+            DC.hint_dense_cuda(t, q)
+    elif entry == "cidr":
+        nets, addrs = CS.dense_v4_mapped()
+        t = CS.dense_prepared(MT.table_arrays(T.compile_cidr_rules(nets)),
+                              cuda, False)
+        a16, fam, _ = CS.cidr_batch([(a, None) for a in addrs], 16, cuda)
+        with pytest.raises(FC.KernelError):
+            DC.cidr_dense_cuda(t, a16, fam[:4])
+    else:
+        with pytest.raises(FC.KernelError):
+            TC.maglev_take_cuda(torch.zeros(0, dtype=torch.int32,
+                                            device=cuda),
+                                torch.zeros(4, dtype=torch.int64,
+                                            device=cuda))
 
 
 def test_dns_and_socks5_answered_by_b3_gated_by_b4(cuda, monkeypatch,

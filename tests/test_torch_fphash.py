@@ -867,13 +867,13 @@ def test_port_cidr_fp_trie_fallback_no_trie_cap():
 
 def test_default_backend_reads_the_reference_names(monkeypatch):
     for env, want in (("jax-fp", "torch-fp"), ("host", "host"),
-                      ("jax", "torch"), ("", "torch")):
+                      ("jax", "torch"), ("", "torch"),
+                      ("jax-dense", "torch-dense")):
         monkeypatch.setenv("VPROXY_TPU_MATCHER", env)
         assert E.default_backend() == want, env
     # the reference backends not ported yet are refused with their
     # ROADMAP item, never served by "torch"
-    for env, item in (("jax-dense", 9), ("jax-sharded", 8),
-                      ("jax-fp-sharded", 8)):
+    for env, item in (("jax-sharded", 8), ("jax-fp-sharded", 8)):
         monkeypatch.setenv("VPROXY_TPU_MATCHER", env)
         with pytest.raises(ValueError,
                            match=f"ROADMAP Queue A item {item}"):

@@ -7,9 +7,10 @@ host (VPROXY_TPU_TORCH_DEVICE=cpu: the matchers on the CPU;
 VPROXY_TPU_MATCHER=host: no device matcher at all). Not carried over
 yet: the jax.distributed bring-up (VPROXY_TPU_DIST_*), the cluster
 plane (VPROXY_TPU_CLUSTER_PEERS is refused, ROADMAP Queue A item 8),
-the matcher backends VPROXY_TPU_MATCHER=jax-dense (refused, item 9),
-jax-sharded and jax-fp-sharded (refused, item 8), and the deployable
-apps other than `simple` (refused, item 10).
+the matcher backends VPROXY_TPU_MATCHER=jax-sharded and jax-fp-sharded
+(refused, item 8), and the deployable apps other than `simple`
+(refused, item 10). VPROXY_TPU_MATCHER=jax-fp serves the port's
+"torch-fp" backend, jax-dense its "torch-dense" backend.
 
 Parity: app/Main.java: default controllers (resp on 16309, http on
 18776, both on 127.0.0.1 — Main.java:319-337), load-last-config at boot,

@@ -16,11 +16,18 @@ VPROXY_TPU_MATCHER):
             tier; on the card hint batches launch B6 and cidr batches B7
             (ops/fphash_cuda). It fuses nothing: classify+pick is B6
             plus the Maglev take, the reference's two-dispatch chain.
+* "torch-dense" — the dense bit-plane tables (ops/tables, the
+            reference's "jax-dense"): every query against every rule,
+            the brute-force cross-check. CPU tensors take the plain
+            torch tier (ops/matchers, the bit-plane product); on the
+            card hint and cidr batches launch B9 (ops/dense_cuda) over a
+            packed word layout published beside the reference's arrays.
+            It fuses nothing: classify+pick is B9 plus the Maglev take
+            (B5), the reference's two-dispatch chain.
 * "host"  — the pure-Python oracle (correctness floor + latency floor
             for tiny tables).
 
-The reference's dense and mesh-sharded backends are later slices of the
-port.
+The reference's mesh-sharded backends are a later slice of the port.
 
 Rule updates never stall serving: set_rules() hands the new rule list to
 a process-wide background installer (TableInstaller) that compiles and
@@ -38,6 +45,7 @@ import weakref
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..ops import hashmatch as H
 from ..ops import tables as T
@@ -50,15 +58,17 @@ from .ir import AclRule, Hint, HintRule
 _log = Logger("engine")
 
 
-BACKENDS = ("torch", "torch-fp", "host")
-DEVICE_BACKENDS = ("torch", "torch-fp")  # the ones with a serving device
+BACKENDS = ("torch", "torch-fp", "torch-dense", "host")
+# the ones with a serving device
+DEVICE_BACKENDS = ("torch", "torch-fp", "torch-dense")
 
 # VPROXY_TPU_MATCHER speaks the reference's names; this package serves
 # each under its own. The reference backends not ported yet are refused
 # with the ROADMAP Queue A item that ports them; any other value serves
 # "torch".
-_MATCHER_ENV = {"host": "host", "jax": "torch", "jax-fp": "torch-fp"}
-UNPORTED_BACKENDS = {"jax-dense": 9, "jax-sharded": 8, "jax-fp-sharded": 8}
+_MATCHER_ENV = {"host": "host", "jax": "torch", "jax-fp": "torch-fp",
+                "jax-dense": "torch-dense"}
+UNPORTED_BACKENDS = {"jax-sharded": 8, "jax-fp-sharded": 8}
 
 
 def _check_backend(backend: str) -> str:
@@ -71,9 +81,9 @@ def _check_backend(backend: str) -> str:
 def default_backend() -> str:
     """VPROXY_TPU_MATCHER, read as the reference reads it: "host"
     selects the oracle, "jax-fp" the fingerprint backend ("torch-fp"),
-    "jax-dense", "jax-sharded" and "jax-fp-sharded" raise ValueError
-    (not ported yet), every other value the cuckoo backend ("torch",
-    the counterpart of "jax")."""
+    "jax-dense" the dense backend ("torch-dense"), "jax-sharded" and
+    "jax-fp-sharded" raise ValueError (not ported yet), every other
+    value the cuckoo backend ("torch", the counterpart of "jax")."""
     env = os.environ.get("VPROXY_TPU_MATCHER", "")
     if env in UNPORTED_BACKENDS:
         raise ValueError(f"VPROXY_TPU_MATCHER={env}: not ported yet "
@@ -508,6 +518,20 @@ def _fused_slots(mtab, ips, ports, cap: int) -> np.ndarray:
     return slots
 
 
+def _dense_table(arrays: dict, device):
+    """A dense table's arrays on the serving device as the reference
+    publishes them (its engine._to_device): the 2-D float32 bit-plane
+    weights in bfloat16 (exact: every weight is -1, 0 or 1), so the
+    published bytes are the reference's; the rest as they are."""
+    from ..ops.dense_cuda import DenseTable
+    dev = default_device(device)
+    return DenseTable({
+        k: (torch.from_numpy(v).to(torch.bfloat16)
+            if v.dtype == np.float32 and v.ndim == 2
+            else torch.from_numpy(np.ascontiguousarray(v))).to(dev)
+        for k, v in arrays.items()})
+
+
 class HintMatcher:
     """Device-backed (or host) Upstream/DNS hint matcher."""
 
@@ -614,6 +638,21 @@ class HintMatcher:
                 # failure stops the publish (KernelError)
                 from ..ops import fphash_cuda as FPC
                 self._dev = FPC.prepare_hint_table(self._dev)
+        elif self.backend == "torch-dense":
+            # the cap is reused while the rules fit, as the reference's
+            cap = self._dev["active"].shape[0] if self._dev is not None \
+                else None
+            if cap is not None and len(self._rules) > cap:
+                cap = None  # outgrew capacity: the compiler picks a bucket
+            from ..ops import dense_cuda as DC
+            from ..ops.matchers import table_arrays
+            arrays = table_arrays(T.compile_hint_rules(self._rules, cap=cap))
+            self._dev = _dense_table(arrays, self.device)
+            if self.device.type != "cpu":
+                # the packed layout B9 reads, checked once per publish,
+                # and B9 built: a build failure stops the publish
+                self._dev.packed = DC.prepare_hint(tables_from_reference(
+                    DC.pack_dense_hint_table(arrays), self.device))
         idx = None
         # small tables answer lone queries with the linear oracle, so
         # the index build only pays for itself past SMALL_TABLE
@@ -705,7 +744,8 @@ class HintMatcher:
         hint_match: B1's hint fold without the Maglev take) over the
         snapshot's packed table, or KernelError; CPU tensors take the
         torch tier (hashmatch.hint_hash_match). A "torch-fp" matcher
-        launches B6 instead (_dispatch_fp)."""
+        launches B6 instead (_dispatch_fp), a "torch-dense" one B9
+        (_dispatch_dense)."""
         note_serving()
         tab, dev, rules = snap[0], snap[1], snap[2]
         if not rules or not hints:
@@ -716,6 +756,8 @@ class HintMatcher:
         note_launch(kind="hint")
         if self.backend == "torch-fp":
             return self._dispatch_fp(tab, dev, hints, pad_to)
+        if self.backend == "torch-dense":
+            return self._dispatch_dense(dev, hints, pad_to)
         q = self._upload(lambda: _fused_hint_q(tab, hints, pad_to))
         if self.device.type == "cpu":
             idx, _ = H.hint_hash_match(dev, q)
@@ -743,6 +785,16 @@ class HintMatcher:
             return FP.hint_fp_match(dev, q, mode)[0]
         from ..ops import fphash_cuda as FPC
         return FPC.hint_fp_cuda(dev, q)[0]
+
+    def _dispatch_dense(self, dev, hints, pad_to: Optional[int]):
+        """A "torch-dense" batch: pad rows as empty Hint()s, the
+        reference's encode, then B9 on the card, the plain tier on the
+        CPU (matchers.hint_dense)."""
+        from ..ops import matchers as MT
+        if pad_to and pad_to > len(hints):
+            hints = list(hints) + [Hint()] * (pad_to - len(hints))
+        q = self._upload(lambda: T.encode_hints(hints))
+        return MT.hint_dense(dev, q)[0]
 
     def _upload(self, encode) -> dict:
         """encode() -> the batch's tensors on the serving device. On the
@@ -854,6 +906,20 @@ class CidrMatcher:
                 # checked once per publish, and B7 built (KernelError)
                 from ..ops import fphash_cuda as FPC
                 self._dev = FPC.prepare_cidr_table(self._dev)
+        elif self.backend == "torch-dense":
+            cap = self._dev["allow"].shape[0] if self._dev is not None \
+                else None
+            if cap is not None and len(self._nets) > cap:
+                cap = None
+            from ..ops import dense_cuda as DC
+            from ..ops.matchers import table_arrays
+            arrays = table_arrays(T.compile_cidr_rules(self._nets, cap=cap,
+                                                       acl=self._acl))
+            self._dev = _dense_table(arrays, self.device)
+            if self.device.type != "cpu":
+                # checked once per publish, and B9 built (KernelError)
+                self._dev.packed = DC.prepare_cidr(tables_from_reference(
+                    DC.pack_dense_cidr_table(arrays), self.device))
         idx = None
         if len(self._nets) > SMALL_TABLE:  # see HintMatcher._recompile
             from .index import CidrIndex
@@ -960,9 +1026,11 @@ class CidrMatcher:
         """Encode + submit one batch against the snapshotted table
         generation: an int32 [cap] tensor (to_host() it to block). On
         the card, ONE launch of the CIDR kernel (ops/cidr_cuda.py) over
-        the packed table, or of B7 (ops/fphash_cuda.py) on a "torch-fp"
-        matcher; CPU tensors take the torch tiers
-        (hashmatch.cidr_hash_match, fphash.cidr_fp_match). pad_to: pad the encoded arrays to
+        the packed table, of B7 (ops/fphash_cuda.py) on a "torch-fp"
+        matcher, or of B9 (ops/dense_cuda.py) on a "torch-dense" one;
+        CPU tensors take the torch tiers (hashmatch.cidr_hash_match,
+        fphash.cidr_fp_match, matchers.cidr_first_match_chunked).
+        pad_to: pad the encoded arrays to
         this batch bucket (family -1 marks pad rows — matches no
         group)."""
         note_serving()
@@ -986,6 +1054,9 @@ class CidrMatcher:
         if self.backend == "torch-fp":
             from ..ops import fphash_cuda as FPC
             return FPC.cidr_fp(dev, q["a16"], q["fam"], q.get("port"))
+        if self.backend == "torch-dense":
+            from ..ops import matchers as MT
+            return MT.cidr_dense(dev, q["a16"], q["fam"], q.get("port"))
         if self.device.type == "cpu":
             return H.cidr_hash_match(dev, q["a16"], q["fam"], q.get("port"))
         from ..ops import cidr_cuda as CC

@@ -228,10 +228,14 @@ def _remap_gauge():
 
 def _device_take(dev_table, slots: np.ndarray):
     """Device gather of the pick column at host-computed slots, clamped
-    like jnp.take(mode="clip"). `calls` counts the calls."""
+    like jnp.take(mode="clip"): the slots' copy to the table's device,
+    then B5 (ops/take_cuda.py, csrc/maglev_take.cu) on the card, torch
+    indexing (its plain version) on the CPU. `calls` counts the
+    calls."""
+    from ..ops import take_cuda as TC
     _device_take.calls += 1
     s = torch.from_numpy(np.asarray(slots, np.int64)).to(dev_table.device)
-    return dev_table[s.clamp(0, dev_table.shape[0] - 1)]
+    return TC.take(dev_table, s)
 
 
 _device_take.calls = 0
@@ -302,6 +306,10 @@ class MaglevMatcher:
             names = [name for name, _ in self._entries] or None
             self.last_remap = remap_fraction(prev, tab, prev_names, names)
         dev = tables_from_reference({"table": tab}, self.device)
+        if self.device.type != "cpu":
+            # B5 built: a build failure stops the publish (KernelError)
+            from ..ops import take_cuda as TC
+            TC._lib()
         sync(self.device)  # the upload lands before the publish swap
         time.sleep(0)  # preemption point between compile and publish
         self._pub = (tab, dev["table"], list(self._entries), self._payload)

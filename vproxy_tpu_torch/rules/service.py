@@ -17,7 +17,9 @@ hundreds under load with no timer). Kinds:
             share a device batch with port-carrying ones;
 * "cpick" — submit_classify_pick: verdict AND Maglev pick from a
             maglev.FusedPair, ONE fused launch per batch (the hand CUDA
-            kernel on the GPU, ops/fused_cuda.py).
+            kernel on the GPU, ops/fused_cuda.py); the unfused backends
+            ("torch-fp", "torch-dense") launch their hint kernel (B6,
+            B9) and the Maglev take (B5, ops/take_cuda.py).
 
 Dispatch-path policy (mode = VPROXY_TPU_CLASSIFY, default "auto"):
 
@@ -57,7 +59,8 @@ producing a result. The card cannot serve then, and the host does not
 quietly take over: the service logs it, answers the batches it holds
 with -1 ("no match") so callers proceed, closes, and every later submit
 raises the error (`ClassifyService.error`). That holds for every kind:
-the fused kernel (cpick), B3 (hint) and the CIDR kernel (cidr) alike.
+the fused kernel (cpick), B3 (hint) and the CIDR kernel (cidr) alike,
+and the kernels of the unfused backends (B5-B7, B9).
 On the card every fault of a device dispatch is a KernelError
 (`_card_error`): the failover above is for the CPU tiers only. Device
 results reach the host only through utils/torchenv.to_host (a CUDA
