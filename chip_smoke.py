@@ -5554,38 +5554,41 @@ def phase_dense_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
     return out
 
 
-def _meta_fields(meta):
-    """The packed hint meta's flags and live word counts (int64)."""
-    x = meta[:, 0].long()
-    return x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, (x >> 24) & 0xFF
+def _port_gated(w, rport, qport):
+    """int64 [n] per rule, int32 [n] rule ports, int32 [B] query ports
+    -> int64 [B]: per query, the sum of w over the rules its port gate
+    admits (query port 0, rule port 0, or the two equal)."""
+    if w.numel() == 0:
+        return torch.zeros(qport.shape[0], dtype=torch.int64,
+                           device=qport.device)
+    ports, inv = torch.unique(rport.long(), return_inverse=True)
+    per = torch.zeros(ports.numel(), dtype=torch.int64,
+                      device=w.device).index_add_(0, inv, w)
+    qp = qport.long()
+    pos = torch.searchsorted(ports, qp).clamp(max=ports.numel() - 1)
+    own = torch.where((ports[pos] == qp) & (qp != 0), per[pos], 0)
+    return torch.where(qp == 0, w.sum(), per[ports == 0].sum() + own)
 
 
 def dense_hint_work(t, q):
     """(bytes, int ops) one B9 hint launch needs for this batch: the
     query arrays read once and two int32 written per query; per active
-    rule its meta row (16 B), its live host words (16 B each: exact and
-    suffix mask and value) when it has a host pattern and its live uri
-    words (8 B each) when it has a uri pattern, read once. Ops: every
-    query compares every such word, 2 int ops a word and pattern (the
-    (q ^ v) & m and the OR into the pattern's mismatch). On the CPU
-    (no packed layout) the counts come from the same pack."""
+    rule its meta row (16 B) and, of each pattern it holds, the mask and
+    value (8 B) of every word with a mask bit (dense_cuda
+    .hint_pattern_words), read once. Ops: a query with a host compares
+    the host words, one with a uri the uri words, of every active rule
+    its port gate admits, 2 int ops a word (the (q ^ v) & m and the OR
+    into the pattern's mismatch); a pad row compares nothing."""
     from vproxy_tpu_torch.ops import dense_cuda as DC
-    p = t.packed
-    if p is None:
-        p = {k: torch.from_numpy(v) for k, v in DC.pack_dense_hint_table(
-            {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
-             for k, v in t.items()}).items()}
+    w = DC.hint_pattern_words(DC.packed_of(t, hint=True))
     b = q["host"].shape[0]
     nbytes = sum(v.numel() * v.element_size() for v in q.values()) + b * 8
-    flags, ne, ns, nu = _meta_fields(p["meta"])
-    active = (flags & DC.F_ACTIVE) != 0
-    host = active & ((flags & (DC.F_EXACT | DC.F_SUFFIX)) != 0)
-    uri = active & ((flags & DC.F_URI) != 0)
-    hw = torch.where(host, torch.maximum(ne, ns), 0)
-    uw = torch.where(uri, nu + (nu & 1), 0)  # compared two words at a time
-    nbytes += int(active.sum()) * 16 + int(hw.sum()) * 16 + \
-        int(uw.sum()) * 8
-    return nbytes, b * (int(hw.sum()) * 2 * 2 + int(uw.sum()) * 2)
+    nbytes += int(w["active"].sum()) * 16 + \
+        int((w["host"] + w["uri"]).sum()) * 8
+    ops = sum(int((_port_gated(w[k], w["port"], q["port"]) *
+                   q[has].long()).sum()) * 2
+              for k, has in (("host", "has_host"), ("uri", "has_uri")))
+    return nbytes, ops
 
 
 def dense_cidr_work(t, a16, fam, port):
@@ -5593,42 +5596,36 @@ def dense_cidr_work(t, a16, fam, port):
     query's address, family (and port) read once and its answer written
     once; per query, the rules up to its first match (all live rules
     without one) whose port gate holds, and of each the valid slots of
-    its family: 8 ops a slot (4 masked word compares and the ORs); the
-    rows up to the last rule any query reaches, read once (16 B of meta,
-    32 B a valid slot). Pad rows (family -1) need nothing."""
+    the query's family: 2 ops a mask word with a bit (dense_cuda
+    .cidr_slot_words: one for an IPv4 slot, up to four for a v6 one);
+    per family, the rows up to the last rule a query of it reaches, read
+    once (16 B of meta, 8 B a compared word). Pad rows (family -1) need
+    nothing."""
     from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import matchers as MT
-    p = t.packed
-    if p is None:
-        p = {k: torch.from_numpy(v) for k, v in DC.pack_dense_cidr_table(
-            {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
-             for k, v in t.items()}).items()}
-    b, n = a16.shape[0], p["meta"].shape[0]
+    w = DC.cidr_slot_words(DC.packed_of(t, hint=False))
+    b, n = a16.shape[0], w["words"].shape[0]
     nbytes = b * (16 + 4 + 4) + (b * 4 if port is not None else 0)
     first = MT.cidr_first_match_chunked(t, a16, fam, port)
-    x = p["meta"][:, 0].long()
-    live = fam >= 0
-    stop = torch.where(first >= 0, first.long() + 1, n)[live]
-    slots = torch.zeros(b, dtype=torch.int64, device=a16.device)
+    stop = torch.where(first >= 0, first.long() + 1, n)
+    ops = rows = words = 0
     for f in (0, 1):
-        cnt = sum((((x >> s) & 1) == 1) & (((x >> (3 + s)) & 1) == f)
-                  for s in range(3)).long()        # [n] slots of family f
-        sel = live & (fam == f)
-        if not bool(sel.any()) or n == 0:
+        sel = fam == f
+        if n == 0 or not bool(sel.any()):
             continue
-        st = torch.where(first >= 0, first.long() + 1, n)[sel]
+        cnt = torch.where(w["v6"] == bool(f), w["words"], 0).sum(1)  # [n]
+        st = stop[sel]
         if port is None:
-            csum = torch.cat([cnt.new_zeros(1), cnt.cumsum(0)])
-            slots[sel] = csum[st]
+            ops += int(torch.cat([cnt.new_zeros(1), cnt.cumsum(0)])[st]
+                       .sum()) * 2
         else:
             qp = port[sel].long()[:, None]
-            ok = (p["meta"][:, 1][None] <= qp) & (qp <= p["meta"][:, 2][None])
+            ok = (w["min_port"][None] <= qp) & (qp <= w["max_port"][None])
             ok &= torch.arange(n, device=ok.device)[None] < st[:, None]
-            slots[sel] = (ok.long() * cnt[None]).sum(1)
-    reach = int(stop.max()) if stop.numel() else 0
-    valid = sum(((x[:reach] >> s) & 1) for s in range(3))
-    nbytes += reach * 16 + int(valid.sum()) * 32
-    return nbytes, int(slots.sum()) * 8
+            ops += int((ok.long() * cnt[None]).sum()) * 2
+        reach = int(st.max())
+        rows, words = max(rows, reach), words + int(cnt[:reach].sum())
+    return nbytes + rows * 16 + words * 8, ops
 
 
 def dense_library_ms(t, q=None, a16=None) -> float:
@@ -5639,7 +5636,6 @@ def dense_library_ms(t, q=None, a16=None) -> float:
     batch, [B, 128] x [128, 3 cap] for a cidr one, into preallocated
     outputs; no bias, compare, level or reduction. Device ms per call."""
     from vproxy_tpu_torch.ops.bitmatch import unpack_bits
-    torch.backends.cuda.matmul.allow_tf32 = True
     if q is not None:
         pairs = [(unpack_bits(q["host"]), t["host_w"].float()),
                  (unpack_bits(q["uri"]), t["uri_w"].float())]
@@ -5649,8 +5645,13 @@ def dense_library_ms(t, q=None, a16=None) -> float:
                         device=a.device) for a, w in pairs]
 
     def gemm():
-        for (a, w), o in zip(pairs, outs):
-            torch.matmul(a, w, out=o)
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            for (a, w), o in zip(pairs, outs):
+                torch.matmul(a, w, out=o)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
     # two runs that saw device time (the profiler drops its records now
     # and then, and cuBLAS's kernel count per call is not ours to check)
     ms = []
@@ -5670,11 +5671,12 @@ def phase_dense_times(device, tabs):
     launches summed) at every TIME_BATCHES, with time_row at fewer
     iterations (the kernel takes milliseconds, its plain tier tens to
     hundreds): warm and cold device time, the plain tier's, the wall
-    time per call and the bound (dense_work: the larger of the live
-    packed words' bytes over the HBM rate and the compared words' int
-    ops over INT_OPS_PER_S); beside each row the count step's GEMM alone
-    (dense_library_ms) and the launch grid. -> {"B9 hint": rows, "B9
-    routes": rows, "B9 ACL": rows, "classify_all": rows}."""
+    time per call and the bound (dense_hint_work / dense_cidr_work: the
+    larger of the needed packed words' bytes over the HBM rate and the
+    compared words' int ops over INT_OPS_PER_S); beside each row the
+    count step's GEMM alone (dense_library_ms) and the launch grid.
+    -> {"B9 hint": rows, "B9 routes": rows, "B9 ACL": rows,
+    "classify_all": rows}."""
     from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import matchers as MT
     saved = (DC.hint_dense_cuda.launches, DC.cidr_dense_cuda.launches)

@@ -686,11 +686,22 @@ def test_packed_hint_layout_answers_like_reference(case):
     got = packed_hint_torch(p, q)
     assert np.array_equal(got[0], np.asarray(want[0]))
     assert np.array_equal(got[1], np.asarray(want[1]))
+    w = DC.hint_pattern_words(tt(p))
     if case == "long":  # the counts cut every pattern to its live words
         ne = (p["meta"][:, 0] >> 8) & 0xFF
         ns = (p["meta"][:, 0] >> 16) & 0xFF
         assert ne[0] == 1 + -(-50 // 4) and ns[0] == 2 + 50 // 4
         assert ne[-1] == 17 and ns[-1] == 17
+        # the words a query compares: the suffix's length-byte word has
+        # no mask bit unless the host reaches byte 64
+        assert w["host"][0] == ne[0] + ns[0] - 1
+        assert w["host"][-1] == 34 and int(w["uri"].sum()) == 0
+    if case == "uri_only":  # "/" + i a's: ceil((i + 1) / 4) words
+        assert w["uri"].tolist() == [-(-(i + 1) // 4)
+                                     for i in range(1, 120, 7)]
+        assert int(w["host"].sum()) == 0
+    if case == "empty":
+        assert w["host"].numel() == 0 and w["uri"].numel() == 0
 
 
 @pytest.mark.parametrize("gate", ["routes", "ports", "none"])
@@ -722,6 +733,13 @@ def test_packed_cidr_layout_empty_and_trailing_pad():
     t = T.compile_cidr_rules(nets)
     p = DC.pack_dense_cidr_table(MT.table_arrays(t))
     assert p["meta"].shape == (1, 4) and p["meta"][0, 0] == 0b110111
+    w = DC.cidr_slot_words(tt(p))
+    assert w["v6"].tolist() == [[False, True, True]]
+    assert w["words"].tolist() == [[1, 4, 4]]  # 10/8; the two /104s
+    six = DC.cidr_slot_words(tt(DC.pack_dense_cidr_table(MT.table_arrays(
+        T.compile_cidr_rules([IP.Network.parse("2001:db8::/48"),
+                              IP.Network.parse("::/0")])))))
+    assert six["words"].tolist() == [[2, 0, 0], [0, 0, 0]]
     p0 = DC.pack_dense_cidr_table(MT.table_arrays(T.compile_cidr_rules([])))
     assert p0["rows"].shape == (0, 6, 4)
 
@@ -990,12 +1008,18 @@ def test_dense_entries_raise_on_non_cpu_tensor(monkeypatch):
                                              device="meta"))):
         with pytest.raises(FC.KernelError):
             call()
-    # a table with its packed layout, and still no library: KernelError
-    ht.packed = {k: torch.from_numpy(v).to("meta") for k, v in
-                 DC.pack_dense_hint_table(
-                     {k: v.cpu().numpy() for k, v in
-                      tt(MT.table_arrays(T.compile_hint_rules(
-                          mk_rules(30)))).items()}).items()}
+    # a packed layout not prepared (prepare_hint) is refused, and a
+    # prepared one with still no library: KernelError
+    layout = {k: torch.from_numpy(v).to("meta") for k, v in
+              DC.pack_dense_hint_table(
+                  {k: v.cpu().numpy() for k, v in
+                   tt(MT.table_arrays(T.compile_hint_rules(
+                       mk_rules(30)))).items()}).items()}
+    ht.packed = layout
+    with pytest.raises(FC.KernelError, match="no prepared packed layout"):
+        MT.hint_dense(ht, q)
+    ht.packed = DC.PreparedDense(layout)
+    ht.packed.device, ht.packed.n = torch.device("meta"), 30
     with pytest.raises(FC.KernelError, match="nvcc"):
         MT.hint_dense(ht, q)
     assert not called
@@ -1100,6 +1124,77 @@ def test_dense_kernel_abi_mirror_matches_source(kind):
 
 
 # ------------------------------------------------- chip_smoke.py, small
+
+def test_dense_work_counts_each_needed_word_once():
+    """chip_smoke.py's B9 bound counts, against a loop over every query
+    and rule: a query compares its host (uri) against the host (uri)
+    words with a mask bit of every active rule its port gate admits; a
+    cidr query the words with a mask bit of its family's valid slots of
+    each rule up to its first match whose port range holds."""
+    dev = torch.device("cpu")
+    rules = mk_rules(120, seed=3) + [IR.HintRule(host="x.io", port=80)]
+    arrays = MT.table_arrays(T.compile_hint_rules(rules))
+    t = E._dense_table(arrays, dev)
+    hints = mk_queries(rules, 40, seed=4)
+    hints = [IR.Hint(host=h.host, uri=h.uri, port=(0, 443, 80, 8)[i % 4])
+             for i, h in enumerate(hints)]
+    q = CS.dense_hint_batch(hints, 48, dev)
+    p = DC.pack_dense_hint_table(arrays)
+    flags = p["meta"][:, 0] & 0xFF
+    nz = lambda m: (m != 0).sum(-1)  # noqa: E731
+    hw = np.where(flags & DC.F_EXACT, nz(p["hrows"][..., 0]), 0) + \
+        np.where(flags & DC.F_SUFFIX, nz(p["hrows"][..., 2]), 0)
+    uw = np.where(flags & DC.F_URI, nz(p["urows"][..., 0]) +
+                  nz(p["urows"][..., 2]), 0)
+    ops = 0
+    for i in range(48):
+        qp = int(q["port"][i])
+        for r in range(p["meta"].shape[0]):
+            rp = int(p["meta"][r, 2])
+            if flags[r] & DC.F_ACTIVE and (qp == 0 or rp == 0 or qp == rp):
+                ops += 2 * (int(q["has_host"][i]) * int(hw[r]) +
+                            int(q["has_uri"][i]) * int(uw[r]))
+    qbytes = sum(v.numel() * v.element_size() for v in q.values())
+    assert CS.dense_hint_work(t, q) == (
+        qbytes + 48 * 8 + 16 * int((flags & DC.F_ACTIVE != 0).sum()) +
+        8 * int((hw + uw)[(flags & DC.F_ACTIVE) != 0].sum()), ops)
+    assert ops > 0
+
+    acl = acl_rules(90, 6)
+    arrays = MT.table_arrays(T.compile_cidr_rules([r.network for r in acl],
+                                                  acl=acl))
+    t = E._dense_table(arrays, dev)
+    c = DC.pack_dense_cidr_table(arrays)
+    for ports in (True, False):
+        qs = CS.acl_queries(acl, 56, 8)
+        if not ports:
+            qs = [(a, None) for a, _ in qs]
+        a16, fam, port = CS.cidr_batch(qs, 64, dev)
+        first = MT.cidr_first_match_chunked(t, a16, fam, port)
+        ops, reach = 0, {0: 0, 1: 0}
+        for i in range(64):
+            f = int(fam[i])
+            if f < 0:
+                continue
+            stop = int(first[i]) + 1 if first[i] >= 0 else len(c["meta"])
+            reach[f] = max(reach[f], stop)
+            for r in range(stop):
+                mt = c["meta"][r]
+                if port is not None and not (
+                        mt[1] <= int(port[i]) <= mt[2]):
+                    continue
+                for s in range(3):
+                    if (mt[0] >> s) & 1 and (mt[0] >> (3 + s)) & 1 == f:
+                        ops += 2 * int(nz(c["rows"][r, 2 * s]))
+        words = sum(int(nz(c["rows"][r, 2 * s]))
+                    for f in (0, 1) for r in range(reach[f])
+                    for s in range(3) if (c["meta"][r, 0] >> s) & 1 and
+                    (c["meta"][r, 0] >> (3 + s)) & 1 == f)
+        nbytes = 64 * 24 + (64 * 4 if ports else 0) + \
+            16 * max(reach.values()) + 8 * words
+        assert CS.dense_cidr_work(t, a16, fam, port) == (nbytes, ops)
+        assert ops > 0
+
 
 def test_chip_smoke_dense_phases_on_cpu():
     """chip_smoke.py's dense phases at a small size on the CPU: the

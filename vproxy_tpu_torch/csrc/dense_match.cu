@@ -38,9 +38,12 @@
 // chip_smoke.py's INT_OPS_PER_S, when every word is compared. The
 // packed table (528 B a hint rule: ~56 MB at cap 106,496; 96 B a CIDR
 // rule) takes ~17 us from HBM. chip_smoke.py `dense_hint_work()` /
-// `dense_cidr_work()` count the words this batch's data needs (the live
-// words of each rule; for cidr, the rules up to each query's first
-// match) and the bound is the larger of the two times.
+// `dense_cidr_work()` count the words this batch's data needs (of each
+// pattern, the words with a mask bit, ops/dense_cuda.py
+// `hint_pattern_words` / `cidr_slot_words`; a query's host words only
+// when it has a host, its uri words only when it has a uri, only the
+// rules its port gate admits; for cidr, the rules up to each query's
+// first match) and the bound is the larger of the two times.
 //
 // Design (simple first):
 // * a thread per query, its query words in registers (17 host words,

@@ -55,6 +55,12 @@ def mismatch_counts(q_bits: torch.Tensor, w: torch.Tensor,
     TF32 is allowed on purpose: the operands are in {-1, 0, 1} and
     {0, 1}, exact in TF32's 10-bit mantissa, every product is exact,
     and the tensor cores accumulate in float32, where every partial sum
-    (an integer of magnitude <= 1,024) is exact too."""
+    (an integer of magnitude <= 1,024) is exact too. The flag is the
+    process's, so it is set for this product only and restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
-    return torch.matmul(q_bits.to(torch.float32), w.to(torch.float32)) + c
+    try:
+        return torch.matmul(q_bits.to(torch.float32),
+                            w.to(torch.float32)) + c
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -18,7 +18,11 @@ it with ctypes and launches it on PyTorch's current stream.
   reference's arrays (the plain tier's, and what published_table_bytes
   counts) with the kernel's layout beside them as `packed`.
 * `prepare_hint` / `prepare_cidr` check a packed layout once and build
-  + load the library, so a build failure stops a publish.
+  + load the library, so a build failure stops a publish; the wrappers
+  take only a layout prepared so.
+* `hint_pattern_words` / `cidr_slot_words` read back from a layout the
+  words with a mask bit of each pattern: the words a query must compare
+  (chip_smoke.py's bound counts them).
 * `hint_dense_cuda` and `cidr_dense_cuda` are the kernel wrappers
   (ops/matchers.py `hint_dense` / `cidr_dense` / `classify_dense` are
   the entries); each counts the launches it made in `launches`.
@@ -146,6 +150,57 @@ def pack_dense_cidr_table(arrays: dict) -> dict:
         np.stack([m, v], axis=2).reshape(n, 6, 4)), "meta": meta}
 
 
+def packed_of(table: dict, hint: bool) -> dict:
+    """A published DenseTable's packed layout: its `packed` on the card;
+    on the CPU (none published) packed here from its arrays, as
+    tensors."""
+    if table.packed is not None:
+        return table.packed
+    pack = pack_dense_hint_table if hint else pack_dense_cidr_table
+    return {k: torch.from_numpy(v) for k, v in pack(
+        {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+         for k, v in table.items()}).items()}
+
+
+def _mask_words(m: torch.Tensor) -> torch.Tensor:
+    """int32 mask words [..., W] -> int64 [...]: the words with a bit."""
+    return (m != 0).sum(-1)
+
+
+def hint_pattern_words(p: dict) -> dict:
+    """A packed hint layout (tensors) -> per rule row, int64 [n]:
+    `host`, the words with a mask bit of its exact and of its suffix
+    pattern, summed; `uri`, those of its uri prefix; 0 for a pattern the
+    rule does not hold and for an inactive rule. Beside them `active`
+    (bool [n]) and `port` (int32 [n]). A word without a mask bit (the
+    suffix's length-byte word, a pattern's tail) needs no compare."""
+    flags = p["meta"][:, 0].long() & 0xFF
+    active = (flags & F_ACTIVE) != 0
+
+    def held(bit, words):
+        return torch.where(active & ((flags & bit) != 0), words, 0)
+    hr, ur = p["hrows"], p["urows"]
+    return {"active": active, "port": p["meta"][:, 2],
+            "host": held(F_EXACT, _mask_words(hr[..., 0])) +
+            held(F_SUFFIX, _mask_words(hr[..., 2])),
+            "uri": held(F_URI, _mask_words(ur[..., 0]) +
+                        _mask_words(ur[..., 2]))}
+
+
+def cidr_slot_words(p: dict) -> dict:
+    """A packed cidr layout (tensors) -> `words`, int64 [n, 3]: per rule
+    row and pattern slot, the mask words with a bit (an IPv4 slot masks
+    one word, a v6 /48 two), 0 for an invalid slot; `v6`, bool [n, 3],
+    the slot's family; `min_port` / `max_port`, int32 [n]."""
+    x = p["meta"][:, 0].long()
+    s = torch.arange(3, device=x.device)
+    valid = ((x[:, None] >> s) & 1) == 1
+    words = _mask_words(p["rows"].reshape(-1, 3, 2, 4)[:, :, 0])
+    return {"words": torch.where(valid, words, 0),
+            "v6": ((x[:, None] >> (3 + s)) & 1) == 1,
+            "min_port": p["meta"][:, 1], "max_port": p["meta"][:, 2]}
+
+
 class _DenseHintArgs(ctypes.Structure):
     """Mirror of `struct DenseHintArgs` (pointers, then ints)."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
@@ -248,12 +303,12 @@ def grid(b: int, n: int) -> tuple:
     return threads, tiles, max(1, -(-n // splits))
 
 
-def _packed(table: dict, prepare, what: str) -> PreparedDense:
+def _packed(table: dict, what: str) -> PreparedDense:
     p = getattr(table, "packed", None)
-    if p is None:
-        raise ValueError(f"{what}: the table has no packed layout (a "
-                         f"DenseTable published on the card)")
-    return prepare(p)
+    if not isinstance(p, PreparedDense):
+        raise ValueError(f"{what}: the table has no prepared packed "
+                         f"layout (a DenseTable published on the card)")
+    return p
 
 
 def _launch(kind: str, a, dev: torch.device) -> None:
@@ -271,9 +326,10 @@ def hint_dense_cuda(table: dict, q: dict):
     matchers.hint_match_chunked on encode_hints' arrays (host uint8
     [B, 66], uri uint8 [B, 128], has_host / has_uri bool [B], port int32
     [B]), CUDA tensors only. -> (idx, level), int32 [B] views of one
-    [B, 2] output. `table` is a DenseTable with its packed layout.
+    [B, 2] output. `table` is a DenseTable with its packed layout
+    (prepare_hint's).
     Raises KernelError unless it launched (card_entry)."""
-    p = _packed(table, prepare_hint, "dense hint kernel")
+    p = _packed(table, "dense hint kernel")
     dev = p.device
     b = q["host"].shape[0]
     for k, dtype, shape in (("host", torch.uint8, (b, HOST_SLOT)),
@@ -311,8 +367,9 @@ def cidr_dense_cuda(table: dict, a16, fam, port=None):
     matchers.cidr_first_match_chunked (a16 uint8 [B, 16], fam int32
     [B], port int32 [B] or None for no port gate), CUDA tensors only.
     -> int32 [B], -1 for none. `table` is a DenseTable with its packed
-    layout. Raises KernelError unless it launched (card_entry)."""
-    p = _packed(table, prepare_cidr, "dense cidr kernel")
+    layout (prepare_cidr's). Raises KernelError unless it launched
+    (card_entry)."""
+    p = _packed(table, "dense cidr kernel")
     dev, b = p.device, a16.shape[0]
     FC._check("a16", a16, dev, torch.uint8)
     FC._check("fam", fam, dev, torch.int32)
