@@ -19,14 +19,19 @@ unfused backends take the Maglev column with B5), boots the port
 as an operator runs it (`python -m vproxy_tpu_torch`, one config built
 by command, DNS-as-LB, Socks5 and the TcpLB served from it), replays
 config #4's traffic through the port's virtual switch (routes and ACL
-on B4, then on B7), times the kernels, and prints one JSON line per
+on B4, then on B7), runs the sharded backends ("torch-sharded",
+"torch-fp-sharded": B8 over 4 rule shards stacked on the card, and
+over 1) and the cluster plane (two `python -m vproxy_tpu_torch` nodes
+stepping on the card), times the kernels, and prints one JSON line per
 result. Phases, in order:
 
 1. environment: a CUDA device, or exit 1; the card's name and power
    limit as nvidia-smi reports them;
 2. build: nvcc of csrc/fused_classify_pick.cu, csrc/cidr_first.cu,
-   csrc/fp_hint.cu, csrc/fp_cidr.cu, csrc/dense_match.cu and
-   csrc/maglev_take.cu, and g++ of the port's
+   csrc/fp_hint.cu, csrc/fp_cidr.cu, csrc/dense_match.cu,
+   csrc/maglev_take.cu and csrc/sharded_match.cu (B8: 8 cuckoo
+   instances, uri or uri-free by compare word, the fingerprint one and
+   the cross-rank finish pass), and g++ of the port's
    native/vtl.cpp (the host FD layer; it must
    load as the native provider, from vproxy_tpu_torch/_build/), all
    started together, with their seconds, and per kernel instance (B1:
@@ -168,7 +173,7 @@ result. Phases, in order:
    built by command only (RESP, the frontends over HTTP): an Upstream
    of phase 5b's Host rules, one server group each on a loopback
    address of its own at id-server i mod 256, until 10,000 groups or
-   60 s (never under 256), one security group with config #4's ACL as
+   30 s (never under 256), one security group with config #4's ACL as
    TCP rules and as UDP rules (each until 5,000 or 30 s, never under
    256), a dns-server, a socks5-server and an http-splice tcp-lb on
    them; 4 x 4,096 DNS queries (512 in flight), 2 x 512 Socks5 domain
@@ -184,8 +189,8 @@ result. Phases, in order:
    virtual switch. The port's Application builds it in process by
    Command.execute: a security group, `add switch`, vpc 1 and vpc 2
    (10.0.0.0/8), a remote-switch link to a loopback receiver, then
-   UDP ACL rules and routes one command each until 20 s (never under
-   512 of each), the rest of the 5,000 rules and 50,000 routes in bulk
+   UDP ACL rules and routes one command each until 10 s (never under
+   256 of each), the rest of the 5,000 rules and 50,000 routes in bulk
    (bench_switch.py's build_world); 16,384 VXLAN datagrams from 64
    loopback senders (an eighth in deny /24s, an eighth in allow /24s),
    destinations over every route and a sixteenth under none, replayed
@@ -200,6 +205,30 @@ result. Phases, in order:
    counters equal to the prediction; prints packets/s per run, the
    `CidrMatcher.match` round trip's p50/p99 and encode share, launches
    per kernel and the build's counts and seconds;
+7g. sharded (the `sharded_kernels`, `sharded_service` and `cluster`
+   lines): configurations (a) and (b) compiled by
+   compile_*_hash_sharded and compile_*_fp_sharded at S = 4
+   (make_mesh(8, batch=2)) and S = 1, uncut (spawned workers compile
+   them from the start of the run, sharded_start); B8 against its plain
+   version and the host index, int32-exact, at every pad_batch bucket
+   to 4096 (an eighth pad rows), on the cuckoo and fingerprint hint,
+   route and ACL tables, one launch a batch; B8 timed at S = 4 (B = 16
+   / 512 / 4096) and S = 1 (B = 512), warm and cold, its bound the
+   distinct bytes (b8_work: the batch's queries and answers once, each
+   shard's table rows as work() / cidr_work() / fp_hint_work() /
+   fp_cidr_work() count them), beside B3 / B4 / B6 / B7 on the same
+   rules (the `kernels` line's unsharded_at_512); ClassifyService in
+   "device" mode on both sharded backends at S = 4 on the same
+   configurations (a) and (b), full size (the matchers take the
+   workers' compiles: worker_compiles), 4 x 512 of each of
+   hint, cpick and cidr (routes, and the ACL with ports), every answer
+   the host index's, one B8 launch a batch and B5 a cpick batch, no
+   other kernel, each matcher's checksum the unsharded one's; then
+   two cluster nodes (phase_cluster): the leader builds upstream u0 by
+   command (config #2's rules until 10 s), the follower converges to
+   its generation and checksum and refuses a mutation, each node's
+   step loop serves 1,024 queries on the card (B1 through the
+   FusedPair), every answer the host index's, not degraded;
 8. times at B = 16, 512, 4096: the kernel's and the plain tier's device
    time per call (profiler) with the 22.7 MB table L2-warm, as under
    steady serving; the kernel's device time with L2 flushed before each
@@ -229,9 +258,9 @@ result. Phases, in order:
    with their plain tiers, bounds (dense_hint_work / dense_cidr_work)
    and the count step's GEMM alone (dense_library_ms);
 10. the `phase_s` line (wall seconds per phase), the {"kernels": [...]}
-   line (B1, B1 with the route column, B4, B3, B6, B7, B5, B9; B4's and
-   B7's launches include the `switch` phase's, B5's the fp and dense
-   services'),
+   line (B1, B1 with the route column, B4, B3, B6, B7, B5, B9, B8;
+   B1's launches include the cluster step loops', B4's and B7's the
+   `switch` phase's, B5's the fp, dense and sharded services'),
    then the card's line, then the device line.
 
 Any failed phase raises, and the script exits non-zero.
@@ -1154,12 +1183,20 @@ def instance(mangled: str) -> str:
     fused_kernel<URI, W, PICK> (B1), "B3 uri W=16" for its verdict-only
     instances (PICK false), "B4" for the CIDR kernel, "B6" and "B7" for
     the fingerprint kernels, "B9 hint" and "B9 cidr" for the dense
-    ones, "B5" for the Maglev take."""
+    ones, "B5" for the Maglev take, "B8 uri W=16" and the like for
+    sharded_hash_kernel<URI, W>, "B8 fp" and "B8 finish" for B8's
+    other two."""
     for kernel, name in ((KERNEL_B4, "B4"), (KERNEL_B6, "B6"),
                          (KERNEL_B7, "B7"), (KERNEL_B9_HINT, "B9 hint"),
-                         (KERNEL_B9_CIDR, "B9 cidr"), (KERNEL_B5, "B5")):
+                         (KERNEL_B9_CIDR, "B9 cidr"), (KERNEL_B5, "B5"),
+                         ("sharded_fp_kernel", "B8 fp"),
+                         ("sharded_finish_kernel", "B8 finish")):
         if kernel in mangled:
             return name
+    m = re.search(r"sharded_hash_kernelILb([01])ELi(\d+)E", mangled)
+    if m:
+        return (f"B8 {'uri' if m.group(1) == '1' else 'uri-free'} "
+                f"W={m.group(2)}")
     m = re.search(r"fused_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
     if not m:
         return mangled
@@ -1211,19 +1248,21 @@ def phase_build() -> dict:
     from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import fphash_cuda as FPC
     from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
     from vproxy_tpu_torch.ops import take_cuda as TC
 
     def timed(fn):
         t0 = time.monotonic()
         return fn(), time.monotonic() - t0
 
-    with ThreadPoolExecutor(7) as ex:
+    with ThreadPoolExecutor(8) as ex:
         futs = {"fused": ex.submit(timed, FC.build),
                 "cidr": ex.submit(timed, CC.build),
                 "fp_hint": ex.submit(timed, FPC.build_hint),
                 "fp_cidr": ex.submit(timed, FPC.build_cidr),
                 "dense": ex.submit(timed, DC.build),
                 "take": ex.submit(timed, TC.build),
+                "sharded": ex.submit(timed, SC.build),
                 "vtl": ex.submit(timed, native_vtl)}
         built = {k: f.result() for k, f in futs.items()}
     vtl, secs = built.pop("vtl")
@@ -1233,7 +1272,8 @@ def phase_build() -> dict:
         f", provider {vtl.PROVIDER}")
     out = {"vtl": {"build_s": secs}}
     for lib_name, want in (("fused", 16), ("cidr", 1), ("fp_hint", 1),
-                           ("fp_cidr", 1), ("dense", 2), ("take", 1)):
+                           ("fp_cidr", 1), ("dense", 2), ("take", 1),
+                           ("sharded", 10)):
         lib, secs = built[lib_name]
         log(f"build: {lib_name} {secs:.2f} s -> {os.path.basename(lib)}")
         kern = _ptxas(lib)
@@ -1840,7 +1880,7 @@ def phase_loop(device, pair, rules, bursts=BURSTS, burst=SERVICE_BATCH,
 TCPLB_MAX_RULES = 10_000  # BASELINE config #2's target
 TCPLB_MIN_RULES = 256
 TCPLB_BUILD_S = 15.0      # the Upstream build's budget: every add publishes
-# (the `control` phase builds the same Upstream for its full 60 s)
+# (the `control` phase builds the same Upstream for its full 30 s)
 TCPLB_BACKENDS = 256
 B3_PATH_BATCHES = 32  # batches a bucket below the largest (b3_on_path)
 TCPLB_RULE_SEED, TCPLB_REQ_SEED = 61, 62
@@ -2350,7 +2390,7 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
 
 CONTROL_MAX_GROUPS = 10_000  # records built against config #3's 100k
 CONTROL_MIN_GROUPS = 256
-CONTROL_BUILD_S = 60.0       # the Upstream's budget: every add publishes
+CONTROL_BUILD_S = 30.0       # the Upstream's budget: every add publishes
 CONTROL_MIN_ACL = 256        # rules of each protocol, at least
 CONTROL_ACL_BUILD_S = 30.0   # each protocol's budget: every add compiles
 CONTROL_FP_ACL = 128  # the fp run's ACL: each add recompiles the fp table
@@ -2570,15 +2610,18 @@ def _socks5_burst(port: int, items: list, concurrency: int) -> list:
                                   items))
 
 
-def _boot_child(args: list, env: dict, err_path: str):
-    """Start `python -m vproxy_tpu_torch args` and read the addresses it
-    prints. -> (process, {"resp-controller": port, ...})."""
+def _boot_child(args: list, env: dict, err_path: str,
+                want=("resp-controller", "http-controller",
+                      "global-inspection"),
+                entry=("-m", "vproxy_tpu_torch")):
+    """Start `python -m vproxy_tpu_torch args` (or `python <entry>
+    args`) and read the addresses it prints. -> (process,
+    {"resp-controller": port, ...})."""
     import select
     with open(err_path, "w") as err:
-        p = subprocess.Popen([sys.executable, "-m", "vproxy_tpu_torch",
-                              *args], env=env, stdout=subprocess.PIPE,
-                             stderr=err, cwd=env["PYTHONPATH"])
-    want = ("resp-controller", "http-controller", "global-inspection")
+        p = subprocess.Popen([sys.executable, *entry, *args], env=env,
+                             stdout=subprocess.PIPE, stderr=err,
+                             cwd=env["PYTHONPATH"])
     ports, buf = {}, b""
     deadline = time.monotonic() + 180
     while len(ports) < len(want):
@@ -2966,8 +3009,8 @@ def phase_control(device, max_groups=CONTROL_MAX_GROUPS,
 # gateway 10.0.0.1 in vpc 1 and a source address in vpc 2.
 
 SWITCH_PACKETS = 16_384
-SWITCH_BUILD_S = 20.0   # each command build's budget: every add republishes
-SWITCH_MIN_CMD = 512    # rules of each command build, at least
+SWITCH_BUILD_S = 10.0   # each command build's budget: every add republishes
+SWITCH_MIN_CMD = 256    # rules of each command build, at least
 SWITCH_SEED = 404
 SWITCH_SENDERS = 64     # outer senders: 8 in deny /24s, 8 in allow, 48 out
 SWITCH_CHUNK = 256      # datagrams in flight on the loopback run
@@ -3594,18 +3637,21 @@ def device_ms(fn, iters: int, only: str = "", launches: int = 0,
                        f"kernels in five runs")
 
 
-def work(ht, q, mtab=None, slots=None):
+def work(ht, q, mtab=None, slots=None, io=True):
     """(bytes, int ops) this batch needs: every query input read once,
     the output written once, and each table row the batch's data
     touches counted once — slot + key rows of valid probes, bucket
     items of live buckets, meta + byte rows of live candidates, the
     wildcard lists, the Maglev slots and entries (B1; none for B3,
     mtab=None). Ops: byte compares (probe keys, candidate rows) plus ~24
-    integer ops per live candidate."""
+    integer ops per live candidate. io=False: the table's part alone
+    (no query or output bytes; b8_work counts those once a batch)."""
     from vproxy_tpu_torch.ops import fused as F
     from vproxy_tpu_torch.ops.hashmatch import _items
-    nbytes = sum(v.numel() * v.element_size() for v in q.values())
-    nbytes += q["hostb"].shape[0] * 2 * 4  # the [B, 2] output
+    nbytes = 0
+    if io:
+        nbytes += sum(v.numel() * v.element_size() for v in q.values())
+        nbytes += q["hostb"].shape[0] * 2 * 4  # the [B, 2] output
     if mtab is not None:
         nbytes += slots.numel() * 8
     ops = 0
@@ -4051,7 +4097,7 @@ def phase_route_column(pair, routes):
     return launches
 
 
-def cidr_work(ct, a16, fam, port):
+def cidr_work(ct, a16, fam, port, io=True):
     """(bytes, int ops) one B4 launch needs for this batch: every
     query's address, family and port (when gated) read once and its
     answer written once, the g_* rows once, and each table row the
@@ -4059,11 +4105,11 @@ def cidr_work(ct, a16, fam, port):
     every live probe (a group of the query's family, per salt), the
     bucket entries of matching probes, the meta rows of the rules they
     list. Ops: 16 FNV rounds (xor, multiply) and ~8 more per live
-    probe, ~6 per bucket entry."""
+    probe, ~6 per bucket entry. io=False: the table's part alone."""
     from vproxy_tpu_torch.ops.hashmatch import _cidr_slots
     b = a16.shape[0]
     g = ct["g_fam"].shape[0]
-    nbytes = b * (16 + 4 + 4) + (0 if port is None else b * 4)
+    nbytes = cidr_io_bytes(b, port) if io else 0
     nbytes += g * (4 + 16 + 4 + 4 + 4 + 4)
     n_ct, cb = ct["pk_cslot"].shape[0], ct["cb_items"].shape[0]
     masked, gok, slots = _cidr_slots(ct, a16, fam)
@@ -4085,6 +4131,12 @@ def cidr_work(ct, a16, fam, port):
     items = ct["cb_items"][pos.long()]
     nbytes += torch.unique(items[items >= 0]).numel() * 16
     return nbytes, ops
+
+
+def cidr_io_bytes(b: int, port) -> int:
+    """A CIDR batch's query bytes (address, family, port when gated)
+    and its int32 answers."""
+    return b * (16 + 4 + 4) + (0 if port is None else b * 4)
 
 
 def _cu_ints(source: str, *names: str) -> list:
@@ -4394,7 +4446,8 @@ def fp_hint_design(t, q) -> dict:
     them (the staged query, then per round the pairs and each window of
     members), and the live probes matched on the last entry of their
     row."""
-    pairs_, members_ = _cu_ints(SOURCE_B6, "PAIRS", "MEMBERS")
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    pairs_, members_ = _cu_ints(FPC.HEADER_HINT, "PAIRS", "MEMBERS")
     per_round, per_window = 32 * pairs_, 32 * members_
     b, p = q["hp_slot"].shape
     (he, hm), (ue, um) = t["h_em"].shape, t["u_em"].shape
@@ -4453,7 +4506,8 @@ def fp_cidr_design(t, a16, fam) -> dict:
     chain of dependent global-load steps as the header counts them, and
     the (query, group) matches on the last entry of a slot row."""
     from vproxy_tpu_torch.ops import fphash as FP
-    groups_, entries_, pairs_ = _cu_ints(SOURCE_B7, "GROUPS", "ENTRIES",
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    groups_, entries_, pairs_ = _cu_ints(FPC.HEADER_CIDR, "GROUPS", "ENTRIES",
                                          "PAIRS")
     e = t["e_m"].shape[0]
     acl, has_trie = "mrows" in t, "t_l0" in t
@@ -4819,14 +4873,18 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
     return out
 
 
-def fp_hint_work(t, q):
+def fp_hint_work(t, q, io=True):
     """(bytes, int ops) one B6 launch needs for this batch: every query
     array read once and two int32 written per query, the wildcard lists
     once, and per distinct live probe row its E fingerprint pairs, per
     distinct matched entry its M member records. Ops: 2 per entry
-    compare, ~30 per member scored (the wildcard members every query)."""
+    compare, ~30 per member scored (the wildcard members every query).
+    io=False: the table's part alone."""
     b = q["hp_slot"].shape[0]
-    nbytes = sum(v.numel() * v.element_size() for v in q.values()) + b * 8
+    nbytes = 0
+    if io:
+        nbytes += sum(v.numel() * v.element_size() for v in q.values())
+        nbytes += b * 8
     nbytes += (t["wh_rec"].numel() + t["wu_rec"].numel()) * 4
     ops = b * (t["wh_rec"].shape[0] + t["wu_rec"].shape[0]) * 30
     for e, m, live, s, ok in _fp_probe_hits(t, q):
@@ -4839,7 +4897,7 @@ def fp_hint_work(t, q):
     return nbytes, ops
 
 
-def fp_cidr_work(t, a16, fam, port):
+def fp_cidr_work(t, a16, fam, port, io=True):
     """(bytes, int ops) one B7 launch needs for this batch: every
     query's address, family (and port, for an ACL) read once and its
     answer written once, the group arrays once; per V4 query of a trie
@@ -4847,12 +4905,13 @@ def fp_cidr_work(t, a16, fam, port):
     per (query, group of its family) the distinct slot rows of E x 12
     bytes and, for an ACL, the matched entries' member rows. Ops: ~50
     per group probe (3 hashes of 4 FNV rounds + fmix32, the mask and the
-    entry compares), ~6 per trie level, ~4 per member."""
+    entry compares), ~6 per trie level, ~4 per member. io=False: the
+    table's part alone."""
     from vproxy_tpu_torch.ops import fphash as FP
     b, g = a16.shape[0], t["g_fam"].shape[0]
     acl = "mrows" in t
     mk2 = t["mrows"].shape[1] if acl else 0
-    nbytes = b * (16 + 4 + 4) + (b * 4 if acl and port is not None else 0)
+    nbytes = 0 if not io else cidr_io_bytes(b, port if acl else None)
     nbytes += g * 40
     ops = 0
     mrows = []
@@ -5726,6 +5785,849 @@ def phase_dense_times(device, tabs):
     return out
 
 
+# ------------------------------------------- B8: the sharded backends
+#
+# "torch-sharded" and "torch-fp-sharded" (ROADMAP Queue A item 8):
+# configurations (a) and (b) compiled by compile_*_hash_sharded and
+# compile_*_fp_sharded at S = 4 (make_mesh(8, batch=2), the reference's
+# production layout: four rule shards stacked on the card) and S = 1
+# (make_mesh(2, batch=2)), uncut. The compiles are host work (~2 min on
+# one core at S = 4 and S = 1 together), so spawned worker processes
+# start them with the script (`sharded_start`) and the phase collects
+# them; B8 is then held against its plain version and the host index at
+# every pad_batch bucket up to 4096 and timed beside B3 / B4 / B6 / B7
+# on the same rules.
+
+REPLACES_B8 = "vproxy_tpu/parallel/mesh.py:364"
+KERNEL_B8 = "sharded_"  # sharded_hash_kernel<...> / sharded_fp_kernel
+SOURCE_B8 = "vproxy_tpu_torch/csrc/sharded_match.cu"
+SHARD_MESH = {4: 8, 1: 2}  # S -> n of make_mesh(n, batch=2)
+SHARD_KINDS = ("hint", "fp_hint", "cidr", "fp_cidr")
+SHARDED_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+SHARDED_WORKERS = 3
+
+
+def sharded_tie_case(n: int = 37):
+    """Hint rules whose best level ties across shards (one host in
+    every shard: the least global index must win; a port-gated twin
+    of it), wildcard-host, pure-uri and host+uri rules, with hints
+    that reach them and hints every shard answers at level 0 (an
+    empty hint, a host no rule holds, a port the gate refuses). n = 37
+    is divided by no S in 2..4. -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = []
+    for i in range(n):
+        k = i % 6
+        rules.append(
+            HintRule(host="tie.example.com") if k == 0 else
+            HintRule(host="tie.example.com", port=8443) if k == 1 else
+            HintRule(host="*", uri="/w") if k == 2 else
+            HintRule(uri=f"/p{i % 4}") if k == 3 else
+            HintRule(host=f"h{i}.tie.example.com") if k == 4 else
+            HintRule(host="example.com", uri="/p1"))
+    hints = [Hint.of_host("tie.example.com"),
+             Hint.of_host_port("tie.example.com", 8443),
+             Hint.of_host_port("tie.example.com", 80),
+             Hint.of_host("x.tie.example.com"), Hint(), Hint(uri="/w"),
+             Hint.of_host_uri("a.tie.example.com", "/w/x"),
+             Hint(uri="/p1/z"), Hint.of_host_uri("x.example.com", "/p1"),
+             Hint.of_host("h4.tie.example.com"),
+             Hint.of_host_port("h10.tie.example.com", 1),
+             Hint.of_host("nohost.invalid")]
+    return rules, hints
+
+
+def sharded_compile(kind: str, s: int, n_rules: int, n_routes: int,
+                    n_acl: int):
+    """One sharded compile (run in a spawned worker): kind "hint" /
+    "fp_hint" -> the ShardedHashTable of mk_rules(n_rules); "cidr" /
+    "fp_cidr" -> (routes, ACL) tables of route_nets(n_routes) and
+    acl_rules(n_acl)."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import hashmatch as H
+    if kind in ("hint", "fp_hint"):
+        comp = H.compile_hint_hash_sharded if kind == "hint" \
+            else FP.compile_hint_fp_sharded
+        return comp(mk_rules(n_rules), s)
+    comp = H.compile_cidr_hash_sharded if kind == "cidr" \
+        else FP.compile_cidr_fp_sharded
+    acl = acl_rules(n_acl, ACL_SEED)
+    return (comp(route_nets(n_routes, ROUTE_SEED), s),
+            comp([r.network for r in acl], s, acl=acl))
+
+
+def sharded_start(n_rules=N_RULES, n_routes=N_ROUTES, n_acl=N_ACL,
+                  shards=tuple(SHARD_MESH), workers=SHARDED_WORKERS):
+    """Start every sharded compile in spawned worker processes, the
+    longest first. -> (pool, {(kind, S): future}); sharded_tables
+    collects them and shuts the pool down."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    order = sorted(((k, s) for s in shards for k in SHARD_KINDS),
+                   key=lambda ks: (ks[0] not in ("cidr", "fp_cidr"),
+                                   -ks[1], ks[0]))
+    return pool, {ks: pool.submit(sharded_compile, *ks, n_rules, n_routes,
+                                  n_acl) for ks in order}
+
+
+def sharded_device(stab, kind: str, device):
+    """A stacked table on `device`: -> (raw arrays, B8's table). On the
+    card B8 reads the packed cuckoo stack (pack_*_sharded) or the
+    fingerprint arrays, prepared; on the CPU both are the raw arrays."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    raw = tables_from_reference(stab.arrays, device)
+    if device.type != "cuda":
+        return raw, raw
+    if kind in ("hint", "cidr"):
+        pack = SC.pack_hint_sharded if kind == "hint" else \
+            SC.pack_cidr_sharded
+        prep = SC.prepare_hint if kind == "hint" else SC.prepare_cidr
+        return raw, prep(tables_from_reference(pack(stab.arrays), device))
+    prep = SC.prepare_fp_hint if kind == "fp_hint" else SC.prepare_fp_cidr
+    return raw, prep(raw)
+
+
+def sharded_tables(device, pool, futs, n_rules=N_RULES, n_routes=N_ROUTES,
+                   n_acl=N_ACL) -> dict:
+    """Collect the compiles and put them on `device`, with the rule lists
+    and their host indexes. -> {"rules", "nets", "acl", "hidx", "ridx",
+    "aidx", (kind, S): table dict}; a CIDR kind holds "routes" and
+    "acl" tables."""
+    from vproxy_tpu_torch.parallel import mesh as M
+    from vproxy_tpu_torch.rules.index import CidrIndex, HintIndex
+    t0 = time.monotonic()
+    out = {"rules": mk_rules(n_rules), "nets": route_nets(n_routes,
+                                                          ROUTE_SEED),
+           "acl": acl_rules(n_acl, ACL_SEED)}
+    out["hidx"] = HintIndex(out["rules"])
+    out["ridx"] = CidrIndex(out["nets"])
+    out["aidx"] = CidrIndex([r.network for r in out["acl"]], acl=out["acl"])
+    t1 = time.monotonic()
+    try:
+        for (kind, s), fut in futs.items():
+            got = fut.result(timeout=900)
+            t = {"mesh": M.make_mesh(SHARD_MESH.get(s, 2 * s), batch=2,
+                                     device=device)}
+            parts = {"hint": got} if kind in ("hint", "fp_hint") else \
+                {"routes": got[0], "acl": got[1]}
+            for name, stab in parts.items():
+                raw, kern = sharded_device(stab, kind, device)
+                t[name] = {"stab": stab, "raw": raw, "kern": kern,
+                           "size": stab.shard_size}
+            out[(kind, s)] = t
+    finally:
+        pool.shutdown()
+    caps = {k: v["hint" if k[0] in ("hint", "fp_hint") else "routes"][
+        "stab"].shards[0].caps for k, v in out.items()
+        if isinstance(k, tuple)}
+    log(f"sharded tables: host indexes {t1 - t0:.1f} s, compiles waited "
+        f"on {time.monotonic() - t1:.1f} s; caps "
+        f"{ {f'{k} S={s}': c for (k, s), c in caps.items()} }")
+    return out
+
+
+def sharded_hint_batch(stab, hints, b: int, mesh, fp: bool):
+    """A hint batch of b rows (pad rows past `hints`) for every shard of
+    `stab`: the engine's encode, then mesh.shard_hint_queries_sharded."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.parallel import mesh as M
+    from vproxy_tpu_torch.rules.ir import Hint
+    if fp:
+        q = FP.encode_hint_queries_fp_sharded(
+            list(hints) + [Hint()] * (b - len(hints)), stab)
+    else:
+        q = H.encode_hint_queries_sharded(hints, stab, pad_to=b)
+    return M.shard_hint_queries_sharded(q, mesh)
+
+
+def b8_case(tabs, kind: str, s: int, b: int, seed: int, part=None):
+    """One B8 batch of b rows (an eighth of them pad rows) at S shards.
+    -> (kern(), plain(), host answers of the real rows, work(), name):
+    kern and plain compute the same int32 [b]."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    t = tabs[(kind, s)]
+    n = b - b // 8
+    fp = kind.startswith("fp_")
+    if kind in ("hint", "fp_hint"):
+        tt = t["hint"]
+        hints = mk_queries(tabs["rules"], n, seed)
+        q = sharded_hint_batch(tt["stab"], hints, b, t["mesh"], fp)
+        host = [tabs["hidx"].lookup(h) for h in hints]
+
+        def kern():
+            return SC.hint_sharded(tt["kern"], q, tt["size"], fp=fp)
+
+        def plain():
+            return SC.finish_plain(SC.hint_keys_plain(tt["raw"], q,
+                                                      tt["size"], fp=fp))
+
+        def shard(j):
+            qj = SC.shard_view(q, j, q.stacked)
+            return fp_hint_work(SC.shard_view(tt["raw"], j), qj, io=False) \
+                if fp else work(SC.shard_view(tt["kern"], j), qj, io=False)
+        io = sum(v.numel() * v.element_size() for v in q.values()) + b * 4
+        return kern, plain, host, lambda: b8_work(shard, s, io), \
+            f"{kind} S={s}"
+    tt = t[part]
+    if part == "routes":
+        qs = [(a, None) for a, _ in cidr_queries(tabs["nets"], n, seed)]
+        host = [tabs["ridx"].lookup(a, None) for a, _ in qs]
+    else:
+        qs = acl_queries(tabs["acl"], n, seed)
+        host = [tabs["aidx"].lookup(a, p) for a, p in qs]
+    a16, fam, port = cidr_batch(qs, b, t["mesh"].device)
+
+    def kern():
+        return SC.cidr_sharded(tt["kern"], a16, fam, port, tt["size"], fp=fp)
+
+    def plain():
+        return SC.finish_plain(SC.cidr_keys_plain(tt["raw"], a16, fam, port,
+                                                  tt["size"], fp=fp))
+
+    def shard(j):
+        return fp_cidr_work(SC.shard_view(tt["raw"], j), a16, fam, port,
+                            io=False) if fp else \
+            cidr_work(SC.shard_view(tt["kern"], j), a16, fam, port, io=False)
+    return kern, plain, host, lambda: b8_work(shard, s, cidr_io_bytes(
+        b, port)), f"{kind} {part} S={s}"
+
+
+def b8_work(shard, s: int, io: int) -> tuple:
+    """B8's (bytes, ops) for one batch: the distinct bytes, so the
+    batch's query arrays and its int32 answers once (`io`: a query
+    array every shard shares is read once, a per-shard one once per
+    shard), then each of the s shards' table rows and ops (shard(j),
+    which counts no query or answer bytes)."""
+    nbytes, ops = io, 0
+    for j in range(s):
+        w = shard(j)
+        nbytes, ops = nbytes + w[0], ops + w[1]
+    return nbytes, ops
+
+
+def b8_cases(tabs):
+    """-> every (kind, S, part) the sharded kernels phase checks."""
+    for kind in SHARD_KINDS:
+        for s in sorted({k[1] for k in tabs if isinstance(k, tuple) and
+                         k[0] == kind}, reverse=True):
+            for part in ((None,) if kind in ("hint", "fp_hint")
+                         else ("routes", "acl")):
+                yield kind, s, part
+
+
+def phase_sharded_kernels(device, tabs, buckets=SHARDED_BUCKETS,
+                          time_batches=TIME_BATCHES, timed=True) -> dict:
+    """B8 against its plain version and the host index at every bucket
+    (int32-exact; -1 on each pad row and miss), at S = 4 and S = 1, on
+    the cuckoo and fingerprint tables of configurations (a) and (b);
+    then timed at S = 4 (time_batches) and S = 1 (B = 512), warm and
+    cold, with the bound summed over the shards. -> {"max_abs_err",
+    "checks", "rows": {case: rows}}."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    on_card = device.type == "cuda"
+    saved = SC.sharded_cuda.launches
+    err, checks = 0, 0
+    for kind, s, part in b8_cases(tabs):
+        for b in buckets:
+            kern, plain, host, _, name = b8_case(tabs, kind, s, b,
+                                                 seed=3000 + b, part=part)
+            n0 = SC.sharded_cuda.launches
+            k = kern()
+            check(SC.sharded_cuda.launches - n0 == (1 if on_card else 0),
+                  f"B8 {name} B={b}: not one launch")
+            p = plain()
+            check(k.dtype == p.dtype == torch.int32 and k.shape == (b,),
+                  f"B8 {name} B={b}: dtype or shape")
+            kh, ph = k.cpu(), p.cpu()
+            e = int((kh.long() - ph.long()).abs().max())
+            n = len(host)
+            hv = torch.tensor(host + [-1] * (b - n), dtype=torch.int32)
+            e = max(e, int((kh.long() - hv.long()).abs().max()))
+            check(e == 0, f"B8 {name} B={b}: max |kernel - plain, host| "
+                  f"= {e}")
+            err, checks = max(err, e), checks + 1
+    log(f"sharded kernels: {checks} batches int32-exact against the plain "
+        f"version and the host index")
+    rows = {}
+    if on_card and timed:
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+        for kind, s, part in b8_cases(tabs):
+            for b in (time_batches if s == max(SHARD_MESH) else
+                      (SERVICE_BATCH,)):
+                kern, plain, _, work_, name = b8_case(tabs, kind, s, b,
+                                                      seed=3500 + b,
+                                                      part=part)
+                rows.setdefault(name, []).append(time_row(
+                    b, kern, plain, KERNEL_B8, flush, work_(), iters=100,
+                    cold_iters=30, plain_iters=5))
+                log(f"  B8 {name} B={b}: {json.dumps(rows[name][-1])}")
+    SC.sharded_cuda.launches = saved  # the checks are not the main path
+    return {"max_abs_err": err, "checks": checks, "rows": rows}
+
+
+@contextlib.contextmanager
+def worker_compiles(tabs: dict, s: int):
+    """While open, the four compile_*_sharded functions answer the calls
+    the spawned workers already made (sharded_compile: tabs' rules,
+    routes or ACL, S = s, no caps) with the workers' tables, and compile
+    any other call. -> the list of (function, rule count) it answered;
+    the matchers upload, pack and prepare these tables as their own."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import hashmatch as H
+    nets, acl = tabs["nets"], tabs["acl"]
+    made = {}
+    for kind, mod, part in (("hint", H, "hint"), ("fp_hint", FP, "hint"),
+                            ("cidr", H, "cidr"), ("fp_cidr", FP, "cidr")):
+        name = f"compile_{part}_{'fp' if mod is FP else 'hash'}_sharded"
+        t = tabs[(kind, s)]
+        made[(mod, name)] = [(tabs["rules"], None, t["hint"]["stab"])] \
+            if part == "hint" else [
+                (nets, None, t["routes"]["stab"]),
+                ([r.network for r in acl], acl, t["acl"]["stab"])]
+    used = []
+
+    def wrap(real, name, entries):
+        def compile_(items, n_shards, acl=None, caps=None):
+            for want, want_acl, stab in entries:
+                if n_shards == s and caps is None and acl == want_acl and \
+                        list(items) == want:
+                    used.append((name, len(want)))
+                    return stab
+            return real(items, n_shards, **({} if acl is None else
+                                            {"acl": acl}), caps=caps)
+        return compile_
+    real = {k: getattr(*k) for k in made}
+    try:
+        for (mod, name), entries in made.items():
+            setattr(mod, name, wrap(real[(mod, name)], name, entries))
+        yield used
+    finally:
+        for (mod, name), f in real.items():
+            setattr(mod, name, f)
+
+
+def sharded_service_tables(device, tabs: dict, unsharded=None,
+                           n=8) -> dict:
+    """The sharded_service phase's matchers on make_mesh(n, batch=2) (S
+    = n / 2), on sharded_tables' rules at their full size: per backend a
+    HintMatcher, a FusedPair over it and a Maglev table, a route
+    CidrMatcher and an ACL CidrMatcher, each taking the workers'
+    compile of its rules (worker_compiles); the rule lists; and the
+    unsharded "torch" matchers whose checksums they must equal
+    (`unsharded`: {"hint", "routes"} matchers an earlier phase built on
+    the same rules, else built here)."""
+    from vproxy_tpu_torch.parallel import mesh as M
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import maglev as MG
+    t0 = time.monotonic()
+    rules, nets, acl = tabs["rules"], tabs["nets"], tabs["acl"]
+    mesh = M.make_mesh(n, batch=2, device=device)
+    mm = MG.MaglevMatcher(backends(), m=MAGLEV_M, device=device)
+    un = dict(unsharded or {})
+    if "hint" not in un:
+        un["hint"] = E.HintMatcher(rules, backend="torch", device=device)
+    if "routes" not in un:
+        un["routes"] = E.CidrMatcher(nets, backend="torch", device=device)
+    un["acl"] = E.CidrMatcher([r.network for r in acl], acl=acl,
+                              backend="torch", device=device)
+    check(un["hint"].rules == rules and un["routes"].snapshot()[1] == nets,
+          "the unsharded matchers hold other rules")
+    out = {"rules": rules, "nets": nets, "acl": acl, "mesh": mesh,
+           "mm": mm, "unsharded": un}
+    with worker_compiles(tabs, n // 2) as used:
+        for be in E.SHARDED_BACKENDS:
+            hm = E.HintMatcher(rules, backend=be, mesh=mesh)
+            out[be] = {"hm": hm, "pair": MG.FusedPair(hm, mm),
+                       "routes": E.CidrMatcher(nets, backend=be, mesh=mesh),
+                       "acl": E.CidrMatcher([r.network for r in acl],
+                                            acl=acl, backend=be, mesh=mesh)}
+    check(len(used) == 3 * len(E.SHARDED_BACKENDS),
+          f"the sharded matchers compiled in process: took only {used}")
+    log(f"sharded service tables: {time.monotonic() - t0:.1f} s "
+        f"({len(rules)} rules, {len(nets)} routes, {len(acl)} ACL rules, "
+        f"S = {mesh.shape['rules']}; the workers' compiles: {used})")
+    return out
+
+
+def phase_sharded_service(device, tabs, bursts=BURSTS,
+                          burst=SERVICE_BATCH) -> dict:
+    """The sharded backends' main path through ClassifyService in
+    "device" mode, at S = 4: per backend bursts x burst submit_hint,
+    submit_classify_pick on the FusedPair (B8, then the Maglev take B5:
+    the backend fuses nothing) and submit_cidr on the routes and on the
+    ACL with ports. Every answer equal to the host index (HintIndex +
+    maglev.pick, CidrIndex); one B8 launch per hint, cpick or cidr
+    batch and one B5 launch per cpick batch, no other kernel, the plain
+    versions never on CUDA tensors, no failover; each matcher's
+    checksum() equal to the unsharded matcher's on the same rules. ->
+    the phase's numbers."""
+    from vproxy_tpu_torch.ops import cidr_cuda as CC
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    from vproxy_tpu_torch.ops import take_cuda as TC
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import maglev as MG
+    from vproxy_tpu_torch.rules.service import ClassifyService
+    on_card = device.type == "cuda"
+    mm = tabs["mm"]
+    msnap = mm.snapshot()
+    un = tabs["unsharded"]
+    others = (FC.fused_classify_pick_cuda, FC.hint_match_cuda,
+              CC.cidr_first_cuda, FPC.hint_fp_cuda, FPC.cidr_fp_cuda,
+              DC.hint_dense_cuda, DC.cidr_dense_cuda)
+    out = {}
+    for be in E.SHARDED_BACKENDS:
+        t = tabs[be]
+        hm, pair, routes, am = t["hm"], t["pair"], t["routes"], t["acl"]
+        for name, m, u in (("hint", hm, un["hint"]),
+                           ("routes", routes, un["routes"]),
+                           ("acl", am, un["acl"])):
+            check(m.checksum() == u.checksum() and m.backend == be,
+                  f"{be} {name} checksum {m.checksum():#x} != unsharded "
+                  f"{u.checksum():#x}")
+            check(m._mesh.shape["rules"] == tabs["mesh"].shape["rules"],
+                  f"{be} {name}: not on the phase's mesh")
+        hsnap, rsnap, asnap = hm.snapshot(), routes.snapshot(), am.snapshot()
+        other0 = [f.launches for f in others]
+        ClassifyService.reset()
+        svc = ClassifyService.get()
+        svc.mode = "device"
+        try:
+            # the main path's counts, read just after it
+            SC.sharded_cuda.launches = SC.finish_cuda.launches = 0
+            TC.maglev_take_cuda.launches = MG._device_take.calls = 0
+            H.hint_hash_match.cuda_calls = FP.hint_fp_match.cuda_calls = 0
+            l0 = E.dispatch_launches_total()
+            walls = {}
+            t0 = time.monotonic()
+            for k in range(bursts):
+                hints = mk_queries(tabs["rules"], burst, seed=4200 + k)
+                got = _answers(svc, lambda h, cb: svc.submit_hint(hm, h, cb),
+                               [(h,) for h in hints])
+                for i, h in enumerate(hints):
+                    check(got[i] == (hm.index_snap(hsnap, h),),
+                          f"{be} hint burst {k} row {i}")
+            walls["hint_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            for k in range(bursts):
+                hints = mk_queries(tabs["rules"], burst, seed=4300 + k)
+                ips = mk_ips(burst, seed=4400 + k)
+                ports = [None if i % 3 == 0 else 1024 + i
+                         for i in range(burst)]
+                got = _answers(
+                    svc, lambda h, ip, port, cb: svc.submit_classify_pick(
+                        pair, h, ip, port, cb),
+                    list(zip(hints, ips, ports)))
+                for i in range(burst):
+                    want = (hm.index_snap(hsnap, hints[i]),
+                            MG.pick(msnap[0], ips[i], ports[i]))
+                    check(got[i] == want, f"{be} cpick burst {k} row {i}: "
+                          f"{got[i]} != host {want}")
+            walls["cpick_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            for k in range(bursts):
+                rq = [(a, None) for a, _ in
+                      cidr_queries(tabs["nets"], burst, 4500 + k)]
+                got = _answers(svc, lambda a, p, cb: svc.submit_cidr(
+                    routes, a, p, cb), rq)
+                for i, (a, _) in enumerate(rq):
+                    check(got[i] == (routes.index_snap(rsnap, a, None),),
+                          f"{be} route burst {k} row {i}")
+                aq = acl_queries(tabs["acl"], burst, 4600 + k)
+                got = _answers(svc, lambda a, p, cb: svc.submit_cidr(
+                    am, a, p, cb), aq)
+                for i, (a, p) in enumerate(aq):
+                    check(got[i] == (am.index_snap(asnap, a, p),),
+                          f"{be} ACL burst {k} row {i}")
+            walls["cidr_s"] = time.monotonic() - t0
+            st = svc.stats
+            batches = {k: st.by_kind.get(k, [0])[0] for k in
+                       ("hint", "cpick", "cidr")}
+            n = bursts * burst
+            launches = {"sharded_match": SC.sharded_cuda.launches,
+                        "sharded_finish": SC.finish_cuda.launches,
+                        "maglev_take": TC.maglev_take_cuda.launches}
+            check(st.failovers == 0, f"{be}: {st.failovers} failovers")
+            check(st.device_queries == 4 * n and st.oracle_queries == 0,
+                  f"{be}: device answered {st.device_queries} of {4 * n}")
+            check(all(v > 0 for v in batches.values()),
+                  f"{be}: a kind formed no batch: {batches}")
+            check(launches["sharded_match"] == (sum(batches.values())
+                                                if on_card else 0),
+                  f"{be}: B8 launches {launches['sharded_match']} != "
+                  f"batches {batches}")
+            check(launches["sharded_finish"] == 0,
+                  f"{be}: a one-process mesh reduced across ranks")
+            check(MG._device_take.calls == batches["cpick"] and
+                  launches["maglev_take"] == (batches["cpick"]
+                                              if on_card else 0),
+                  f"{be}: Maglev takes {MG._device_take.calls}, B5 "
+                  f"{launches['maglev_take']} != cpick batches {batches}")
+            check(E.dispatch_launches_total() - l0 == batches["hint"] +
+                  2 * batches["cpick"] + batches["cidr"],
+                  f"{be}: engine launches != hint + 2 x cpick + cidr")
+            check([f.launches for f in others] == other0,
+                  f"{be}: the sharded path launched another kernel")
+            check(not on_card or H.hint_hash_match.cuda_calls ==
+                  FP.hint_fp_match.cuda_calls == 0,
+                  f"{be}: a plain tier ran on CUDA tensors")
+            out[be] = {"queries": 4 * n, "batches": batches,
+                       "launches": launches,
+                       "maglev_takes": MG._device_take.calls,
+                       "failovers": st.failovers, "max_batch": st.max_batch,
+                       "checksums": {"hint": hm.checksum(),
+                                     "routes": routes.checksum(),
+                                     "acl": am.checksum()},
+                       "table_bytes": {"hint": hm.published_table_bytes(),
+                                       "routes":
+                                           routes.published_table_bytes(),
+                                       "acl": am.published_table_bytes()},
+                       **walls,
+                       "classify_latency": st.latency_percentiles()}
+            log(f"sharded service {be}: {json.dumps(out[be])}")
+        finally:
+            ClassifyService.reset()
+    return out
+
+
+# ------------------------------------------------------ the cluster plane
+#
+# Two nodes of `python -m vproxy_tpu_torch` on loopback, both on the
+# card, VPROXY_TPU_CLUSTER_PEERS naming both: the leader builds a config
+# by command, the follower converges to its generation and checksum and
+# refuses a mutation, then each node's step loop serves queries on the
+# card. Nothing in the process entry attaches a step loop (the
+# reference's ClusterNode.attach_submit is a library call, as in its
+# tools/storm.py and tools/chaos.py), so each child runs the entry
+# module with runpy beside a driver thread (CLUSTER_CHILD): when the
+# parent writes the go file, the thread attaches the node's StepLoop
+# over upstream u0's matcher with a Maglev plane, serves its queries
+# (submit, and the fused submit_pick through the FusedPair) and writes
+# what it saw.
+
+CLUSTER_BUILD_S = 10.0      # the leader's build budget: every add publishes
+CLUSTER_MIN_GROUPS = 64
+CLUSTER_MAX_GROUPS = TCPLB_MAX_RULES  # config #2's 10k rules
+CLUSTER_QUERIES = 1024      # a node's queries, half of them submit_pick
+CLUSTER_BATCH = 64          # the step loop's rows a step
+CLUSTER_STEP_MS = 5
+CLUSTER_TIMEOUT_MS = 5000   # the barrier and dispatch deadline
+CLUSTER_SEED = 91
+
+CLUSTER_CHILD = r"""
+import json, os, runpy, sys, threading, time, traceback
+
+
+def run(cfg):
+    import chip_smoke as CS
+    from vproxy_tpu_torch.cluster import ClusterNode
+    from vproxy_tpu_torch.cluster.submit import StepLoop
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.rules import maglev as MG
+    node = ClusterNode._instance
+    m = node.app.upstreams["u0"]._matcher
+    mm = MG.MaglevMatcher(CS.backends(), m=CS.MAGLEV_M, device=m.device)
+    hsnap, msnap = m.snapshot(), mm.snapshot()
+    n, seed = cfg["queries"], cfg["seed"] + node.self_id
+    hints = CS.mk_queries(m.rules, n, seed)
+    ips = CS.mk_ips(n, seed)
+    ports = [None if i % 3 == 0 else 1024 + i for i in range(n)]
+    FC.fused_classify_pick_cuda.launches = FC.hint_match_cuda.launches = 0
+    # every device dispatch: (the step that made it, 0 for the warm-up;
+    # the B1 launches it made)
+    disp, real = [], StepLoop._device_dispatch
+
+    def counted(self, items):
+        n0 = FC.fused_classify_pick_cuda.launches
+        try:
+            return real(self, items)
+        finally:
+            disp.append((self.steps_total,
+                         FC.fused_classify_pick_cuda.launches - n0))
+    StepLoop._device_dispatch = counted
+    loop = node.attach_submit(m, maglev=mm, step_ms=cfg["step_ms"],
+                              batch_cap=cfg["batch"],
+                              timeout_ms=cfg["timeout_ms"])
+    got, left, lock = [None] * n, [n], threading.Lock()
+    done = threading.Event()
+
+    def fin(i, v):
+        got[i] = v
+        with lock:
+            left[0] -= 1
+            if not left[0]:
+                done.set()
+
+    steps0, t0 = loop.steps_total, time.monotonic()
+    for i in range(n):
+        if i % 2:
+            loop.submit_pick(hints[i], ips[i], ports[i],
+                             lambda v, p, pl, i=i: fin(i, [v, p]))
+        else:
+            loop.submit(hints[i], lambda v, pl, i=i: fin(i, [v]))
+    done.wait(120)
+    wall = time.monotonic() - t0
+    bad = 0
+    for i in range(n):
+        want = [m.index_snap(hsnap, hints[i])]
+        if i % 2:
+            want.append(MG.pick(msnap[0], ips[i], ports[i]))
+        bad += got[i] != want
+    st = loop.status()
+    steps_read = loop.steps_total
+    seen = list(disp)
+    out = {"node": node.self_id, "answered": n - left[0], "mismatches": bad,
+           "wall_s": wall, "steps_total": steps_read,
+           "steps_serving": steps_read - steps0,
+           "degraded": loop.degraded, "barrier_stalls": loop.barrier_stalls,
+           "fused": st["fused"], "epoch": st["epoch"],
+           "device": str(m.device), "backend": m.backend,
+           "rules": len(m.rules),
+           "launches": {"fused_classify_pick":
+                        FC.fused_classify_pick_cuda.launches,
+                        "hint_match": FC.hint_match_cuda.launches},
+           "dispatches": len(seen),
+           "dispatch_steps": [d[0] for d in seen] == list(range(len(seen)))
+           and seen[-1][0] >= steps_read - 1,
+           "b1_per_dispatch": sorted({d[1] for d in seen})}
+    # the loop steps on until SIGTERM: a stopped loop still advertises
+    # stepping, so a peer still serving would wait for it at the
+    # barrier until its deadline degrades it
+    return out
+
+
+def drive():
+    go, out = os.environ["SMOKE_CLUSTER_GO"], os.environ["SMOKE_CLUSTER_OUT"]
+    while not os.path.exists(go):
+        time.sleep(0.02)
+    try:
+        with open(go) as f:
+            res = run(json.load(f))
+    except BaseException:
+        res = {"error": traceback.format_exc()}
+    with open(out + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(out + ".tmp", out)
+
+
+threading.Thread(target=drive, daemon=True, name="smoke-driver").start()
+sys.argv = ["vproxy_tpu_torch"] + sys.argv[1:]
+runpy.run_module("vproxy_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _free_ports(kinds) -> list:
+    """One free loopback port of each socket kind, all held open until
+    every one is picked, so no two are the same port (the nodes bind
+    theirs with SO_REUSEADDR: two of them on one UDP port would both
+    succeed and never hear each other)."""
+    import socket
+    socks = [socket.socket(socket.AF_INET, k) for k in kinds]
+    try:
+        for s in socks:
+            s.bind((LOOPBACK, 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def phase_cluster(device, max_groups=CLUSTER_MAX_GROUPS,
+                  min_groups=CLUSTER_MIN_GROUPS, build_s=CLUSTER_BUILD_S,
+                  queries=CLUSTER_QUERIES) -> dict:
+    """The cluster plane on the card: two nodes of `python -m
+    vproxy_tpu_torch` (CLUSTER_CHILD: the entry module under a driver
+    thread) on loopback, VPROXY_TPU_CLUSTER_PEERS naming both, each
+    with its own VPROXY_TPU_HOME, resp- and http-controller. Both see
+    each other UP and agree node 0 leads; the leader builds upstream
+    u0 by command, server groups with one Host rule each (tcplb_rules,
+    config #2's) until `max_groups` or `build_s` (never under
+    `min_groups`: every add republishes); the follower converges to the
+    leader's generation and cluster checksum (GET /cluster), with u0's
+    matcher checksum equal, and refuses a mutation; then both nodes'
+    step loops serve `queries` each (half submit, half the fused
+    submit_pick), every answer the host index's (HintIndex +
+    maglev.pick), steps_total > 0, not degraded, no barrier stall, one
+    B1 launch per device dispatch on the card (the Maglev plane makes
+    every step the FusedPair's one launch) and one dispatch for the
+    warm-up and each step, in order, none left out (CLUSTER_CHILD
+    counts them). SIGTERM: both exit 0. ->
+    the phase's numbers."""
+    import shutil
+    import socket
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="vproxy-cluster-")
+    kids, ports = [], []
+    try:
+        t0 = time.monotonic()
+        for attempt in range(3):
+            # the peers' ports must be known before either node binds
+            # them: picked free here, and a node that loses one to
+            # another process fails its boot, so the pair boots again
+            # on fresh ports
+            free = _free_ports([socket.SOCK_DGRAM, socket.SOCK_STREAM] * 2)
+            spec = ",".join(f"{LOOPBACK}:{free[2 * i]}/{free[2 * i + 1]}"
+                            for i in range(2))
+            try:
+                for i in range(2):
+                    home = os.path.join(work, f"a{attempt}node{i}")
+                    os.makedirs(home)
+                    env = {k: v for k, v in os.environ.items()
+                           if k not in ("VPROXY_TPU_TORCH_DEVICE",
+                                        "VPROXY_TPU_MATCHER")}
+                    env.update(PYTHONPATH=root, VPROXY_TPU_HOME=home,
+                               VPROXY_TPU_CLUSTER_PEERS=spec,
+                               VPROXY_TPU_CLUSTER_SELF=str(i),
+                               VPROXY_TPU_CLUSTER_HB_MS="50",
+                               VPROXY_TPU_CLUSTER_POLL_MS="100",
+                               SMOKE_CLUSTER_GO=os.path.join(work,
+                                                             "go.json"),
+                               SMOKE_CLUSTER_OUT=os.path.join(
+                                   work, f"out{i}.json"))
+                    if device.type == "cpu":
+                        env["VPROXY_TPU_TORCH_DEVICE"] = "cpu"
+                    p, pp = _boot_child(
+                        ["noLoadLast", "noSave", "noStdIOController",
+                         "resp-controller", f"{LOOPBACK}:0", RESP_PASSWORD,
+                         "http-controller", f"{LOOPBACK}:0"], env,
+                        os.path.join(home, "stderr.log"),
+                        want=("resp-controller", "http-controller"),
+                        entry=("-c", CLUSTER_CHILD))
+                    kids.append(p)
+                    ports.append(pp)
+                break
+            except RuntimeError:
+                for p in kids:
+                    p.kill()
+                    p.wait(30)
+                kids, ports = [], []
+                if attempt == 2:
+                    raise
+        boot_s = time.monotonic() - t0
+
+        def status(i):
+            return http_json(ports[i]["http-controller"], "/cluster")
+
+        def wait(pred, what, timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while not pred():
+                check(time.monotonic() < deadline, what)
+                time.sleep(0.05)
+
+        wait(lambda: all(sum(p["up"] for p in status(i)["peers"]) == 2
+                         for i in range(2)), "the nodes never saw both UP")
+        st = [status(i) for i in range(2)]
+        check(st[0]["is_leader"] and not st[1]["is_leader"] and
+              st[0]["leader"] == st[1]["leader"] == 0,
+              f"leadership: {st[0]['leader']} / {st[1]['leader']}")
+        leader = Resp(ports[0]["resp-controller"], RESP_PASSWORD)
+        follower = Resp(ports[1]["resp-controller"], RESP_PASSWORD)
+        n_cmds, t0 = 1, time.monotonic()
+        check(leader.cmd("add upstream u0") == "OK", "add upstream")
+        rules = tcplb_rules(max_groups, TCPLB_RULE_SEED)
+        n = 0
+        for i, r in enumerate(rules):
+            anno = {"vproxy/hint-host": r.host}
+            if r.uri is not None:
+                anno["vproxy/hint-uri"] = r.uri
+            for line in (
+                    f"add server-group g{i} timeout 1000 period 600000 up 1 "
+                    "down 1 protocol none",
+                    f"add server-group g{i} to upstream u0 weight 10 "
+                    f"annotations {json.dumps(anno, separators=(',', ':'))}"):
+                check(leader.cmd(line) == "OK", line)
+                n_cmds += 1
+            n = i + 1
+            if n >= min_groups and time.monotonic() - t0 > build_s:
+                break
+        build_wall = time.monotonic() - t0
+        gen = status(0)["generation"]
+        check(gen == n_cmds, f"leader generation {gen} != {n_cmds} "
+              "replicated commands")
+        t1 = time.monotonic()
+        wait(lambda: status(1)["generation"] == gen,
+             f"the follower never reached generation {gen}", 180.0)
+        converge_s = time.monotonic() - t1
+        st = [status(i) for i in range(2)]
+        check(st[0]["checksum"] == st[1]["checksum"] and
+              st[1]["generation_lag"] == 0,
+              f"checksums {st[0]['checksum']:#x} / {st[1]['checksum']:#x}")
+        ups = [Resp(ports[i]["resp-controller"], RESP_PASSWORD).cmd(
+            "list-detail upstream") for i in range(2)]
+        try:
+            follower.cmd("add upstream u-nope")
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        check(refused is not None and "follower" in refused,
+              f"the follower accepted a mutation: {refused}")
+        check(status(1)["generation"] == gen, "the refusal moved a generation")
+        with open(os.path.join(work, "go.json"), "w") as f:
+            json.dump({"queries": queries, "seed": CLUSTER_SEED,
+                       "step_ms": CLUSTER_STEP_MS, "batch": CLUSTER_BATCH,
+                       "timeout_ms": CLUSTER_TIMEOUT_MS}, f)
+        outs = []
+        for i in range(2):
+            path = os.path.join(work, f"out{i}.json")
+            wait(lambda: os.path.exists(path),
+                 f"node {i}'s driver wrote nothing", 240.0)
+            with open(path) as f:
+                outs.append(json.load(f))
+        on_card = device.type == "cuda"
+        for i, o in enumerate(outs):
+            check("error" not in o, f"node {i}: {o.get('error')}")
+            check(o["answered"] == queries and o["mismatches"] == 0,
+                  f"node {i}: {o['answered']} answered, {o['mismatches']} "
+                  "differ from the host index")
+            check(o["steps_total"] > 0 and not o["degraded"] and
+                  o["barrier_stalls"] == 0 and o["fused"],
+                  f"node {i}: steps {o['steps_total']}, degraded "
+                  f"{o['degraded']}, stalls {o['barrier_stalls']}")
+            check(o["device"].startswith(device.type) and
+                  o["backend"] == "torch" and o["rules"] == n,
+                  f"node {i}: {o['device']} {o['backend']} {o['rules']}")
+            check(o["dispatch_steps"] and o["b1_per_dispatch"] ==
+                  [1 if on_card else 0] and
+                  o["launches"]["fused_classify_pick"] >=
+                  (o["dispatches"] if on_card else 0),
+                  f"node {i}: {o['dispatches']} dispatches (each step's "
+                  f"in order: {o['dispatch_steps']}), B1 launches a "
+                  f"dispatch {o['b1_per_dispatch']}, launches "
+                  f"{o['launches']}")
+            check(o["launches"]["hint_match"] == 0,
+                  f"node {i}: a step took the unfused chain")
+        leader.close()
+        follower.close()
+        for p in kids:
+            p.send_signal(15)
+        codes = [p.wait(60) for p in kids]
+        check(codes == [0, 0], f"the nodes exited {codes}")
+        out = {"nodes": 2, "groups": n, "commands": n_cmds,
+               "generation": gen, "checksum": st[0]["checksum"],
+               "boot_s": boot_s, "build_s": build_wall,
+               "converge_s": converge_s, "build_cut": n < max_groups,
+               "follower_refused": refused.split(": ", 1)[-1][:120],
+               "list_detail_equal": ups[0] == ups[1], "step": outs}
+        check(out["list_detail_equal"],
+              "the nodes list upstream u0 differently")
+        log(f"cluster: {json.dumps(out)}")
+        return out
+    finally:
+        for p in kids:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     smi = phase_env()
     # the native FD provider, built from this checkout: a build or load
@@ -5744,6 +6646,9 @@ def main() -> int:
         return out
 
     builds = run("build", phase_build)
+    # the sharded compiles are host work: spawned workers run them while
+    # the phases below use the card
+    shard_pool, shard_futs = sharded_start()
     err, b3_err, keep = run("kernels", phase_kernel_vs_plain, device)
     launches, pair = run("service", phase_service, device, keep[0])
     loop, _ = run("loop", phase_loop, device, pair, keep[0])
@@ -5784,8 +6689,29 @@ def main() -> int:
                 acl)
     fp_rows = run("fp times", phase_fp_times, device, fp)
     dense_rows = run("dense times", phase_dense_times, device, dense)
+    # the sharded backends and the cluster plane after every timing of
+    # the unsharded kernels: their rows keep the conditions of the runs
+    # PERF.md compares them with
+    sharded = run("sharded tables", sharded_tables, device, shard_pool,
+                  shard_futs)
+    b8 = run("sharded kernels", phase_sharded_kernels, device, sharded)
+    log(json.dumps({"sharded_kernels": {
+        "max_abs_err": b8["max_abs_err"], "checks": b8["checks"],
+        "shards": sorted({k[1] for k in sharded if isinstance(k, tuple)}),
+        "buckets": SHARDED_BUCKETS, "card": smi}}))
+    svc_tabs = run("sharded service tables", sharded_service_tables, device,
+                   sharded, {"hint": pair.hm, "routes": routes})
+    del sharded
+    b8_svc = run("sharded service", phase_sharded_service, device, svc_tabs)
+    log(json.dumps({"sharded_service": {**b8_svc, "card": smi}}))
+    del svc_tabs
+    cluster = run("cluster", phase_cluster, device)
+    log(json.dumps({"cluster": {**cluster, "card": smi}}))
     b5_launches = {"fp service": fp_svc["maglev_take_launches"],
-                   "dense service": dense_svc["launches"]["maglev_take"]}
+                   "dense service": dense_svc["launches"]["maglev_take"],
+                   "sharded service": sum(
+                       v["launches"]["maglev_take"]
+                       for v in b8_svc.values())}
     log(json.dumps({"b5_take": {
         "replaces": REPLACES_B5, "source": SOURCE_B5,
         "max_abs_err": dense_err["b5"], "launches": b5_launches,
@@ -5810,11 +6736,22 @@ def main() -> int:
                 "bound_by": at(rows_, "bound_by"), "library_ms": None,
                 "batch": SERVICE_BATCH, "card": smi, **extra}
 
+    b1_cluster = sum(o["launches"]["fused_classify_pick"]
+                     for o in cluster["step"])
+    b8_launches = {be: v["launches"]["sharded_match"]
+                   for be, v in b8_svc.items()}
+    b8_at = f"hint S={max(SHARD_MESH)}"
+
+    def unsharded(rows_, what):
+        return {"kernel": what, "ms": at(rows_), "cold_ms":
+                at(rows_, "cold_ms")}
+
     log(json.dumps({"kernels": [
         entry("fused_classify_pick", SOURCE, REPLACES,
-              launches + loop["b1_launches"], err, rows,
+              launches + loop["b1_launches"] + b1_cluster, err, rows,
               launches_by_path={"service": launches,
-                                "loop": loop["b1_launches"]},
+                                "loop": loop["b1_launches"],
+                                "cluster step loops": b1_cluster},
               build_s=builds["fused"]["build_s"],
               instances=builds["fused"]["instances"], by_batch=rows,
               sweep=sweep),
@@ -5890,7 +6827,26 @@ def main() -> int:
                   "dense service cidr": dense_svc["launches"]["cidr_dense"]},
               build_s=builds["dense"]["build_s"],
               instances=builds["dense"]["instances"],
-              by_batch=dense_rows)]}))
+              by_batch=dense_rows),
+        entry("sharded_match", SOURCE_B8, REPLACES_B8,
+              sum(b8_launches.values()), b8["max_abs_err"],
+              b8["rows"][b8_at],
+              table=f"100k hint rules (mk_rules), cuckoo, S = "
+              f"{max(SHARD_MESH)} (make_mesh(8, batch=2))",
+              launches_by_path={f"sharded service {be}": n_
+                                for be, n_ in b8_launches.items()},
+              finish_launches=sum(v["launches"]["sharded_finish"]
+                                  for v in b8_svc.values()),
+              build_s=builds["sharded"]["build_s"],
+              instances=builds["sharded"]["instances"],
+              unsharded_at_512={
+                  "hint": unsharded(b3_rows, "B3"),
+                  "fp_hint": unsharded(fp_rows["B6"], "B6"),
+                  "cidr routes": unsharded(crows["B4 routes"], "B4"),
+                  "cidr acl": unsharded(crows["B4 ACL"], "B4"),
+                  "fp_cidr routes": unsharded(fp_rows["B7 routes"], "B7"),
+                  "fp_cidr acl": unsharded(fp_rows["B7 ACL"], "B7")},
+              by_case=b8["rows"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,9 @@ the matchers on the CPU.
 * ported reference cases, each run on both packages (`pkg`):
   tests/test_control.py (3), test_controllers.py (2), test_resp_matrix.py
   (2, over the ported resource types, the switch's among them; the
-  types whose subsystems are not ported yet, the cluster plane and the
-  docker plugin, are listed exactly in NOT_PORTED and each refuses over
-  RESP), test_control_extras.py's inventory, resolver/dns-cache,
+  one type whose subsystem is not ported yet, the docker plugin, is
+  listed exactly in NOT_PORTED and refuses over RESP),
+  test_control_extras.py's inventory, resolver/dns-cache,
   controller-resource, timeout/persist and socks5-update cases (its
   switch cases are in test_torch_vswitch.py),
   test_tls.py::test_tls_command_grammar,
@@ -26,10 +26,11 @@ the matchers on the CPU.
   dns-server, a switch and both controllers from a config file, serving
   each once, then saving its config on SIGTERM (tests/test_boot_all.py);
   without a GPU and without the host asked for, it exits non-zero, as
-  it does for the cluster plane, the matcher backends and the
-  deployable apps not ported yet; VPROXY_TPU_MATCHER=jax-dense boots it
-  on the dense backend, and the command script over its resp-controller
-  answers what the reference's does.
+  it does for the deployable apps not ported yet;
+  VPROXY_TPU_MATCHER=jax-dense boots it on the dense backend, and the
+  command script over its resp-controller answers what the reference's
+  does; jax-sharded and jax-fp-sharded boot it on the sharded backends,
+  and VPROXY_TPU_CLUSTER_PEERS boots a cluster node in it.
 """
 import json
 import os
@@ -391,17 +392,20 @@ MATRIX = [
 # ROADMAP Queue A item that ports it: exactly these refuse, so the list
 # cannot grow unnoticed
 NOT_PORTED = {
-    "cluster-node": 8,
     "docker-network-plugin-controller": 10,
 }
 
 # queried/virtual or attach-only resources, and the controllers (their
-# own cases below): the reference matrix's list, less the not-ported
+# own cases below): the reference matrix's list, less the not-ported.
+# cluster-node needs a booted cluster plane (VPROXY_TPU_CLUSTER_PEERS),
+# which this clusterless matrix app does not have: its verbs are
+# exercised in tests/test_torch_cluster.py and by
+# test_entry_boots_a_cluster_node
 UNCREATABLE = {
     "server-sock", "session", "connection", "bytes-in", "bytes-out",
     "accepted-conn-count", "dns-cache", "resolver", "proxy", "iface",
     "arp", "tap", "resp-controller", "http-controller", "event-log",
-    "trace", "analytics",
+    "trace", "analytics", "cluster-node",
 }
 
 
@@ -1310,29 +1314,19 @@ def test_boot_from_config_serves_and_saves_on_sigterm(tmp_path):
 
 REFUSALS = {
     "no-GPU": ({}, [], "no CUDA device"),
-    "cluster": ({"VPROXY_TPU_TORCH_DEVICE": "cpu",
-                 "VPROXY_TPU_CLUSTER_PEERS": "127.0.0.1:7001"}, [],
-                "ROADMAP Queue A item 8"),
     "helloworld": ({"VPROXY_TPU_TORCH_DEVICE": "cpu"}, ["helloworld"],
                    "ROADMAP Queue A item 10"),
     "kcptun": ({"VPROXY_TPU_TORCH_DEVICE": "cpu"}, ["kcptun"],
                "ROADMAP Queue A item 10"),
-    "jax-sharded": ({"VPROXY_TPU_TORCH_DEVICE": "cpu",
-                     "VPROXY_TPU_MATCHER": "jax-sharded"}, [],
-                    "ROADMAP Queue A item 8"),
-    "jax-fp-sharded": ({"VPROXY_TPU_TORCH_DEVICE": "cpu",
-                        "VPROXY_TPU_MATCHER": "jax-fp-sharded"}, [],
-                       "ROADMAP Queue A item 8"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_entry_refuses(case, tmp_path):
     """Without a GPU, and without the CPU or the host asked for, the
-    entry exits non-zero with torchenv's message; the cluster plane,
-    the matcher backends and the deployable apps not ported yet are
-    refused, never ignored. Nothing is served and no config is
-    written."""
+    entry exits non-zero with torchenv's message; the deployable apps
+    not ported yet are refused, never ignored. Nothing is served and
+    no config is written."""
     env, args, msg = REFUSALS[case]
     if case == "no-GPU" and torch.cuda.is_available():
         pytest.skip("a GPU is present: the entry would boot")
@@ -1418,6 +1412,86 @@ def test_entry_serves_jax_dense_like_the_reference(tmp_path, monkeypatch):
     assert "backend torch-dense rules" in got[ups][0]
     assert "backend jax-dense rules" in ref[ups][0]
     assert sum(isinstance(x, str) and x.startswith("ERR ") for x in got) >= 5
+
+
+def _boot_entry(tmp_path, env: dict, want: tuple = ("resp-controller on",)):
+    """`python -m vproxy_tpu_torch` on the CPU with `env`, a resp-
+    controller on an ephemeral port. -> (process, resp port, the stdout
+    lines read until every line start in `want` was seen)."""
+    import select
+    p = subprocess.Popen(
+        [sys.executable, "-m", "vproxy_tpu_torch", "noLoadLast", "noSave",
+         "noStdIOController", "resp-controller", "127.0.0.1:0", "pw"],
+        cwd=REPO, env=_port_env(tmp_path, VPROXY_TPU_TORCH_DEVICE="cpu",
+                                **env),
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    buf, lines = "", []
+    deadline = time.time() + 60
+    while time.time() < deadline and not all(
+            any(ln.startswith(w) for ln in lines) for w in want):
+        r, _, _ = select.select([p.stdout], [], [], 0.5)
+        if not r:
+            continue
+        chunk = os.read(p.stdout.fileno(), 4096).decode()
+        if not chunk:
+            break
+        buf += chunk
+        lines = buf.split("\n")[:-1]
+    resp = next((int(ln.rsplit(":", 1)[1]) for ln in lines
+                 if ln.startswith("resp-controller on ")), None)
+    return p, resp, lines
+
+
+@pytest.mark.timeout(180)
+@pytest.mark.parametrize("matcher", ["jax-sharded", "jax-fp-sharded"])
+def test_entry_serves_the_sharded_names(matcher, tmp_path):
+    """VPROXY_TPU_MATCHER=jax-sharded / jax-fp-sharded boot `python -m
+    vproxy_tpu_torch` on the port's sharded backends (the default mesh:
+    one shard slot in one process): an Upstream built by command lists
+    its backend, and the entry exits 0 on SIGTERM."""
+    p, resp, lines = _boot_entry(tmp_path, {"VPROXY_TPU_MATCHER": matcher})
+    try:
+        assert resp, lines
+        got = _resp_script(resp, [
+            "add upstream u0",
+            "add server-group g0 timeout 500 period 60000 up 1 down 2 "
+            "annotations {\"vproxy/hint-host\":\"a.example.com\"}",
+            "add server-group g0 to upstream u0 weight 10",
+            "list-detail upstream"])
+        want = "torch-fp-sharded" if "fp" in matcher else "torch-sharded"
+        assert f"backend {want} rules" in got[-1][0], got
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(30) == 0
+    finally:
+        if p.poll() is None:
+            p.kill()
+
+
+@pytest.mark.timeout(180)
+def test_entry_boots_a_cluster_node(tmp_path):
+    """VPROXY_TPU_CLUSTER_PEERS boots a ClusterNode in `python -m
+    vproxy_tpu_torch` (one node on ports it binds itself: no race for
+    a port): it leads its fleet of one, `cluster-node` commands answer,
+    a replicated mutation bumps the generation, and the entry exits 0
+    on SIGTERM."""
+    p, resp, lines = _boot_entry(
+        tmp_path, {"VPROXY_TPU_CLUSTER_PEERS": "127.0.0.1:0/0"},
+        ("resp-controller on", "cluster node"))
+    try:
+        assert resp and any(ln.startswith("cluster node 0/1 ")
+                            for ln in lines), lines
+        got = _resp_script(resp, ["list cluster-node",
+                                  "list-detail cluster-node",
+                                  "add upstream u0",
+                                  "list-detail cluster-node"])
+        assert got[0] == ["0"], got
+        assert any("self leader" in ln for ln in got[1]), got
+        assert got[3][-1].startswith("generation 1 lag 0"), got
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(30) == 0
+    finally:
+        if p.poll() is None:
+            p.kill()
 
 
 def test_entry_boots_on_the_host_when_asked(tmp_path):

@@ -1,7 +1,7 @@
 """Torch port on the card: the CIDR kernels, B3, the fingerprint
-kernels (B6, B7), the dense kernels (B9) and the Maglev take (B5)
-against their plain tiers, and the control plane's DNS server and
-Socks5 answered through B3 and B4.
+kernels (B6, B7), the dense kernels (B9), the Maglev take (B5) and the
+sharded winner reduction (B8) against their plain tiers, and the
+control plane's DNS server and Socks5 answered through B3 and B4.
 
 Every test here is marked `cuda` and asks the `cuda` fixture for the
 card, which skips without one (the CPU tier-1 run skips them all). On a
@@ -432,3 +432,102 @@ def test_dns_and_socks5_answered_by_b3_gated_by_b4(cuda, monkeypatch,
         app.close()
         srv.close()
         ClassifyService.reset()
+
+
+# --------------------------------------------- B8: the sharded backends
+
+_SHARDED = {}
+
+
+def _sharded_tabs(cuda):
+    """Small sharded tables at S = 1..4 (3000 hint rules, 2000 routes,
+    500 ACL rules: compiled in spawned workers as chip_smoke.py does),
+    built once for the module."""
+    if "tabs" not in _SHARDED:
+        pool, futs = CS.sharded_start(3000, 2000, 500, shards=(4, 3, 2, 1),
+                                      workers=2)
+        _SHARDED["tabs"] = CS.sharded_tables(cuda, pool, futs, 3000, 2000,
+                                             500)
+    return _SHARDED["tabs"]
+
+
+def test_sharded_kernel_matches_plain_and_index(cuda):
+    """B8 == its plain version == the host index, int32, at S = 1..4 on
+    the cuckoo and fingerprint tables (hint, routes, ACL with ports),
+    one launch a batch, an eighth of each batch pad rows."""
+    out = CS.phase_sharded_kernels(cuda, _sharded_tabs(cuda),
+                                   buckets=(16, 64, 512), timed=False)
+    assert out["max_abs_err"] == 0 and out["checks"] == 4 * 6 * 3
+
+
+def test_sharded_keys_then_finish_pass(cuda):
+    """The cross-rank form: B8 writing keys only, then the finish pass,
+    answers what the one-launch form answers."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    tabs = _sharded_tabs(cuda)
+    for kind, part in (("hint", None), ("fp_hint", None), ("cidr", "acl"),
+                       ("fp_cidr", "routes")):
+        name = f"{kind} {part}"
+        t = tabs[(kind, 3)]
+        n0 = SC.finish_cuda.launches
+        if part is None:
+            q = CS.sharded_hint_batch(t["hint"]["stab"],
+                                      CS.mk_queries(tabs["rules"], 400, 17),
+                                      512, t["mesh"], kind == "fp_hint")
+            keys = SC.sharded_cuda((t["hint"]["kern"], q, t["hint"]["size"]),
+                                   finish=False)
+            want = SC.hint_sharded(t["hint"]["kern"], q, t["hint"]["size"])
+        else:
+            tt = t[part]
+            qs = CS.acl_queries(tabs["acl"], 400, 17) if part == "acl" else \
+                [(a, None) for a, _ in CS.cidr_queries(tabs["nets"], 400, 17)]
+            a16, fam, port = CS.cidr_batch(qs, 512, cuda)
+            col = [(tt["kern"], a16, fam, port, tt["size"])]
+            keys = SC.sharded_cuda(cidr=col, finish=False)
+            want = SC.cidr_sharded(tt["kern"], a16, fam, port, tt["size"])
+        assert keys.dtype == torch.int64 and keys.shape == (512, 1), name
+        assert torch.equal(SC.finish_cuda(keys)[:, 0], want), name
+        assert torch.equal(SC.finish_plain(keys)[:, 0], want), name
+        assert SC.finish_cuda.launches == n0 + 1
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+@pytest.mark.parametrize("backend", ["torch-sharded", "torch-fp-sharded"])
+def test_sharded_tie_case_on_the_card(cuda, s, backend):
+    """The brute-force case: ties across shards, level-0 shards, a rule
+    count no S divides; every answer the linear oracle's."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    from vproxy_tpu_torch.parallel import mesh as M
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import oracle
+    rules, hints = CS.sharded_tie_case()
+    m = E.HintMatcher(rules, backend=backend,
+                      mesh=M.make_mesh(2 * s, batch=2, device=cuda))
+    n0 = SC.sharded_cuda.launches
+    got = m.match(hints)
+    assert SC.sharded_cuda.launches == n0 + 1
+    assert list(got) == [oracle.search(rules, h) for h in hints]
+
+
+def test_sharded_service_on_the_card(cuda):
+    """ClassifyService in "device" mode over both sharded backends at
+    S = 4: one B8 launch a hint, cpick or cidr batch, B5 a cpick batch,
+    every answer the host index's, checksums the unsharded matcher's."""
+    out = CS.phase_sharded_service(
+        cuda, CS.sharded_service_tables(cuda, _sharded_tabs(cuda)), bursts=1,
+        burst=128)
+    assert set(out) == {"torch-sharded", "torch-fp-sharded"}
+
+
+def test_sharded_kernel_refuses_unprepared_tables(cuda):
+    """A raw (unprepared) stack or a short batch is a KernelError."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    tabs = _sharded_tabs(cuda)
+    t = tabs[("cidr", 2)]["routes"]
+    a16, fam, _ = CS.cidr_batch(
+        [(a, None) for a, _ in CS.cidr_queries(tabs["nets"], 8, 3)], 16,
+        cuda)
+    with pytest.raises(FC.KernelError):
+        SC.sharded_cuda(cidr=[(dict(t["raw"]), a16, fam, None, t["size"])])
+    with pytest.raises(FC.KernelError):
+        SC.sharded_cuda(cidr=[(t["kern"], a16, fam[:4], None, t["size"])])

@@ -871,15 +871,16 @@ def test_default_backend_reads_the_reference_names(monkeypatch):
                       ("jax-dense", "torch-dense")):
         monkeypatch.setenv("VPROXY_TPU_MATCHER", env)
         assert E.default_backend() == want, env
-    # the reference backends not ported yet are refused with their
-    # ROADMAP item, never served by "torch"
-    for env, item in (("jax-sharded", 8), ("jax-fp-sharded", 8)):
+    # the sharded names serve the port's sharded backends (on the
+    # default mesh: one shard slot in one process)
+    for env, want in (("jax-sharded", "torch-sharded"),
+                      ("jax-fp-sharded", "torch-fp-sharded")):
         monkeypatch.setenv("VPROXY_TPU_MATCHER", env)
-        with pytest.raises(ValueError,
-                           match=f"ROADMAP Queue A item {item}"):
-            E.default_backend()
-        with pytest.raises(ValueError, match="not ported yet"):
-            E.CidrMatcher(route_nets(20, 3))
+        assert E.default_backend() == want, env
+        m = E.CidrMatcher(route_nets(20, 3))
+        assert m.backend == want and m._mesh.shape["rules"] == 1
+        nets = m.snapshot()[1]
+        assert int(m.match([nets[5].ip])[0]) == m.oracle_one(nets[5].ip)
     monkeypatch.delenv("VPROXY_TPU_MATCHER")
     assert E.default_backend() == "torch"
     monkeypatch.setenv("VPROXY_TPU_MATCHER", "jax-fp")
@@ -1118,10 +1119,12 @@ def test_fp_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("kind", ["hint", "cidr"])
 def test_fp_kernel_abi_mirror_matches_source(kind):
-    """The ctypes mirrors have the C structs' fields, in order."""
+    """The ctypes mirrors have the C structs' fields, in order (each
+    struct lives in its routine's header, which the kernel and B8
+    share)."""
     src_path, struct, cls = (
-        (FPC.SOURCE_HINT, "FpHintArgs", FPC._FpHintArgs) if kind == "hint"
-        else (FPC.SOURCE_CIDR, "FpCidrArgs", FPC._FpCidrArgs))
+        (FPC.HEADER_HINT, "FpHintArgs", FPC._FpHintArgs) if kind == "hint"
+        else (FPC.HEADER_CIDR, "FpCidrArgs", FPC._FpCidrArgs))
     with open(src_path) as f:
         body = re.search(rf"struct {struct} \{{(.*?)\}};", f.read(),
                          re.S).group(1)

@@ -342,8 +342,10 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_kernel_abi_mirror_matches_source():
     """The ctypes FusedArgs mirror has the C struct's fields, in order,
-    with the C types' sizes (the .cu compiles only on the GPU host)."""
-    with open(FC.SOURCE) as f:
+    with the C types' sizes (the .cu compiles only on the GPU host). The
+    struct lives in the hint routine's header, which the kernel and B8
+    share."""
+    with open(FC.HINT_HEADER) as f:
         src = f.read()
     body = re.search(r"struct FusedArgs \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)

@@ -14,14 +14,12 @@ Command.execute on the control loop, mirroring the reference's
 control-plane isolation (doc/architecture.md:64-66).
 
 The port's copy of vproxy_tpu/control/command.py: the same grammar
-(ACTIONS, TYPES, PARAM_KEYS, FLAGS, the bare verbs) and the same
-resource-type inventory. The handlers of the types whose subsystems
-are not ported yet (NOT_PORTED: the cluster plane, the docker plugin)
-raise CmdError("<type>: not ported yet (ROADMAP
-Queue A item N)") for every action; everything else is the
-reference's. No cluster node can boot in the port, so `app.cluster`
-stays None and the leader/follower replication hook of
-Command.execute is not carried over.
+(ACTIONS, TYPES, PARAM_KEYS, FLAGS, the bare verbs), the same
+resource-type inventory and the cluster plane's leader/follower
+replication hook in Command.execute. The handler of the one type whose
+subsystem is not ported yet (NOT_PORTED: the docker plugin) raises
+CmdError("<type>: not ported yet (ROADMAP Queue A item N)") for every
+action; everything else is the reference's.
 
 `list-detail upstream` prints the serving backend's name (`backend
 torch` here, `backend jax` in the reference) and the fused tier's name
@@ -244,10 +242,12 @@ class Command:
             if not SK.enabled():
                 return ["analytics disabled (VPROXY_TPU_ANALYTICS=0)"]
             if len(toks) == 3:
-                # no cluster node boots in the port (ROADMAP Queue A
-                # item 8): the reference's answer without one
-                raise CmdError("no cluster plane booted; `top "
-                               f"{dim}` serves the local view")
+                cluster = getattr(app, "cluster", None)
+                if cluster is None:
+                    raise CmdError("no cluster plane booted; `top "
+                                   f"{dim}` serves the local view")
+                rows = cluster.fleet_analytics()[dim]
+                return SK.render_top(dim, rows)
             return SK.render_top(dim)
         if len(toks) == 2 and toks[0] == "trace":
             # `trace <id>`: one sampled request's span waterfall (the
@@ -293,6 +293,44 @@ class Command:
         handler = _HANDLERS.get(c.type)
         if handler is None:
             raise CmdError(f"no handler for resource type {c.type}")
+        # cluster replication hook (cluster/replicate.py): a mutation
+        # against a replicated resource type becomes the next rule
+        # generation on the LEADER. Followers reject it outright —
+        # accepting it would silently diverge their tables until the
+        # next checksum heal tore the mutation (and every live
+        # listener) back down. The mutation lock makes (apply, bump)
+        # atomic against concurrent follower syncs.
+        cluster = getattr(app, "cluster", None)
+        replicated = False
+        if cluster is not None and c.action not in ("list", "list-detail"):
+            from ..cluster.replicate import REPLICATED_TYPES
+            replicated = c.type in REPLICATED_TYPES
+        if replicated:
+            repl = cluster.replicator
+            if not repl._applying:
+                if not cluster.membership.is_leader():
+                    raise CmdError(
+                        f"this node is a cluster follower; issue "
+                        f"mutations on the leader (node "
+                        f"{cluster.membership.leader_id()}) — followers "
+                        "converge via replication (docs/cluster.md)")
+                behind = repl._fleet_ahead()
+                if behind is not None:
+                    # leader by id, stale by state (a rolling restart
+                    # brought the lowest id back behind the fleet):
+                    # accepting a mutation here would journal it into a
+                    # generation the catch-up snapshot is about to wipe
+                    # — acknowledged, then silently lost. Refuse until
+                    # the catch-up sync converges.
+                    raise CmdError(
+                        f"this node leads by id but is behind the "
+                        f"fleet (peer {behind[0]} at generation "
+                        f"{behind[1]}, local {repl.generation}); "
+                        "catching up — retry once converged")
+            with repl.mutation_lock:
+                result = handler(app, c)
+                cluster.on_command(line)
+            return result
         return handler(app, c)
 
 
@@ -1391,8 +1429,7 @@ def _h_analytics(app: Application, c: Command):
                        f"rotations={ds['rotations']} {lead}")
         return out
     if c.action == "list-detail":
-        # the reference's snapshot_with_fleet() without a cluster node
-        return SK.snapshot()
+        return SK.snapshot_with_fleet()
     raise CmdError(f"unsupported action {c.action} for analytics")
 
 
@@ -1597,10 +1634,59 @@ def _h_httpc(app: Application, c: Command):
     raise CmdError(f"unsupported action {c.action} for http-controller")
 
 
+def _h_cluster(app: Application, c: Command):
+    """`add cluster-node <id> address <ip:port>` admits a peer into the
+    membership view at runtime (the boot set comes from
+    VPROXY_TPU_CLUSTER_PEERS); `remove cluster-node <id>` evicts one;
+    `list[-detail] cluster-node` shows the fleet view (same data as
+    `GET /cluster`)."""
+    cluster = app.cluster
+    if cluster is None:
+        raise CmdError("cluster plane not enabled "
+                       "(set VPROXY_TPU_CLUSTER_PEERS at boot)")
+    if c.action == "add":
+        try:
+            nid = int(c.alias)
+        except ValueError:
+            raise CmdError(f"bad cluster-node id {c.alias!r}")
+        if "address" not in c.params:
+            raise CmdError("cluster-node requires `address <ip:port>`")
+        ip, port = _addr(c.params["address"])
+        try:
+            cluster.membership.add_peer(nid, ip, port)
+        except ValueError as e:
+            raise CmdError(str(e))
+        return "OK"
+    if c.action == "list":
+        return [str(p.node_id) for p in cluster.membership.peer_list()]
+    if c.action == "list-detail":
+        st = cluster.status()
+        out = []
+        for p in cluster.membership.peer_list():
+            role = ("self " if p.node_id == st["self"] else "") + \
+                ("leader" if p.node_id == st["leader"] else "follower")
+            out.append(f"{p.node_id} -> {p.ip}:{p.port} "
+                       f"repl {p.repl_port} "
+                       f"{'UP' if p.up else 'DOWN'} "
+                       f"generation {p.generation} "
+                       f"{'stepping' if p.stepping else 'not-stepping'} "
+                       f"{role}")
+        out.append(f"generation {st['generation']} "
+                   f"lag {st['generation_lag']} "
+                   f"checksum {st['checksum']:#010x}")
+        return out
+    if c.action in ("remove", "force-remove"):
+        try:
+            cluster.membership.remove_peer(int(c.alias))
+        except (ValueError, KeyError) as e:
+            raise CmdError(f"cannot remove cluster-node {c.alias!r}: {e}")
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for cluster-node")
+
+
 # resource types whose subsystem is not ported yet -> the ROADMAP
 # Queue A item that ports it
 NOT_PORTED = {
-    "cluster-node": 8,
     "docker-network-plugin-controller": 10,
 }
 
@@ -1616,7 +1702,7 @@ _HANDLERS = {
     "trace": _h_trace,
     "analytics": _h_analytics,
     "policy": _h_policy,
-    "cluster-node": _not_ported,
+    "cluster-node": _h_cluster,
     "resolver": _h_resolver,
     "dns-cache": _h_dnscache,
     "proxy": _h_proxy,

@@ -7,9 +7,8 @@ as the reference's controller is built on its vserver. JSON bodies use
 the command grammar's param names; list endpoints return JSON arrays.
 
 The port's copy of vproxy_tpu/control/http_controller.py, same routes
-and payloads. No cluster node can boot in the port (ROADMAP Queue A
-item 8), so /cluster, /analytics and the switch module answer as the
-reference does without one.
+and payloads (/cluster and /analytics read the cluster node when one
+is booted, as the reference's do).
 """
 from __future__ import annotations
 
@@ -174,8 +173,14 @@ class HttpController:
         srv.get("/healthz", healthz)
         srv.get("/faults", lambda r: r.resp.end(failpoint.active()))
 
-        # fleet view (cluster plane): never booted in the port
-        srv.get("/cluster", lambda r: r.resp.end({"enabled": False}))
+        def cluster(r: RoutingContext) -> None:
+            # fleet view (cluster plane, docs/cluster.md): membership,
+            # leader, rule generation + lag, step-loop state
+            node = self.app.cluster
+            r.resp.end({"enabled": False} if node is None
+                       else node.status())
+
+        srv.get("/cluster", cluster)
 
         def trace_ep(r: RoutingContext) -> None:
             # span-level request tracing (docs/observability.md):
@@ -196,15 +201,19 @@ class HttpController:
 
         def analytics_ep(r: RoutingContext) -> None:
             # heavy-hitter tables (docs/observability.md traffic
-            # analytics): local top-K per dimension — same payload as
-            # the inspection server's /analytics (one shared assembly)
+            # analytics): local top-K per dimension + the fleet-merged
+            # view when a cluster is booted — same payload as the
+            # inspection server's /analytics (one shared assembly)
             from ..utils import sketch as SK
-            out = SK.snapshot()
+            out = SK.snapshot_with_fleet()
             # per-node policed attribution (the enforcement half of
             # the analytics loop)
             from ..policing import engine as PE
-            out["policing"] = {"self": PE.default().policed_by_node(),
-                               "peers": {}}
+            node = self.app.cluster
+            out["policing"] = (
+                node.fleet_policing() if node is not None
+                else {"self": PE.default().policed_by_node(),
+                      "peers": {}})
             r.resp.end(out)
 
         srv.get("/analytics", analytics_ep)

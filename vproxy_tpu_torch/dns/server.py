@@ -19,8 +19,8 @@ Application state.
 
 The port's copy of vproxy_tpu/dns/server.py, same names and behaviour.
 The cluster arm of `<name>.vproxy.local` reads the port's cluster
-package, whose dns_peer_addrs() is None until the cluster plane is
-ported (ROADMAP Queue A item 8): the reference's answer without a node.
+package: dns_peer_addrs() answers the healthy peers of a booted node,
+None without one (the reference's answer), so the arm falls through.
 """
 from __future__ import annotations
 

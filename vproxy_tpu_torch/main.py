@@ -4,13 +4,15 @@ The port's copy of vproxy_tpu/main.py: the same arguments, env layer
 and default controller ports. It serves on the CUDA device: without a
 GPU it exits 1 with torchenv's message, unless the caller asks for the
 host (VPROXY_TPU_TORCH_DEVICE=cpu: the matchers on the CPU;
-VPROXY_TPU_MATCHER=host: no device matcher at all). Not carried over
-yet: the jax.distributed bring-up (VPROXY_TPU_DIST_*), the cluster
-plane (VPROXY_TPU_CLUSTER_PEERS is refused, ROADMAP Queue A item 8),
-the matcher backends VPROXY_TPU_MATCHER=jax-sharded and jax-fp-sharded
-(refused, item 8), and the deployable apps other than `simple`
-(refused, item 10). VPROXY_TPU_MATCHER=jax-fp serves the port's
-"torch-fp" backend, jax-dense its "torch-dense" backend.
+VPROXY_TPU_MATCHER=host: no device matcher at all). The multi-host
+bring-up (VPROXY_TPU_DIST_*) joins a torch.distributed job in place of
+jax.distributed (parallel/mesh.py init_distributed), first thing;
+VPROXY_TPU_CLUSTER_PEERS boots the cluster plane after the config load.
+Not carried over yet: the deployable apps other than `simple`
+(refused, ROADMAP Queue A item 10). VPROXY_TPU_MATCHER=jax-fp serves
+the port's "torch-fp" backend, jax-dense its "torch-dense" backend,
+jax-sharded and jax-fp-sharded its "torch-sharded" and
+"torch-fp-sharded" backends.
 
 Parity: app/Main.java: default controllers (resp on 16309, http on
 18776, both on 127.0.0.1 — Main.java:319-337), load-last-config at boot,
@@ -42,9 +44,25 @@ Env flags (the reference's -D system-property layer, Config.java):
   VPROXY_TPU_CLASSIFY=auto|device|host   dispatch-path policy
   VPROXY_TPU_CLASSIFY_BUDGET_US=n        lone-query latency budget
   VPROXY_TPU_TORCH_DEVICE=cuda|cpu       the matchers' device (cuda)
+  VPROXY_TPU_DIST_COORD=host:port        torch.distributed coordinator
+  VPROXY_TPU_DIST_NPROC=n                ... process count
+  VPROXY_TPU_DIST_PROCID=i               ... this process's rank
+  VPROXY_TPU_DIST_TIMEOUT_S=s            ... bring-up deadline (120)
+  VPROXY_TPU_MESH_SERVE=auto|1|0         sharded serving over the mesh
+  VPROXY_TPU_MESH_BACKEND=jax-sharded|jax-fp-sharded
+  VPROXY_TPU_MESH_BATCH=n                the mesh's batch axis (1)
 
-Cluster plane: VPROXY_TPU_CLUSTER_PEERS is refused (not ported yet);
+Cluster plane (docs/cluster.md):
+  VPROXY_TPU_CLUSTER_PEERS=h:p[/rp],...  fleet topology (node id = index)
+  VPROXY_TPU_CLUSTER_SELF=i              this node's id (default: dist
+                                         rank, else 0)
+  VPROXY_TPU_CLUSTER_HB_MS=ms            membership heartbeat (200)
+  VPROXY_TPU_CLUSTER_UP/_DOWN=n          membership hysteresis (2 / 3)
+  VPROXY_TPU_CLUSTER_POLL_MS=ms          follower replication poll (500)
   VPROXY_TPU_CLUSTER_SERVICE=name        DNS service sub-domain (cluster)
+  VPROXY_TPU_CLUSTER_STEP_MS=ms          step-clock period (20)
+  VPROXY_TPU_CLUSTER_STEP_TIMEOUT_MS=ms  barrier deadline (1000)
+  VPROXY_TPU_CLUSTER_BATCH=n             per-host rows per step (16)
 
 Failure-containment knobs (docs/robustness.md):
   VPROXY_TPU_CONNECT_RETRIES=n           backend connect retries (default 2)
@@ -86,14 +104,6 @@ def main(argv: list[str] | None = None) -> int:
     from .utils.oom import install as install_oom
     install_oom()
 
-    # a reference backend not ported yet is refused, never served by
-    # another
-    from .rules.engine import default_backend
-    try:
-        default_backend()
-    except ValueError as e:
-        print(f"vproxy_tpu_torch: {e}", file=sys.stderr)
-        return 1
     # the serving device: the card, unless the caller asked for the host
     if os.environ.get("VPROXY_TPU_MATCHER") != "host":
         from .utils.torchenv import default_device
@@ -102,10 +112,22 @@ def main(argv: list[str] | None = None) -> int:
         except RuntimeError as e:
             print(f"vproxy_tpu_torch: {e}", file=sys.stderr)
             return 1
-    if os.environ.get("VPROXY_TPU_CLUSTER_PEERS"):
-        print("VPROXY_TPU_CLUSTER_PEERS: the cluster plane is not ported "
-              "yet (ROADMAP Queue A item 8)", file=sys.stderr)
+
+    # multi-host bring-up BEFORE any table reaches the device: when
+    # VPROXY_TPU_DIST_COORD/_NPROC/_PROCID are set, join the
+    # torch.distributed job so every matcher mesh can span hosts
+    # (parallel/mesh.py — tables replicated per host, rules sharded
+    # within a host). No-op when unset.
+    from .parallel.mesh import init_distributed
+    try:
+        joined = init_distributed()
+    except RuntimeError as e:
+        print(f"vproxy_tpu_torch: {e}", file=sys.stderr)
         return 1
+    if joined:
+        import torch.distributed as dist
+        print(f"joined distributed job: rank {dist.get_rank()}/"
+              f"{dist.get_world_size()}")
 
     # deployable apps (reference -Deploy=...): first arg selects the app
     if argv and argv[0].lower() in ("helloworld", "daemon", "kcptun",
@@ -188,6 +210,22 @@ def main(argv: list[str] | None = None) -> int:
     elif not opts["no_load"] and os.path.exists(persist.LAST_CONFIG):
         n = persist.load(app)
         print(f"loaded {n} commands from {persist.LAST_CONFIG}")
+
+    # cluster plane AFTER the config load: the leader's journal starts
+    # from the restored resource graph; followers converge onto it via
+    # generation-tagged replication (docs/cluster.md)
+    from .cluster import ClusterNode
+    try:
+        app.cluster = ClusterNode.boot_from_env(app)
+    except (OSError, ValueError) as e:
+        print(f"failed to start cluster plane: {e}", file=sys.stderr)
+        app.close()
+        return 1
+    if app.cluster is not None:
+        m = app.cluster.membership
+        print(f"cluster node {m.self_id}/{len(m.peers)} "
+              f"(heartbeat :{m.peers[m.self_id].port}, replication "
+              f":{app.cluster.replicator.bind_port})")
 
     stop = threading.Event()
     want_drain = threading.Event()  # SIGTERM/`drain`: graceful window

@@ -23,8 +23,9 @@ share a fingerprint pair, and the (0, 0) pair that marks empty entries).
   runs in int64 with every product masked back to 32 bits (`_mul32`:
   a u32 times a 32-bit constant would overflow int64).
 
-The reference's sharded helpers (`compile_*_fp_sharded`) wait for the
-port's sharded backends.
+* **Sharded half (numpy):** `compile_hint_fp_sharded`,
+  `compile_cidr_fp_sharded` and `encode_hint_queries_fp_sharded`, the
+  reference's, for the "torch-fp-sharded" backend.
 """
 from __future__ import annotations
 
@@ -1182,3 +1183,56 @@ def classify_fp_all(hint_t: dict, route_t: dict, acl_t: dict,
     r_idx = cidr_fp_match(route_t, addr16, fam, None)
     a_idx = cidr_fp_match(acl_t, addr16, fam, port)
     return torch.stack([h_idx, r_idx, a_idx], dim=1)
+
+
+# ----------------------------------------------------- mesh-sharded path
+#
+# Rule-axis sharding mirrors ops/hashmatch's ShardedHashTable (copies of
+# the reference's helpers): the rule list is sliced, each slice compiled
+# into its OWN fp table under ONE unified caps dict (identical shapes),
+# and the per-shard arrays stack on a leading shard axis. Each shard
+# runs the unchanged single-shard fp matcher (B6 / B7's routines inside
+# B8 on the card); winners reduce as the cuckoo path's do.
+
+from .hashmatch import _compile_sharded, ShardedHashTable  # noqa: E402
+
+
+def compile_hint_fp_sharded(rules: Sequence[HintRule], n_shards: int,
+                            caps: Optional[dict] = None) -> ShardedHashTable:
+    return _compile_sharded(
+        rules, n_shards,
+        lambda s, off, caps: compile_hint_fp(s, caps=caps, strict=False),
+        caps)
+
+
+def compile_cidr_fp_sharded(networks: Sequence, n_shards: int,
+                            acl: Optional[Sequence[AclRule]] = None,
+                            caps: Optional[dict] = None) -> ShardedHashTable:
+    return _compile_sharded(
+        networks, n_shards,
+        lambda s, off, caps: compile_cidr_fp(
+            s, acl=None if acl is None else acl[off: off + len(s)],
+            caps=caps, strict=False), caps)
+
+
+def encode_hint_queries_fp_sharded(hints: Sequence,
+                                   stab: ShardedHashTable) -> dict:
+    """Per-shard probe encodings stacked on the leading shard axis
+    (salts and slot offsets are shard-local). Probe widths are
+    content-dependent (trimmed to each shard's live probes), so they
+    are re-padded to the widest shard before stacking."""
+    per = [encode_hint_queries_fp(hints, t) for t in stab.shards]
+    # um_* exist iff that shard's uri probes were trimmed; shards must
+    # agree on keys (fallback = the shard's untrimmed up_* arrays)
+    if any("um_fp1" in p for p in per):
+        for p in per:
+            for mk_, pk_ in (("um_fp1", "up_fp1"), ("um_fp2", "up_fp2"),
+                             ("um_score", "up_score")):
+                p.setdefault(mk_, p[pk_])
+    for k in ("hp_slot", "hp_fp1", "hp_fp2", "hp_level",
+              "up_slot", "up_fp1", "up_fp2", "up_score"):
+        w = max(p[k].shape[1] for p in per)
+        for p in per:
+            if p[k].shape[1] < w:
+                p[k] = np.pad(p[k], ((0, 0), (0, w - p[k].shape[1])))
+    return {k: np.stack([p[k] for p in per]) for k in per[0]}

@@ -39,6 +39,8 @@ from .fused_cuda import KernelError, card_entry
 _CSRC = os.path.dirname(FC.SOURCE)
 SOURCE_HINT = os.path.join(_CSRC, "fp_hint.cu")
 SOURCE_CIDR = os.path.join(_CSRC, "fp_cidr.cu")
+HEADER_HINT = os.path.join(_CSRC, "fp_hint.cuh")  # the routines B8 shares
+HEADER_CIDR = os.path.join(_CSRC, "fp_cidr.cuh")
 
 # B6's arguments: name -> dtype of each pointer, in the order of
 # `struct FpHintArgs` (csrc/fp_hint.cu); table arrays, then the batch
@@ -82,13 +84,15 @@ class _FpCidrArgs(ctypes.Structure):
 
 
 def build_hint() -> str:
-    """Compile csrc/fp_hint.cu once; -> the shared library's path."""
-    return FC.build_library(SOURCE_HINT, "libfphint", "fp")
+    """Compile csrc/fp_hint.cu (and its routine's header) once; -> the
+    shared library's path."""
+    return FC.build_library(SOURCE_HINT, "libfphint", "fp", (HEADER_HINT,))
 
 
 def build_cidr() -> str:
-    """Compile csrc/fp_cidr.cu once; -> the shared library's path."""
-    return FC.build_library(SOURCE_CIDR, "libfpcidr", "fp")
+    """Compile csrc/fp_cidr.cu (and its routine's header) once; -> the
+    shared library's path."""
+    return FC.build_library(SOURCE_CIDR, "libfpcidr", "fp", (HEADER_CIDR,))
 
 
 _LIBS: dict = {}

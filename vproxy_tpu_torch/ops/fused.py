@@ -27,6 +27,8 @@ reference's jit and Pallas tiers, has nothing to select here.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -43,7 +45,7 @@ PACK_LAYOUT_V = 1
 
 # ------------------------------------------------------------- packing
 
-def pack_hint_table(a: dict) -> dict:
+def pack_hint_table(a: dict, uri: Optional[bool] = None) -> dict:
     """HashHintTable.arrays -> packed numpy arrays (see module doc).
 
     Column map (pk_meta, int32 [r_cap, 8]):
@@ -59,10 +61,12 @@ def pack_hint_table(a: dict) -> dict:
     the sweep — probe tables, uri byte columns, wildcard list — is
     OMITTED from the packed dict entirely. The dict's key set selects
     the program: the plain tier skips the uri half and the CUDA kernel
-    launches its uri-free instance, so such a table pays no uri work."""
+    launches its uri-free instance, so such a table pays no uri work.
+    `uri` overrides that choice (ops/sharded_cuda.py keeps the uri half
+    in every shard of a stack when any shard has a uri rule)."""
     r_cap = a["r_active"].shape[0]
     hw = a["r_host"].shape[1]
-    has_uri = bool((a["r_uri_kind"] > 0).any())
+    has_uri = bool((a["r_uri_kind"] > 0).any()) if uri is None else uri
     meta = np.zeros((r_cap, 8), np.int32)
     meta[:, 0] = a["r_active"]
     meta[:, 1] = a["r_port"]

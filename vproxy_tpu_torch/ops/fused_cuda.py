@@ -55,6 +55,7 @@ from . import fused as F
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "fused_classify_pick.cu")
 CIDR_HEADER = os.path.join(_PKG, "csrc", "cidr_first.cuh")
+HINT_HEADER = os.path.join(_PKG, "csrc", "hint_probe.cuh")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CUDA_DEFAULT = "/usr/local/cuda"  # the toolkit's usual prefix
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -177,10 +178,11 @@ def build_library(source: str, stem: str, key: str,
 
 
 def build() -> str:
-    """Compile csrc/fused_classify_pick.cu (with the CIDR routine it
-    includes) once; -> the shared library's path (build_library)."""
+    """Compile csrc/fused_classify_pick.cu (with the hint and CIDR
+    routines it includes) once; -> the shared library's path
+    (build_library)."""
     return build_library(SOURCE, "libfused", f"layout {F.PACK_LAYOUT_V}",
-                         (CIDR_HEADER,))
+                         (CIDR_HEADER, HINT_HEADER))
 
 
 _LIB = None
@@ -235,14 +237,16 @@ class PackedTable(dict):
     pointers and sizes), `uri`, `hw`, `uw`, `word`, `device`."""
 
 
-def prepare_table(ht: dict) -> PackedTable:
+def prepare_table(ht: dict, build_kernel: bool = True) -> PackedTable:
     """Check a packed table once for the kernel (device, dtypes,
-    contiguity, widths) and build + load the library. -> a PackedTable
-    (`ht` itself when it already is one). Raises KernelError when the
-    library cannot be built or loaded, ValueError on a bad table."""
+    contiguity, widths) and, with `build_kernel`, build + load the
+    library. -> a PackedTable (`ht` itself when it already is one).
+    Raises KernelError when the library cannot be built or loaded,
+    ValueError on a bad table."""
     if isinstance(ht, PackedTable):
         return ht
-    _lib()
+    if build_kernel:
+        _lib()
     dev = ht["pk_meta"].device
     if dev.type == "cpu":  # the plain tier's, never the kernel's
         raise ValueError(f"fused CUDA kernel needs CUDA tensors, got "

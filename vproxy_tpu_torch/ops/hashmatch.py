@@ -17,6 +17,12 @@ two halves:
   (RouteTable.java:44, SecurityGroup.java:30): the plain tier of the
   CIDR kernel (ops/cidr_cuda.py), which serves CPU tensors;
   `classify_hash_all` stacks hint, route and ACL answers.
+* **Sharded half (numpy):** `compile_hint_hash_sharded` /
+  `compile_cidr_hash_sharded` compile S contiguous rule slices under one
+  unified caps dict and stack them (`ShardedHashTable`);
+  `encode_hint_queries_sharded` encodes a batch for every shard in one
+  pass. Copies of the reference's, byte-identical
+  (tests/test_torch_sharded.py).
 
 Semantics notes carried over from the reference: a JAX gather clamps an
 out-of-range index, torch indexing raises, so every index the reference
@@ -809,3 +815,245 @@ def classify_hash_all(hint_t: dict, route_t: dict, acl_t: dict,
     r_idx = cidr_hash_match(route_t, addr16, fam, None)
     a_idx = cidr_hash_match(acl_t, addr16, fam, port)
     return torch.stack([h_idx, r_idx, a_idx], dim=1)
+
+
+# ----------------------------------------------------- mesh-sharded path
+#
+# Rule-axis sharding for the hash path (the reference's sharded half,
+# copied): the rule list is split into S contiguous slices, each
+# compiled into its OWN cuckoo table (hash probing is slot-local, so
+# sharding the compiled arrays directly would turn every probe into a
+# cross-shard gather). All shards share one unified `caps` dict, so the
+# per-shard arrays have identical shapes and stack along a leading
+# shard axis (parallel/mesh.py puts each shard slot's slice on its
+# device). Each shard runs the unchanged single-shard matcher; the
+# global winner is the highest level, then the least global index among
+# the level winners (Upstream.java:187's strictly-greater-max +
+# earliest-index-tie semantics), which B8 (ops/sharded_cuda.py) decides
+# in one launch over all of a process's shards.
+
+
+@dataclass
+class ShardedHashTable:
+    """S per-shard tables with unified shapes, stacked for the mesh."""
+
+    shards: list  # per-shard HashHintTable | HashCidrTable
+    arrays: dict  # stacked [S, ...] numpy arrays
+    shard_size: int  # rules per shard (global idx = shard * size + local)
+    n: int
+    r_cap: int  # per-shard capacity
+    # hint tables only (compile_hint_hash_sharded): the sorted union of
+    # the shards' rule-uri length sets, precomputed so the single-pass
+    # encoder does no per-dispatch set algebra; None for cidr/foreign
+    # stabs (the encoder falls back to the legacy per-shard path)
+    lset_u: Optional[list] = None
+
+
+def _unify_caps(tabs_caps: list) -> dict:
+    out: dict = {}
+    for c in tabs_caps:
+        for k, v in c.items():
+            out[k] = max(out.get(k, 0), v)
+    return out
+
+
+def _compile_sharded(items: Sequence, n_shards: int, compile_one,
+                     caps: Optional[dict]) -> ShardedHashTable:
+    """compile_one(slice, item_offset, caps) -> per-shard table; the
+    offset is the slice's start index in `items`, so positional side
+    tables (ACL windows) stay aligned with the slicing by construction.
+    When caps is supplied (the runtime-update fast path), the result
+    MUST fit: growth raises CapsExceeded instead of silently changing
+    shapes and retracing the caller's jitted classify.
+
+    Memory-lean: once the per-shard arrays are stacked, the per-shard
+    copies are dropped (the shard objects stay — encoders read their
+    salts/caps/lset, never the arrays). A 1M-rule table would otherwise
+    sit in host RAM twice before it ever reaches the device."""
+    reused = dict(caps) if caps else None
+    per = max(1, -(-len(items) // n_shards))  # ceil; empty tail shards ok
+    slices = [list(items[d * per: (d + 1) * per]) for d in range(n_shards)]
+    caps = dict(caps or {})
+    for _ in range(6):  # caps only grow; fixed point in a few rounds
+        tabs = []
+        for d, s in enumerate(slices):
+            tabs.append(compile_one(s, d * per, caps))
+            CK.coop_yield()  # standby-compile courtesy: explicit
+            #                  preemption point between shard builds
+        merged = _unify_caps([t.caps for t in tabs])
+        if all(t.caps == merged for t in tabs):
+            if reused is not None and merged != reused:
+                raise CapsExceeded(
+                    f"update outgrew reused caps: {reused} -> {merged}")
+            arrays = {}
+            for k in tabs[0].arrays:
+                CK.coop_yield()  # stack chunks are multi-MB memcpys:
+                #                  paced per key like the build loops
+                arrays[k] = np.stack([t.arrays[k] for t in tabs])
+            for t in tabs:
+                t.arrays = {}
+            return ShardedHashTable(shards=tabs, arrays=arrays,
+                                    shard_size=per, n=len(items),
+                                    r_cap=tabs[0].r_cap)
+        caps = merged
+    raise RuntimeError("sharded table caps did not converge")
+
+
+def compile_hint_hash_sharded(rules: Sequence[HintRule], n_shards: int,
+                              caps: Optional[dict] = None) -> ShardedHashTable:
+    """Per-shard compiles under unified caps, plus the UNION uri-length
+    cap ("lset_u") the single-pass sharded encoder sizes its probe axis
+    by: a caps-stable width, so same-caps rule updates keep one query
+    trace shape (the no-retrace contract) — an update whose uri-length
+    union outgrows it raises CapsExceeded like any other caps growth
+    (the engine transparently rebuilds + retraces once)."""
+    reused_u = (caps or {}).get("lset_u")
+    inner = dict(caps) if caps else None
+    if inner is not None:
+        inner.pop("lset_u", None)  # per-shard compiles don't know it
+    stab = _compile_sharded(
+        rules, n_shards,
+        lambda s, off, caps: compile_hint_hash(s, caps=caps), inner)
+    union = set()
+    for t in stab.shards:
+        union.update(t.lset)
+    u_cap = _pow2(max(len(union), 1), 4)
+    if reused_u:
+        if u_cap > reused_u:
+            raise CapsExceeded(
+                f"uri-length union outgrew reused cap: {reused_u} -> "
+                f"{u_cap}")
+        u_cap = reused_u
+    for t in stab.shards:
+        t.caps["lset_u"] = u_cap
+    stab.lset_u = sorted(union)
+    return stab
+
+
+def compile_cidr_hash_sharded(networks: Sequence, n_shards: int,
+                              acl: Optional[Sequence[AclRule]] = None,
+                              caps: Optional[dict] = None) -> ShardedHashTable:
+    # each shard's ACL window follows its rule slice positionally (the
+    # offset comes FROM the slicer, so they cannot drift apart)
+    return _compile_sharded(
+        networks, n_shards,
+        lambda s, off, caps: compile_cidr_hash(
+            s, acl=None if acl is None else acl[off: off + len(s)],
+            caps=caps), caps)
+
+
+def encode_hint_queries_sharded(hints: Sequence, stab: ShardedHashTable,
+                                pad_to: Optional[int] = None) -> dict:
+    """Per-shard probe encoding stacked on the leading shard axis.
+
+    Probe slots/salts are shard-local, so the same hint batch encodes
+    differently per shard — but only in the HASH VALUES: the unified
+    caps guarantee every shard shares the compare windows and table
+    capacities, and the probe POSITIONS (dots, uri lengths) depend only
+    on query content. So this runs the byte walk and the rolling-FNV
+    pass ONCE for all shards (rolling_fnv64_multi over the salt
+    vector), instead of the S sequential re-encodes the original path
+    paid — measured 8x of the whole dispatch's host cost at S=8.
+
+    uri probes ride the UNION of the shards' rule-uri length sets: a
+    probe at a length some shard lacks byte-verifies off (no key of
+    that length exists there), so correctness is per-shard exact while
+    the probe arrays stay shard-uniform.
+
+    pad_to: encode the real hints only and zero/-1-fill the probe rows
+    up to the batch bucket (a pad row has no probes and can never
+    match). Each device still receives only its own slice (the stacked
+    dims are sharded (rules, batch) on the mesh)."""
+    shards = stab.shards
+    t0 = shards[0]
+    # compile_hint_hash_sharded guarantees unified shard shapes and
+    # precomputes the uri-length union; a foreign-built stab (no
+    # lset_u) pays the uniformity scan once per dispatch or drops to
+    # the legacy per-shard encode
+    if stab.lset_u is None and not all(
+            t.hw == t0.hw and t.uw == t0.uw
+            and t.host_cap == t0.host_cap and t.uri_cap == t0.uri_cap
+            for t in shards):
+        # non-unified shard shapes (foreign-built stab): legacy path
+        if pad_to and pad_to > len(hints):
+            from ..rules.ir import Hint
+            hints = list(hints) + [Hint()] * (pad_to - len(hints))
+        per = [encode_hint_queries(hints, t) for t in shards]
+        return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+    S = len(shards)
+    b = len(hints)
+    cap = max(b, pad_to or 0)
+    W = t0.hw
+    (q_hostb, q_hlen, q_has_host, q_urib, q_ulen, q_has_uri,
+     q_port) = _fill_query_windows(hints, W, t0.uw, cap)
+
+    def shared(a: np.ndarray) -> np.ndarray:
+        # shard-invariant keys: a zero-stride broadcast view on the
+        # shard axis (device_put materializes each device's slice)
+        return np.broadcast_to(a, (S,) + a.shape)
+
+    # --- host probes (positions shared; slots per shard salt)
+    h1 = CK.rolling_fnv64_multi(
+        q_hostb[:, : W - 1],
+        [t.host_salts[0] for t in shards])  # [S, cap, W]
+    h2 = CK.rolling_fnv64_multi(
+        q_hostb[:, : W - 1], [t.host_salts[1] for t in shards])
+    pos = np.arange(W)[None, :]
+    probe_ok = np.concatenate([
+        (q_hostb == DOT) & (pos < q_hlen[:, None]) & (pos >= 1),
+        (q_has_host & (q_hlen <= W - 1))[:, None],  # exact slot
+    ], axis=1) & q_has_host[:, None]  # [cap, W+1]
+    probe_len = np.concatenate([
+        np.broadcast_to(pos, (cap, W)), q_hlen[:, None],
+    ], axis=1).astype(np.int32)
+    need = int(probe_ok.sum(axis=1).max(initial=0))
+    maxp = next((t for t in MAXP_TIERS if t >= need), MAXP_TIERS[-1])
+    order = np.argsort(~probe_ok, axis=1, kind="stable")[:, :maxp]
+    pv = np.take_along_axis(probe_ok, order, 1)
+    pl = np.where(pv, np.take_along_axis(probe_len, order, 1), 0)
+    hp_len = np.where(pv, pl, -1).astype(np.int32)  # [cap, P] shared
+    mask = np.uint64(t0.host_cap - 1)
+    pl_s = np.broadcast_to(pl, (S,) + pl.shape)
+    hp_slot1 = np.where(pv[None],
+                        (np.take_along_axis(h1, pl_s, 2) & mask)
+                        .astype(np.int32), -1)
+    hp_slot2 = np.where(pv[None],
+                        (np.take_along_axis(h2, pl_s, 2) & mask)
+                        .astype(np.int32), -1)
+
+    # --- uri probes at the UNION of the shards' rule-uri length sets;
+    # width = the caps-stable "lset_u" cap (compile_hint_hash_sharded)
+    # so caps-reusing updates keep ONE query trace shape
+    lset_u = stab.lset_u if stab.lset_u is not None else sorted(
+        set().union(*[set(t.lset) for t in shards]))
+    lw = t0.caps.get("lset_u") or _pow2(max(len(lset_u), 1), 4)
+    lset = np.full(lw, -1, np.int32)
+    lset[: len(lset_u)] = lset_u
+    u1 = CK.rolling_fnv64_multi(q_urib,
+                                [t.uri_salts[0] for t in shards])
+    u2 = CK.rolling_fnv64_multi(q_urib,
+                                [t.uri_salts[1] for t in shards])
+    lv = (lset[None, :] >= 0) & (lset[None, :] <= q_ulen[:, None]) & \
+        q_has_uri[:, None]  # [cap, lw]
+    ll = np.where(lv, np.maximum(lset[None, :], 0), 0)
+    umask = np.uint64(t0.uri_cap - 1)
+    up_len = np.where(lv, ll, -1).astype(np.int32)  # shared
+    ll_s = np.broadcast_to(ll, (S,) + ll.shape)
+    up_slot1 = np.where(lv[None],
+                        (np.take_along_axis(u1, ll_s, 2) & umask)
+                        .astype(np.int32), -1)
+    up_slot2 = np.where(lv[None],
+                        (np.take_along_axis(u2, ll_s, 2) & umask)
+                        .astype(np.int32), -1)
+
+    return {
+        "hostb": shared(q_hostb), "hlen": shared(q_hlen),
+        "has_host": shared(q_has_host),
+        "urib": shared(q_urib), "ulen": shared(q_ulen),
+        "has_uri": shared(q_has_uri), "port": shared(q_port),
+        "hp_len": shared(hp_len), "hp_slot1": hp_slot1,
+        "hp_slot2": hp_slot2,
+        "up_len": shared(up_len), "up_slot1": up_slot1,
+        "up_slot2": up_slot2,
+    }

@@ -24,10 +24,20 @@ VPROXY_TPU_MATCHER):
             packed word layout published beside the reference's arrays.
             It fuses nothing: classify+pick is B9 plus the Maglev take
             (B5), the reference's two-dispatch chain.
+* "torch-sharded" — the cuckoo-hash tables sharded over the rules axis
+            of a shard-slot mesh (parallel/mesh.py, the reference's
+            "jax-sharded"): a contiguous rule slice per shard compiled
+            into its own table under one unified caps dict, stacked on
+            the serving device. A batch is ONE launch of B8
+            (ops/sharded_cuda.py) over every shard of the process, which
+            decides the winner in the kernel; where the rules axis spans
+            ranks, its keys go through one all_reduce. CPU tensors take
+            its plain version. Rule updates reuse the caps; an update
+            that outgrows them (ops.hashmatch.CapsExceeded) rebuilds.
+* "torch-fp-sharded" — the fingerprint tables over the same mesh
+            (the reference's "jax-fp-sharded"), B8's fingerprint form.
 * "host"  — the pure-Python oracle (correctness floor + latency floor
             for tiny tables).
-
-The reference's mesh-sharded backends are a later slice of the port.
 
 Rule updates never stall serving: set_rules() hands the new rule list to
 a process-wide background installer (TableInstaller) that compiles and
@@ -58,17 +68,19 @@ from .ir import AclRule, Hint, HintRule
 _log = Logger("engine")
 
 
-BACKENDS = ("torch", "torch-fp", "torch-dense", "host")
+BACKENDS = ("torch", "torch-fp", "torch-dense", "torch-sharded",
+            "torch-fp-sharded", "host")
 # the ones with a serving device
-DEVICE_BACKENDS = ("torch", "torch-fp", "torch-dense")
+DEVICE_BACKENDS = ("torch", "torch-fp", "torch-dense", "torch-sharded",
+                   "torch-fp-sharded")
+SHARDED_BACKENDS = ("torch-sharded", "torch-fp-sharded")
 
-# VPROXY_TPU_MATCHER speaks the reference's names; this package serves
-# each under its own. The reference backends not ported yet are refused
-# with the ROADMAP Queue A item that ports them; any other value serves
-# "torch".
+# VPROXY_TPU_MATCHER (and VPROXY_TPU_MESH_BACKEND) speak the
+# reference's names; this package serves each under its own. Any other
+# value serves "torch".
 _MATCHER_ENV = {"host": "host", "jax": "torch", "jax-fp": "torch-fp",
-                "jax-dense": "torch-dense"}
-UNPORTED_BACKENDS = {"jax-sharded": 8, "jax-fp-sharded": 8}
+                "jax-dense": "torch-dense", "jax-sharded": "torch-sharded",
+                "jax-fp-sharded": "torch-fp-sharded"}
 
 
 def _check_backend(backend: str) -> str:
@@ -78,26 +90,77 @@ def _check_backend(backend: str) -> str:
     return backend
 
 
+def mesh_serving() -> bool:
+    """True when matchers without an explicit backend should serve
+    sharded over the shard-slot mesh. VPROXY_TPU_MESH_SERVE: "1"/"on"
+    forces it, "0"/"off" disables, "auto" (default) shards whenever the
+    mesh spans more than one REAL card (the ranks of a torch.distributed
+    job on CUDA, one card each): the reference's rule, where virtual
+    CPU devices are opt-in. On the CPU, or on one card, several shard
+    slots share one device: they buy nothing a single table does not,
+    so "auto" keeps "torch"."""
+    mode = os.environ.get("VPROXY_TPU_MESH_SERVE", "auto")
+    if mode in ("0", "off", "no"):
+        return False
+    from ..parallel.mesh import _world
+    if _world()[1] <= 1:
+        return False
+    if mode in ("1", "on", "yes"):
+        return True
+    try:
+        return default_device().type == "cuda"
+    except RuntimeError:
+        return False
+
+
 def default_backend() -> str:
     """VPROXY_TPU_MATCHER, read as the reference reads it: "host"
     selects the oracle, "jax-fp" the fingerprint backend ("torch-fp"),
     "jax-dense" the dense backend ("torch-dense"), "jax-sharded" and
-    "jax-fp-sharded" raise ValueError (not ported yet), every other
-    value the cuckoo backend ("torch", the counterpart of "jax")."""
+    "jax-fp-sharded" the sharded ones ("torch-sharded",
+    "torch-fp-sharded"), every other value the cuckoo backend ("torch",
+    the counterpart of "jax"). Unset: the sharded backend
+    (VPROXY_TPU_MESH_BACKEND, default "jax-sharded") when mesh_serving()
+    says the mesh should carry the tables, else "torch"."""
     env = os.environ.get("VPROXY_TPU_MATCHER", "")
-    if env in UNPORTED_BACKENDS:
-        raise ValueError(f"VPROXY_TPU_MATCHER={env}: not ported yet "
-                         f"(ROADMAP Queue A item {UNPORTED_BACKENDS[env]})")
-    return _MATCHER_ENV.get(env, "torch")
+    if env:
+        return _MATCHER_ENV.get(env, "torch")
+    if mesh_serving():
+        return _MATCHER_ENV.get(
+            os.environ.get("VPROXY_TPU_MESH_BACKEND", "jax-sharded"),
+            "torch")
+    return "torch"
 
 
-def pad_batch(n: int, lo: int = 16) -> int:
-    """Batch-shape bucket: pow2 growth from `lo`. ClassifyService uses
-    these buckets so the device sees few batch shapes."""
+_MESH: Optional[tuple] = None  # (world, batch, device) -> Mesh
+
+
+def default_mesh(device=None):
+    """Process-wide (batch, rules) mesh for the sharded matchers: one
+    shard slot per real card (the job's ranks; one on a one-card host),
+    the batch axis from VPROXY_TPU_MESH_BATCH (default 1 = rules-only).
+
+    Keyed on the CURRENT job size, batch knob and device, not cached
+    forever: a late torch.distributed bring-up must produce a fresh
+    mesh, not silently serve the stale one."""
+    global _MESH
+    from ..parallel import mesh as M
+    batch = int(os.environ.get("VPROXY_TPU_MESH_BATCH", "1"))
+    key = (M._world(), batch, default_device(device))
+    if _MESH is None or _MESH[0] != key:
+        _MESH = (key, M.make_mesh(batch=batch, device=key[2]))
+    return _MESH[1]
+
+
+def pad_batch(n: int, mult: int = 1, lo: int = 16) -> int:
+    """Batch-shape bucket: pow2 growth from `lo`, rounded up to a
+    multiple of `mult` (the mesh's batch-axis size, so the axis always
+    divides the padded batch). ClassifyService uses these buckets
+    (mult=1) so the device sees few batch shapes."""
     c = lo
     while c < n:
         c <<= 1
-    return c
+    return -(-c // mult) * mult
 
 
 # Below this rule count, single (unbatched) queries run on the host oracle:
@@ -532,20 +595,49 @@ def _dense_table(arrays: dict, device):
         for k, v in arrays.items()})
 
 
+class _StackDev(dict):
+    """A sharded matcher's published table: this rank's shards of the
+    stacked arrays on the serving device (name -> [S, ...] tensor; the
+    plain version's input, and what published_table_bytes counts), and
+    on the card `kernel`, B8's prepared stack (ops/sharded_cuda.py: the
+    packed cuckoo layout beside them, or these fingerprint arrays)."""
+
+    kernel = None
+
+
+def _card_upload(device, matcher: str, fn):
+    """fn() -> its result (a batch's tensors on `device`). On the card a
+    failure is the card's, never the host's: KernelError."""
+    try:
+        return fn()
+    except MemoryError:
+        raise
+    except Exception as e:
+        if device.type == "cpu":
+            raise
+        from ..ops.fused_cuda import KernelError
+        raise KernelError(f"{matcher} batch upload failed: {e!r}") from e
+
+
 class HintMatcher:
     """Device-backed (or host) Upstream/DNS hint matcher."""
 
     _kind = "hint"
 
     def __init__(self, rules: Sequence[HintRule] = (),
-                 backend: Optional[str] = None, payload=None, device=None):
+                 backend: Optional[str] = None, payload=None, device=None,
+                 mesh=None):
         self.backend = _check_backend(backend or default_backend())
         self.device = default_device(device) \
             if self.backend in DEVICE_BACKENDS else None
+        if mesh is not None and self.device is not None:
+            self.device = mesh.device  # the mesh's slots live there
         self._rules: list[HintRule] = list(rules)
         self._dev: Optional[dict] = None
         self._tab = None  # hash-path table meta
         self._caps: Optional[dict] = None
+        self._mesh = mesh  # sharded backends only (lazily defaulted)
+        self._fn = None    # sharded: the mesh's hint fn
         self.generation = 0  # bumps on every publish (atomic swap)
         # (tab, dev, rules, payload, index, fused) published as ONE
         # tuple so concurrent readers (the ClassifyService dispatcher)
@@ -638,6 +730,8 @@ class HintMatcher:
                 # failure stops the publish (KernelError)
                 from ..ops import fphash_cuda as FPC
                 self._dev = FPC.prepare_hint_table(self._dev)
+        elif self.backend in SHARDED_BACKENDS:
+            self._recompile_sharded()
         elif self.backend == "torch-dense":
             # the cap is reused while the rules fit, as the reference's
             cap = self._dev["active"].shape[0] if self._dev is not None \
@@ -675,6 +769,37 @@ class HintMatcher:
             _GENERATION[0] += 1
         _install_phase(itid, "swap", t_ph, matcher="hint",
                        generation=self.generation)
+
+    def _recompile_sharded(self) -> None:
+        """The sharded backends' compile: S contiguous rule slices under
+        one unified caps dict (reused across updates; an update that
+        outgrows them rebuilds), this rank's shards uploaded, and on the
+        card B8's stack prepared (the packed cuckoo layout, or the
+        fingerprint arrays themselves), which also builds B8."""
+        from ..ops import fphash as FP
+        from ..ops import sharded_cuda as SC
+        from ..parallel import mesh as M
+        if self._mesh is None:
+            self._mesh = default_mesh(self.device)
+        shards = self._mesh.shape["rules"]
+        fp = self.backend == "torch-fp-sharded"
+        compile_sharded = FP.compile_hint_fp_sharded if fp \
+            else H.compile_hint_hash_sharded
+        try:
+            self._tab = compile_sharded(self._rules, shards, caps=self._caps)
+        except H.CapsExceeded:
+            # the update outgrew the reused shapes: a fresh build
+            self._tab = compile_sharded(self._rules, shards)
+        self._caps = self._tab.shards[0].caps
+        dev = _StackDev(M.shard_hash_table(self._tab, self._mesh))
+        if self.device.type != "cpu":
+            dev.kernel = SC.prepare_fp_hint(dev) if fp else SC.prepare_hint(
+                M.shard_hash_table(self._tab, self._mesh,
+                                   SC.pack_hint_sharded(self._tab.arrays)))
+        self._dev = dev
+        # memory-lean: the stacked host copy is dead weight once the
+        # device holds the shards
+        M.release_host(self._tab)
 
     def fused_stat(self) -> dict:
         """Fused-dispatch state for the operator surfaces: packed-table
@@ -724,6 +849,9 @@ class HintMatcher:
     def oracle_snap(self, snap: tuple, hint: Hint) -> int:
         return oracle.search(snap[2], hint)
 
+    def oracle_one(self, hint: Hint) -> int:
+        return self.oracle_snap(self._pub, hint)
+
     def index_snap(self, snap: tuple, hint: Hint) -> int:
         """O(probes) host lookup against the snapshot's HintIndex (same
         winner as oracle_snap); the linear oracle when the snapshot has
@@ -735,7 +863,7 @@ class HintMatcher:
         return idx.lookup(hint)
 
     def dispatch_snap(self, snap: tuple, hints: Sequence[Hint],
-                      pad_to: Optional[int] = None):
+                      pad_to: Optional[int] = None, sync: bool = True):
         """Encode + submit one batch against the snapshotted table
         generation: an int32 [cap] device tensor (to_host() it to
         block). pad_to: target batch shape (a pad_batch bucket); only
@@ -745,7 +873,9 @@ class HintMatcher:
         snapshot's packed table, or KernelError; CPU tensors take the
         torch tier (hashmatch.hint_hash_match). A "torch-fp" matcher
         launches B6 instead (_dispatch_fp), a "torch-dense" one B9
-        (_dispatch_dense)."""
+        (_dispatch_dense), a sharded one B8 (_dispatch_sharded: sync
+        pulls its answer to the host before returning, [:len(hints)],
+        the reference's contract; the other backends ignore it)."""
         note_serving()
         tab, dev, rules = snap[0], snap[1], snap[2]
         if not rules or not hints:
@@ -758,6 +888,8 @@ class HintMatcher:
             return self._dispatch_fp(tab, dev, hints, pad_to)
         if self.backend == "torch-dense":
             return self._dispatch_dense(dev, hints, pad_to)
+        if self.backend in SHARDED_BACKENDS:
+            return self._dispatch_sharded(tab, dev, hints, pad_to, sync)
         q = self._upload(lambda: _fused_hint_q(tab, hints, pad_to))
         if self.device.type == "cpu":
             idx, _ = H.hint_hash_match(dev, q)
@@ -786,6 +918,32 @@ class HintMatcher:
         from ..ops import fphash_cuda as FPC
         return FPC.hint_fp_cuda(dev, q)[0]
 
+    def _dispatch_sharded(self, tab, dev, hints, pad_to: Optional[int],
+                          sync: bool):
+        """A sharded batch: padded to a multiple of the mesh's query
+        shards, the single-pass sharded encode (the fingerprint one pads
+        with empty Hint()s), this rank's shards' probe arrays uploaded,
+        then B8 on the card (one launch), the plain version on the CPU."""
+        from ..ops import fphash as FP
+        from ..parallel import mesh as M
+        n = len(hints)
+        cap = pad_batch(max(n, pad_to or 0), M.query_shards(self._mesh))
+        fp = self.backend == "torch-fp-sharded"
+
+        def encode():
+            if fp:
+                return FP.encode_hint_queries_fp_sharded(
+                    list(hints) + [Hint()] * (cap - n), tab)
+            return H.encode_hint_queries_sharded(hints, tab, pad_to=cap)
+        q = _card_upload(self.device, "hint", lambda: (
+            M.shard_hint_queries_sharded(encode(), self._mesh)))
+        if self._fn is None:
+            self._fn = M.make_sharded_hint_fn(
+                self._mesh, kernel=FP.hint_fp_match if fp else None)
+        out = self._fn(dev if self.device.type == "cpu" else dev.kernel, q,
+                       tab.shard_size)
+        return to_host(out)[:n] if sync else out
+
     def _dispatch_dense(self, dev, hints, pad_to: Optional[int]):
         """A "torch-dense" batch: pad rows as empty Hint()s, the
         reference's encode, then B9 on the card, the plain tier on the
@@ -797,17 +955,10 @@ class HintMatcher:
         return MT.hint_dense(dev, q)[0]
 
     def _upload(self, encode) -> dict:
-        """encode() -> the batch's tensors on the serving device. On the
-        card a failure is the card's, never the host's: KernelError."""
-        try:
-            return tables_from_reference(encode(), self.device)
-        except MemoryError:
-            raise
-        except Exception as e:
-            if self.device.type == "cpu":
-                raise
-            from ..ops.fused_cuda import KernelError
-            raise KernelError(f"hint batch upload failed: {e!r}") from e
+        """encode() -> the batch's tensors on the serving device
+        (_card_upload)."""
+        return _card_upload(self.device, "hint", lambda: (
+            tables_from_reference(encode(), self.device)))
 
 
 class CidrMatcher:
@@ -818,19 +969,24 @@ class CidrMatcher:
     def __init__(self, networks: Sequence = (),
                  backend: Optional[str] = None,
                  acl: Optional[Sequence[AclRule]] = None, payload=None,
-                 device=None):
+                 device=None, mesh=None):
         self.backend = _check_backend(backend or default_backend())
         self.device = default_device(device) \
             if self.backend in DEVICE_BACKENDS else None
+        if mesh is not None and self.device is not None:
+            self.device = mesh.device  # the mesh's slots live there
         self._nets = list(networks)
         self._acl = list(acl) if acl is not None else None
         self._dev: Optional[dict] = None
         self._caps: Optional[dict] = None
+        self._tab = None   # sharded backends: the stacked table's meta
+        self._mesh = mesh  # sharded backends only (lazily defaulted)
+        self._fns: dict = {}  # sharded: the mesh's fns keyed by with_port
         self.generation = 0  # bumps on every publish (atomic swap)
         # (dev, nets, acl, payload, tab, index, fused) — one atomic
         # generation (see HintMatcher._pub for the why); `tab` is the
-        # reference's sharded-table slot, None until the sharded
-        # backends land; `fused` the packed table the CUDA kernels read
+        # sharded backends' stacked-table meta (None otherwise);
+        # `fused` the packed table the CUDA kernels read
         self._pub: tuple = (None, [], None, payload, None, None, None)
         self._payload = payload
         self._cksum = None  # (pub-tuple, crc32) cache — see checksum()
@@ -854,14 +1010,15 @@ class CidrMatcher:
     def _install(self, args: tuple) -> None:
         """See HintMatcher._install — transactional standby compile."""
         networks, acl, payload = args
-        old = (self._nets, self._acl, self._payload, self._dev, self._caps)
+        old = (self._nets, self._acl, self._payload, self._tab, self._dev,
+               self._caps)
         self._nets = list(networks)
         self._acl = list(acl) if acl is not None else None
         self._payload = payload
         try:
             self._recompile()
         except BaseException:
-            (self._nets, self._acl, self._payload, self._dev,
+            (self._nets, self._acl, self._payload, self._tab, self._dev,
              self._caps) = old
             raise
 
@@ -906,6 +1063,8 @@ class CidrMatcher:
                 # checked once per publish, and B7 built (KernelError)
                 from ..ops import fphash_cuda as FPC
                 self._dev = FPC.prepare_cidr_table(self._dev)
+        elif self.backend in SHARDED_BACKENDS:
+            self._recompile_sharded()
         elif self.backend == "torch-dense":
             cap = self._dev["allow"].shape[0] if self._dev is not None \
                 else None
@@ -933,12 +1092,38 @@ class CidrMatcher:
         t_ph = time.monotonic_ns() if itid else 0
         self._pub = (self._dev, list(self._nets),
                      None if self._acl is None else list(self._acl),
-                     self._payload, None, idx, fused_dev)
+                     self._payload, self._tab, idx, fused_dev)
         self.generation += 1
         with _gen_lock:
             _GENERATION[0] += 1
         _install_phase(itid, "swap", t_ph, matcher="cidr",
                        generation=self.generation)
+
+    def _recompile_sharded(self) -> None:
+        """See HintMatcher._recompile_sharded: each shard's ACL window
+        follows its rule slice."""
+        from ..ops import fphash as FP
+        from ..ops import sharded_cuda as SC
+        from ..parallel import mesh as M
+        if self._mesh is None:
+            self._mesh = default_mesh(self.device)
+        shards = self._mesh.shape["rules"]
+        fp = self.backend == "torch-fp-sharded"
+        compile_sharded = FP.compile_cidr_fp_sharded if fp \
+            else H.compile_cidr_hash_sharded
+        try:
+            self._tab = compile_sharded(self._nets, shards, acl=self._acl,
+                                        caps=self._caps)
+        except H.CapsExceeded:
+            self._tab = compile_sharded(self._nets, shards, acl=self._acl)
+        self._caps = self._tab.shards[0].caps
+        dev = _StackDev(M.shard_hash_table(self._tab, self._mesh))
+        if self.device.type != "cpu":
+            dev.kernel = SC.prepare_fp_cidr(dev) if fp else SC.prepare_cidr(
+                M.shard_hash_table(self._tab, self._mesh,
+                                   SC.pack_cidr_sharded(self._tab.arrays)))
+        self._dev = dev
+        M.release_host(self._tab)
 
     def fused_stat(self) -> dict:
         """Packed cidr-table state (see HintMatcher.fused_stat)."""
@@ -1022,7 +1207,7 @@ class CidrMatcher:
 
     def dispatch_snap(self, snap: tuple, addrs: Sequence[bytes],
                       ports: Optional[Sequence[int]],
-                      pad_to: Optional[int] = None):
+                      pad_to: Optional[int] = None, sync: bool = True):
         """Encode + submit one batch against the snapshotted table
         generation: an int32 [cap] tensor (to_host() it to block). On
         the card, ONE launch of the CIDR kernel (ops/cidr_cuda.py) over
@@ -1032,7 +1217,8 @@ class CidrMatcher:
         fphash.cidr_fp_match, matchers.cidr_first_match_chunked).
         pad_to: pad the encoded arrays to
         this batch bucket (family -1 marks pad rows — matches no
-        group)."""
+        group). A sharded matcher launches B8 (_dispatch_sharded); sync:
+        see HintMatcher.dispatch_snap."""
         note_serving()
         dev, nets, acl = snap[0], snap[1], snap[2]
         if not nets or not addrs:
@@ -1050,6 +1236,8 @@ class CidrMatcher:
         q = {"a16": a16, "fam": fam}
         if p is not None:
             q["port"] = p
+        if self.backend in SHARDED_BACKENDS:
+            return self._dispatch_sharded(snap, a16, fam, p, sync)
         q = tables_from_reference(q, self.device)
         if self.backend == "torch-fp":
             from ..ops import fphash_cuda as FPC
@@ -1061,3 +1249,33 @@ class CidrMatcher:
             return H.cidr_hash_match(dev, q["a16"], q["fam"], q.get("port"))
         from ..ops import cidr_cuda as CC
         return CC.cidr_first(snap[6], q["a16"], q["fam"], q.get("port"))
+
+    def _dispatch_sharded(self, snap: tuple, a16: np.ndarray,
+                          fam: np.ndarray, p: Optional[np.ndarray],
+                          sync: bool):
+        """A sharded batch: padded to a multiple of the mesh's query
+        shards (family -1), uploaded, then B8 on the card, the plain
+        version on the CPU."""
+        from ..ops import fphash as FP
+        from ..parallel import mesh as M
+        dev, tab = snap[0], snap[4]
+        n = a16.shape[0]
+        cap = pad_batch(n, M.query_shards(self._mesh))
+        if cap != n:
+            a16 = np.concatenate([a16, np.zeros((cap - n, 16), a16.dtype)])
+            fam = np.concatenate([fam, np.full(cap - n, -1, fam.dtype)])
+            if p is not None:
+                p = np.concatenate([p, np.zeros(cap - n, p.dtype)])
+        a16d, famd, pd = _card_upload(self.device, "cidr", lambda: (
+            M.shard_addr_queries(a16, fam, self._mesh, p)))
+        with_port = p is not None
+        fn = self._fns.get(with_port)
+        if fn is None:
+            fn = self._fns[with_port] = M.make_sharded_cidr_fn(
+                self._mesh, with_port=with_port,
+                kernel=FP.cidr_fp_match
+                if self.backend == "torch-fp-sharded" else None)
+        table = dev if self.device.type == "cpu" else dev.kernel
+        out = fn(table, a16d, famd, pd, tab.shard_size) if with_port \
+            else fn(table, a16d, famd, tab.shard_size)
+        return to_host(out)[:n] if sync else out

@@ -443,10 +443,13 @@ class FusedPair:
         return (self.hm.index_snap(hsnap, hint),
                 self.mm.pick_snap(msnap, ip, port))
 
-    def dispatch_snap(self, snap: tuple, payloads, pad_to=None):
+    def dispatch_snap(self, snap: tuple, payloads, pad_to=None,
+                      sync: bool = True):
         """One fused launch for a batch of (hint, ip, port) payloads;
         an int32 [cap, 2] device tensor. Falls back to the two-dispatch
-        chain when the fused path is unavailable for this snapshot."""
+        chain when the fused path is unavailable for this snapshot
+        (`sync` goes to the hint matcher: see
+        engine.HintMatcher.dispatch_snap)."""
         from . import engine as E
         hsnap, msnap = snap
         hints = [p[0] for p in payloads]
@@ -458,7 +461,7 @@ class FusedPair:
                                ips, ports, pad_to=pad_to)
         if out is not None:
             return out
-        v = self.hm.dispatch_snap(hsnap, hints, pad_to=pad_to)
+        v = self.hm.dispatch_snap(hsnap, hints, pad_to=pad_to, sync=sync)
         p = self.mm.dispatch_snap(msnap, ips, ports)
         return _LazyPairRows(v, p, len(hints))
 

@@ -765,18 +765,25 @@ class ClassifyService:
             # (and the down-until/re-probe machinery) deterministically
             raise RuntimeError("failpoint device.dispatch.error")
         cap = pad_batch(len(reqs), lo=PAD_LO)
-        # single-device dispatches PIPELINE: the submit is async and the
-        # dispatcher pulls the result just before delivery
+        # dispatch-cost policy (the reference's): single-device
+        # dispatches PIPELINE (the submit is async and the dispatcher
+        # pulls the result just before delivery), while sharded
+        # dispatches PARK the dispatcher (sync): their fixed cost per
+        # dispatch is high enough that the natural batching window
+        # matters more than overlap
+        sync = getattr(matcher, "backend", "host") in (
+            "torch-sharded", "torch-fp-sharded")
         if kind in ("hint", "cpick"):
             # cpick is the FusedPair's matcher interface: the same
             # dispatch_snap call, ONE launch answering verdicts AND picks
             return matcher.dispatch_snap(snap, [r.payload for r in reqs],
-                                         pad_to=cap)
+                                         pad_to=cap, sync=sync)
         addrs = [r.payload[0] for r in reqs]
         ports = [r.payload[1] for r in reqs]
         if ports[0] is None:  # uniform batches only (see _split_uniform)
             ports = None
-        return matcher.dispatch_snap(snap, addrs, ports, pad_to=cap)
+        return matcher.dispatch_snap(snap, addrs, ports, pad_to=cap,
+                                     sync=sync)
 
     def _device_batch(self, kind: str, matcher, snap, reqs: list[_Req]):
         """Synchronous submit+pull (the probe worker's path)."""

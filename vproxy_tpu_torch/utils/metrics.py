@@ -10,10 +10,9 @@ over HTTP (`getPrometheusString():177`,
 The port's copy of vproxy_tpu/utils/metrics.py: the same family names
 (one scrape config reads both packages; a scrape of either lists the
 same families for the same resources) and the same inspection server
-(`launch_inspection_http`). The cluster families read 0 and /cluster
-answers {"enabled": false}: no cluster node boots in the port yet
-(ROADMAP Queue A item 8). The reference's `bench_snapshot` (read by
-its bench scripts only) is not carried over.
+(`launch_inspection_http`); the vproxy_cluster_* families and /cluster
+read the booted cluster node, as the reference's do. The reference's
+`bench_snapshot` (read by its bench scripts only) is not carried over.
 """
 from __future__ import annotations
 
@@ -346,11 +345,13 @@ class GlobalInspection:
         self.registry.gauge_f("vproxy_engine_fused_dispatches_total",
                               lambda: self._engine_stat(
                                   "fused_dispatches_total"))
-        # cluster plane: the reference's families, 0 until a cluster
-        # node boots, which no node does in the port yet
+        # cluster plane (vproxy_tpu_torch/cluster): fleet membership,
+        # rule generation convergence, and the step-synchronized
+        # dispatch clock — all 0 until a ClusterNode boots
         for k in ("peers_up", "generation", "generation_lag",
                   "steps_total", "barrier_stalls_total"):
-            self.registry.gauge_f(f"vproxy_cluster_{k}", lambda: 0.0)
+            self.registry.gauge_f(
+                f"vproxy_cluster_{k}", lambda k=k: self._cluster_stat(k))
         # event-loop health: worst timer slip and longest single callback
         # across all live loops since the previous scrape; reading
         # resets the window
@@ -475,6 +476,12 @@ class GlobalInspection:
         # a scrape never forces the engine (and torch's device) to load
         eng = sys.modules.get("vproxy_tpu_torch.rules.engine")
         return 0.0 if eng is None else float(getattr(eng, name)(*args))
+
+    @staticmethod
+    def _cluster_stat(key: str) -> float:
+        from ..cluster import ClusterNode
+        node = ClusterNode._instance
+        return 0.0 if node is None else node.stat(key)
 
     @staticmethod
     def _trace_c_spans() -> float:
@@ -724,15 +731,19 @@ def launch_inspection_http(loop, ip: str, port: int):
     srv.get("/events", events)
 
     def analytics(ctx) -> None:
-        # the heavy-hitter plane (utils/sketch): local top tables (one
-        # shared assembly across all three serving surfaces)
+        # the heavy-hitter plane (utils/sketch): local top tables +
+        # the fleet-merged view when a cluster is booted (one shared
+        # assembly across all three serving surfaces)
         from . import sketch as SK
-        out = SK.snapshot()
+        out = SK.snapshot_with_fleet()
         # per-node policed attribution (the enforcement half of the
         # analytics loop — what the detected heavy hitters COST them)
+        from ..cluster import ClusterNode
         from ..policing import engine as PE
-        out["policing"] = {"self": PE.default().policed_by_node(),
-                           "peers": {}}
+        node = ClusterNode._instance
+        out["policing"] = (node.fleet_policing() if node is not None
+                           else {"self": PE.default().policed_by_node(),
+                                 "peers": {}})
         ctx.resp.end(out)
 
     srv.get("/analytics", analytics)
@@ -781,7 +792,12 @@ def launch_inspection_http(loop, ip: str, port: int):
     srv.get("/trace", trace_ep)
     srv.get("/faults", lambda ctx: ctx.resp.end(failpoint.active()))
 
-    srv.get("/cluster", lambda ctx: ctx.resp.end({"enabled": False}))
+    def cluster(ctx) -> None:
+        from ..cluster import ClusterNode
+        node = ClusterNode._instance
+        ctx.resp.end({"enabled": False} if node is None else node.status())
+
+    srv.get("/cluster", cluster)
 
     def healthz(ctx) -> None:
         # draining flips to 503 so upstream LB health probes steer away

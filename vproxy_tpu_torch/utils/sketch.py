@@ -50,9 +50,8 @@ servers, `vproxy_hh_count{dim,slot}` gauges, and the fleet view — each
 node gossips its top-K over the membership heartbeats and any node's
 `GET /analytics` renders the merged table (docs/observability.md).
 
-The port's copy of vproxy_tpu/utils/sketch.py, same names and behaviour,
-less `snapshot_with_fleet`: it reads the cluster plane, which the port
-does not have yet, and only the control plane calls it.
+The port's copy of vproxy_tpu/utils/sketch.py, same names and
+behaviour.
 """
 from __future__ import annotations
 
@@ -464,6 +463,19 @@ def snapshot(n: int = TOP_SLOTS) -> dict:
     table plus the plane counters, one JSON-ready dict."""
     return {"status": status(),
             "top": {d: top_table(d, n) for d in DIMS}}
+
+
+def snapshot_with_fleet(n: int = TOP_SLOTS) -> dict:
+    """snapshot() plus the fleet-merged table when a cluster node is
+    booted — the ONE assembly all three serving surfaces share
+    (`list-detail analytics`, both HTTP servers' GET /analytics), so
+    the fleet-gating rule cannot drift between them."""
+    doc = snapshot(n)
+    from ..cluster import ClusterNode
+    node = ClusterNode._instance
+    if node is not None and ON:
+        doc["fleet"] = node.fleet_analytics()
+    return doc
 
 
 def gossip_summary(n: int = 5) -> dict:
