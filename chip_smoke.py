@@ -265,12 +265,15 @@ result. Phases, in order:
 
 Any failed phase raises, and the script exits non-zero.
 
-    python3 chip_smoke.py --ab DIR
+    python3 chip_smoke.py --ab DIR [OUT]
 
-times B6, B7 and classify_fp_all of this checkout against a parent
-commit's fp_hint.cu and fp_cidr.cu (in DIR), in one process on the same
-tables and batches, in turns (parent, change, change, parent), warm and
-cold, after holding both to the plain tier (the `fp_ab` line).
+times B6, B7, classify_fp_all, B9 (hint, routes, ACL) and B8 (S = 4 and
+S = 1, every kind and column) of this checkout against a parent commit
+unpacked in DIR (`git archive <parent> | tar -x -C DIR`: its kernel
+sources, and for B9 and B8 its packers and wrappers), in one process on
+the same tables and batches, in turns (parent, change, change, parent),
+warm and cold, after holding both to the plain tier (the `ab` line;
+every row also to the JSON file OUT).
 """
 from __future__ import annotations
 
@@ -1182,21 +1185,32 @@ def instance(mangled: str) -> str:
     """A kernel's mangled name -> "uri W=16" and the like for
     fused_kernel<URI, W, PICK> (B1), "B3 uri W=16" for its verdict-only
     instances (PICK false), "B4" for the CIDR kernel, "B6" and "B7" for
-    the fingerprint kernels, "B9 hint" and "B9 cidr" for the dense
-    ones, "B5" for the Maglev take, "B8 uri W=16" and the like for
-    sharded_hash_kernel<URI, W>, "B8 fp" and "B8 finish" for B8's
-    other two."""
+    the fingerprint kernels, "B9 hint Q=2" and "B9 cidr Q=4" and the
+    like for the dense ones, "B5" for the Maglev take, "B8 uri W=16
+    hint+cidr" and the like for sharded_hash_kernel<URI, W, HINT,
+    CIDR>, "B8 fp hint" and the like for sharded_fp_kernel<HINT, CIDR>
+    and "B8 finish" for B8's last pass."""
+    cols = {"10": " hint", "01": " cidr", "11": " hint+cidr"}
+    m = re.search(r"sharded_fp_kernelILb([01])ELb([01])E", mangled)
+    if m:
+        return "B8 fp" + cols[m.group(1) + m.group(2)]
+    m = re.search(r"dense_hint_kernelILi(\d)E", mangled)
+    if m:
+        return f"B9 hint Q={m.group(1)}"
+    m = re.search(r"dense_cidr_kernelILi(\d)E", mangled)
+    if m:
+        return f"B9 cidr Q={m.group(1)}"
     for kernel, name in ((KERNEL_B4, "B4"), (KERNEL_B6, "B6"),
                          (KERNEL_B7, "B7"), (KERNEL_B9_HINT, "B9 hint"),
                          (KERNEL_B9_CIDR, "B9 cidr"), (KERNEL_B5, "B5"),
-                         ("sharded_fp_kernel", "B8 fp"),
                          ("sharded_finish_kernel", "B8 finish")):
         if kernel in mangled:
             return name
-    m = re.search(r"sharded_hash_kernelILb([01])ELi(\d+)E", mangled)
+    m = re.search(r"sharded_hash_kernelILb([01])ELi(\d+)ELb([01])ELb([01])E",
+                  mangled)
     if m:
         return (f"B8 {'uri' if m.group(1) == '1' else 'uri-free'} "
-                f"W={m.group(2)}")
+                f"W={m.group(2)}{cols[m.group(3) + m.group(4)]}")
     m = re.search(r"fused_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
     if not m:
         return mangled
@@ -1271,9 +1285,11 @@ def phase_build() -> dict:
         f" from {os.path.relpath(vtl.SOURCE, os.path.dirname(vtl.BUILD_DIR))}"
         f", provider {vtl.PROVIDER}")
     out = {"vtl": {"build_s": secs}}
+    # sharded: (uri, uri-free) x 4 words x (hint, hint + cidr) + cidr
+    # alone, 3 fingerprint column sets, the finish pass
     for lib_name, want in (("fused", 16), ("cidr", 1), ("fp_hint", 1),
-                           ("fp_cidr", 1), ("dense", 2), ("take", 1),
-                           ("sharded", 10)):
+                           ("fp_cidr", 1), ("dense", 4), ("take", 1),
+                           ("sharded", 21)):
         lib, secs = built[lib_name]
         log(f"build: {lib_name} {secs:.2f} s -> {os.path.basename(lib)}")
         kern = _ptxas(lib)
@@ -3605,16 +3621,34 @@ def call_ms(fn, iters: int, reps: int = 5) -> float:
     return best
 
 
+# Kernels the profiler saw and the launches it was expected to see,
+# summed over every device_ms call with `launches` (a row reads its own
+# part with profiled_since).
+PROFILED = {"seen": 0, "expected": 0}
+
+
+def profiled_since(mark: dict) -> dict:
+    """The kernels the profiler saw, and the launches it was expected to
+    see, since `mark` (a copy of PROFILED): a timing row's keys."""
+    return {"kernels_seen": PROFILED["seen"] - mark["seen"],
+            "kernels_expected": PROFILED["expected"] - mark["expected"]}
+
+
 def device_ms(fn, iters: int, only: str = "", launches: int = 0,
               exclude: str = "") -> float:
-    """Mean device ms per call: the CUDA kernels' own time, summed over
-    every kernel one call launches whose name holds `only` (all when
-    empty) and not `exclude` (torch.profiler / CUPTI). 0.0 when the
-    profiler saw no such device activity. With `launches` > 0 the
-    profiler must have seen
-    iters x launches such kernels: a run that lost events would read
-    low, so it is run again (CUPTI on the H100 host drops its
-    records now and then), and the phase fails after five."""
+    """Device ms per call: the CUDA kernels' own time over every kernel
+    one call launches whose name holds `only` (all when empty) and not
+    `exclude` (torch.profiler / CUPTI). 0.0 when the profiler saw no
+    such device activity. Without `launches`, the mean per call. With
+    `launches` > 0 the profiler must have seen at least 90% of the
+    iters x launches such kernels: CUPTI on the H100 host drops its
+    records now and then (one in twenty to a hundred, run after run, in
+    a process that profiled much before), so a run that saw fewer is
+    run again, and the phase fails after five. Of one launch a call the
+    time is the median of the launches it saw: a run that lost records
+    has read a mean down to half the kernels' time (PERF.md §6), which
+    the median is proof against; of more, the mean of those it saw,
+    times `launches`."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -3629,12 +3663,73 @@ def device_ms(fn, iters: int, only: str = "", launches: int = 0,
                 us += getattr(ev, "self_device_time_total",
                               getattr(ev, "self_cuda_time_total", 0.0))
                 n += ev.count
-        if not launches or n == iters * launches:
+        if not launches:
             return us / iters / 1e3
+        if iters * launches >= n >= 0.9 * iters * launches:
+            PROFILED["seen"] += n
+            PROFILED["expected"] += iters * launches
+            if launches == 1:
+                each = sorted(
+                    e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and only in e.name
+                    and not (exclude and exclude in e.name))
+                if each:
+                    return each[len(each) // 2] / 1e3
+            return us / n * launches / 1e3  # the mean of those it saw
         log(f"profiler saw {n} of {iters * launches} {only} kernels "
             f"({us / max(n, 1):.3f} us each); timing again")
     raise RuntimeError(f"chip smoke failed: the profiler lost {only} "
                        f"kernels in five runs")
+
+
+def device_activities(fn, want: str, calls: int = 10) -> list:
+    """The names of the device activities (kernels, memsets, copies) of
+    `calls` calls of fn profiled together, in start order
+    (torch.profiler), holding at least one kernel whose name holds
+    `want`: CUPTI drops its records now and then (a profile of one call
+    often lost its one kernel record), so a profile without one is run
+    again, and the phase fails after five."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if any(want in e.name for e in evs):
+            return [e.name for e in evs]
+    raise RuntimeError(f"chip smoke failed: the profiler saw no {want} "
+                       f"kernel in five profiles of {calls} calls")
+
+
+# aten ops (the name between "aten." and the overload) that fill memory
+FILL_OPS = frozenset({"fill", "fill_", "zero", "zero_", "zeros",
+                      "zeros_like", "new_zeros", "full", "full_like",
+                      "new_full"})
+
+
+def aten_fills(fn) -> list:
+    """The aten ops of one call of fn that fill memory (fill, zero,
+    full: what torch.zeros and its kin dispatch), by name, in order:
+    the dispatcher's own view (a TorchDispatchMode), which no lost
+    profiler record can hide."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = []
+
+    class Fills(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if str(func).split(".")[1] in FILL_OPS:
+                seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Fills():
+        fn()
+    return seen
 
 
 def work(ht, q, mtab=None, slots=None, io=True):
@@ -3718,6 +3813,7 @@ def phase_times(device, keep):
         cold = lambda: (flush.zero_(), kern())
         check(torch.equal(kern(), plain()), f"kernel != plain at B={b}")
         # alternate plain, kernel, kernel, plain within this call
+        mark = dict(PROFILED)
         p1 = device_ms(plain, 10)
         k1 = device_ms(kern, 200, KERNEL, 1)
         k2 = device_ms(kern, 200, KERNEL, 1)
@@ -3738,7 +3834,7 @@ def phase_times(device, keep):
                "plain_call_ms": pc,
                "bound_ms": max(b_bytes, b_ops),
                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-               "bytes": nbytes, "int_ops": ops}
+               "bytes": nbytes, "int_ops": ops, **profiled_since(mark)}
         rows.append(row)
         log("times " + json.dumps(row))
         row = time_row(b, lambda: FC.hint_match_cuda(ht, q),
@@ -4200,6 +4296,7 @@ def time_row(b, kern, plain, name, flush, work_, launches=1, iters=200,
     the bound from work_ = (bytes, ops). `iters`, `cold_iters` and
     `plain_iters` are the calls each timing averages over."""
     check(same(kern(), plain()), f"{name} != plain at B={b}")
+    mark = dict(PROFILED)
     p1 = device_ms(plain, plain_iters)
     k1 = device_ms(kern, iters, name, launches)
     k2 = device_ms(kern, iters, name, launches)
@@ -4217,7 +4314,7 @@ def time_row(b, kern, plain, name, flush, work_, launches=1, iters=200,
             "cold_ms": c1, "call_ms": kc, "plain_call_ms": pc,
             "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "bytes": nbytes, "int_ops": ops}
+            "bytes": nbytes, "int_ops": ops, **profiled_since(mark)}
 
 
 def host_ms(fn, iters: int = 20) -> float:
@@ -5029,6 +5126,7 @@ def b5_row(b, mm, flush) -> dict:
     check(same(kern(), plain()) and np.array_equal(
         with_copy().cpu().numpy(), tab[np.clip(slots, 0, len(tab) - 1)]),
         f"B5 take != the host table at B={b}")
+    mark = dict(PROFILED)
     w1 = device_ms(kern, 200, KERNEL_B5, 1)
     w2 = device_ms(kern, 200, KERNEL_B5, 1)
     c1 = device_ms(lambda: (flush.zero_(), kern()), 50, KERNEL_B5, 1)
@@ -5039,10 +5137,15 @@ def b5_row(b, mm, flush) -> dict:
            "cold_ms": c1, "with_copy_ms": cp, "copy_ms": cp - min(w1, w2),
            "plain_ms": p1, "library_ms": p1, "call_ms": call_ms(kern, 200),
            "with_copy_call_ms": call_ms(with_copy, 200),
-           "bound_ms": b * 16 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+           "bound_ms": b * 16 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           **profiled_since(mark)}
     # timing calls are no main-path takes
     M._device_take.calls, TC.maglev_take_cuda.launches = saved
     return row
+
+
+def _parent_csrc(parent_dir: str) -> str:
+    return os.path.join(parent_dir, "vproxy_tpu_torch", "csrc")
 
 
 def _parent_lib(kind: str, parent_dir: str):
@@ -5052,7 +5155,8 @@ def _parent_lib(kind: str, parent_dir: str):
     import ctypes
     from vproxy_tpu_torch.ops import fphash_cuda as FPC
     from vproxy_tpu_torch.ops import fused_cuda as FC
-    path = FC.build_library(os.path.join(parent_dir, f"fp_{kind}.cu"),
+    path = FC.build_library(os.path.join(_parent_csrc(parent_dir),
+                                         f"fp_{kind}.cu"),
                             f"libfp{kind}_parent", "fp")
     lib = ctypes.CDLL(path)
     args = FPC._FpHintArgs if kind == "hint" else FPC._FpCidrArgs
@@ -5119,6 +5223,7 @@ def phase_fp_ab(device, tabs, parent_dir: str) -> list:
             ref = plain()
             check(same(kern(), ref) and same(old(), ref),
                   f"{label} (this checkout or the parent) != plain at B={b}")
+            mark = dict(PROFILED)
             warm = [device_ms(f, 200, name, n) for f in (old, kern, kern,
                                                          old)]
             cold = [device_ms(lambda f=f: (flush.zero_(), f()), 50, name, n)
@@ -5128,7 +5233,8 @@ def phase_fp_ab(device, tabs, parent_dir: str) -> list:
                    "parent_cold_ms": [cold[0], cold[3]],
                    "cold_ms": cold[1:3],
                    "warm_speedup": min(warm[0], warm[3]) / min(warm[1:3]),
-                   "cold_speedup": min(cold[0], cold[3]) / min(cold[1:3])}
+                   "cold_speedup": min(cold[0], cold[3]) / min(cold[1:3]),
+                   **profiled_since(mark)}
             rows.append(row)
             log("ab " + json.dumps(row))
     FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches = saved
@@ -5136,17 +5242,196 @@ def phase_fp_ab(device, tabs, parent_dir: str) -> list:
     return rows
 
 
-def main_ab(parent_dir: str) -> int:
-    """`chip_smoke.py --ab DIR`: build this checkout's kernels and the
-    parent's B6 / B7 (DIR holds its fp_hint.cu and fp_cidr.cu), publish
-    the fingerprint tables and time both in one process (phase_fp_ab);
-    prints the `fp_ab` line, the card's line and the device line."""
+def parent_module(parent_dir: str, name: str):
+    """The parent checkout's vproxy_tpu_torch/ops/<name>.py loaded beside
+    this checkout's, as vproxy_tpu_torch.ops._parent_<name>: its relative
+    imports take this checkout's other modules, its kernel source and
+    headers are the parent's (SOURCE / HEADERS pointed at DIR), its
+    launch counters its own."""
+    import importlib.util
+    csrc = _parent_csrc(parent_dir)
+    spec = importlib.util.spec_from_file_location(
+        f"vproxy_tpu_torch.ops._parent_{name}",
+        os.path.join(parent_dir, "vproxy_tpu_torch", "ops", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = os.path.join(csrc, os.path.basename(mod.SOURCE))
+    if hasattr(mod, "HEADERS"):
+        mod.HEADERS = tuple(os.path.join(csrc, os.path.basename(h))
+                            for h in mod.HEADERS)
+    path = mod.build()
+    for name_, inst in _ptxas(path).items():
+        log(f"  ptxas: parent {name_}: {inst}")
+    return mod
+
+
+def ab_row(label: str, b: int, kern, old, plain, name: str, flush,
+           iters: int, cold_iters: int) -> dict:
+    """This checkout's `kern` against the parent's `old`: both held
+    int32-equal to `plain` first, then device time per launch (the
+    kernels whose name holds `name`) in turns, parent / change / change
+    / parent, warm and after a 256 MB write (cold)."""
+    ref = plain()
+    check(same(kern(), ref) and same(old(), ref),
+          f"{label} (this checkout or the parent) != plain at B={b}")
+    mark = dict(PROFILED)
+    warm = [device_ms(f, iters, name, 1)
+            for f in (old, kern, kern, old)]
+    cold = [device_ms(lambda f=f: (flush.zero_(), f()), cold_iters, name,
+                      1) for f in (old, kern, kern, old)]
+    row = {"batch": b, "kernel": label,
+           "parent_ms": [warm[0], warm[3]], "ms": warm[1:3],
+           "parent_cold_ms": [cold[0], cold[3]], "cold_ms": cold[1:3],
+           "warm_speedup": min(warm[0], warm[3]) / min(warm[1:3]),
+           "cold_speedup": min(cold[0], cold[3]) / min(cold[1:3]),
+           **profiled_since(mark)}
+    log("ab " + json.dumps(row))
+    return row
+
+
+def phase_dense_ab(device, parent_dir: str) -> list:
+    """B9 of this checkout against the parent's (its dense_cuda.py and
+    dense_match.cu) on the tables and batches of phase_dense_times:
+    configuration (a)'s 100k hint table, (b)'s routes and ACL, both
+    layouts packed from the same compiled arrays. -> rows."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import matchers as MT
+    from vproxy_tpu_torch.ops import tables as T
+    from vproxy_tpu_torch.rules.ir import Proto
+    from vproxy_tpu_torch.utils.torchenv import tables_from_reference
+    P = parent_module(parent_dir, "dense_cuda")
+    saved = (DC.hint_dense_cuda.launches, DC.cidr_dense_cuda.launches)
+    rules, nets = mk_rules(N_RULES), route_nets(N_ROUTES, ROUTE_SEED)
+    acl = acl_rules(N_ACL, ACL_SEED)
+    tabs = {}
+    for key, hint, arrays in (
+            ("hint", True, MT.table_arrays(T.compile_hint_rules(rules))),
+            ("routes", False, MT.table_arrays(T.compile_cidr_rules(nets))),
+            ("acl", False, MT.table_arrays(T.compile_acl(acl, Proto.TCP)))):
+        t = dense_prepared(arrays, device, hint)
+        old = DC.DenseTable(t)
+        pack = P.pack_dense_hint_table if hint else P.pack_dense_cidr_table
+        prep = P.prepare_hint if hint else P.prepare_cidr
+        old.packed = prep(tables_from_reference(pack(arrays), device))
+        tabs[key] = (t, old)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    rows = []
+    for b in TIME_BATCHES:
+        q = dense_hint_batch(mk_queries(rules, b, 2600 + b), b, device)
+        t, old = tabs["hint"]
+        rows.append(ab_row("B9 hint", b, lambda: DC.hint_dense_cuda(t, q),
+                           lambda: P.hint_dense_cuda(old, q),
+                           lambda: _dense_plain_hint(t, q), KERNEL_B9_HINT,
+                           flush, 20, 10))
+        for label, key, queries in (
+                ("B9 routes", "routes", [(a, None) for a, _ in cidr_queries(
+                    nets, b, 2700 + b)]),
+                ("B9 ACL", "acl", acl_queries(acl, b, 2800 + b))):
+            t, old = tabs[key]
+            cq = cidr_batch(queries, b, device)
+            rows.append(ab_row(
+                label, b, lambda: DC.cidr_dense_cuda(t, *cq),
+                lambda: P.cidr_dense_cuda(old, *cq),
+                lambda: MT.cidr_first_match_chunked(t, *cq), KERNEL_B9_CIDR,
+                flush, 20, 10))
+    DC.hint_dense_cuda.launches, DC.cidr_dense_cuda.launches = saved
+    del flush, tabs
+    return rows
+
+
+def phase_sharded_ab(device, tabs, parent_dir: str) -> list:
+    """B8 of this checkout against the parent's (its sharded_cuda.py and
+    sharded_match.cu with its routine headers) on sharded_tables' stacks
+    (configurations (a) and (b)): every kind and column at S = 4 and
+    S = 1, B = 16 / 512 / 4096; the parent's tables are the same stacked
+    tensors prepared by its own module. -> rows."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    P = parent_module(parent_dir, "sharded_cuda")
+    prep = {"hint": P.prepare_hint, "cidr": P.prepare_cidr,
+            "fp_hint": P.prepare_fp_hint, "fp_cidr": P.prepare_fp_cidr}
+    for (kind, s), t in [(k, v) for k, v in tabs.items()
+                         if isinstance(k, tuple)]:
+        for part in ("hint", "routes", "acl"):
+            if part in t:
+                t[part]["parent"] = prep[kind](dict(t[part]["kern"]))
+    saved = SC.sharded_cuda.launches
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    rows = []
+    for kind, s, part in b8_cases(tabs):
+        for b in TIME_BATCHES:
+            kern, plain, _, _, name = b8_case(tabs, kind, s, b, 3500 + b,
+                                              part)
+            old, _, _, _, _ = b8_case(tabs, kind, s, b, 3500 + b, part,
+                                      mod=P, key="parent")
+            rows.append(ab_row(f"B8 {name}", b, kern, old, plain, KERNEL_B8,
+                               flush, 100, 30))
+    SC.sharded_cuda.launches = saved
+    del flush
+    return rows
+
+
+def phase_sharded_layouts(device, tabs, batches=(512, 1024, 2048, 4096)):
+    """B8's two layouts and the launcher's choice ("auto") timed side by
+    side (warm device ms, split / interleaved / auto / interleaved /
+    split) on every column that has both at the widest S (the
+    fingerprint hint column is split in both), where the choice turns
+    from split to interleaved (csrc/sharded_match.cu `HINT_WAVES`,
+    `CIDR_WAVES`). -> rows."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    saved = SC.sharded_cuda.launches
+    s = max(SHARD_MESH)
+    rows = []
+    for kind, s_, part in b8_cases(tabs):
+        if s_ != s or kind == "fp_hint":
+            continue
+        for b in batches:
+            fns = {lay: b8_case(tabs, kind, s, b, 3500 + b, part,
+                                layout=lay)
+                   for lay in ("split", "interleaved", "auto")}
+            ref = fns["auto"][1]()
+            check(all(same(f[0](), ref) for f in fns.values()),
+                  f"B8 {fns['auto'][4]} B={b}: a layout != plain")
+            mark = dict(PROFILED)
+            t = {lay: [device_ms(fns[lay][0], 100, KERNEL_B8, 1)]
+                 for lay in ("split", "interleaved", "auto")}
+            for lay in ("interleaved", "split"):
+                t[lay].append(device_ms(fns[lay][0], 100, KERNEL_B8, 1))
+            row = {"kernel": f"B8 {fns['auto'][4]}", "batch": b,
+                   **{f"{lay}_ms": min(v) for lay, v in t.items()},
+                   "runs": t, **profiled_since(mark)}
+            rows.append(row)
+            log("layouts " + json.dumps(row))
+    SC.sharded_cuda.launches = saved
+    return rows
+
+
+def main_ab(parent_dir: str, out: str = "") -> int:
+    """`chip_smoke.py --ab DIR`: build this checkout's kernels (the
+    sharded compiles start in worker processes at once), then time them
+    against the parent's in DIR: B6 / B7 on the fingerprint tables
+    (phase_fp_ab), B9 (phase_dense_ab), B8 (phase_sharded_ab), then B8's
+    two layouts side by side (phase_sharded_layouts); prints the `ab`
+    line (every row also to the file `out`, when given), the card's line
+    and the device line."""
     smi = phase_env()
     device = torch.device("cuda")
+    pool, futs = sharded_start()
     phase_build()
-    tabs = fp_tables(device)
-    rows = phase_fp_ab(device, tabs, parent_dir)
-    log(json.dumps({"fp_ab": rows, "card": smi}))
+    rows = phase_fp_ab(device, fp_tables(device), parent_dir)
+    rows += phase_dense_ab(device, parent_dir)
+    stabs = sharded_tables(device, pool, futs)
+    rows += phase_sharded_ab(device, stabs, parent_dir)
+    rows += phase_sharded_layouts(device, stabs)
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"ab": rows, "card": smi}, f, indent=1)
+    log(json.dumps({"ab": [{k: r[k] for k in ("kernel", "batch",
+                                              "parent_ms", "ms",
+                                              "warm_speedup")}
+                           for r in rows if "parent_ms" in r],
+                    "layouts": [r for r in rows if "split_ms" in r],
+                    "card": smi}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5264,6 +5549,18 @@ def dense_tables(device, n_rules=N_RULES, n_routes=N_ROUTES, n_acl=N_ACL):
     from vproxy_tpu_torch.rules.ir import Proto
     saved = os.environ.get("VPROXY_TPU_MATCHER")
     os.environ["VPROXY_TPU_MATCHER"] = "jax-dense"
+    # the packers' share of each publish (host work: the grouping sort)
+    packers, pack_s = (DC.pack_dense_hint_table,
+                       DC.pack_dense_cidr_table), []
+
+    def timed(fn):
+        def run(arrays):
+            t = time.monotonic()
+            out = fn(arrays)
+            pack_s.append(round(time.monotonic() - t, 3))
+            return out
+        return run
+    DC.pack_dense_hint_table, DC.pack_dense_cidr_table = map(timed, packers)
     try:
         t0 = time.monotonic()
         rules = mk_rules(n_rules)
@@ -5278,6 +5575,7 @@ def dense_tables(device, n_rules=N_RULES, n_routes=N_ROUTES, n_acl=N_ACL):
         group.extend_rules(acl)
         am = group._tables[Proto.TCP][0]
     finally:
+        DC.pack_dense_hint_table, DC.pack_dense_cidr_table = packers
         if saved is None:
             os.environ.pop("VPROXY_TPU_MATCHER", None)
         else:
@@ -5295,7 +5593,8 @@ def dense_tables(device, n_rules=N_RULES, n_routes=N_ROUTES, n_acl=N_ACL):
         f"{time.monotonic() - t2:.1f} s; published bytes "
         f"{hm.published_table_bytes()} + {routes.published_table_bytes()}"
         f" + {am.published_table_bytes()}, packed bytes "
-        f"{[sum(v.numel() * v.element_size() for v in p.values()) if p else 0 for p in packed]}")
+        f"{[sum(v.numel() * v.element_size() for v in p.values()) if p else 0 for p in packed]}"
+        f"; packing (s, each publish) {pack_s}")
     return {"rules": rules, "hm": hm, "mm": mm, "pair": M.FusedPair(hm, mm),
             "nets": nets, "routes": routes, "acl": acl, "group": group,
             "am": am}
@@ -5319,11 +5618,12 @@ def _dense_plain_hint(t, q):
 
 
 def b9_vs_plain(name, t, q=None, device=None, a16=None, fam=None,
-                port=None) -> int:
+                port=None, host=None) -> int:
     """B9 (hint when `q` is given, else cidr) against its plain tier
     (matchers.hint_match_chunked / cidr_first_match_chunked) on the same
-    tensors, int32-equal (on CPU tensors the plain tier against itself).
-    -> max |kernel - plain|."""
+    tensors, int32-equal (on CPU tensors the plain tier against itself),
+    and its first len(host) answers equal to `host` (the host index's)
+    when given. -> max |kernel - plain|."""
     from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import matchers as MT
     on_card = device.type == "cuda"
@@ -5337,12 +5637,14 @@ def b9_vs_plain(name, t, q=None, device=None, a16=None, fam=None,
         b, what = a16.shape[0], "cidr"
     _sync(device)
     d = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
-    n = t.packed.n if on_card else None
-    log(f"B9 {what} vs plain [{name}]: b {b} live rules {n} grid "
-        f"{DC.grid(b, n) if on_card else None} matched "
+    log(f"B9 {what} vs plain [{name}]: b {b} grid "
+        f"{DC.grid(b, t.packed) if on_card else None} matched "
         f"{int((ref[0] >= 0).sum())} max_abs_err {d}")
     check(all(torch.equal(g, r) for g, r in zip(got, ref)),
           f"B9 {what} != plain [{name}]")
+    if host is not None:
+        check(got[0][:len(host)].tolist() == list(host),
+              f"B9 {what} != the host index [{name}]")
     if fam is not None:
         check(bool((got[0][fam < 0] == -1).all()),
               f"B9 pad row matched [{name}]")
@@ -5382,10 +5684,12 @@ def b5_vs_plain(mm, b: int, device) -> int:
 
 def phase_dense_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
     """B9 int32-exact against its plain tier: hint on the published 100k
-    table (uri rules) and a 100k host-only table at every B of
-    `batches`, an eighth of each batch pad rows, and on dense_hint_cases
-    (+8 pad rows); cidr on config #4's routes and ACL (ports and None)
-    at every B (v4, ::v4, ::ffff:v4, v6 and pad rows) and on
+    table (uri rules; and against the host index) and a 100k host-only
+    table at every B of `batches`, an eighth of each batch pad rows, and
+    on dense_hint_cases
+    (+8 pad rows); cidr on config #4's routes and ACL (ports and None;
+    the first two against CidrIndex too) at every B (v4, ::v4,
+    ::ffff:v4, v6 and pad rows) and on
     dense_cidr_cases; classify_all's five outputs (B9 three times, the
     allow gather) against the plain tier at the largest B; B5 against
     torch indexing and maglev.pick at every B. Launch counts are
@@ -5404,28 +5708,34 @@ def phase_dense_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
     for name, t, rules in (("100k uri", hsnap[1], tabs["rules"]),
                            ("100k host-only", host_t, host_rules)):
         for b in batches:
-            q = dense_hint_batch(mk_queries(rules, b - b // 8, seed=900 + b),
-                                 b, device)
-            b9 = max(b9, b9_vs_plain(f"{name} B={b}, {b // 8} pad rows", t,
-                                     q, device))
+            hints = mk_queries(rules, b - b // 8, seed=900 + b)
+            q = dense_hint_batch(hints, b, device)
+            b9 = max(b9, b9_vs_plain(
+                f"{name} B={b}, {b // 8} pad rows", t, q, device,
+                host=[tabs["hm"].index_snap(hsnap, h) for h in hints]
+                if t is hsnap[1] else None))
     del host_t
     for name, rules, hints in dense_hint_cases():
         t = dense_prepared(MT.table_arrays(T.compile_hint_rules(rules)),
                            device, True)
         b9 = max(b9, b9_vs_plain(name, t, dense_hint_batch(
             hints, len(hints) + 8, device), device))
-    rt, at = tabs["routes"].snapshot()[0], tabs["am"].snapshot()[0]
+    rsnap, asnap = tabs["routes"].snapshot(), tabs["am"].snapshot()
+    rt, at = rsnap[0], asnap[0]
     for b in batches:
         real = b - b // 8
         rq = [(a, None) for a, _ in cidr_queries(tabs["nets"], real,
                                                   600 + b)]
-        a16, fam, port = cidr_batch(acl_queries(tabs["acl"], real, 700 + b),
-                                    b, device)
-        for name, t, batch in (
-                (f"routes 50k B={b}", rt, cidr_batch(rq, b, device)),
-                (f"ACL 5k B={b}", at, (a16, fam, port)),
-                (f"ACL 5k B={b} port=None", at, (a16, fam, None))):
-            b9 = max(b9, b9_vs_plain(name, t, None, device, *batch))
+        aq = acl_queries(tabs["acl"], real, 700 + b)
+        a16, fam, port = cidr_batch(aq, b, device)
+        for name, t, batch, host in (
+                (f"routes 50k B={b}", rt, cidr_batch(rq, b, device),
+                 [tabs["routes"].index_snap(rsnap, a) for a, _ in rq]),
+                (f"ACL 5k B={b}", at, (a16, fam, port),
+                 [tabs["am"].index_snap(asnap, a, p) for a, p in aq]),
+                (f"ACL 5k B={b} port=None", at, (a16, fam, None), None)):
+            b9 = max(b9, b9_vs_plain(name, t, None, device, *batch,
+                                     host=host))
     for name, nets, acl, q in dense_cidr_cases():
         t = dense_prepared(MT.table_arrays(T.compile_cidr_rules(
             nets, acl=acl)), device, False)
@@ -5672,7 +5982,7 @@ def dense_cidr_work(t, a16, fam, port):
         sel = fam == f
         if n == 0 or not bool(sel.any()):
             continue
-        cnt = torch.where(w["v6"] == bool(f), w["words"], 0).sum(1)  # [n]
+        cnt = w["words"][:, f]  # [n]
         st = stop[sel]
         if port is None:
             ops += int(torch.cat([cnt.new_zeros(1), cnt.cumsum(0)])[st]
@@ -5751,7 +6061,7 @@ def phase_dense_times(device, tabs):
                        lambda: _dense_plain_hint(ht, q), KERNEL_B9_HINT,
                        flush, dense_hint_work(ht, q), **iters)
         row["library_ms"] = dense_library_ms(ht, q=q)
-        row["grid"] = DC.grid(b, ht.packed.n)
+        row["grid"] = DC.grid(b, ht.packed)
         out["B9 hint"].append(row)
         log("times B9 hint " + json.dumps(row))
         for label, t, queries in (
@@ -5765,7 +6075,7 @@ def phase_dense_times(device, tabs):
                 KERNEL_B9_CIDR, flush, dense_cidr_work(t, a16, fam, port),
                 **iters)
             row["library_ms"] = dense_library_ms(t, a16=a16)
-            row["grid"] = DC.grid(b, t.packed.n)
+            row["grid"] = DC.grid(b, t.packed)
             out[label].append(row)
             log(f"times {label} " + json.dumps(row))
         aq = cidr_batch(acl_queries(tabs["acl"], b, 2900 + b), b, device)
@@ -5835,6 +6145,52 @@ def sharded_tie_case(n: int = 37):
              Hint.of_host_port("h10.tie.example.com", 1),
              Hint.of_host("nohost.invalid")]
     return rules, hints
+
+
+def sharded_late_wildcard_case():
+    """Wildcard rules (host "*", uri "*") that only the later shards of
+    S = 2..4 hold (rules 28-30 of 37), each the best answer of a hint,
+    beside exact hosts in every shard: a kernel that read shard 0's
+    wildcard lists for every shard misses them. -> (rules, hints)."""
+    from vproxy_tpu_torch.rules.ir import Hint, HintRule
+    rules = ([HintRule(host=f"h{i}.x.com") for i in range(28)] +
+             [HintRule(host="*", uri="/zz"), HintRule(host="*"),
+              HintRule(host="late.x.com", uri="*")] +
+             [HintRule(host=f"g{i}.x.com") for i in range(6)])
+    hints = [Hint(uri="/zz/a"), Hint.of_host("q.y.com"),
+             Hint.of_host_uri("late.x.com", "/p"), Hint.of_host("h3.x.com"),
+             Hint.of_host("g5.x.com"), Hint()]
+    return rules, hints
+
+
+def sharded_case_checks(device) -> int:
+    """sharded_tie_case and sharded_late_wildcard_case at S = 4, 3, 2, 1
+    on both sharded forms (cuckoo, fingerprint), through hint_sharded (B8
+    on the card, its plain version on the CPU): every answer the linear
+    oracle's, -1 on the pad rows. -> the batches checked."""
+    from vproxy_tpu_torch.ops import fphash as FP
+    from vproxy_tpu_torch.ops import hashmatch as H
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    from vproxy_tpu_torch.parallel import mesh as M
+    from vproxy_tpu_torch.rules import oracle
+    n = 0
+    for rules, hints in (sharded_tie_case(), sharded_late_wildcard_case()):
+        want = [oracle.search(rules, h) for h in hints]
+        for s in (4, 3, 2, 1):
+            for fp in (False, True):
+                stab = (FP.compile_hint_fp_sharded if fp else
+                        H.compile_hint_hash_sharded)(rules, s)
+                raw, kern = sharded_device(stab, "fp_hint" if fp else
+                                           "hint", device)
+                q = sharded_hint_batch(stab, hints, 16, M.make_mesh(
+                    2 * s, batch=2, device=device), fp)
+                got = SC.hint_sharded(kern, q, stab.shard_size,
+                                      fp=fp).tolist()
+                check(got == want + [-1] * (16 - len(hints)),
+                      f"B8 {'fp ' if fp else ''}hint S={s}: {got} != the "
+                      f"oracle's {want}")
+                n += 1
+    return n
 
 
 def sharded_compile(kind: str, s: int, n_rules: int, n_routes: int,
@@ -5944,11 +6300,16 @@ def sharded_hint_batch(stab, hints, b: int, mesh, fp: bool):
     return M.shard_hint_queries_sharded(q, mesh)
 
 
-def b8_case(tabs, kind: str, s: int, b: int, seed: int, part=None):
+def b8_case(tabs, kind: str, s: int, b: int, seed: int, part=None,
+            mod=None, key: str = "kern", layout: str = "auto"):
     """One B8 batch of b rows (an eighth of them pad rows) at S shards.
     -> (kern(), plain(), host answers of the real rows, work(), name):
-    kern and plain compute the same int32 [b]."""
+    kern and plain compute the same int32 [b]. kern launches `mod`'s
+    entry (ops/sharded_cuda.py by default) on the table under `key`;
+    with a `layout` other than "auto", B8 in that layout
+    (sharded_cuda.LAYOUTS)."""
     from vproxy_tpu_torch.ops import sharded_cuda as SC
+    mod = mod or SC
     t = tabs[(kind, s)]
     n = b - b // 8
     fp = kind.startswith("fp_")
@@ -5959,7 +6320,10 @@ def b8_case(tabs, kind: str, s: int, b: int, seed: int, part=None):
         host = [tabs["hidx"].lookup(h) for h in hints]
 
         def kern():
-            return SC.hint_sharded(tt["kern"], q, tt["size"], fp=fp)
+            if layout != "auto":
+                return mod.sharded_cuda((tt[key], q, tt["size"]),
+                                        layout=layout)[:, 0]
+            return mod.hint_sharded(tt[key], q, tt["size"], fp=fp)
 
         def plain():
             return SC.finish_plain(SC.hint_keys_plain(tt["raw"], q,
@@ -5982,7 +6346,10 @@ def b8_case(tabs, kind: str, s: int, b: int, seed: int, part=None):
     a16, fam, port = cidr_batch(qs, b, t["mesh"].device)
 
     def kern():
-        return SC.cidr_sharded(tt["kern"], a16, fam, port, tt["size"], fp=fp)
+        if layout != "auto":
+            return mod.sharded_cuda(cidr=[(tt[key], a16, fam, port,
+                                           tt["size"])], layout=layout)[:, 0]
+        return mod.cidr_sharded(tt[key], a16, fam, port, tt["size"], fp=fp)
 
     def plain():
         return SC.finish_plain(SC.cidr_keys_plain(tt["raw"], a16, fam, port,
@@ -6023,14 +6390,17 @@ def phase_sharded_kernels(device, tabs, buckets=SHARDED_BUCKETS,
                           time_batches=TIME_BATCHES, timed=True) -> dict:
     """B8 against its plain version and the host index at every bucket
     (int32-exact; -1 on each pad row and miss), at S = 4 and S = 1, on
-    the cuckoo and fingerprint tables of configurations (a) and (b);
-    then timed at S = 4 (time_batches) and S = 1 (B = 512), warm and
-    cold, with the bound summed over the shards. -> {"max_abs_err",
-    "checks", "rows": {case: rows}}."""
+    the cuckoo and fingerprint tables of configurations (a) and (b),
+    and the tie and late-wildcard cases against the linear oracle
+    (sharded_case_checks), and on the card each batch again in both
+    forced layouts; then timed at S = 4 (time_batches) and S = 1 (B =
+    512), warm and cold, with the bound summed over the shards. ->
+    {"max_abs_err", "checks", "case_checks", "layout_checks", "rows":
+    {case: rows}}."""
     from vproxy_tpu_torch.ops import sharded_cuda as SC
     on_card = device.type == "cuda"
     saved = SC.sharded_cuda.launches
-    err, checks = 0, 0
+    err, checks, layout_checks = 0, 0, 0
     for kind, s, part in b8_cases(tabs):
         for b in buckets:
             kern, plain, host, _, name = b8_case(tabs, kind, s, b,
@@ -6050,8 +6420,18 @@ def phase_sharded_kernels(device, tabs, buckets=SHARDED_BUCKETS,
             check(e == 0, f"B8 {name} B={b}: max |kernel - plain, host| "
                   f"= {e}")
             err, checks = max(err, e), checks + 1
+            for layout in (("split", "interleaved") if on_card else ()):
+                kl = b8_case(tabs, kind, s, b, seed=3000 + b, part=part,
+                             layout=layout)[0]().cpu()
+                check(torch.equal(kl, kh), f"B8 {name} B={b}: the {layout} "
+                      f"layout != the plain version")
+                layout_checks += 1
     log(f"sharded kernels: {checks} batches int32-exact against the plain "
-        f"version and the host index")
+        f"version and the host index; {layout_checks} more in a forced "
+        f"layout (split, interleaved)")
+    cases = sharded_case_checks(device)
+    log(f"sharded kernels: the tie and late-wildcard cases, {cases} "
+        f"batches, equal to the linear oracle")
     rows = {}
     if on_card and timed:
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
@@ -6066,7 +6446,8 @@ def phase_sharded_kernels(device, tabs, buckets=SHARDED_BUCKETS,
                     cold_iters=30, plain_iters=5))
                 log(f"  B8 {name} B={b}: {json.dumps(rows[name][-1])}")
     SC.sharded_cuda.launches = saved  # the checks are not the main path
-    return {"max_abs_err": err, "checks": checks, "rows": rows}
+    return {"max_abs_err": err, "checks": checks, "case_checks": cases,
+            "layout_checks": layout_checks, "rows": rows}
 
 
 @contextlib.contextmanager
@@ -6162,9 +6543,10 @@ def phase_sharded_service(device, tabs, bursts=BURSTS,
     ACL with ports. Every answer equal to the host index (HintIndex +
     maglev.pick, CidrIndex); one B8 launch per hint, cpick or cidr
     batch and one B5 launch per cpick batch, no other kernel, the plain
-    versions never on CUDA tensors, no failover; each matcher's
-    checksum() equal to the unsharded matcher's on the same rules. ->
-    the phase's numbers."""
+    versions never on CUDA tensors, no failover; on the card, a hint and
+    a cidr dispatch each make one B8 launch and no fill or memset before
+    it (the profiler); each matcher's checksum() equal to the unsharded
+    matcher's on the same rules. -> the phase's numbers."""
     from vproxy_tpu_torch.ops import cidr_cuda as CC
     from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import fphash as FP
@@ -6279,6 +6661,23 @@ def phase_sharded_service(device, tabs, bursts=BURSTS,
             check(not on_card or H.hint_hash_match.cuda_calls ==
                   FP.hint_fp_match.cuda_calls == 0,
                   f"{be}: a plain tier ran on CUDA tensors")
+            if on_card:  # B8 with its output: no fill kernel before it
+                hints = mk_queries(tabs["rules"], burst, seed=4700)
+                addrs = [a for a, _ in cidr_queries(tabs["nets"], burst,
+                                                    4701)]
+                for what, call in (
+                        ("hint", lambda: hm.dispatch_snap(hsnap, hints)),
+                        ("cidr", lambda: routes.dispatch_snap(rsnap, addrs,
+                                                              None))):
+                    fills = aten_fills(call)
+                    check(not fills, f"{be} {what}: a fill in the batch's "
+                          f"call: {fills}")
+                    seq = device_activities(call, KERNEL_B8)
+                    check(sum(KERNEL_B8 in n for n in seq) <= 10 and
+                          not any("fill" in n.lower() or
+                                  "memset" in n.lower() for n in seq),
+                          f"{be} {what}: a fill or memset on the card, or "
+                          f"more than one B8 a call: {seq}")
             out[be] = {"queries": 4 * n, "batches": batches,
                        "launches": launches,
                        "maglev_takes": MG._device_take.calls,
@@ -6734,7 +7133,9 @@ def main() -> int:
                 "plain_ms": at(rows_, "plain_ms"),
                 "bound_ms": at(rows_, "bound_ms"),
                 "bound_by": at(rows_, "bound_by"), "library_ms": None,
-                "batch": SERVICE_BATCH, "card": smi, **extra}
+                "batch": SERVICE_BATCH, "card": smi,
+                "kernels_seen": at(rows_, "kernels_seen"),
+                "kernels_expected": at(rows_, "kernels_expected"), **extra}
 
     b1_cluster = sum(o["launches"]["fused_classify_pick"]
                      for o in cluster["step"])
@@ -6856,5 +7257,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
-        sys.exit(main_ab(sys.argv[2]))
+        sys.exit(main_ab(*sys.argv[2:4]))
     sys.exit(main())

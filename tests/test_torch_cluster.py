@@ -414,6 +414,60 @@ def test_step_unequal_load_and_empty_batches(pair):
     assert all(lp.steps_total >= 3 for lp in loops)
 
 
+def test_close_joins_the_step_loop_threads(pair):
+    """ClusterNode.close() stops the attached StepLoop and joins its
+    step thread and its dispatch worker, a dispatch in flight included:
+    a worker still inside a torch op at interpreter exit aborts the
+    process (SIGTERM ended the node with -6). Every query submitted
+    before the close is answered (the queue from the host index), the
+    peer hears at once that this node no longer steps and does not
+    wait for it at a barrier, and later submits raise."""
+    from vproxy_tpu_torch.cluster.submit import StepLoop
+    apps, nodes = pair
+    assert wait_for(lambda: all(n.membership.peers_up() == 2
+                                for n in nodes))
+    rules = [HintRule(host=f"s{i}.corp.example") for i in range(60)]
+    real = StepLoop._device_dispatch
+    in_flight = threading.Event()
+
+    def slow(self, items):
+        in_flight.set()
+        time.sleep(0.3)
+        return real(self, items)
+    loops = [n.attach_submit(HintMatcher(rules, backend="torch"),
+                             step_ms=10, batch_cap=4, timeout_ms=5000)
+             for n in nodes]
+    StepLoop._device_dispatch = slow
+    try:
+        got, lock = [], threading.Lock()
+        in_flight.clear()
+        for q in range(40):
+            h = Hint(host=f"s{(q * 7) % len(rules)}.corp.example")
+
+            def cb(idx, payload, h=h):
+                with lock:
+                    got.append((h, idx))
+            loops[0].submit(h, cb)
+        assert in_flight.wait(10)
+        t0 = time.monotonic()
+        nodes[0].close()
+        closed_s = time.monotonic() - t0
+    finally:
+        StepLoop._device_dispatch = real
+    assert not any(t is not None and t.is_alive()
+                   for t in (loops[0]._thread, loops[0]._disp_thread))
+    assert closed_s < 5.0, f"close took {closed_s:.2f}s"
+    assert len(got) == 40
+    assert all(idx == oracle.search(rules, h) for h, idx in got)
+    with pytest.raises(OSError):
+        loops[0].submit(Hint(host="s1.corp.example"), lambda *a: None)
+    # the survivor stops waiting for node 0 and steps on alone
+    assert wait_for(lambda: not nodes[1].membership.peers[0].stepping)
+    got1 = _submit_all(loops[1], rules, 8)
+    assert all(idx == oracle.search(rules, h) for h, idx in got1)
+    assert not loops[1].degraded and loops[1].barrier_stalls == 0
+
+
 # ------------------------------------------------------- operator surface
 
 def test_cluster_node_verbs_and_http_surface(solo_node):

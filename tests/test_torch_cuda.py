@@ -460,6 +460,25 @@ def test_sharded_kernel_matches_plain_and_index(cuda):
     assert out["max_abs_err"] == 0 and out["checks"] == 4 * 6 * 3
 
 
+@pytest.mark.parametrize("layout", ["split", "interleaved"])
+@pytest.mark.parametrize("s", [4, 3, 1])
+def test_sharded_layouts_on_the_card(cuda, s, layout):
+    """B8 forced into each layout (csrc/sharded_match.cu `Layout`) on
+    every kind and column at S shards: int32-equal to the plain version
+    and to the host index at B = 16, 512 and 4096 (an eighth of each
+    batch pad rows)."""
+    tabs = _sharded_tabs(cuda)
+    for kind, s_, part in CS.b8_cases(tabs):
+        if s_ != s:
+            continue
+        for b in (16, 512, 4096):
+            kern, plain, host, _, name = CS.b8_case(
+                tabs, kind, s, b, 3000 + b, part, layout=layout)
+            got = kern()
+            assert torch.equal(got, plain()), f"{name} B={b}"
+            assert got.tolist() == host + [-1] * (b - len(host)), name
+
+
 def test_sharded_keys_then_finish_pass(cuda):
     """The cross-rank form: B8 writing keys only, then the finish pass,
     answers what the one-launch form answers."""
@@ -517,6 +536,36 @@ def test_sharded_service_on_the_card(cuda):
         cuda, CS.sharded_service_tables(cuda, _sharded_tabs(cuda)), bursts=1,
         burst=128)
     assert set(out) == {"torch-sharded", "torch-fp-sharded"}
+
+
+@pytest.mark.parametrize("s", [4, 3, 1])
+def test_sharded_classify_three_columns_on_the_card(cuda, s):
+    """The classify form: hint, routes and ACL answered by ONE launch of
+    B8 (three columns) == each column's plain version, int32 [B, 3],
+    and the same keys without the output, then the finish pass."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    tabs = _sharded_tabs(cuda)
+    ht, ct = tabs[("hint", s)], tabs[("cidr", s)]
+    h, r, a = ht["hint"], ct["routes"], ct["acl"]
+    q = CS.sharded_hint_batch(h["stab"], CS.mk_queries(tabs["rules"], 180, 5),
+                              200, ht["mesh"], False)
+    a16, fam, port = CS.cidr_batch(CS.acl_queries(tabs["acl"], 180, 6), 200,
+                                   cuda)
+    sizes = (h["size"], r["size"], a["size"])
+    want = SC.finish_plain(torch.stack([
+        SC.hint_keys_plain(h["raw"], q, sizes[0]),
+        SC.cidr_keys_plain(r["raw"], a16, fam, None, sizes[1]),
+        SC.cidr_keys_plain(a["raw"], a16, fam, port, sizes[2])], dim=1))
+    n0 = SC.sharded_cuda.launches
+    got = SC.classify_sharded(h["kern"], r["kern"], a["kern"], q, a16, fam,
+                              port, sizes)
+    assert SC.sharded_cuda.launches == n0 + 1
+    assert got.shape == (200, 3) and torch.equal(got, want)
+    assert int((want >= 0).sum()) > 200
+    cols = [(r["kern"], a16, fam, None, sizes[1]),
+            (a["kern"], a16, fam, port, sizes[2])]
+    keys = SC.sharded_cuda((h["kern"], q, sizes[0]), cols, finish=False)
+    assert torch.equal(SC.finish_cuda(keys), want)
 
 
 def test_sharded_kernel_refuses_unprepared_tables(cuda):

@@ -585,80 +585,129 @@ def test_classify_all_vs_jax():
 
 def packed_hint_torch(p: dict, q: dict):
     """The kernel's masked word compare, as torch ops over the packed
-    layout (csrc/dense_match.cu `dense_hint_kernel`, query by query):
-    the query's host bytes padded to 68 and read as little-endian words
-    in HOST_ORDER, its uri as 32 words; per rule the host words below
-    max(exact count, suffix count) and the uri words below its count,
-    the flags, score and port of its meta row. -> (idx, level)."""
+    layout (csrc/dense_match.cu `dense_hint_kernel`, every query against
+    every packed row, whatever tile it sits in): the query's host bytes
+    padded to 80 and read as little-endian words in HOST_ORDER, its uri
+    as 32 words; per row x = q ^ v, exact |= x & exact masks, suffix |=
+    x & suffix masks, uri |= (q ^ v) & m; a tile without host chunks
+    matches no exact or suffix pattern; the key (host level << 30) |
+    (uri level << 20) | (0xFFFFF - rule), port-gated in a gated tile;
+    the max key. -> (idx, level)."""
     b = q["host"].shape[0]
-    host = np.zeros((b, 4 * DC.HOST_WORDS), np.uint8)
-    host[:, :T.HOST_SLOT] = q["host"]
-    qh = torch.from_numpy(host.view("<i4")[:, DC.HOST_ORDER].copy())
+    host = np.zeros((b, 4 * DC.HC_MAX), np.uint32)
+    raw = np.zeros((b, 4 * DC.HOST_WORDS), np.uint8)
+    raw[:, :T.HOST_SLOT] = q["host"]
+    host[:, :DC.HOST_WORDS] = raw.view("<u4")[:, DC.HOST_ORDER]
+    qh = torch.from_numpy(host.view(np.int32))
     qu = torch.from_numpy(np.ascontiguousarray(q["uri"]).view("<i4").copy())
-    hrows, urows, meta = (torch.from_numpy(p[k]) for k in
-                          ("hrows", "urows", "meta"))
-    n = meta.shape[0]
-    if n == 0:
+    r = DC.hint_rows(tt(p))
+    if r["meta"].shape[0] == 0:
         return np.full(b, -1, np.int32), np.zeros(b, np.int32)
-    flags = meta[:, 0] & 0xFF
-    ne, ns, nu = ((meta[:, 0] >> s) & 0xFF for s in (8, 16, 24))
-    nw = torch.maximum(ne, ns)
-    hl_ = torch.arange(DC.HOST_WORDS)[None] < nw[:, None]   # [n, 17]
-    ul_ = torch.arange(DC.URI_WORDS)[None] < nu[:, None]    # [n, 32]
+    mt = r["meta"].long() & 0xFFFFFFFF
 
-    def miss(qw, m, v, live):  # [b, W], [n, W] x2, [n, W] -> [b, n]
-        return ((((qw[:, None] ^ v[None]) & m[None]) != 0) &
-                live[None]).any(-1)
-    de = miss(qh, hrows[..., 0], hrows[..., 1], hl_)
-    ds = miss(qh, hrows[..., 2], hrows[..., 3], hl_)
-    um = torch.stack([urows[..., 0], urows[..., 2]], -1).reshape(n, -1)
-    uv = torch.stack([urows[..., 1], urows[..., 3]], -1).reshape(n, -1)
-    du = miss(qu, um, uv, ul_)
-    f = lambda bit: ((flags & bit) != 0)[None]  # noqa: E731
-    hl = torch.where(f(DC.F_EXACT) & ~de, 3,
-                     torch.where(f(DC.F_SUFFIX) & ~ds, 2, 0))
-    hl = torch.maximum(hl, f(DC.F_HWILD).int())
-    ul = torch.where(f(DC.F_URI) & ~du, meta[:, 1][None], 0)
-    ul = torch.maximum(ul, f(DC.F_UWILD).int())
+    def miss(qw, m, v):  # [b, W], [n, W] x2 -> [b, n]
+        return (((qw[:, None] ^ v[None]) & m[None]) != 0).any(-1)
+    no_host = ((r["code"] & 0xFF) == 0)[None]
+    de = miss(qh, r["me"], r["v"]) | no_host
+    ds = miss(qh, r["ms"], r["v"]) | no_host
+    du = miss(qu, r["um"], r["uv"])
+    w1 = ((mt[:, 2] >> 20) & 1)[None]
+    hl = torch.where(~de, 3, torch.where(~ds, 2, w1))
+    ul = torch.where(~du, (mt[:, 2] & 0x3FF)[None],
+                     ((mt[:, 2] >> 10) & 0x3FF)[None])
     hl = torch.where(torch.from_numpy(q["has_host"])[:, None], hl, 0)
     ul = torch.where(torch.from_numpy(q["has_uri"])[:, None], ul, 0)
-    level = (hl << 10) + ul
-    qp = torch.from_numpy(q["port"])[:, None]
-    rp = meta[:, 2][None]
-    ok = ((qp == 0) | (rp == 0) | (qp == rp)) & f(DC.F_ACTIVE)
-    level = torch.where(ok, level, 0)
-    key = level.long() * n + (n - 1 - torch.arange(n))[None]
-    idx = key.argmax(1)
-    best = level.gather(1, idx[:, None])[:, 0]
-    return (torch.where(best > 0, idx, -1).int().numpy(),
-            best.int().numpy())
+    key = (hl << 30) | (ul << 20) | mt[:, 0][None]
+    qp = torch.from_numpy(q["port"]).long()[:, None]
+    rp = r["meta"][:, 1].long()[None]
+    gated = (((r["code"] >> 16) & 1) == 1)[None]
+    ok = ~gated | (qp == 0) | (rp == 0) | (qp == rp)
+    best = torch.where(ok, key, 0).max(1).values
+    level = best >> 20
+    return (torch.where(level > 0, DC.IDX_MASK - (best & DC.IDX_MASK),
+                        -1).int().numpy(), level.int().numpy())
 
 
 def packed_cidr_torch(p: dict, a16, fam, port=None):
-    """The same for `dense_cidr_kernel`: per rule the valid slots of the
-    query's family, 4 mask and 4 value words each, the port gate from
-    the meta row; the first rule that matches. -> int32 [B]."""
-    rows, meta = torch.from_numpy(p["rows"]), torch.from_numpy(p["meta"])
-    n, b = meta.shape[0], a16.shape[0]
-    if n == 0:
-        return np.full(b, -1, np.int32)
+    """The same for `dense_cidr_kernel`: a query of family 0 against the
+    IPv4 list (its last address word), of family 1 against the IPv6
+    list (4 words), the port gate from each entry's ports; the least
+    rule that matches. -> int32 [B]."""
+    v4, v6 = torch.from_numpy(p["v4"]), torch.from_numpy(p["v6"])
+    b = a16.shape[0]
     q = torch.from_numpy(np.ascontiguousarray(a16).view("<i4").copy())
     fm = torch.from_numpy(fam)[:, None]
-    hit = torch.zeros(b, n, dtype=torch.bool)
-    for s in range(3):
-        m, v = rows[:, 2 * s], rows[:, 2 * s + 1]           # [n, 4]
-        ok = (((q[:, None] ^ v[None]) & m[None]) == 0).all(-1)
-        valid = ((meta[:, 0] >> s) & 1) == 1
-        sfam = (meta[:, 0] >> (3 + s)) & 1
-        hit |= ok & valid[None] & (sfam[None] == fm)
-    if port is not None:
-        qp = torch.from_numpy(port)[:, None]
-        hit &= (meta[:, 1][None] <= qp) & (qp <= meta[:, 2][None])
-    first = torch.where(hit, torch.arange(n)[None], n).min(1).values
-    return torch.where(first < n, first, -1).int().numpy()
+    big = 1 << 40
+    first = torch.full((b,), big, dtype=torch.int64)
+    for f, m, v, rule, ports, qw in (
+            (0, v4[:, 0:1], v4[:, 1:2], v4[:, 2], v4[:, 3], q[:, 3:4]),
+            (1, v6[:, 0], v6[:, 1], v6[:, 2, 0], v6[:, 2, 1], q)):
+        hit = (((qw[:, None] ^ v[None]) & m[None]) == 0).all(-1) & (fm == f)
+        if port is not None:
+            qp = torch.from_numpy(port)[:, None]
+            lo, hi = (ports & 0xFFFF)[None], ((ports >> 16) & 0xFFFF)[None]
+            hit &= (lo <= qp) & (qp <= hi)
+        cand = torch.where(hit, rule.long()[None], big)
+        first = torch.minimum(first, cand.min(1).values if cand.shape[1]
+                              else first)
+    return torch.where(first < big, first, -1).int().numpy()
 
 
-@pytest.mark.parametrize("case", ["random", "long", "uri_only", "empty"])
+def check_hint_layout(p: dict, rules) -> dict:
+    """The packed hint layout's invariants -> {rule: packed row}: every
+    active rule in exactly one row, a tile's rows of one group (the
+    chunk counts its rows need, its port gate), ascending rule order
+    within a group, tiles in group order, pad rows all zero in their
+    meta."""
+    r = DC.hint_rows(tt(p))
+    meta, code = r["meta"].long() & 0xFFFFFFFF, r["code"].long()
+    live = meta[:, 3] == 1
+    assert bool((meta[~live] == 0).all())
+    rule = DC.IDX_MASK - meta[:, 0]
+    where = {int(rule[i]): i for i in range(len(rule)) if live[i]}
+    assert sorted(where) == [i for i, x in enumerate(rules)
+                             if not x.is_empty()]
+    for i, row in where.items():
+        x = rules[i]
+        assert int(code[row] >> 16) == int(x.port != 0)
+        hc, uc = int(code[row] & 0xFF), int((code[row] >> 8) & 0xFF)
+        assert (hc > 0) == (x.host is not None)
+        assert (uc > 0) == bool(x.uri)
+        assert int((r["me"][row] | r["ms"][row])[4 * hc:].abs().sum()) == 0
+        assert int(r["um"][row][4 * uc:].abs().sum()) == 0
+    order = code.tolist()
+    assert order == sorted(order, key=lambda c: (c & 0xFF, c >> 8 & 0xFF,
+                                                 c >> 16))
+    for c in set(order):
+        rs = [int(rule[i]) for i in range(len(rule))
+              if order[i] == c and live[i]]
+        assert rs == sorted(rs)
+    assert len(order) % DC.TILE == 0
+    return where
+
+
+def every_group_rules():
+    """A rule in every live-count group: hosts of 0-64 bytes (host
+    chunks 0-5: a suffix needs 2 + len // 4 words) against uris of 0-125
+    bytes (uri chunks 0-8: ceil(len / 4) words), each pair
+    with and without a port; two rules of equal level (an exact host,
+    no uri) in different groups, where the earlier must win."""
+    rules = []
+    for hc, hn in enumerate((None, 2, 20, 36, 52, 64)):
+        for uc, un in enumerate((None, 3, 20, 40, 56, 72, 90, 110, 125)):
+            for port in (0, 443):
+                host = None if hn is None else \
+                    ("h%d%d" % (hc, uc) + "x" * 64)[:hn]
+                uri = None if un is None else \
+                    ("/u%d%d" % (hc, uc) + "y" * 128)[:un]
+                rules.append(IR.HintRule(host=host, uri=uri, port=port))
+    return rules + [IR.HintRule(host="same.io", port=443),
+                    IR.HintRule(host="same.io")]
+
+
+@pytest.mark.parametrize("case", ["random", "long", "uri_only", "empty",
+                                  "trailing_pad", "every_group",
+                                  "equal_levels"])
 def test_packed_hint_layout_answers_like_reference(case):
     rules, hints = hint_set(seed=11)
     if case == "long":  # hosts differing only past the first words
@@ -672,12 +721,19 @@ def test_packed_hint_layout_answers_like_reference(case):
         hints = [IR.Hint.of_uri("/" + "a" * i + "b") for i in range(130)]
     elif case == "empty":
         rules = [IR.HintRule()] * 5
+    elif case == "trailing_pad":  # empty rules after the last live one
+        rules = rules[:37] + [IR.HintRule()] * 9
+    elif case in ("every_group", "equal_levels"):
+        rules = every_group_rules()
+        if case == "equal_levels":  # the port-gated twin comes first
+            rules = rules[-2:] + rules[:-2]
+        hints = [IR.Hint(host=r.host, uri=r.uri, port=p)
+                 for r in rules for p in (0, 443, 80)] + [
+            IR.Hint(host="a." + r.host, uri=(r.uri or "") + "z")
+            for r in rules if r.host]
     t = T.compile_hint_rules(rules)
     p = DC.pack_dense_hint_table(MT.table_arrays(t))
-    n = next((i + 1 for i in range(len(rules) - 1, -1, -1)
-              if not rules[i].is_empty()), 0)
-    assert p["meta"].shape == (n, 4) and p["hrows"].shape == (n, 17, 4)
-    assert p["urows"].shape == (n, 16, 4)
+    where = check_hint_layout(p, rules)
     q = T.encode_hints(hints)
     r = RT.compile_hint_rules(_ref_rules(rules))
     want = RMT.hint_match_chunked(RMT.table_arrays(r), q["host"],
@@ -688,20 +744,29 @@ def test_packed_hint_layout_answers_like_reference(case):
     assert np.array_equal(got[1], np.asarray(want[1]))
     w = DC.hint_pattern_words(tt(p))
     if case == "long":  # the counts cut every pattern to its live words
-        ne = (p["meta"][:, 0] >> 8) & 0xFF
-        ns = (p["meta"][:, 0] >> 16) & 0xFF
-        assert ne[0] == 1 + -(-50 // 4) and ns[0] == 2 + 50 // 4
-        assert ne[-1] == 17 and ns[-1] == 17
-        # the words a query compares: the suffix's length-byte word has
-        # no mask bit unless the host reaches byte 64
-        assert w["host"][0] == ne[0] + ns[0] - 1
-        assert w["host"][-1] == 34 and int(w["uri"].sum()) == 0
+        # exact: the length-byte word + ceil(50 / 4); suffix: the words
+        # of bytes 0-50 (its '.' at byte 50); the length byte is no
+        # suffix word unless the host reaches byte 64
+        assert w["host"][where[0]] == 1 + -(-50 // 4) + 50 // 4 + 1
+        assert w["host"][where[50]] == 34 and int(w["uri"].sum()) == 0
     if case == "uri_only":  # "/" + i a's: ceil((i + 1) / 4) words
-        assert w["uri"].tolist() == [-(-(i + 1) // 4)
-                                     for i in range(1, 120, 7)]
+        assert [int(w["uri"][where[j]]) for j in range(len(rules))] == \
+            [-(-(i + 1) // 4) for i in range(1, 120, 7)]
         assert int(w["host"].sum()) == 0
-    if case == "empty":
-        assert w["host"].numel() == 0 and w["uri"].numel() == 0
+    if case in ("empty", "trailing_pad"):
+        assert int(w["active"].sum()) == sum(not x.is_empty() for x in rules)
+        if case == "empty":
+            assert p["rows"].shape == (0, 4) and p["tiles"].shape == (0, 4)
+    if case == "every_group":
+        codes = {int(c) & 0xFFFF for c in DC.hint_rows(tt(p))["code"]}
+        assert codes == {h | u << 8 for h in range(DC.HC_MAX + 1)
+                         for u in range(DC.UC_MAX + 1)}
+    if case == "equal_levels":  # level 3 << 10 on both: rule 0 wins
+        same = [i for i, h in enumerate(hints) if h.host == "same.io"
+                and h.uri is None]
+        # the hints of both rules, ports 0, 443, 80: port 80 skips rule 0
+        assert [int(got[0][i]) for i in same] == [0, 0, 1] * 2
+        assert where[0] // DC.TILE != where[1] // DC.TILE
 
 
 @pytest.mark.parametrize("gate", ["routes", "ports", "none"])
@@ -712,8 +777,13 @@ def test_packed_cidr_layout_answers_like_reference(gate):
         nets = [r.network for r in acl]
         addrs = [a for a, _ in CS.acl_queries(acl, 240, 7)]
     t = T.compile_cidr_rules(nets, acl=acl)
-    p = DC.pack_dense_cidr_table(MT.table_arrays(t))
-    assert p["rows"].shape == (len(nets), 6, 4)
+    arrays = MT.table_arrays(t)
+    p = DC.pack_dense_cidr_table(arrays)
+    valid = arrays["valid"].reshape(-1, 3)
+    fam = arrays["family"].reshape(-1, 3)
+    for key, f in (("v4", T.V4), ("v6", T.V6)):
+        rule = p[key][:, 2] if key == "v4" else p[key][:, 2, 0]
+        assert rule.tolist() == np.nonzero(valid & (fam == f))[0].tolist()
     a16, fam = T.encode_ips(addrs)
     a16 = np.concatenate([a16, np.zeros((8, 16), np.uint8)])
     fam = np.concatenate([fam, np.full(8, -1, np.int32)])
@@ -728,20 +798,71 @@ def test_packed_cidr_layout_answers_like_reference(gate):
     assert (want >= 0).sum() > 40
 
 
+@pytest.mark.parametrize("case", ["v4_rule_both_families",
+                                  "v6_rule_with_v4_slot",
+                                  "first_match_per_family"])
+def test_packed_cidr_layout_family_lists(case):
+    """A rule's IPv4 and IPv6 slots land in their family's list under
+    the rule's index, and a query's first match is the least rule of
+    its own family's list, whatever the other list holds."""
+    nets = {"v4_rule_both_families": ["10.1.0.0/16"],
+            "v6_rule_with_v4_slot": ["::ffff:10.1.2.0/120", "10.0.0.0/8"],
+            "first_match_per_family": ["fd00::/16", "::/0", "10.0.0.0/8",
+                                       "0.0.0.0/0"]}[case]
+    nets = [IP.Network.parse(n) for n in nets]
+    p = DC.pack_dense_cidr_table(MT.table_arrays(
+        T.compile_cidr_rules(nets)))
+    addrs = [IP.parse_ip(a) for a in (
+        "10.1.2.3", "::10.1.2.3", "::ffff:10.1.2.3", "fd00::1", "11.0.0.1",
+        "::ffff:11.0.0.1", "2001:db8::1")]
+    a16, fam = T.encode_ips(addrs)
+    r = RT.compile_cidr_rules([ref_net(n) for n in nets])
+    want = np.asarray(RMT.cidr_first_match_chunked(RMT.table_arrays(r), a16,
+                                                   fam))
+    assert np.array_equal(packed_cidr_torch(p, a16, fam), want)
+    w = DC.cidr_slot_words(tt(p))
+    if case == "v4_rule_both_families":  # 10.1/16 and its two /112s
+        assert p["v4"][:, 2].tolist() == [0]
+        assert p["v6"][:, 2, 0].tolist() == [0, 0]
+        assert w["words"].tolist() == [[1, 8]]
+        assert want.tolist()[:3] == [0, 0, 0]
+    if case == "v6_rule_with_v4_slot":  # the /120's v4 slot is a /24
+        assert p["v4"][:, 2].tolist() == [0, 1]
+        assert w["words"].tolist() == [[1, 4], [1, 8]]
+        assert want.tolist()[:3] == [0, 1, 0]
+    if case == "first_match_per_family":
+        assert want.tolist() == [2, 1, 1, 0, 3, 1, 1]
+
+
 def test_packed_cidr_layout_empty_and_trailing_pad():
     nets = [IP.Network.parse("10.0.0.0/8")]
-    t = T.compile_cidr_rules(nets)
+    t = T.compile_cidr_rules(nets, cap=64)  # 63 trailing pad rules
     p = DC.pack_dense_cidr_table(MT.table_arrays(t))
-    assert p["meta"].shape == (1, 4) and p["meta"][0, 0] == 0b110111
+    assert p["v4"].tolist() == [[0xFF, 10, 0, 0]]
+    assert p["v6"].shape == (2, 3, 4)
     w = DC.cidr_slot_words(tt(p))
-    assert w["v6"].tolist() == [[False, True, True]]
-    assert w["words"].tolist() == [[1, 4, 4]]  # 10/8; the two /104s
+    assert w["words"].tolist() == [[1, 8]]  # 10/8; the two /104s
     six = DC.cidr_slot_words(tt(DC.pack_dense_cidr_table(MT.table_arrays(
         T.compile_cidr_rules([IP.Network.parse("2001:db8::/48"),
                               IP.Network.parse("::/0")])))))
-    assert six["words"].tolist() == [[2, 0, 0], [0, 0, 0]]
+    assert six["words"].tolist() == [[0, 2], [0, 0]]
     p0 = DC.pack_dense_cidr_table(MT.table_arrays(T.compile_cidr_rules([])))
-    assert p0["rows"].shape == (0, 6, 4)
+    assert p0["v4"].shape == (0, 4) and p0["v6"].shape == (0, 3, 4)
+    assert DC.cidr_slot_words(tt(p0))["words"].shape == (0, 2)
+    a16, fam = T.encode_ips([IP.parse_ip("10.0.0.1")])
+    assert packed_cidr_torch(p0, a16, fam).tolist() == [-1]
+
+
+def test_packed_hint_layout_refuses_more_rules_than_its_key_holds():
+    """The B9 hint key keeps 20 bits of rule index: a table whose last
+    live rule is the 2^20 + 1st is refused at publish (a deviation from
+    the reference's jax-dense, which has no such cap; ROADMAP Queue C)."""
+    active = np.zeros(DC.MAX_RULES + 1, bool)
+    active[[0, DC.MAX_RULES]] = True
+    with pytest.raises(ValueError, match=f"{DC.MAX_RULES + 1} rules, at "
+                       f"most {DC.MAX_RULES}"):
+        DC.pack_dense_hint_table({"active": active})
+    assert DC.MAX_RULES == 1 << 20
 
 
 # ---------------------------------------------- matchers and service
@@ -1019,7 +1140,8 @@ def test_dense_entries_raise_on_non_cpu_tensor(monkeypatch):
     with pytest.raises(FC.KernelError, match="no prepared packed layout"):
         MT.hint_dense(ht, q)
     ht.packed = DC.PreparedDense(layout)
-    ht.packed.device, ht.packed.n = torch.device("meta"), 30
+    ht.packed.device, ht.packed.n_tiles = torch.device("meta"), 1
+    ht.packed.stage_vec = DC.TILE
     with pytest.raises(FC.KernelError, match="nvcc"):
         MT.hint_dense(ht, q)
     assert not called
@@ -1034,34 +1156,63 @@ def test_dense_prepare_refuses_cpu_and_bad_layouts(monkeypatch):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         DC.prepare_hint(p)
     meta = {k: v.to("meta") for k, v in p.items()}
+    tiles = p["tiles"].long()
+    monkeypatch.setattr(DC, "_tile_table", lambda q: tiles)
     prep = DC.prepare_hint(meta)
-    assert prep.n == 50 and DC.prepare_hint(prep) is prep
+    vec = DC.TILE * (1 + 3 * (tiles[:, 1] & 0xFF) +
+                     2 * ((tiles[:, 1] >> 8) & 0xFF))
+    assert prep.n_tiles == tiles.shape[0] and prep.stage_vec == vec.max()
+    assert DC.prepare_hint(prep) is prep
     bad = dict(meta)
-    bad["hrows"] = bad["hrows"][:, :16]
-    with pytest.raises(ValueError, match="hrows must be"):
+    bad["tiles"] = bad["tiles"][:, :3]
+    with pytest.raises(ValueError, match="tiles must be"):
         DC.prepare_hint(bad)
     bad = dict(meta)
-    del bad["urows"]
-    with pytest.raises(ValueError, match="missing 'urows'"):
+    del bad["rows"]
+    with pytest.raises(ValueError, match="missing 'rows'"):
         DC.prepare_hint(bad)
+    for shift in ((1, 0), (0, DC.HC_MAX + 1)):  # past its rows; 6 chunks
+        bent = tiles.clone()
+        bent[-1, 0] += shift[0] * DC.TILE
+        bent[-1, 1] += shift[1]
+        monkeypatch.setattr(DC, "_tile_table", lambda q, t=bent: t)
+        with pytest.raises(ValueError, match="outside its rows"):
+            DC.prepare_hint(dict(meta))
     c = {k: v.to("meta") for k, v in tt(DC.pack_dense_cidr_table(
         MT.table_arrays(T.compile_cidr_rules(route_nets(40, 1))))).items()}
-    assert DC.prepare_cidr(c).n == 40
-    c["meta"] = c["meta"].to(torch.int64)
-    with pytest.raises(ValueError, match="meta must be"):
+    prep = DC.prepare_cidr(c)
+    assert (prep.n4, prep.n6) == (c["v4"].shape[0], c["v6"].shape[0])
+    assert prep.n4 > 0 and prep.n6 > 0
+    c["v4"] = c["v4"].to(torch.int64)
+    with pytest.raises(ValueError, match="v4 must be"):
         DC.prepare_cidr(c)
 
 
 def test_dense_grid_fills_the_card_and_covers_every_rule():
-    for b, n in ((16, 100_000), (512, 100_000), (4096, 100_000),
-                 (512, 5_000), (1, 0), (100, 63)):
-        threads, tiles, split = DC.grid(b, n)
+    for b, n in ((16, 3127), (512, 3127), (4096, 3127), (512, 160),
+                 (1, 0), (100, 2), (129, 7)):
+        threads, q, tiles, split = DC.hint_grid(b, n)
         assert threads % 32 == 0 and 32 <= threads <= DC.MAX_THREADS
-        assert tiles * threads >= b > (tiles - 1) * threads
+        assert q == (1 if b <= DC.MAX_THREADS else 2)
+        assert tiles * threads * q >= b > (tiles - 1) * threads * q
         ys = -(-n // split) if n else 1
         assert ys * split >= n and split >= 1
-        if n >= DC.MIN_SPLIT * DC.TARGET_BLOCKS:
-            assert tiles * ys >= DC.TARGET_BLOCKS * 0.9
+        assert tiles * ys <= max(DC.TARGET_BLOCKS[q], tiles)
+        if n >= DC.TARGET_BLOCKS[q]:  # ranges of whole tiles: > half
+            assert tiles * ys > DC.TARGET_BLOCKS[q] * 0.5
+    for b, n4, n6 in ((16, 47112, 96373), (512, 47112, 96373),
+                      (4096, 47112, 96373), (512, 4750, 9750),
+                      (4096, 4750, 9750), (1, 0, 0), (100, 0, 70)):
+        q, threads, tiles, s4, s6, y4 = DC.cidr_grid(b, n4, n6)
+        assert threads % 32 == 0 and 32 <= threads <= DC.MAX_THREADS
+        assert q in (1, DC.CIDR_Q) and (q == DC.CIDR_Q) == (
+            b > DC.CIDR_Q * DC.MAX_THREADS or (b, n4) == (512, 47112))
+        assert tiles * threads * q >= b > (tiles - 1) * threads * q
+        assert s4 % DC.CTILE == 0 and s6 % DC.CTILE == 0
+        assert y4 * s4 >= n4 > (y4 - 1) * s4 or n4 == y4 == 0
+        blocks = tiles * (y4 + -(-n6 // s6))
+        target = DC.TARGET_BLOCKS["cidr1" if q == 1 else "cidr"]
+        assert blocks <= target * 1.1 + 2 * tiles
 
 
 @pytest.mark.parametrize("kind", ["hint", "cidr"])
@@ -1125,12 +1276,23 @@ def test_dense_kernel_abi_mirror_matches_source(kind):
 
 # ------------------------------------------------- chip_smoke.py, small
 
+def _mask_words_of(w: np.ndarray, nbytes: int) -> np.ndarray:
+    """Bit-plane weights [nbytes * 8, N] -> per pattern the 32-bit words
+    with a mask bit (W != 0), int [N]: read off the compiled arrays,
+    whatever layout the kernel packs."""
+    nz = (w != 0).reshape(nbytes, 8, -1).any(1)  # [nbytes, N]
+    pad = np.zeros((-(-nbytes // 4) * 4, nz.shape[1]), bool)
+    pad[:nbytes] = nz
+    return pad.reshape(-1, 4, nz.shape[1]).any(1).sum(0)
+
+
 def test_dense_work_counts_each_needed_word_once():
     """chip_smoke.py's B9 bound counts, against a loop over every query
     and rule: a query compares its host (uri) against the host (uri)
     words with a mask bit of every active rule its port gate admits; a
     cidr query the words with a mask bit of its family's valid slots of
-    each rule up to its first match whose port range holds."""
+    each rule up to its first match whose port range holds. The words
+    are counted off the compiled bit planes."""
     dev = torch.device("cpu")
     rules = mk_rules(120, seed=3) + [IR.HintRule(host="x.io", port=80)]
     arrays = MT.table_arrays(T.compile_hint_rules(rules))
@@ -1139,32 +1301,36 @@ def test_dense_work_counts_each_needed_word_once():
     hints = [IR.Hint(host=h.host, uri=h.uri, port=(0, 443, 80, 8)[i % 4])
              for i, h in enumerate(hints)]
     q = CS.dense_hint_batch(hints, 48, dev)
-    p = DC.pack_dense_hint_table(arrays)
-    flags = p["meta"][:, 0] & 0xFF
-    nz = lambda m: (m != 0).sum(-1)  # noqa: E731
-    hw = np.where(flags & DC.F_EXACT, nz(p["hrows"][..., 0]), 0) + \
-        np.where(flags & DC.F_SUFFIX, nz(p["hrows"][..., 2]), 0)
-    uw = np.where(flags & DC.F_URI, nz(p["urows"][..., 0]) +
-                  nz(p["urows"][..., 2]), 0)
+    n = len(rules)
+    hm = _mask_words_of(arrays["host_w"], T.HOST_SLOT)
+    hv = arrays["host_valid"]
+    hw = np.where(hv[:n, 0], hm[0:2 * n:2], 0) + \
+        np.where(hv[:n, 1], hm[1:2 * n:2], 0)
+    uw = np.where(arrays["uri_valid"][:n],
+                  _mask_words_of(arrays["uri_w"], T.MAX_URI)[:n], 0)
+    active = arrays["active"][:n]
     ops = 0
     for i in range(48):
         qp = int(q["port"][i])
-        for r in range(p["meta"].shape[0]):
-            rp = int(p["meta"][r, 2])
-            if flags[r] & DC.F_ACTIVE and (qp == 0 or rp == 0 or qp == rp):
+        for r in range(n):
+            rp = int(arrays["port"][r])
+            if active[r] and (qp == 0 or rp == 0 or qp == rp):
                 ops += 2 * (int(q["has_host"][i]) * int(hw[r]) +
                             int(q["has_uri"][i]) * int(uw[r]))
     qbytes = sum(v.numel() * v.element_size() for v in q.values())
     assert CS.dense_hint_work(t, q) == (
-        qbytes + 48 * 8 + 16 * int((flags & DC.F_ACTIVE != 0).sum()) +
-        8 * int((hw + uw)[(flags & DC.F_ACTIVE) != 0].sum()), ops)
+        qbytes + 48 * 8 + 16 * int(active.sum()) +
+        8 * int((hw + uw)[active].sum()), ops)
     assert ops > 0
 
     acl = acl_rules(90, 6)
     arrays = MT.table_arrays(T.compile_cidr_rules([r.network for r in acl],
                                                   acl=acl))
     t = E._dense_table(arrays, dev)
-    c = DC.pack_dense_cidr_table(arrays)
+    valid = arrays["valid"].reshape(-1, 3)
+    n = int(np.flatnonzero(valid.any(1))[-1]) + 1
+    sw = _mask_words_of(arrays["w"], 16).reshape(-1, 3)
+    sfam = arrays["family"].reshape(-1, 3)
     for ports in (True, False):
         qs = CS.acl_queries(acl, 56, 8)
         if not ports:
@@ -1176,20 +1342,18 @@ def test_dense_work_counts_each_needed_word_once():
             f = int(fam[i])
             if f < 0:
                 continue
-            stop = int(first[i]) + 1 if first[i] >= 0 else len(c["meta"])
+            stop = int(first[i]) + 1 if first[i] >= 0 else n
             reach[f] = max(reach[f], stop)
             for r in range(stop):
-                mt = c["meta"][r]
                 if port is not None and not (
-                        mt[1] <= int(port[i]) <= mt[2]):
+                        arrays["min_port"][r] <= int(port[i]) <=
+                        arrays["max_port"][r]):
                     continue
-                for s in range(3):
-                    if (mt[0] >> s) & 1 and (mt[0] >> (3 + s)) & 1 == f:
-                        ops += 2 * int(nz(c["rows"][r, 2 * s]))
-        words = sum(int(nz(c["rows"][r, 2 * s]))
-                    for f in (0, 1) for r in range(reach[f])
-                    for s in range(3) if (c["meta"][r, 0] >> s) & 1 and
-                    (c["meta"][r, 0] >> (3 + s)) & 1 == f)
+                for s_ in range(3):
+                    if valid[r, s_] and sfam[r, s_] == f:
+                        ops += 2 * int(sw[r, s_])
+        words = sum(int(sw[r, s_]) for f in (0, 1) for r in range(reach[f])
+                    for s_ in range(3) if valid[r, s_] and sfam[r, s_] == f)
         nbytes = 64 * 24 + (64 * 4 if ports else 0) + \
             16 * max(reach.values()) + 8 * words
         assert CS.dense_cidr_work(t, a16, fam, port) == (nbytes, ops)

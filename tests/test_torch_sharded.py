@@ -682,6 +682,34 @@ def test_brute_force_ties_and_level_zero(s, fp):
     assert SC.finish_plain(keys).tolist()[:n] == want
 
 
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+@pytest.mark.parametrize("fp", [False, True], ids=["cuckoo", "fp"])
+def test_wildcards_only_in_later_shards(s, fp):
+    """chip_smoke.sharded_late_wildcard_case at S = 1..4: the host="*"
+    and uri="*" rules that answer the hints sit only in the later
+    shards. The port's sharded answer, the reference's on its (batch 2,
+    rules S) mesh and the linear oracle agree, and chip_smoke's case
+    checks (B8's plain version on the CPU) pass."""
+    import jax
+    rules_p, hints_p = CS.sharded_late_wildcard_case()
+    rules_r = [REF.ir.HintRule(host=r.host, uri=r.uri, port=r.port)
+               for r in rules_p]
+    hints_r = [REF.ir.Hint(host=h.host, uri=h.uri, port=h.port)
+               for h in hints_p]
+    rmesh = jax.sharding.Mesh(np.array(jax.devices()[:2 * s]).reshape(
+        2, s), ("batch", "rules"))
+    pmesh = PORT.mesh.make_mesh(2 * s, batch=2, device="cpu")
+    ref = answers(REF.engine.HintMatcher(
+        rules_r, backend=REF.backend(fp), mesh=rmesh).match(hints_r))
+    port = answers(PORT.engine.HintMatcher(
+        rules_p, backend=PORT.backend(fp), mesh=pmesh).match(hints_p))
+    want = [PORT.oracle.search(rules_p, h) for h in hints_p]
+    assert ref == port == want
+    assert {28, 30} <= set(want)  # answered by the late wildcards
+    if s == 4 and not fp:
+        assert CS.sharded_case_checks(torch.device("cpu")) == 16
+
+
 # ------------------------------------------- compilers, byte for byte
 
 @pytest.mark.parametrize("s", [1, 2, 3, 4])
@@ -783,7 +811,37 @@ def test_sharded_entries_on_cpu_launch_nothing():
         SC.prepare_cidr(dict(m.snapshot()[0]))
 
 
+@pytest.mark.parametrize("layout", ["diagonal", "", "AUTO"])
+def test_sharded_kernel_refuses_an_unknown_layout(layout):
+    """B8's layouts are the three of csrc/sharded_match.cu's `Layout`, in
+    its order; any other name is a KernelError before any table is
+    read or any launch."""
+    from vproxy_tpu_torch.ops import fused_cuda as FC
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    assert SC.LAYOUTS == {"auto": 0, "split": 1, "interleaved": 2}
+    src = open(SC.SOURCE).read()
+    assert "enum Layout { AUTO = 0, SPLIT = 1, INTERLEAVED = 2 };" in src
+    n0 = SC.sharded_cuda.launches
+    with pytest.raises(FC.KernelError, match="layout"):
+        SC.sharded_cuda(layout=layout)
+    assert SC.sharded_cuda.launches == n0
+
+
 # ------------------------------------------ chip_smoke.py, small, on the CPU
+
+def test_chip_smoke_aten_fills_sees_fills_and_nothing_else():
+    """chip_smoke.aten_fills, the dispatcher-side half of
+    sharded_service's no-fill check: torch.zeros / full / fill_ / zero_
+    are fills; empty, copies, arithmetic and nonzero are not."""
+    assert CS.aten_fills(lambda: torch.zeros(4)) == ["aten.zeros.default"]
+    assert CS.aten_fills(lambda: torch.full((3,), 7).fill_(2)) == [
+        "aten.full.default", "aten.fill_.Scalar"]
+    assert CS.aten_fills(lambda: torch.ones(2).zero_()) == [
+        "aten.zero_.default"]
+    x = np.arange(5, dtype=np.int32)
+    assert CS.aten_fills(lambda: torch.empty(4).add_(1).nonzero()) == []
+    assert CS.aten_fills(lambda: torch.from_numpy(x).to("cpu").clone()) == []
+
 
 @pytest.mark.timeout(600)
 def test_chip_smoke_sharded_phases_on_cpu():

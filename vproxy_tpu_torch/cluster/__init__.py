@@ -68,7 +68,8 @@ class ClusterNode:
     def _hb_meta(self) -> dict:
         meta = {"gen": self.replicator.generation,
                 "stepping": self.submit is not None
-                and not self.submit.degraded and self.submit.error is None}
+                and not self.submit.degraded and self.submit.error is None
+                and not self.submit.stopped}
         # gossip this node's analytics top-K (utils/sketch): any node's
         # GET /analytics can then render the fleet-merged top table.
         # ALWAYS present (possibly {}): an empty summary must OVERWRITE
@@ -161,9 +162,15 @@ class ClusterNode:
         d["step"] = None if self.submit is None else self.submit.status()
         return d
 
-    def close(self) -> None:
+    def stop_stepping(self) -> None:
+        """Stop the attached step loop (StepLoop.stop: the peers hear at
+        once that this node no longer steps; its threads are joined).
+        The first step of shutdown: main.py runs it before the drain."""
         if self.submit is not None:
             self.submit.stop()
+
+    def close(self) -> None:
+        self.stop_stepping()
         self.replicator.close()
         self.membership.close()
         with ClusterNode._ilock:

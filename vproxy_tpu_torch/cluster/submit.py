@@ -148,11 +148,29 @@ class StepLoop:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop stepping and join the step thread and the dispatch
+        worker (each for at most 10 s). The step in flight finishes
+        (a dispatch already on the card is waited for, never abandoned),
+        and what was queued is answered from the host index. A thread
+        left running at interpreter exit dies inside torch's C++ frames
+        and aborts the process (SIGABRT), so shutdown must come here."""
         self._stopped = True
         with self._disp_cv:
             self._disp_cv.notify_all()
         with self._arrive_cv:
             self._arrive_cv.notify_all()
+        if self.membership is not None:
+            # stepping=false reaches the peers now: none waits for this
+            # host at a barrier while its last step finishes
+            self.membership.poke()
+        me = threading.current_thread()
+        for t in (self._thread, self._disp_thread):
+            if t is not None and t is not me:
+                t.join(10.0)
+
+    @property
+    def stopped(self) -> bool:
+        return self._stopped
 
     def rejoin(self, epoch: int) -> None:
         """Fleet-wide epoch switch (a new rule generation): every host
@@ -399,6 +417,7 @@ class StepLoop:
 
     def _run(self) -> None:
         next_step = time.monotonic()
+        cut: list = []  # the batch of a step that stop() cut short
         while not self._stopped:
             now = time.monotonic()
             if now < next_step:
@@ -443,6 +462,9 @@ class StepLoop:
                         int(t_col * 1e9),
                         int((time.monotonic() - t_col) * 1e9),
                         batch=len(batch), fused=self._pair is not None)
+            if self._stopped and (out is None or out is self._EPOCH_ABORT):
+                cut = batch  # stop() cut the barrier or the dispatch wait
+                break
             if out is self._EPOCH_ABORT:
                 # a rejoin landed mid-step (new generation): not a
                 # stall — answer this batch locally and step on in the
@@ -455,6 +477,13 @@ class StepLoop:
             idxs, payload = out
             self._deliver(batch, idxs, payload)
             self._step += 1
+        if self.error is None:
+            # stopped: the step stop() cut and the queue are answered
+            # from the host index, never stranded
+            with self._qlock:
+                held = cut + list(self._q)
+                self._q.clear()
+            self._serve_host(held)
 
     def _stall(self, batch: list) -> None:
         """Barrier timeout / dead collective: degrade to the inline

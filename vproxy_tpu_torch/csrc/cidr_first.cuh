@@ -1,7 +1,9 @@
 // The CIDR first-match routine shared by the two kernels that answer a
 // route or ACL lookup on Hopper (sm_90a): cidr_first.cu (B4, the
 // `cidr` kind of ClassifyService) and the route column of
-// fused_classify_pick.cu (B1's [B, 3] form).
+// fused_classify_pick.cu (B1's [B, 3] form); and sharded_match.cu (B8:
+// `first_match` once per rule shard, or `first_match_shards`, the
+// interleaved form over S shards).
 //
 // Replaces: vproxy_tpu/ops/hashmatch.py:723 `cidr_hash_match` with
 // `_fnv32_device` (:713), over the packed layout of
@@ -126,6 +128,24 @@ struct Rows {
   const int32_t* off;
   const int32_t* capmask;
   const uint32_t* salt;
+  __device__ __forceinline__ uint32_t salt_at(int s, int g, int gi) const {
+    return salt[s * g + gi];
+  }
+};
+
+// The same group rows read where the table keeps them (global memory,
+// through L1), for a kernel whose warps work on different tables and
+// stage nothing.
+struct TableRows {
+  const uint4* mask;
+  const int32_t* fam;
+  const int32_t* off;
+  const int32_t* capmask;
+  const uint32_t* salt1;
+  const uint32_t* salt2;
+  __device__ __forceinline__ uint32_t salt_at(int s, int, int gi) const {
+    return s ? salt2[gi] : salt1[gi];
+  }
 };
 
 // Shared memory the routine needs: per block the staged rows (rounded
@@ -138,6 +158,11 @@ __host__ __device__ constexpr int warp_words(int g) { return g + LIST; }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ TableRows rows_of(const Table& t) {
+  return {reinterpret_cast<const uint4*>(t.g_mask), t.g_fam, t.g_off,
+          t.g_capmask, t.g_salt1, t.g_salt2};
 }
 
 __device__ __forceinline__ Rows rows_at(const void* base, int g) {
@@ -187,7 +212,8 @@ __device__ __forceinline__ uint4 and4(uint4 a, uint4 m) {
 // with the same query (addr, fam, and port when `gate`); `r` are the
 // staged rows, `glist` (t.g ints) and `list` (LIST ints) the warp's
 // own shared memory.
-__device__ __forceinline__ int first_match(const Table& t, const Rows& r,
+template <class R>
+__device__ __forceinline__ int first_match(const Table& t, const R& r,
                                            int32_t* glist, int32_t* list,
                                            const uint4 addr, int fam,
                                            bool gate, int port, int lane) {
@@ -216,7 +242,7 @@ __device__ __forceinline__ int first_match(const Table& t, const Rows& r,
       if (i < np) {
         const int gi = glist[i >> 1];
         const uint4 mk = and4(addr, r.mask[gi]);
-        uint32_t h = FNV32_OFFSET ^ r.salt[(i & 1) * t.g + gi];
+        uint32_t h = FNV32_OFFSET ^ r.salt_at(i & 1, t.g, gi);
         h = fnv_word(h, mk.x);
         h = fnv_word(h, mk.y);
         h = fnv_word(h, mk.z);
@@ -297,6 +323,155 @@ __device__ __forceinline__ int first_match(const Table& t, const Rows& r,
   for (int off = 16; off > 0; off >>= 1) {
     const int o = __shfl_xor_sync(FULL, best, off);
     best = o < best ? o : best;
+  }
+  return best;
+}
+
+// ------------------------------------------------ the interleaved form
+//
+// `first_match_shards` answers one query over S rule shards in one warp
+// (B8, sharded_match.cu): first_match's steps once for all the shards
+// together. The groups of the query's family are listed over every
+// shard, so one round's (group, salt) pairs span the shards, and one
+// window's entries and meta rows too: every shard's step-k loads are
+// in flight before any shard's step k + 1. The group rows are read
+// where each shard keeps them (TableRows). `Sh` gives shard j's table
+// (`at(j)`) and the key a first match takes (`key(j, rule)`: the
+// greater key wins). -> the greatest key of the query's matches over
+// the shards, 0 for none, on every lane. `glist`: shards * t.g ints,
+// `list` and `lsh`: LIST ints each, the warp's own shared memory.
+__host__ __device__ constexpr int shards_warp_words(int g, int shards) {
+  return shards * g + 2 * LIST;
+}
+
+template <class Sh>
+__device__ __forceinline__ unsigned long long first_match_shards(
+    const Sh& sh, int shards, int32_t* glist, int32_t* list, int32_t* lsh,
+    const uint4 addr, int fam, bool gate, int port, int lane) {
+  const unsigned below = (1u << lane) - 1u;
+  const Table& t0 = sh.at(0);
+  const int g = t0.g;
+  // every shard's groups of the query's family: entry j * g + group
+  int ng = 0;
+  for (int x0 = 0; x0 < shards * g; x0 += 32) {
+    const int x = x0 + lane;
+    bool live = false;
+    if (x < shards * g) {
+      const int j = x / g;
+      const int gf = __ldg(sh.at(j).g_fam + (x - j * g));
+      live = gf >= 0 && gf == fam;
+    }
+    const unsigned m = __ballot_sync(FULL, live);
+    if (live) glist[ng + __popc(m & below)] = x;
+    ng += __popc(m);
+  }
+  __syncwarp();
+  const int np = 2 * ng;  // pair i: group entry glist[i >> 1], salt i & 1
+  unsigned long long best = 0;
+  for (int p0 = 0; p0 < np; p0 += 32 * PROBES) {
+    // step 2: PROBES pairs per lane, of any shards, hashed together,
+    // then every slot record and key loaded before any is compared
+    int slot[PROBES], js[PROBES];
+    uint4 mk[PROBES];
+#pragma unroll
+    for (int k = 0; k < PROBES; ++k) {
+      const int i = p0 + 32 * k + lane;
+      slot[k] = -1;
+      js[k] = 0;
+      mk[k] = make_uint4(0, 0, 0, 0);
+      if (i < np) {
+        const int x = glist[i >> 1];
+        const int j = x / g, gi = x - j * g;
+        const Table& t = sh.at(j);
+        mk[k] = and4(addr,
+                     __ldg(reinterpret_cast<const uint4*>(t.g_mask) + gi));
+        uint32_t h =
+            FNV32_OFFSET ^ __ldg((i & 1) ? t.g_salt2 + gi : t.g_salt1 + gi);
+        h = fnv_word(h, mk[k].x);
+        h = fnv_word(h, mk[k].y);
+        h = fnv_word(h, mk[k].z);
+        h = fnv_word(h, mk[k].w);
+        slot[k] = clampi(__ldg(t.g_off + gi) +
+                             ((int)h & __ldg(t.g_capmask + gi)),
+                         0, t.ct - 1);
+        js[k] = j;
+      }
+    }
+    int4 rec[PROBES];
+    uint4 key[PROBES];
+#pragma unroll
+    for (int k = 0; k < PROBES; ++k) {
+      rec[k] = make_int4(0, 0, 0, 0);
+      key[k] = make_uint4(0, 0, 0, 0);
+      if (slot[k] >= 0) {
+        const Table& t = sh.at(js[k]);
+        rec[k] = __ldg(reinterpret_cast<const int4*>(t.pk_cslot) + slot[k]);
+        key[k] = __ldg(reinterpret_cast<const uint4*>(t.s_key) + slot[k]);
+      }
+    }
+    int cnt[PROBES], mine = 0;
+#pragma unroll
+    for (int k = 0; k < PROBES; ++k) {
+      const bool ok = slot[k] >= 0 && rec[k].x > 0 && key[k].x == mk[k].x &&
+                      key[k].y == mk[k].y && key[k].z == mk[k].z &&
+                      key[k].w == mk[k].w;
+      cnt[k] = ok ? clampi(rec[k].z, 0, t0.bk) : 0;
+      mine += cnt[k];
+    }
+    int incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += v;
+    }
+    const int total = __shfl_sync(FULL, incl, 31);
+    // steps 3 and 4, per LIST entries: this lane's entries listed at
+    // its prefix sum with their shards, then every entry's rule index
+    // loaded at once, then the meta row of every index in [0, r_cap)
+    for (int w0 = 0; w0 < total; w0 += LIST) {
+      int e = incl - mine;
+#pragma unroll
+      for (int k = 0; k < PROBES; ++k) {
+        const int lo = e > w0 ? e : w0;
+        const int hi = e + cnt[k] < w0 + LIST ? e + cnt[k] : w0 + LIST;
+        for (int x = lo; x < hi; ++x) {
+          const int j = rec[k].y + (x - e);
+          list[x - w0] = j < 0 ? -1 : (j < t0.cb ? j : t0.cb - 1);
+          lsh[x - w0] = js[k];
+        }
+        e += cnt[k];
+      }
+      __syncwarp();
+      int item[ENTRIES], ij[ENTRIES];
+#pragma unroll
+      for (int q = 0; q < ENTRIES; ++q) {
+        const int x = w0 + 32 * q + lane;
+        const int j = x < total ? list[x - w0] : -1;
+        ij[q] = x < total ? lsh[x - w0] : 0;
+        item[q] = j >= 0 ? __ldg(sh.at(ij[q]).cb_items + j) : -1;
+      }
+      int4 meta[ENTRIES];
+#pragma unroll
+      for (int q = 0; q < ENTRIES; ++q) {
+        meta[q] = make_int4(0, 0, 0, 0);
+        if (item[q] >= 0 && item[q] < t0.r_cap)
+          meta[q] = __ldg(reinterpret_cast<const int4*>(
+                              sh.at(ij[q]).pk_cmeta) + item[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < ENTRIES; ++q)
+        if (meta[q].x > 0 &&
+            (!gate || (meta[q].y <= port && port <= meta[q].z))) {
+          const unsigned long long k = sh.key(ij[q], item[q]);
+          best = k > best ? k : best;
+        }
+      __syncwarp();  // the list is rewritten by the next window
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(FULL, best, off);
+    best = o > best ? o : best;
   }
   return best;
 }

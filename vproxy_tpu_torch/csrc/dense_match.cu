@@ -16,9 +16,8 @@
 // is W != 0 and v (the value bit) is W < 0 of the reference's bit-plane
 // weights W: the predicate the TPU computes as a [B, K] x [K, N]
 // product + bias compared with 0. Here it is a masked word compare,
-// exact, with no [B, N] count matrix in device memory, over a table
-// ~16x smaller than the float32 planes (ops/dense_cuda.py packs it
-// when a matcher publishes).
+// exact, with no [B, N] count matrix in device memory, over a layout
+// ops/dense_cuda.py packs when a matcher publishes.
 // * hint: per rule, host level max(exact*3, suffix*2, wild*1) when the
 //   query has a host, uri level max(prefix*score, wild*1) when it has a
 //   uri, level (host << 10) + uri, 0 unless the port gate (query port
@@ -32,52 +31,56 @@
 //
 // Bound. It is O(rules) per query by design: the reference keeps the
 // dense backend as the brute-force cross-check. At B >= ~32 it is
-// integer-op bound: 2 ops a compared word (the LOP3 of (q ^ v) & m,
-// the OR into the pattern's mismatch), e.g. 512 queries x 100,000 live
-// rules x (2 x 17 host + 32 uri words) x 2 ~ 6.8e9 int32 ops, ~0.4 ms at
-// chip_smoke.py's INT_OPS_PER_S, when every word is compared. The
-// packed table (528 B a hint rule: ~56 MB at cap 106,496; 96 B a CIDR
-// rule) takes ~17 us from HBM. chip_smoke.py `dense_hint_work()` /
-// `dense_cidr_work()` count the words this batch's data needs (of each
-// pattern, the words with a mask bit, ops/dense_cuda.py
-// `hint_pattern_words` / `cidr_slot_words`; a query's host words only
-// when it has a host, its uri words only when it has a uri, only the
-// rules its port gate admits; for cidr, the rules up to each query's
-// first match) and the bound is the larger of the two times.
+// integer-op bound. chip_smoke.py `dense_hint_work()` /
+// `dense_cidr_work()` count 2 int ops for every word with a mask bit of
+// every pattern a query must compare (a query's host words only when it
+// has a host, its uri words only when it has a uri, only the rules its
+// port gate admits; for cidr the rules up to each query's first match)
+// and those words' bytes once; the bound is the larger of the two
+// times. A time split of the design before this one (tools/
+// dense_split.py: staging only, compares only, whole) put ~98% of the
+// time in the compares and ~11% in the staging.
 //
-// Design (simple first):
-// * a thread per query, its query words in registers (17 host words,
-//   the length-byte word first, and 32 uri words); a block is up to 4
-//   warps of queries (fewer for a small batch);
-// * the grid spans query tiles x rule ranges, about 16 blocks per SM
-//   (ops/dense_cuda.py `grid`: ranges of at least one tile), so B = 16
-//   still fills the 132 SMs;
-// * a block walks its rule range in tiles of TILE rules: the tile's rows
-//   and meta are staged into shared memory with asynchronous 16-byte
-//   copies (every copy of the tile in flight at once), then every warp
-//   reads a rule's words as warp-uniform (broadcast) 16-byte shared
-//   loads. A first design read the rows straight from global memory,
-//   one word behind the last: each rule waited on a chain of dependent
-//   misses, and the kernel ran latency-bound far above its op bound;
-// * a rule row is rule-major: 17 host words of (exact m, exact v,
-//   suffix m, suffix v), then 16 of two uri words (m, v, m, v); the
-//   rule's meta (flags, live word counts, uri score, port) is one int4.
-//   Host words are ordered length-byte word first: the live prefix of
-//   an exact pattern is then 1 + ceil(len / 4) words, of a suffix 2 +
-//   floor(len / 4), of a uri ceil(len / 4), and the loops stop at the
-//   rule's counts (uniform across the block: no divergence). Rules with
-//   no host or no uri pattern skip that half;
-// * hint: each thread keeps its best (level, index) over its range
-//   (ascending, so the earliest wins ties) and ORs it into one 64-bit
-//   atomicMax key per query, (level << 32) | (0xFFFFFFFF - index): max
-//   level, then least index, whatever order blocks run in. The last
-//   block of a query tile to finish (a device-scope ticket after a
-//   fence) writes (index, level);
-// * cidr: each thread stops at its first match in the range (the block
-//   leaves the range once all its queries have one) and takes
-//   atomicMin on the answer as unsigned: the wrapper fills it with -1
-//   (0xFFFFFFFF), so a query with no match keeps -1 and no second pass
-//   is needed.
+// Design.
+// * Layout (ops/dense_cuda.py `pack_dense_hint_table`): the live rules
+//   are grouped by (host chunks, uri chunks, port gate) and each group
+//   cut into tiles of TILE rows (pad rows match nothing), so the rows
+//   of a tile share their trip counts. A host chunk is 4 host words
+//   (query words in HOST_ORDER: the length-byte word first) as three
+//   uint4: the exact pattern's masks, the suffix pattern's masks, and
+//   the values both share (they agree wherever both mask: the packer
+//   checks it). A uri chunk is 4 uri words as (masks, values). Only a
+//   rule's live chunks are stored: ~12 MB for 100k `mk_rules` rules,
+//   which L2 holds across query tiles. A tile is one contiguous run:
+//   TILE meta int4s, then the host chunks, then the uri chunks.
+// * A block is up to 128 threads, each holding Q queries' host words in
+//   registers and their uri words in shared memory (Q = 2 at large
+//   batches: every staged word feeds two queries), over a range of
+//   tiles; the grid is query tiles x tile ranges. Tiles are staged into a two-slot ring in shared memory with
+//   cp.async, tile t + 1 in flight while tile t is compared.
+// * The compare loops run a tile's chunk counts (block-uniform): per
+//   host word x = q ^ v, then exact |= x & m_exact and
+//   suffix |= x & m_suffix; no per-word exit. An absent exact or suffix
+//   pattern carries a mask bit on the host slot's padding byte (value
+//   1, the query's byte is 0), so it never matches.
+// * hint: a rule's key is (host level << 30) | (uri level << 20) |
+//   (0xFFFFF - index): the max key is the highest level, then the
+//   earliest rule, whatever order the groups run in (at most 2^20
+//   rules: the packer refuses more). Each thread keeps its queries'
+//   max; one 32-bit atomicMax per query and block, then the last block
+//   of a query tile (a device-scope ticket after a fence) writes
+//   (index, level).
+// * cidr: per family a list of the valid patterns in ascending rule
+//   order (an IPv4 pattern is one mask and value word: 16 B with its
+//   rule and ports; an IPv6 one four: 48 B). A block takes one family's
+//   list range and its query tile's queries of that family (compacted
+//   in shared memory), Q = 4 per thread when a batch has enough work
+//   for the card at that (else 1: more blocks); a query stops
+//   at its first
+//   match, a block leaves its range once each of its queries has one,
+//   or an earlier range's block already wrote a smaller rule (the
+//   answers' unsigned atomicMin, read before each tile). The wrapper
+//   fills the answers with -1, so a query with no match keeps -1.
 // Both reductions are order-independent: the result is deterministic.
 
 #include <cstdint>
@@ -89,15 +92,14 @@ namespace {
 constexpr int HOST_BYTES = 66;  // HOST_SLOT: 65 reversed bytes + length
 constexpr int HOST_WORDS = 17;  // padded to 68 bytes
 constexpr int URI_WORDS = 32;   // MAX_URI = 128 bytes
-constexpr int URI_PAIRS = URI_WORDS / 2;
-constexpr int CIDR_SLOTS = 3;
+constexpr int HC_MAX = 5;       // host chunks: 20 words >= 17
+constexpr int UC_MAX = 8;       // uri chunks: 32 words
+constexpr int TILE = 32;        // hint rows a tile
+constexpr int CTILE = 64;       // cidr entries a tile
 constexpr int MAX_THREADS = 128;
-constexpr int TILE = 32;  // rules a block stages in shared memory at once
-
-// hint meta.x: flags in bits 0-7, live word counts above
-constexpr int F_ACTIVE = 1, F_EXACT = 2, F_SUFFIX = 4, F_HWILD = 8,
-              F_URI = 16, F_UWILD = 32;
-// cidr meta.x: slot s valid at bit s, its family (1 = V6) at bit 3 + s
+constexpr int HINT_MIN_BLOCKS = 4;  // <= 128 registers a thread
+constexpr int CIDR_Q = 4;           // cidr queries a thread, many queries
+constexpr unsigned IDX_MASK = 0xFFFFFu;  // 20 bits of rule index
 
 }  // namespace
 
@@ -107,46 +109,52 @@ struct DenseHintArgs {
   const uint8_t* has_host;   // bool [b]
   const uint8_t* has_uri;    // bool [b]
   const int32_t* port;       // [b]
-  const int32_t* hrows;      // [n, 17, 4]
-  const int32_t* urows;      // [n, 16, 4]
-  const int32_t* meta;       // [n, 4]
-  unsigned long long* key;   // [b], zero-filled by the wrapper
-  unsigned int* done;        // [tiles], zero-filled by the wrapper
+  const int32_t* rows;       // the tiles, one after another (int4s)
+  const int32_t* tiles;      // [n_tiles, 4]: first int4, host chunks |
+                             // uri chunks << 8 | gated << 16, 0, 0
+  unsigned int* key;         // [b], zero-filled by the wrapper
+  unsigned int* done;        // [query tiles], zero-filled by the wrapper
   int32_t* out_idx;          // [b]
   int32_t* out_level;        // [b]
-  int32_t b, n, threads, split;
+  int32_t b, n_tiles, threads, split, stage_vec, q;
 };
 
 struct DenseCidrArgs {
   const uint8_t* a16;        // [b, 16], 16-byte aligned rows
   const int32_t* fam;        // [b]
   const int32_t* port;       // [b], or null: no port gate
-  const int32_t* rows;       // [n, 6, 4]
-  const int32_t* meta;       // [n, 4]
+  const int32_t* v4;         // [n4, 4]: mask, value, rule, ports
+  const int32_t* v6;         // [n6, 3, 4]: masks, values, (rule, ports)
   int32_t* out;              // [b], filled with -1 by the wrapper
-  int32_t b, n, threads, split;
+  int32_t b, n4, n6, q, split4, split6;  // q: queries a thread, 1 or 4
 };
 
-// Stage rules [t0, t0 + nt) of `n_vec` uint4s each from `src` into
-// `dst` (shared memory) with asynchronous 16-byte copies: every copy of
-// the tile is in flight at once, and none holds a register.
-__device__ __forceinline__ void stage(uint4* dst, const uint4* src, int t0,
-                                      int nt, int n_vec) {
-  src += (size_t)t0 * n_vec;
-  for (int i = threadIdx.x; i < nt * n_vec; i += blockDim.x)
+namespace {
+
+// Copy n_vec uint4s from `src` to `dst` (shared memory) with
+// asynchronous 16-byte copies spread over the block, then commit them
+// as one group.
+__device__ __forceinline__ void stage(uint4* dst, const uint4* src,
+                                      int n_vec) {
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x)
     __pipeline_memcpy_async(dst + i, src + i, 16);
+  __pipeline_commit();
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-dense_hint_kernel(const DenseHintArgs a) {
-  __shared__ uint4 s_host[TILE * HOST_WORDS];  // 8,704 B
-  __shared__ uint4 s_uri[TILE * URI_PAIRS];    // 8,192 B
-  __shared__ int4 s_meta[TILE];
-  __shared__ unsigned int ticket;
-  const int qi = blockIdx.x * a.threads + threadIdx.x;
+__host__ __device__ constexpr int tile_vec(int hc, int uc) {
+  return TILE * (1 + 3 * hc + 2 * uc);
+}
+
+// One query's host words (HOST_ORDER: the length byte's word 16 first;
+// words 17-19 are 0) into registers, and its uri words into its column
+// of `qu` (shared memory: chunk c of the block's slot s at c * slots +
+// s); zeros for a dead slot.
+__device__ __forceinline__ void load_query(const DenseHintArgs& a, int qi,
+                                           uint32_t (&qh)[4 * HC_MAX],
+                                           uint4* qu, int slots) {
   const bool live = qi < a.b;
-  // the query's words: host word 16 (the length byte's) first
-  uint32_t qh[HOST_WORDS], qu[URI_WORDS];
+#pragma unroll
+  for (int w = 0; w < 4 * HC_MAX; ++w) qh[w] = 0;
 #pragma unroll
   for (int w = 0; w < HOST_WORDS; ++w) {
     uint32_t x = 0;
@@ -164,148 +172,288 @@ dense_hint_kernel(const DenseHintArgs a) {
   const uint4* qrow = reinterpret_cast<const uint4*>(a.q_uri) +
                       (size_t)(live ? qi : 0) * (URI_WORDS / 4);
 #pragma unroll
-  for (int k = 0; k < URI_WORDS / 4; ++k) {
-    const uint4 t = live ? __ldg(qrow + k) : make_uint4(0, 0, 0, 0);
-    qu[4 * k] = t.x, qu[4 * k + 1] = t.y, qu[4 * k + 2] = t.z,
-    qu[4 * k + 3] = t.w;
-  }
-  const bool has_host = live && a.has_host[qi];
-  const bool has_uri = live && a.has_uri[qi];
-  const int qport = live ? a.port[qi] : 0;
+  for (int k = 0; k < UC_MAX; ++k)
+    qu[k * slots] = live ? __ldg(qrow + k) : make_uint4(0, 0, 0, 0);
+}
 
-  const int r0 = blockIdx.y * a.split;
-  const int r1 = min(r0 + a.split, a.n);
-  int best_level = 0, best_idx = 0;
-  for (int t0 = r0; t0 < r1; t0 += TILE) {
-    const int nt = min(TILE, r1 - t0);
-    __syncthreads();  // every warp is done with the last tile
-    stage(s_host, reinterpret_cast<const uint4*>(a.hrows), t0, nt,
-          HOST_WORDS);
-    stage(s_uri, reinterpret_cast<const uint4*>(a.urows), t0, nt,
-          URI_PAIRS);
-    stage(reinterpret_cast<uint4*>(s_meta),
-          reinterpret_cast<const uint4*>(a.meta), t0, nt, 1);
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    for (int j = 0; j < nt; ++j) {
-      const int4 mt = s_meta[j];  // uniform across the block
-      const int flags = mt.x & 0xff;
-      if (!(flags & F_ACTIVE)) continue;
-      int hl = 0, ul = 0;
-      if (flags & (F_EXACT | F_SUFFIX)) {
-        const int nw = max((mt.x >> 8) & 0xff, (mt.x >> 16) & 0xff);
-        const uint4* row = s_host + j * HOST_WORDS;
-        uint32_t de = 0, ds = 0;
+}  // namespace
+
+template <int Q>
+__global__ void __launch_bounds__(MAX_THREADS, HINT_MIN_BLOCKS)
+dense_hint_kernel(const DenseHintArgs a) {
+  // two ring slots of stage_vec uint4s, then the queries' uri chunks
+  extern __shared__ uint4 ring[];
+  __shared__ unsigned int ticket;
+  const int base = blockIdx.x * a.threads * Q + threadIdx.x;
+  const int slots = a.threads * Q;
+  uint4* qu = ring + 2 * a.stage_vec + threadIdx.x;
+  uint32_t qh[Q][4 * HC_MAX];
+  uint32_t hmask[Q], umask[Q], best[Q];
+  int qport[Q];
 #pragma unroll
-        for (int w = 0; w < HOST_WORDS; ++w) {
-          if (w >= nw) break;
-          const uint4 t = row[w];  // (exact m, v, suffix m, v)
-          de |= (qh[w] ^ t.y) & t.x;
-          ds |= (qh[w] ^ t.w) & t.z;
-        }
-        hl = ((flags & F_EXACT) && de == 0) ? 3
-             : ((flags & F_SUFFIX) && ds == 0) ? 2 : 0;
-      }
-      if (flags & F_HWILD) hl = max(hl, 1);
-      if (flags & F_URI) {
-        const int nu = (mt.x >> 24) & 0xff;
-        const uint4* row = s_uri + j * URI_PAIRS;
-        uint32_t du = 0;
-#pragma unroll
-        for (int k = 0; k < URI_PAIRS; ++k) {
-          if (2 * k >= nu) break;
-          const uint4 t = row[k];  // (m, v) of words 2k and 2k + 1
-          du |= ((qu[2 * k] ^ t.y) & t.x) | ((qu[2 * k + 1] ^ t.w) & t.z);
-        }
-        if (du == 0) ul = mt.y;
-      }
-      if (flags & F_UWILD) ul = max(ul, 1);
-      if (!has_host) hl = 0;
-      if (!has_uri) ul = 0;
-      int level = (hl << 10) + ul;
-      if (!(qport == 0 || mt.z == 0 || qport == mt.z)) level = 0;
-      if (level > best_level) best_level = level, best_idx = t0 + j;
-    }
+  for (int k = 0; k < Q; ++k) {
+    const int qi = base + k * a.threads;
+    const bool live = qi < a.b;
+    load_query(a, qi, qh[k], qu + k * a.threads, slots);
+    hmask[k] = live && a.has_host[qi] ? 3u << 30 : 0u;  // key fields
+    umask[k] = live && a.has_uri[qi] ? 0x3FFu << 20 : 0u;
+    qport[k] = live ? a.port[qi] : 0;
+    best[k] = 0;
   }
-  if (live && best_level > 0)
-    atomicMax(a.key + qi, ((unsigned long long)best_level << 32) |
-                              (0xFFFFFFFFu - (uint32_t)best_idx));
+
+  const int t0 = blockIdx.y * a.split;
+  const int t1 = min(t0 + a.split, a.n_tiles);
+  const uint4* rows = reinterpret_cast<const uint4*>(a.rows);
+  const int4* tiles = reinterpret_cast<const int4*>(a.tiles);
+  int4 td = t0 < t1 ? __ldg(tiles + t0) : make_int4(0, 0, 0, 0);
+  if (t0 < t1)
+    stage(ring, rows + td.x, tile_vec(td.y & 0xff, (td.y >> 8) & 0xff));
+  for (int t = t0; t < t1; ++t) {
+    const int4 cur = td;
+    if (t + 1 < t1) {  // tile t + 1 lands while tile t is compared
+      td = __ldg(tiles + t + 1);
+      stage(ring + ((t + 1 - t0) & 1) * a.stage_vec, rows + td.x,
+            tile_vec(td.y & 0xff, (td.y >> 8) & 0xff));
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // every thread's copies of tile t have landed
+    const int hc = cur.y & 0xff, uc = (cur.y >> 8) & 0xff;
+    const bool gated = (cur.y >> 16) & 1;
+    const uint4* slot = ring + ((t - t0) & 1) * a.stage_vec;
+    const int4* meta = reinterpret_cast<const int4*>(slot);
+    const uint4* host = slot + TILE;
+    const uint4* uri = host + TILE * 3 * hc;
+#pragma unroll 1
+    for (int j = 0; j < TILE; ++j) {
+      const int4 mt = meta[j];  // uniform across the block
+      // a tile without host chunks holds no host pattern: no exact or
+      // suffix match, the wildcard alone
+      uint32_t de[Q], ds[Q], du[Q];
+#pragma unroll
+      for (int k = 0; k < Q; ++k) de[k] = ds[k] = hc == 0, du[k] = 0;
+      const uint4* hr = host + j * 3 * hc;
+#pragma unroll
+      for (int c = 0; c < HC_MAX; ++c) {
+        if (c >= hc) break;  // uniform: the tile's count
+        const uint4 me = hr[3 * c], ms = hr[3 * c + 1], v = hr[3 * c + 2];
+#pragma unroll
+        for (int k = 0; k < Q; ++k) {
+          const uint32_t x0 = qh[k][4 * c] ^ v.x, x1 = qh[k][4 * c + 1] ^ v.y,
+                         x2 = qh[k][4 * c + 2] ^ v.z,
+                         x3 = qh[k][4 * c + 3] ^ v.w;
+          de[k] |= (x0 & me.x) | (x1 & me.y) | (x2 & me.z) | (x3 & me.w);
+          ds[k] |= (x0 & ms.x) | (x1 & ms.y) | (x2 & ms.z) | (x3 & ms.w);
+        }
+      }
+      const uint4* ur = uri + j * 2 * uc;
+#pragma unroll
+      for (int c = 0; c < UC_MAX; ++c) {
+        if (c >= uc) break;
+        const uint4 m = ur[2 * c], v = ur[2 * c + 1];
+#pragma unroll
+        for (int k = 0; k < Q; ++k) {
+          const uint4 w = qu[c * slots + k * a.threads];  // its own
+          du[k] |= ((w.x ^ v.x) & m.x) | ((w.y ^ v.y) & m.y) |
+                   ((w.z ^ v.z) & m.z) | ((w.w ^ v.w) & m.w);
+        }
+      }
+      // mt: (0xFFFFF - index, port, uri level on a match | on a miss
+      // << 10 | host wildcard << 20, live), taken apart once a rule into
+      // the key's fields: levels at bit 30 (host) and 20 (uri)
+      const uint32_t hit = (mt.z & 0x3FF) << 20;
+      const uint32_t miss = ((mt.z >> 10) & 0x3FF) << 20;
+      const uint32_t wild = ((mt.z >> 20) & 1) << 30;
+#pragma unroll
+      for (int k = 0; k < Q; ++k) {
+        const uint32_t hl =
+            de[k] == 0 ? 3u << 30 : (ds[k] == 0 ? 2u << 30 : wild);
+        // a tile without uri chunks: every row's uri compare holds
+        const uint32_t ul = uc == 0 || du[k] == 0 ? hit : miss;
+        uint32_t key = (hl & hmask[k]) | (ul & umask[k]) | (uint32_t)mt.x;
+        if (gated && !(qport[k] == 0 || mt.y == 0 || qport[k] == mt.y))
+          key = 0;
+        best[k] = max(best[k], key);
+      }
+    }
+    __syncthreads();  // every warp is done with the slot refilled next
+  }
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int qi = base + k * a.threads;
+    if (qi < a.b && best[k] > IDX_MASK) atomicMax(a.key + qi, best[k]);
+  }
   // the last block of this query tile writes the answers
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) ticket = atomicAdd(a.done + blockIdx.x, 1u);
   __syncthreads();
-  if (ticket != gridDim.y - 1 || !live) return;
+  if (ticket != gridDim.y - 1) return;
   __threadfence();
-  const unsigned long long k = __ldcg(a.key + qi);
-  const int level = (int)(k >> 32);
-  a.out_idx[qi] = level > 0 ? (int)(0xFFFFFFFFu - (uint32_t)k) : -1;
-  a.out_level[qi] = level;
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int qi = base + k * a.threads;
+    if (qi >= a.b) continue;
+    const unsigned key = __ldcg(a.key + qi);
+    const int level = (int)(key >> 20);
+    a.out_idx[qi] = level > 0 ? (int)(IDX_MASK - (key & IDX_MASK)) : -1;
+    a.out_level[qi] = level;
+  }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-dense_cidr_kernel(const DenseCidrArgs a) {
-  __shared__ uint4 s_rows[TILE * 2 * CIDR_SLOTS];  // 3,072 B
-  __shared__ int4 s_meta[TILE];
-  const int qi = blockIdx.x * a.threads + threadIdx.x;
-  const bool live = qi < a.b;
-  uint4 q = make_uint4(0, 0, 0, 0);
-  int qfam = -1, qport = 0;
-  if (live) {
-    q = __ldg(reinterpret_cast<const uint4*>(a.a16) + qi);
-    qfam = a.fam[qi];
-    if (a.port != nullptr) qport = a.port[qi];
-  }
-  bool done = qfam != 0 && qfam != 1;  // no query, or a pad row
-  const int r0 = blockIdx.y * a.split;
-  const int r1 = min(r0 + a.split, a.n);
-  for (int t0 = r0; t0 < r1; t0 += TILE) {
-    // the block leaves its range once every query has its first match
-    if (__syncthreads_and(done)) break;
-    const int nt = min(TILE, r1 - t0);
-    stage(s_rows, reinterpret_cast<const uint4*>(a.rows), t0, nt,
-          2 * CIDR_SLOTS);
-    stage(reinterpret_cast<uint4*>(s_meta),
-          reinterpret_cast<const uint4*>(a.meta), t0, nt, 1);
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    for (int j = 0; j < nt && !done; ++j) {
-      const int4 mt = s_meta[j];
-      if (a.port != nullptr && !(mt.y <= qport && qport <= mt.z)) continue;
-      bool hit = false;
+namespace {
+
+// A block's part of a cidr batch for one family: the query tile's
+// queries of that family, compacted, Q a thread; the block's range
+// [r0, r1) of the family's list, CTILE entries a tile through a
+// two-slot ring.
+template <bool V6, int Q>
+__device__ __forceinline__ void cidr_family(const DenseCidrArgs& a,
+                                            uint4* ring, int* s_q,
+                                            int* s_n, int r0, int r1) {
+  constexpr int VEC = V6 ? 3 : 1;  // uint4s an entry
+  const int fam = V6 ? 1 : 0;
+  const uint4* list = reinterpret_cast<const uint4*>(V6 ? a.v6 : a.v4);
+  const int stage_vec = CTILE * VEC;
+  // the first tile is in flight while the queries are gathered
+  if (r0 < r1)
+    stage(ring, list + (size_t)r0 * VEC, min(CTILE, r1 - r0) * VEC);
+  const int threads = blockDim.x;
+  const int qbase = blockIdx.x * threads * Q;
+  if (threadIdx.x == 0) *s_n = 0;
+  __syncthreads();
+  // every family loaded at once; then each warp counts its queries of
+  // the family with a ballot and takes their places with one shared
+  // atomic (one a query serialises)
+  const int lane = threadIdx.x & 31;
+  int qf[Q];
 #pragma unroll
-      for (int s = 0; s < CIDR_SLOTS; ++s) {
-        if (!((mt.x >> s) & 1) || ((mt.x >> (3 + s)) & 1) != qfam) continue;
-        const uint4 m = s_rows[(j * CIDR_SLOTS + s) * 2];
-        const uint4 v = s_rows[(j * CIDR_SLOTS + s) * 2 + 1];
-        hit |= (((q.x ^ v.x) & m.x) | ((q.y ^ v.y) & m.y) |
-                ((q.z ^ v.z) & m.z) | ((q.w ^ v.w) & m.w)) == 0;
+  for (int k = 0; k < Q; ++k) {
+    const int qi = qbase + k * threads + threadIdx.x;
+    qf[k] = qi < a.b ? __ldg(a.fam + qi) : -1;
+  }
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const bool mine = qf[k] == fam;
+    const unsigned ballot = __ballot_sync(0xffffffffu, mine);
+    int at = 0;
+    if (lane == 0 && ballot) at = atomicAdd(s_n, __popc(ballot));
+    at = __shfl_sync(0xffffffffu, at, 0);
+    if (mine)
+      s_q[at + __popc(ballot & ((1u << lane) - 1u))] =
+          qbase + k * threads + threadIdx.x;
+  }
+  __syncthreads();
+  const int nq = *s_n;
+  if (nq == 0 || r0 >= r1) {  // uniform
+    __pipeline_wait_prior(0);
+    return;
+  }
+  const bool gate = a.port != nullptr;
+  const int kq = (nq + threads - 1) / threads;  // slots in use, <= Q
+  uint4 q[Q];
+  int qi[Q], qport[Q];
+  unsigned first[Q];  // the least matching rule so far, ~0u: none
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int s = k * threads + threadIdx.x;
+    qi[k] = s < nq ? s_q[s] : -1;
+    q[k] = qi[k] >= 0 ? __ldg(reinterpret_cast<const uint4*>(a.a16) + qi[k])
+                      : make_uint4(0, 0, 0, 0);
+    qport[k] = qi[k] >= 0 && gate ? __ldg(a.port + qi[k]) : 0;
+    first[k] = qi[k] >= 0 ? ~0u : 0u;  // a dead slot is done (qi -1)
+  }
+  // the range's first rule: a candidate at or past it is this block's
+  // own match (an earlier range's answer taken below lies before it)
+  const unsigned range_head =
+      __ldg(V6 ? a.v6 + (size_t)r0 * 12 + 8 : a.v4 + (size_t)r0 * 4 + 2);
+  for (int t0 = r0, n = 0; t0 < r1; t0 += CTILE, ++n) {
+    const int nt = min(CTILE, r1 - t0);
+    // what earlier ranges' blocks answered, read while the tile lands
+    unsigned seen[Q];
+#pragma unroll
+    for (int k = 0; k < Q; ++k)
+      seen[k] = first[k] == ~0u ? (unsigned)__ldcg(a.out + qi[k]) : 0u;
+    if (t0 + CTILE < r1) {
+      stage(ring + ((n + 1) & 1) * stage_vec,
+            list + (size_t)(t0 + CTILE) * VEC,
+            min(CTILE, r1 - t0 - CTILE) * VEC);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    // a query is done once it has a match, or once an earlier range's
+    // block answered it with a rule before this tile's first (taken as
+    // its candidate, not its own: no atomic for it)
+    const unsigned head =
+        __ldg(V6 ? a.v6 + (size_t)t0 * 12 + 8 : a.v4 + (size_t)t0 * 4 + 2);
+    bool done = true;
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      if (first[k] == ~0u && seen[k] < head) first[k] = seen[k];
+      done &= first[k] != ~0u;
+    }
+    if (__syncthreads_and(done)) {  // and every copy of the tile landed
+      __pipeline_wait_prior(0);
+      break;
+    }
+    const uint4* slot = ring + (n & 1) * stage_vec;
+#pragma unroll 4
+    for (int j = 0; j < nt; ++j) {
+      const uint4 e = slot[j * VEC];  // uniform across the block
+      unsigned rule, ports;
+      uint4 v = e;
+      if (V6) {
+        v = slot[j * VEC + 1];
+        const uint4 r = slot[j * VEC + 2];
+        rule = r.x, ports = r.y;
+      } else {
+        rule = e.z, ports = e.w;
       }
-      if (hit) {
-        atomicMin(reinterpret_cast<unsigned int*>(a.out) + qi,
-                  (unsigned)(t0 + j));
-        done = true;
+      const int lo = ports & 0xFFFF, hi = ports >> 16;
+#pragma unroll
+      for (int k = 0; k < Q; ++k) {
+        if (k >= kq) break;  // uniform: no thread has a query here
+        uint32_t d;
+        if (V6)
+          d = ((q[k].x ^ v.x) & e.x) | ((q[k].y ^ v.y) & e.y) |
+              ((q[k].z ^ v.z) & e.z) | ((q[k].w ^ v.w) & e.w);
+        else
+          d = (q[k].w ^ e.y) & e.x;
+        const bool port_ok = !gate || (lo <= qport[k] && qport[k] <= hi);
+        if (d == 0 && port_ok) first[k] = min(first[k], rule);
       }
     }
+    __syncthreads();  // every warp is done with the slot refilled next
   }
+#pragma unroll
+  for (int k = 0; k < Q; ++k)  // only its own matches: no atomic traffic
+    if (qi[k] >= 0 && first[k] != ~0u && first[k] >= range_head)
+      atomicMin(reinterpret_cast<unsigned int*>(a.out) + qi[k], first[k]);
+}
+
+}  // namespace
+
+template <int Q>
+__global__ void __launch_bounds__(MAX_THREADS)
+dense_cidr_kernel(const DenseCidrArgs a) {
+  __shared__ uint4 ring[2 * CTILE * 3];  // 6,144 B
+  __shared__ int s_q[MAX_THREADS * CIDR_Q];
+  __shared__ int s_n;
+  const int y = blockIdx.y, y4 = (a.n4 + a.split4 - 1) / a.split4;
+  if (y < y4)
+    cidr_family<false, Q>(a, ring, s_q, &s_n, y * a.split4,
+                          min((y + 1) * a.split4, a.n4));
+  else
+    cidr_family<true, Q>(a, ring, s_q, &s_n, (y - y4) * a.split6,
+                         min((y - y4 + 1) * a.split6, a.n6));
 }
 
 namespace {
 
 bool aligned(const void* p, size_t n) {
   return reinterpret_cast<uintptr_t>(p) % n == 0;
-}
-
-bool bad_grid(int b, int n, int threads, int split) {
-  return b < 0 || n < 0 || threads <= 0 || threads > MAX_THREADS ||
-         threads % 32 != 0 || split <= 0;
-}
-
-dim3 grid_of(int b, int n, int threads, int split) {
-  return dim3((b + threads - 1) / threads, n > 0 ? (n + split - 1) / split
-                                                 : 1);
 }
 
 }  // namespace
@@ -320,34 +468,77 @@ extern "C" int vproxy_dense_cidr_args_size() {
 // Launch on `stream` (PyTorch's current stream; no synchronisation).
 // Returns cudaGetLastError() after the launch: 0 when it was accepted;
 // cudaErrorInvalidValue, before any launch, for a block that is not
-// 32-128 threads in warps, a rule range of 0, or a row array or uri
-// batch that is not 16-byte aligned. The grid's y extent is
-// ceil(n / split): the wrapper zero-fills `done` for its x extent.
+// 32-128 threads in warps, Q other than 1 or 2, a tile range of 0, a
+// ring slot under the largest tile, or a row array or uri batch that is
+// not 16-byte aligned. The grid is ceil(b / (threads * q)) query tiles
+// x ceil(n_tiles / split) ranges: the wrapper zero-fills `done` for the
+// query tiles.
 extern "C" int vproxy_dense_hint(const DenseHintArgs* args, int device,
                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const DenseHintArgs& a = *args;
-  if (bad_grid(a.b, a.n, a.threads, a.split) || !aligned(a.q_uri, 16) ||
-      !aligned(a.hrows, 16) || !aligned(a.urows, 16) ||
-      !aligned(a.meta, 16))
+  if (a.b < 0 || a.n_tiles < 0 || a.threads <= 0 ||
+      a.threads > MAX_THREADS || a.threads % 32 != 0 || a.split <= 0 ||
+      (a.q != 1 && a.q != 2) || a.stage_vec < TILE ||
+      a.stage_vec > tile_vec(HC_MAX, UC_MAX) || !aligned(a.q_uri, 16) ||
+      !aligned(a.rows, 16) || !aligned(a.tiles, 16))
     return (int)cudaErrorInvalidValue;
   if (a.b == 0) return 0;
-  dense_hint_kernel<<<grid_of(a.b, a.n, a.threads, a.split), a.threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid((a.b + a.threads * a.q - 1) / (a.threads * a.q),
+                  a.n_tiles > 0 ? (a.n_tiles + a.split - 1) / a.split : 1);
+  const size_t smem = (size_t)16 * (2 * a.stage_vec +
+                                    UC_MAX * a.threads * a.q);
+  static unsigned long long opted_in = 0;  // devices asked for > 48 KB
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidValue;
+  if (!(opted_in >> device & 1)) {
+    const int most = 16 * (2 * tile_vec(HC_MAX, UC_MAX) +
+                           UC_MAX * MAX_THREADS * 2);
+    err = cudaFuncSetAttribute(dense_hint_kernel<1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dense_hint_kernel<2>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 most);
+    if (err != cudaSuccess) return (int)err;
+    opted_in |= 1ull << device;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.q == 2)
+    dense_hint_kernel<2><<<grid, a.threads, smem, s>>>(a);
+  else
+    dense_hint_kernel<1><<<grid, a.threads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
+// The same for a cidr batch: Q = 1 query a thread up to 512 queries
+// (more blocks, each with less work, hide the tiles' latency), else 4; the grid is ceil(b / (threads * Q)) query tiles x (the IPv4
+// ranges of split4 entries + the IPv6 ranges of split6), each range a
+// multiple of the 64-entry tile.
 extern "C" int vproxy_dense_cidr(const DenseCidrArgs* args, int device,
                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const DenseCidrArgs& a = *args;
-  if (bad_grid(a.b, a.n, a.threads, a.split) || !aligned(a.a16, 16) ||
-      !aligned(a.rows, 16) || !aligned(a.meta, 16))
+  if (a.b < 0 || a.n4 < 0 || a.n6 < 0 || (a.q != 1 && a.q != CIDR_Q) ||
+      a.split4 <= 0 ||
+      a.split6 <= 0 || a.split4 % CTILE || a.split6 % CTILE ||
+      !aligned(a.a16, 16) ||
+      !aligned(a.v4, 16) || !aligned(a.v6, 16))
     return (int)cudaErrorInvalidValue;
   if (a.b == 0) return 0;
-  dense_cidr_kernel<<<grid_of(a.b, a.n, a.threads, a.split), a.threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  const int y4 = (a.n4 + a.split4 - 1) / a.split4,
+            y6 = (a.n6 + a.split6 - 1) / a.split6;
+  if (y4 + y6 == 0) return 0;  // no pattern: every answer stays -1
+  // up to 4 warps of queries, as few as the batch needs
+  const int threads =
+      min(MAX_THREADS, 32 * ((a.b + 32 * a.q - 1) / (32 * a.q)));
+  const dim3 grid((a.b + threads * a.q - 1) / (threads * a.q), y4 + y6);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.q == 1)
+    dense_cidr_kernel<1><<<grid, threads, 0, s>>>(a);
+  else
+    dense_cidr_kernel<CIDR_Q><<<grid, threads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -102,9 +102,10 @@
 // all of a step issued before any is used, are the shortest chain.
 //
 // The routine (the staged group rows, the trie and group walks, the
-// member rows) is fp_cidr.cuh's `block_first`, which B8
-// (sharded_match.cu) also runs, once per rule shard; this file is the
-// kernel around it: the launch shape and the output.
+// member rows) is fp_cidr.cuh's `block_first`; B8 (sharded_match.cu)
+// runs its warp part once per rule shard, or its interleaved form over
+// S shards; this file is the kernel around it: the launch shape and the
+// output.
 
 #include <cstdint>
 

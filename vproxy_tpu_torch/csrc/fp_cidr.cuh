@@ -1,11 +1,12 @@
 // The fingerprint CIDR routine shared by the kernels that answer a
 // route or ACL query of the fingerprint tables on Hopper (sm_90a):
-// fp_cidr.cu (B7) and sharded_match.cu (B8, once per rule shard).
+// fp_cidr.cu (B7) and sharded_match.cu (B8: `warp_first` once per rule
+// shard, or `warp_first_shards`, the interleaved form over S shards).
 // fp_cidr.cu's note gives the design, the chain of dependent loads and
 // the bound; this header holds the code it describes: the launch
 // arguments (FpCidrArgs), the staged group rows, the trie walk, the
-// group walk, the member rows, and `block_first`, one block's first
-// matches.
+// group walk, the member rows, `warp_first`, one warp's first match
+// over staged rows, and `block_first`, one block's first matches.
 //
 // Replaces: vproxy_tpu/ops/fphash.py:1176 `cidr_fp_match`; plain
 // version: ops/fphash.py `cidr_fp_match` of this package.
@@ -60,6 +61,23 @@ struct Rows {
   const uint32_t* salt;  // salt[k * g + group], k = slot, fp1, fp2
   const int32_t* off;
   const int32_t* capmask;
+  __device__ __forceinline__ uint32_t salt_at(int k, int g, int gi) const {
+    return salt[k * g + gi];
+  }
+};
+
+// The same arrays read where the table keeps them (global memory,
+// through L1), for a kernel whose warps work on different tables and
+// stage nothing.
+struct TableRows {
+  const uint4* mask;
+  const int32_t* fam;
+  const uint32_t* salt_k[3];  // slot, fp1, fp2
+  const int32_t* off;
+  const int32_t* capmask;
+  __device__ __forceinline__ uint32_t salt_at(int k, int, int gi) const {
+    return salt_k[k][gi];
+  }
 };
 
 // Shared memory a block needs: the staged rows, then per warp the
@@ -77,6 +95,11 @@ __host__ __device__ constexpr size_t block_bytes(int g) {
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+
+__device__ __forceinline__ TableRows rows_of(const FpCidrArgs& a) {
+  return {reinterpret_cast<const uint4*>(a.g_mask4), a.g_fam,
+          {a.g_salt_s, a.g_salt_f1, a.g_salt_f2}, a.g_off, a.g_capmask};
 }
 
 __device__ __forceinline__ Rows rows_at(const int32_t* smem, int g) {
@@ -133,8 +156,9 @@ __device__ __forceinline__ int trie_cell(const FpCidrArgs& a, uint32_t lo) {
 // Steps 2 (and the row list) for a query of family f >= 0: -> the
 // number of member rows listed in `rlist` (ACL), and `first` lowered to
 // the least matching entry value (routes).
+template <class R>
 __device__ __forceinline__ int group_walk(const FpCidrArgs& a,
-                                          const Rows& r, int32_t* glist,
+                                          const R& r, int32_t* glist,
                                           int32_t* rlist, const uint4 addr,
                                           int f, bool acl, int lane,
                                           int& first) {
@@ -163,9 +187,9 @@ __device__ __forceinline__ int group_walk(const FpCidrArgs& a,
         const uint4 mk = r.mask[gi];
         const uint32_t w[4] = {addr.x & mk.x, addr.y & mk.y, addr.z & mk.z,
                                addr.w & mk.w};
-        uint32_t hs = FNV32_OFFSET ^ r.salt[gi];
-        uint32_t h1 = FNV32_OFFSET ^ r.salt[a.g + gi];
-        uint32_t h2 = FNV32_OFFSET ^ r.salt[2 * a.g + gi];
+        uint32_t hs = FNV32_OFFSET ^ r.salt_at(0, a.g, gi);
+        uint32_t h1 = FNV32_OFFSET ^ r.salt_at(1, a.g, gi);
+        uint32_t h2 = FNV32_OFFSET ^ r.salt_at(2, a.g, gi);
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
           hs = (hs ^ w[p]) * FNV32_PRIME;
@@ -274,33 +298,17 @@ __device__ __forceinline__ int members_first(const FpCidrArgs& a,
   return first;
 }
 
-// One block's part of a batch: every thread stages the group rows and
-// the block syncs once (so every thread of the block calls this,
-// whatever its query), then warp `warp` answers query q: -> its first
-// match, a.r_cap when none, and a.r_cap on the warps whose q >= a.b.
-// `smem`: block_bytes(a.g), 16-byte aligned.
-__device__ __forceinline__ int block_first(const FpCidrArgs& a,
-                                           int32_t* smem, int q, int warp,
-                                           int lane) {
-  // step 1: the block's group rows, and beside them the query's inputs
-  stage_rows(a, smem, threadIdx.x);
-  __pipeline_commit();
-  const bool live = q < a.b;  // warp-uniform
+// One warp's first match for one query (address `addr` of family f,
+// `port` when the table gates ports) over the group rows `rows` (the
+// staged Rows, or TableRows), with the warp's own lists at `glist`
+// (warp_words(a.g) ints): a.r_cap when none. Every lane calls it.
+template <class R>
+__device__ __forceinline__ int warp_first(const FpCidrArgs& a,
+                                          const R& rows, int32_t* glist,
+                                          const uint4 addr, int f, int port,
+                                          int lane) {
   const bool acl = a.mrows != nullptr;
   const bool gate = acl && a.port != nullptr;
-  uint4 addr = make_uint4(0, 0, 0, 0);
-  int f = -1, port = 0;
-  if (live) {
-    addr = __ldg(reinterpret_cast<const uint4*>(a.a16) + q);
-    f = __ldg(a.fam + q);
-    port = gate ? __ldg(a.port + q) : 0;
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();  // every thread's rows copied before any warp reads
-  if (!live) return a.r_cap;
-  int32_t* glist = reinterpret_cast<int32_t*>(
-                       reinterpret_cast<uint8_t*>(smem) + rows_bytes(a.g)) +
-                   warp * warp_words(a.g);
   int32_t* rlist = glist + a.g;
   int first = a.r_cap, nrows = 0;
   if (f < 0) {
@@ -317,8 +325,7 @@ __device__ __forceinline__ int block_first(const FpCidrArgs& a,
       }
     }
   } else {
-    nrows = group_walk(a, rows_at(smem, a.g), glist, rlist, addr, f, acl,
-                       lane, first);
+    nrows = group_walk(a, rows, glist, rlist, addr, f, acl, lane, first);
   }
   if (nrows > 0) {  // warp-uniform
     __syncwarp();
@@ -328,6 +335,264 @@ __device__ __forceinline__ int block_first(const FpCidrArgs& a,
   for (int off = 16; off > 0; off >>= 1)
     first = min(first, __shfl_xor_sync(FULL, first, off));
   return first;
+}
+
+// ------------------------------------------------ the interleaved form
+//
+// `warp_first_shards` answers one query over S rule shards in one warp
+// (B8, sharded_match.cu): warp_first's steps once for all the shards
+// together. An IPv4 query on trie tables walks the S tries on S lanes
+// at once; any other query lists the groups of its family over every
+// shard, so one round's groups, their slot rows and the member rows
+// span the shards and are loaded at once, and the S chains of dependent
+// loads overlap. The group rows are read where each shard keeps them.
+// Each shard's first match is kept apart (a shared min a shard), as
+// warp_first keeps it. `Sh` gives shard j's arguments (`at(j)`) and
+// the key a first match takes (`key(j, rule)`: the greater key wins).
+// -> the greatest key over the shards, 0 for none, on every lane.
+
+// Ints of shared memory one warp needs over S shards: the shards'
+// firsts, the group list (shard and group), the member rows and their
+// shards.
+__host__ __device__ constexpr int shards_warp_words(int g, int shards) {
+  return ((shards + 3) & ~3) + 3 * shards * (g > 0 ? g : 1);
+}
+
+template <class Sh>
+__device__ __forceinline__ unsigned long long warp_first_shards(
+    const Sh& sh, int shards, int32_t* ws, const uint4 addr, int f,
+    int port, int lane) {
+  const FpCidrArgs& a0 = sh.at(0);
+  const bool acl = a0.mrows != nullptr;
+  const bool gate = acl && a0.port != nullptr;
+  const int g = a0.g;
+  const int cap = shards * (g > 0 ? g : 1);
+  int32_t* sfirst = ws;
+  int32_t* glist = ws + ((shards + 3) & ~3);
+  int32_t* rlist = glist + cap;
+  int32_t* rsh = rlist + cap;
+  const unsigned below = (1u << lane) - 1u;
+  for (int j = lane; j < shards; j += 32) sfirst[j] = a0.r_cap;
+  __syncwarp();
+  int nrows = 0;
+  if (f < 0) {
+    // a pad row matches no group and walks no trie
+  } else if (f == V4 && a0.t_l0 != nullptr) {
+    for (int j0 = 0; j0 < shards; j0 += 32) {
+      const int j = j0 + lane;
+      int row = 0;
+      if (j < shards) {
+        const FpCidrArgs& a = sh.at(j);
+        const int cell = trie_cell(a, addr.w);
+        if (!acl) {
+          if (cell - 1 >= 0) sfirst[j] = cell - 1;
+        } else {
+          row = clampi(cell, 0, a.nm - 1);
+        }
+      }
+      const unsigned m = __ballot_sync(FULL, row != 0);
+      if (row != 0) {
+        const int at = nrows + __popc(m & below);
+        rlist[at] = row;
+        rsh[at] = j;
+      }
+      nrows += __popc(m);
+    }
+  } else {
+    // every shard's groups of the query's family: entry j * g + group
+    int ng = 0;
+    for (int x0 = 0; x0 < shards * g; x0 += 32) {
+      const int x = x0 + lane;
+      bool mine = false;
+      if (x < shards * g) {
+        const int j = x / g;
+        mine = __ldg(sh.at(j).g_fam + (x - j * g)) == f;
+      }
+      const unsigned m = __ballot_sync(FULL, mine);
+      if (mine) glist[ng + __popc(m & below)] = x;
+      ng += __popc(m);
+    }
+    __syncwarp();
+    const int ew = 3 * a0.e;
+    const bool vec = a0.e % ENTRIES == 0;
+    for (int r0 = 0; r0 < ng; r0 += 32 * GROUPS) {
+      int slot[GROUPS], f1[GROUPS], f2[GROUPS], mrow[GROUPS], js[GROUPS];
+      int first[GROUPS];
+#pragma unroll
+      for (int k = 0; k < GROUPS; ++k) {
+        const int i = r0 + 32 * k + lane;
+        slot[k] = -1;
+        f1[k] = f2[k] = mrow[k] = js[k] = 0;
+        first[k] = a0.r_cap;
+        if (i < ng) {
+          const int x = glist[i];
+          const int j = x / g, gi = x - j * g;
+          const FpCidrArgs& a = sh.at(j);
+          const uint4 mk = __ldg(reinterpret_cast<const uint4*>(a.g_mask4) +
+                                 gi);
+          const uint32_t w[4] = {addr.x & mk.x, addr.y & mk.y,
+                                 addr.z & mk.z, addr.w & mk.w};
+          uint32_t hs = FNV32_OFFSET ^ __ldg(a.g_salt_s + gi);
+          uint32_t h1 = FNV32_OFFSET ^ __ldg(a.g_salt_f1 + gi);
+          uint32_t h2 = FNV32_OFFSET ^ __ldg(a.g_salt_f2 + gi);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            hs = (hs ^ w[p]) * FNV32_PRIME;
+            h1 = (h1 ^ w[p]) * FNV32_PRIME;
+            h2 = (h2 ^ w[p]) * FNV32_PRIME;
+          }
+          f1[k] = (int)fmix32(h1);
+          f2[k] = (int)fmix32(h2);
+          slot[k] = clampi(__ldg(a.g_off + gi) +
+                               (int)(fmix32(hs) &
+                                     (uint32_t)__ldg(a.g_capmask + gi)),
+                           0, a.ct - 1);
+          js[k] = j;
+        }
+      }
+      for (int e0 = 0; e0 < a0.e; e0 += ENTRIES) {
+        // every live group's entries [e0, e0 + ENTRIES) in flight at once
+        int ent[GROUPS][3 * ENTRIES];
+#pragma unroll
+        for (int k = 0; k < GROUPS; ++k) {
+#pragma unroll
+          for (int x = 0; x < 3 * ENTRIES; ++x) ent[k][x] = 0;
+          if (slot[k] < 0) continue;
+          const int32_t* row =
+              sh.at(js[k]).rec + (size_t)slot[k] * ew + 3 * e0;
+          if (vec) {
+            const int4* r4 = reinterpret_cast<const int4*>(row);
+#pragma unroll
+            for (int v = 0; v < 3; ++v) {
+              const int4 t = __ldg(r4 + v);
+              ent[k][4 * v] = t.x;
+              ent[k][4 * v + 1] = t.y;
+              ent[k][4 * v + 2] = t.z;
+              ent[k][4 * v + 3] = t.w;
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < ENTRIES; ++j)
+              if (e0 + j < a0.e) {
+                ent[k][3 * j] = __ldg(row + 3 * j);
+                ent[k][3 * j + 1] = __ldg(row + 3 * j + 1);
+                ent[k][3 * j + 2] = __ldg(row + 3 * j + 2);
+              }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < GROUPS; ++k)
+#pragma unroll
+          for (int j = 0; j < ENTRIES; ++j) {
+            if (slot[k] < 0 || e0 + j >= a0.e || ent[k][3 * j] != f1[k] ||
+                ent[k][3 * j + 1] != f2[k])
+              continue;
+            const int v = ent[k][3 * j + 2];
+            if (acl) mrow[k] = max(mrow[k], v);
+            else first[k] = min(first[k], v);
+          }
+      }
+      if (!acl) {
+#pragma unroll
+        for (int k = 0; k < GROUPS; ++k)
+          if (first[k] < a0.r_cap) atomicMin(sfirst + js[k], first[k]);
+        continue;
+      }
+      // this round's member rows, listed at their warp prefix sum
+      int mine = 0;
+#pragma unroll
+      for (int k = 0; k < GROUPS; ++k) {
+        mrow[k] = clampi(mrow[k], 0, a0.nm - 1);
+        mine += mrow[k] != 0;
+      }
+      int incl = mine;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl += v;
+      }
+      int at = nrows + incl - mine;
+#pragma unroll
+      for (int k = 0; k < GROUPS; ++k)
+        if (mrow[k] != 0) {
+          rlist[at] = mrow[k];
+          rsh[at++] = js[k];
+        }
+      nrows += __shfl_sync(FULL, incl, 31);
+    }
+  }
+  if (nrows > 0) {  // warp-uniform: the listed rows' members at once
+    __syncwarp();
+    const int np = nrows * a0.mk;
+    for (int w0 = 0; w0 < np; w0 += LIST) {
+      int2 pr[PAIRS];
+      int pj[PAIRS];
+#pragma unroll
+      for (int q = 0; q < PAIRS; ++q) {
+        const int x = w0 + 32 * q + lane;
+        pr[q] = make_int2(-1, 0);
+        pj[q] = 0;
+        if (x < np) {
+          const int row = x / a0.mk;
+          pj[q] = rsh[row];
+          const int2* m2 = reinterpret_cast<const int2*>(sh.at(pj[q]).mrows);
+          pr[q] = __ldg(m2 + (size_t)rlist[row] * a0.mk + (x - row * a0.mk));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < PAIRS; ++q) {
+        const int idx = pr[q].x;
+        const int lo = pr[q].y & 0xFFFF, hi = (pr[q].y >> 16) & 0xFFFF;
+        if (idx >= 0 && idx < a0.r_cap &&
+            (!gate || (lo <= port && port <= hi)))
+          atomicMin(sfirst + pj[q], idx);
+      }
+    }
+  }
+  __syncwarp();  // every lane's firsts in before they are read
+  unsigned long long best = 0;
+  for (int j = lane; j < shards; j += 32) {
+    const int m = sfirst[j];
+    if (m >= 0 && m < a0.r_cap) {
+      const unsigned long long k = sh.key(j, m);
+      best = k > best ? k : best;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(FULL, best, off);
+    best = o > best ? o : best;
+  }
+  return best;
+}
+
+// One block's part of a batch: every thread stages the group rows and
+// the block syncs once (so every thread of the block calls this,
+// whatever its query), then warp `warp` answers query q: -> its first
+// match, a.r_cap when none, and a.r_cap on the warps whose q >= a.b.
+// `smem`: block_bytes(a.g), 16-byte aligned.
+__device__ __forceinline__ int block_first(const FpCidrArgs& a,
+                                           int32_t* smem, int q, int warp,
+                                           int lane) {
+  // step 1: the block's group rows, and beside them the query's inputs
+  stage_rows(a, smem, threadIdx.x);
+  __pipeline_commit();
+  const bool live = q < a.b;  // warp-uniform
+  const bool gate = a.mrows != nullptr && a.port != nullptr;
+  uint4 addr = make_uint4(0, 0, 0, 0);
+  int f = -1, port = 0;
+  if (live) {
+    addr = __ldg(reinterpret_cast<const uint4*>(a.a16) + q);
+    f = __ldg(a.fam + q);
+    port = gate ? __ldg(a.port + q) : 0;
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // every thread's rows copied before any warp reads
+  if (!live) return a.r_cap;
+  int32_t* glist = reinterpret_cast<int32_t*>(
+                       reinterpret_cast<uint8_t*>(smem) + rows_bytes(a.g)) +
+                   warp * warp_words(a.g);
+  return warp_first(a, rows_at(smem, a.g), glist, addr, f, port, lane);
 }
 
 }  // namespace fpc

@@ -11,8 +11,9 @@
 //
 // The hint verdict itself (the word compares, the score, one warp's
 // fold over a query's candidates) is hint_probe.cuh's `warp_verdict`,
-// which B8 (sharded_match.cu) runs per rule shard; this file is the
-// kernel around it: the launch shape, the route blocks, the output.
+// which B8 (sharded_match.cu) runs once per rule shard, or in its
+// interleaved form over S shards; this file is the kernel around it:
+// the launch shape, the route blocks, the output.
 //
 // The route column. When the launch carries a cidr table (a non-null
 // pk_cslot: a run-time flag, so the instances stay 8), the grid is twice

@@ -1,11 +1,12 @@
 // The hint verdict routine of the cuckoo tables, shared by the kernels
 // that answer a hint query on Hopper (sm_90a): fused_classify_pick.cu
-// (B1, and B3 in its verdict-only instances) and sharded_match.cu (B8,
-// once per rule shard). fused_classify_pick.cu's note gives the design,
-// the chain of dependent loads and the bound; this header holds the
-// code that note describes: the launch arguments (FusedArgs), the word
-// compares, the candidate score, and `warp_verdict`, one warp's
-// (level, rule index) fold for one query.
+// (B1, and B3 in its verdict-only instances) and sharded_match.cu (B8:
+// `warp_verdict` once per rule shard, or `warp_verdict_shards`, the
+// interleaved form over S shards at the end). fused_classify_pick.cu's
+// note gives the design, the chain of dependent loads and the bound;
+// this header holds the code that note describes: the launch arguments
+// (FusedArgs), the word compares, the candidate score, and
+// `warp_verdict`, one warp's (level, rule index) fold for one query.
 //
 // Replaces: vproxy_tpu/ops/hashmatch.py:516 `hint_hash_match`
 // (`_probe_buckets` :468, `_reduce_best` :493) over the packed layout of
@@ -394,6 +395,260 @@ __device__ __forceinline__ int warp_verdict(const FusedArgs& a, int32_t* ws,
     fold(ol, oi, bl, bi);
   }
   return pick;
+}
+
+// ------------------------------------------------ the interleaved form
+//
+// `warp_verdict_shards` answers one query over S rule shards in one
+// warp (B8, sharded_match.cu). It runs warp_verdict's steps once for
+// all the shards together: a step's probes, entries and candidates of
+// every shard are spread over the lanes and loaded at once, so the S
+// chains of dependent loads overlap instead of running one after the
+// other. `Sh` gives shard j's arguments (`at(j)`: the FusedArgs moved
+// to shard j, whose windows are shared when `shared_windows()`) and
+// the key a winner takes (`key(level, j, rule)`: the greater key wins,
+// 0 for level 0). Probes per lane before the live ones are listed:
+constexpr int SHARD_PROBES = 4;
+// live probes a lane loads at once in step 2
+constexpr int SHARD_LIVE = 2;
+
+// Ints of shared memory one warp's interleaved verdict needs over S
+// shards: the windows (one copy, or one a shard), 5 scalars a shard,
+// the live probes' (shard and probe, slot or start, length or count),
+// the entry list and the entries' shards.
+__host__ __device__ inline int shards_smem_words(const FusedArgs& a, int np,
+                                                 bool uri, int shards,
+                                                 bool shared_windows) {
+  const int hpad = (a.hw + 15) & ~15, upad = uri ? (a.uw + 15) & ~15 : 0;
+  const int nwin = shared_windows ? 1 : shards;
+  return nwin * (hpad + upad) / 4 + ((5 * shards + 3) & ~3) +
+         ((3 * shards * np + 3) & ~3) + 2 * LIST;
+}
+
+template <bool URI, int W, class Sh>
+__device__ __forceinline__ unsigned long long warp_verdict_shards(
+    const Sh& sh, int shards, int32_t* ws, int b, int np, int lane) {
+  constexpr int HS = HOST_STEP<W>;
+  const FusedArgs& a0 = sh.at(0);
+  const int hpad = (a0.hw + 15) & ~15, upad = URI ? (a0.uw + 15) & ~15 : 0;
+  const int nwin = sh.shared_windows() ? 1 : shards;
+  const int winb = hpad + upad;
+  uint8_t* win = reinterpret_cast<uint8_t*>(ws);
+  int32_t* qs = reinterpret_cast<int32_t*>(win + nwin * winb);
+  int32_t* pinfo = qs + ((5 * shards + 3) & ~3);  // j * np + probe
+  int32_t* pa = pinfo + shards * np;  // slot, then the bucket start
+  int32_t* pb = pa + shards * np;     // length, then the live count
+  int32_t* list = pinfo + ((3 * shards * np + 3) & ~3);
+  int32_t* lsh = list + LIST;
+  const unsigned below = (1u << lane) - 1u;
+  const int total_probes = shards * np;
+
+  // step 1: every shard's windows, scalars and probe slots at once,
+  // the live probes (slot >= 0) listed densely
+  for (int w = 0; w < nwin; ++w) {
+    const FusedArgs& h = sh.at(w);
+    uint8_t hb[MAX_HW / 32], ub[MAX_UW / 32];
+#pragma unroll
+    for (int k = 0; k < MAX_HW / 32; ++k) {
+      const int i = lane + 32 * k;
+      hb[k] = i < h.hw ? __ldg(h.hostb + (size_t)b * h.hw + i) : 0;
+    }
+    if (URI) {
+#pragma unroll
+      for (int k = 0; k < MAX_UW / 32; ++k) {
+        const int i = lane + 32 * k;
+        ub[k] = i < h.uw ? __ldg(h.urib + (size_t)b * h.uw + i) : 0;
+      }
+    }
+    uint8_t* qh = win + w * winb;
+#pragma unroll
+    for (int k = 0; k < MAX_HW / 32; ++k)
+      if (lane + 32 * k < h.hw) qh[lane + 32 * k] = hb[k];
+    if (URI) {
+#pragma unroll
+      for (int k = 0; k < MAX_UW / 32; ++k)
+        if (lane + 32 * k < h.uw) qh[hpad + lane + 32 * k] = ub[k];
+    }
+  }
+  for (int j = lane; j < shards; j += 32) {
+    const FusedArgs& h = sh.at(j);
+    qs[5 * j] = __ldg(h.hlen + b);
+    qs[5 * j + 1] = URI ? __ldg(h.ulen + b) : 0;
+    qs[5 * j + 2] = __ldg(h.port + b);
+    qs[5 * j + 3] =
+        __ldg(reinterpret_cast<const uint8_t*>(h.has_host) + b) != 0;
+    qs[5 * j + 4] =
+        URI && __ldg(reinterpret_cast<const uint8_t*>(h.has_uri) + b) != 0;
+  }
+  int nl = 0;  // live probes
+  for (int x0 = 0; x0 < total_probes; x0 += 32 * SHARD_PROBES) {
+    int slot[SHARD_PROBES], plen[SHARD_PROBES];
+#pragma unroll
+    for (int k = 0; k < SHARD_PROBES; ++k) {
+      const int x = x0 + 32 * k + lane;
+      slot[k] = -1;
+      plen[k] = -1;
+      if (x < total_probes) {
+        const int j = x / np;
+        probe_in(sh.at(j), b, x - j * np, slot[k], plen[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SHARD_PROBES; ++k) {
+      const bool live = slot[k] >= 0;
+      const unsigned m = __ballot_sync(FULL, live);
+      if (live) {
+        const int at = nl + __popc(m & below);
+        pinfo[at] = x0 + 32 * k + lane;
+        pa[at] = slot[k];
+        pb[at] = plen[k];
+      }
+      nl += __popc(m);
+    }
+  }
+  __syncwarp();
+
+  // step 2: every live probe's slot record and key words, SHARD_LIVE a
+  // lane at once -> (start, live count)
+  const int nhp = 2 * a0.maxp;
+  for (int c0 = 0; c0 < nl; c0 += 32 * SHARD_LIVE) {
+    int4 rec[SHARD_LIVE];
+    Step<W, HS> ks[SHARD_LIVE];
+    int c[SHARD_LIVE], jj[SHARD_LIVE], pl[SHARD_LIVE];
+#pragma unroll
+    for (int k = 0; k < SHARD_LIVE; ++k) {
+      c[k] = c0 + 32 * k + lane;
+      rec[k] = make_int4(-1, 0, 0, 0);
+      jj[k] = 0;
+      pl[k] = 0;
+      if (c[k] < nl) {
+        const int x = pinfo[c[k]];
+        const int j = x / np, pi = x - j * np;
+        const FusedArgs& h = sh.at(j);
+        const bool host = pi < nhp;
+        const int kw = host ? h.hw : h.ukw;
+        const int s = pa[c[k]];
+        const int32_t* pslot = host ? h.pk_hslot : h.pk_uslot;
+        const uint8_t* key = (host ? h.pk_hkey : h.pk_ukey) + (size_t)s * kw;
+        rec[k] = __ldg(reinterpret_cast<const int4*>(pslot) + s);
+        ks[k].load(key, 0, kw / W);
+        jj[k] = j;
+        pl[k] = pb[c[k]];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SHARD_LIVE; ++k) {
+      if (c[k] >= nl) continue;
+      const int x = pinfo[c[k]];
+      const int pi = x - jj[k] * np;
+      const FusedArgs& h = sh.at(jj[k]);
+      const bool host = pi < nhp;
+      const int kw = host ? h.hw : h.ukw;
+      const uint8_t* key =
+          (host ? h.pk_hkey : h.pk_ukey) + (size_t)pa[c[k]] * kw;
+      const uint8_t* qw = win + (nwin == 1 ? 0 : jj[k] * winb) +
+                          (host ? 0 : hpad);
+      const int n = pl[k] < kw ? pl[k] : kw;
+      const bool ok =
+          rec[k].x == pl[k] && row_eq(ks[k], key, qw, kw / W, n);
+      pa[c[k]] = rec[k].y;
+      pb[c[k]] = ok ? clampi(rec[k].z, 0, host ? h.bh : h.bu) : 0;
+    }
+  }
+  __syncwarp();
+
+  // steps 3 and 4, per LIST entries: the live probes' bucket entries at
+  // their prefix sum, then every shard's wildcard entries; every rule
+  // index of a lane's entries loaded at once, the live ones compacted
+  // with their shards, then one candidate per lane scored
+  const int nwild = a0.n_wh + (URI ? a0.n_wu : 0);
+  unsigned long long best = 0;
+  int total = 0;
+  for (int w0 = 0; w0 == 0 || w0 < total; w0 += LIST) {
+    int nb = 0;
+    for (int p0 = 0; p0 < nl; p0 += 32) {
+      const int ci = p0 + lane;
+      const int cnt = ci < nl ? pb[ci] : 0;
+      int incl = cnt;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl += t;
+      }
+      const int beg = nb + incl - cnt;
+      const int lo = beg > w0 ? beg : w0;
+      const int hi = beg + cnt < w0 + LIST ? beg + cnt : w0 + LIST;
+      if (lo < hi) {
+        const int x = pinfo[ci];
+        const int j = x / np;
+        const bool host = x - j * np < nhp;
+        for (int e = lo; e < hi; ++e) {  // uri entries stored as ~index
+          const int i = pa[ci] + e - beg;
+          list[e - w0] = host ? clampi(i, 0, a0.n_hb - 1)
+                              : ~clampi(i, 0, a0.n_ub - 1);
+          lsh[e - w0] = j;
+        }
+      }
+      nb += __shfl_sync(FULL, incl, 31);
+    }
+    total = nb + shards * nwild;
+    __syncwarp();
+    int cand[GROUP], js[GROUP];
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k) {
+      const int e = w0 + 32 * k + lane;
+      const int32_t* ip = nullptr;
+      js[k] = 0;
+      if (e < nb) {
+        const int v = list[e - w0];
+        js[k] = lsh[e - w0];
+        const FusedArgs& h = sh.at(js[k]);
+        ip = v >= 0 ? h.hb_items + v : h.ub_items + ~v;
+      } else if (e < total) {
+        const int r = e - nb;
+        js[k] = r / nwild;
+        const int i = r - js[k] * nwild;
+        const FusedArgs& h = sh.at(js[k]);
+        ip = i < h.n_wh ? h.wh_idx + i : h.wu_idx + (i - h.n_wh);
+      }
+      cand[k] = ip ? __ldg(ip) : -1;
+    }
+    __syncwarp();  // every entry read before the compaction rewrites it
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k) {
+      const unsigned live = __ballot_sync(FULL, cand[k] >= 0);
+      if (cand[k] >= 0) {
+        const int at = n + __popc(live & below);
+        list[at] = cand[k];
+        lsh[at] = js[k];
+      }
+      n += __popc(live);
+    }
+    __syncwarp();
+    for (int e = lane; e < n; e += 32) {
+      const int ci = list[e], j = lsh[e];
+      const uint8_t* qh = win + (nwin == 1 ? 0 : j * winb);
+      Query q;
+      q.qh = qh;
+      q.qu = qh + hpad;
+      q.hlen = qs[5 * j];
+      q.ulen = qs[5 * j + 1];
+      q.port = qs[5 * j + 2];
+      q.has_host = qs[5 * j + 3] != 0;
+      q.has_uri = qs[5 * j + 4] != 0;
+      const unsigned long long k =
+          sh.key(score<URI, W>(sh.at(j), ci, q), j, ci);
+      best = k > best ? k : best;
+    }
+    __syncwarp();  // the list is rewritten by the next group
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(FULL, best, off);
+    best = o > best ? o : best;
+  }
+  return best;
 }
 
 }  // namespace hint

@@ -20,9 +20,9 @@
 // * cuckoo hint: B3's `hint::warp_verdict` (hint_probe.cuh), over the
 //   packed layout (ops/sharded_cuda.py `pack_hint_sharded`);
 // * cuckoo CIDR (routes, ACL with its port gate): B4's
-//   `cidr::block_first_match` (cidr_first.cuh);
+//   `cidr::first_match` over staged group rows (cidr_first.cuh);
 // * fingerprint hint: B6's `fph::warp_best` (fp_hint.cuh);
-// * fingerprint CIDR: B7's `fpc::block_first` (fp_cidr.cuh).
+// * fingerprint CIDR: B7's `fpc::warp_first` (fp_cidr.cuh).
 // The global answer (mesh.py:383-393, :418-437):
 // * hint: the highest level over the shards with a match, then among
 //   the shards at that level the least global index s * size + idx;
@@ -33,39 +33,66 @@
 // int32 [B, 3].
 //
 // The reduction is decided in the kernel, on one 64-bit key per
-// (query, column), zero-filled before the launch and taken with
-// atomicMax: hint key (level << 32) | (BIG - gidx) when the level is
-// above 0, else no key; CIDR key BIG - gidx (the least index is the
+// (query, column): hint key (level << 32) | (BIG - gidx) when the level
+// is above 0, else 0; CIDR key BIG - gidx (the least index is the
 // greatest key, so both columns reduce with one max, and one
 // all_reduce(MAX) does for every column where the rules axis spans
-// ranks). BIG = 2^30, the reference's sentinel, bounds gidx. The last
-// block of a query tile (a device-scope ticket after a fence, as B9's)
-// turns its keys into int32: BIG - (key & 0xffffffff), -1 for 0. A
-// launch without `out` writes the keys only: parallel/mesh.py reduces
-// them across the ranks of the rules axis, then `vproxy_sharded_finish`
-// is the last pass.
+// ranks). BIG = 2^30, the reference's sentinel, bounds gidx. The answer
+// is BIG - (key & 0xffffffff), -1 for 0. A launch without `out` writes
+// the keys: parallel/mesh.py reduces them across the ranks of the rules
+// axis, then `vproxy_sharded_finish` is the last pass.
 //
 // Bound. The bytes the S shards' probes read, each shard as its own
-// single-shard kernel reads them (chip_smoke.py `work()` / `cidr_work()`
-// / the fp counts, summed over the shards), plus each (query, column)
-// key and answer, over the 3.35 TB/s HBM rate. As for B3 / B4 / B6 /
-// B7, the time sits well above it: each pair walks the chain of
-// dependent loads of its routine (4 steps for B3 / B4, 3 for B6 / B7).
+// single-shard kernel reads them (chip_smoke.py `b8_work`: the batch's
+// queries and answers once, each shard's table rows), over the 3.35
+// TB/s HBM rate. As for B3 / B4 / B6 / B7, the time sits well above it:
+// each (query, shard) pair walks the chain of dependent loads of its
+// routine (4 steps for B3 / B4, 3 for B6 / B7), so what counts is how
+// many chains are in flight together.
 //
-// Design (simple first): a block is WARPS warps of one query tile, one
-// shard and one column: blockIdx.x the query tile, blockIdx.y the
-// shard (of the launch's local shards), blockIdx.z the column. Hint
-// blocks run one warp per query as B3 / B6 do; CIDR blocks stage their
-// shard's group rows once per block as B4 / B7 do. A shard's slice of a
-// stacked array is the array's base plus the shard times its stride (in
-// elements, passed per pointer; 0 for a query array every shard
-// shares). S launches of the unsharded kernel and a torch max would
-// answer the same, but pay S launches and a [S, B] round trip through
-// memory; here the S x B pairs run side by side in one grid and only
-// the keys are written.
+// Design. The grid is query tiles x columns. A block is WARPS warps;
+// a query's S local shards are dealt over G = 1, 2 or 4 of them
+// (`group_of`: shard j to warp j % G), so a block holds WARPS / G
+// queries and up to four chains of one query run side by side instead
+// of queuing in waves of blocks. A shard's slice of a stacked array is
+// the array's base plus the shard times its stride (in elements, passed
+// per pointer; 0 for a query array every shard shares). Each warp runs
+// the single-shard routine on its shards: B3's `hint::warp_verdict`,
+// B6's `fph::warp_best`, B4's `cidr::first_match` and B7's
+// `fpc::warp_first` over the shard's group rows where the table keeps
+// them (`rows_of`: read through L1; staging them would cost each block
+// G shards' rows for one query). Each warp keeps the max key of its
+// shards in a register; the block max-reduces a query's G keys in
+// shared memory and writes the key or the answer once per (query,
+// column): no atomics, no ticket, and no fill before the launch. S
+// launches of the unsharded kernel and a torch max would answer the
+// same, but pay S launches and a [S, B] round trip through memory.
+//
+// The interleaved form. Past one wave of blocks the split layout's
+// warps queue (at B = 4096 and S = 4, 16,384 warps), and each of them
+// leaves most lanes idle on a step (a query's live probes, pairs and
+// candidates in one shard are few). There a column runs one warp a
+// query over all S shards, through the routine's interleaved form
+// beside it (`hint::warp_verdict_shards`, `cidr::first_match_shards`,
+// `fpc::warp_first_shards`): the routine's steps once for all the
+// shards, a step's items of every shard listed densely over the lanes
+// and loaded at once, so every shard's step-k loads are in flight
+// before any shard's step k + 1, and the batch takes 1 / G of the
+// warps. Within one wave it answers later than the split layout (one
+// warp walks S shards' items in more rounds, where the split layout
+// had G warps side by side and the SMs to hold them), so the launcher
+// picks, per column, the split layout while its grid fits HINT_WAVES
+// (hint) or CIDR_WAVES (CIDR) waves of blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count), and
+// the interleaved form past them (PERF.md has both layouts' times). The
+// fingerprint hint column stays split: its interleaved form (every
+// shard's query arrays staged by one warp) read slower at every batch
+// size.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "cidr_first.cuh"
 #include "fp_cidr.cuh"
@@ -74,11 +101,26 @@
 
 namespace {
 
-constexpr int WARPS = 4;  // queries per block (the routines' own shape)
+constexpr int WARPS = 4;  // warps a block (the routines' own shape)
 // blocks per SM the register budget must allow: <= 128 registers. With
 // no such bound ptxas took 72 registers and spilled 8 bytes in one
-// instance; with it, 80-108 and no spill (a chip run's ptxas report).
+// instance (a chip run's ptxas report).
 constexpr int MIN_BLOCKS = 4;
+// a fingerprint column alone needs fewer (B6 44, B7 56 registers): 6
+// blocks an SM, <= 85 registers, keep the shard loop's pointers from
+// costing B = 4096 a fifth of its warps (both columns at that bound
+// spill: they keep MIN_BLOCKS)
+constexpr int FP_MIN_BLOCKS = 6;
+// the fingerprint CIDR column with its interleaved form spilled 4 bytes
+// at 80 registers (a chip run's ptxas report): 5 blocks, <= 102
+constexpr int FP_CIDR_MIN_BLOCKS = 5;
+// Waves of blocks the split layout's grid may take before a column
+// runs the interleaved form: one for a hint column, two for a CIDR
+// column (whose interleaved form walks more rounds of pairs a warp).
+// The H100 read both turns between B = 512 and 2048 at S = 4
+// (chip_smoke.py --ab, phase_sharded_layouts; PERF.md).
+constexpr int HINT_WAVES = 1;
+constexpr int CIDR_WAVES = 2;
 constexpr unsigned long long BIG = 1ull << 30;
 constexpr int HASH_STRIDES = 24;  // FusedArgs' pointers hostb .. wu_idx
 constexpr int CIDR_STRIDES = 10;  // cidr::Table's pointers
@@ -98,8 +140,7 @@ struct ShardedHashArgs {
   const uint8_t* a16;        // [B, 16] addresses (CIDR columns)
   const int32_t* fam;        // [B] family, -1 for pad rows
   const int32_t* cport[2];   // [B] a column's port gate, or null
-  unsigned long long* keys;  // [B, ncols], zero-filled
-  unsigned int* tickets;     // [tiles], zero-filled
+  unsigned long long* keys;  // [B, ncols] written once (no `out`)
   int32_t* out;              // [B, ncols], or null: the keys only
   long long hstride[HASH_STRIDES];     // elements per shard, 0: shared
   long long cstride[2][CIDR_STRIDES];
@@ -111,8 +152,7 @@ struct ShardedHashArgs {
 struct ShardedFpArgs {
   fph::FpHintArgs h;         // hint column (h.rec null: none)
   fpc::FpCidrArgs c;         // CIDR column (c.rec null: none)
-  unsigned long long* keys;  // [B, ncols], zero-filled
-  unsigned int* tickets;     // [tiles], zero-filled
+  unsigned long long* keys;  // [B, ncols] written once (no `out`)
   int32_t* out;              // [B, ncols], or null: the keys only
   long long hstride[FPH_STRIDES];
   long long cstride[FPC_STRIDES];
@@ -237,89 +277,212 @@ __device__ __forceinline__ int answer(unsigned long long k) {
   return k != 0 ? (int)(BIG - (k & 0xffffffffull)) : -1;
 }
 
-// This block's key into the batch, then the ticket: the last block of
-// the query tile (of gridDim.y x gridDim.z) turns the tile's keys into
-// answers when the launch has an output.
-__device__ __forceinline__ void reduce(unsigned long long* keys,
-                                       unsigned int* tickets, int32_t* out,
-                                       int b, int ncols, int q, int col,
-                                       unsigned long long key, int lane) {
-  __shared__ unsigned int ticket;
-  if (key != 0 && lane == 0 && q < b)
-    atomicMax(keys + (size_t)q * ncols + col, key);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) ticket = atomicAdd(tickets + blockIdx.x, 1u);
-  __syncthreads();
-  if (out == nullptr || ticket != gridDim.y * gridDim.z - 1) return;
-  __threadfence();
-  const int q0 = blockIdx.x * WARPS;
-  for (int i = threadIdx.x; i < WARPS * ncols; i += blockDim.x) {
-    const int qi = q0 + i / ncols;
-    if (qi < b) {
-      const size_t o = (size_t)q0 * ncols + i;
-      out[o] = answer(__ldcg(keys + o));
-    }
-  }
+// Warps a query takes: its S shards are dealt over G warps of the
+// block (shard j to warp j % G), so up to four chains of one query run
+// side by side; WARPS / G queries a block.
+__host__ __device__ constexpr int group_of(int shards) {
+  return shards == 1 ? 1 : (shards == 2 ? 2 : WARPS);
 }
 
-template <bool URI, int W>
+// The per-warp keys of the block's queries, max-reduced through shared
+// memory: the first warp of each query's group writes its one key (no
+// output) or answer once. Every thread of the block calls it.
+__device__ __forceinline__ void write_key(unsigned long long key, int warp,
+                                          int lane, int g_warps, int q,
+                                          int b, int ncols, int col,
+                                          unsigned long long* keys,
+                                          int32_t* out) {
+  __shared__ unsigned long long s_key[WARPS];
+  if (lane == 0) s_key[warp] = key;
+  __syncthreads();
+  if (warp % g_warps != 0 || lane != 0 || q >= b) return;
+  for (int i = 1; i < g_warps; ++i) key = max(key, s_key[warp + i]);
+  const size_t o = (size_t)q * ncols + col;
+  if (out != nullptr)
+    out[o] = answer(key);
+  else
+    keys[o] = key;
+}
+
+// One (query, column)'s key or answer, written by lane 0 of the one
+// warp that holds it (the interleaved form).
+__device__ __forceinline__ void write_once(unsigned long long key, int lane,
+                                           int q, int ncols, int col,
+                                           unsigned long long* keys,
+                                           int32_t* out) {
+  if (lane != 0) return;
+  const size_t o = (size_t)q * ncols + col;
+  if (out != nullptr)
+    out[o] = answer(key);
+  else
+    keys[o] = key;
+}
+
+// The shard views the interleaved forms take: shard j's arguments and
+// the key a winner takes.
+struct HintShards {
+  const ShardedHashArgs& a;
+  __device__ __forceinline__ hint::FusedArgs at(int j) const {
+    return hint_at(a, j);
+  }
+  __device__ __forceinline__ bool shared_windows() const {
+    return a.hstride[0] == 0 && a.hstride[1] == 0;
+  }
+  __device__ __forceinline__ unsigned long long key(int level, int j,
+                                                    int idx) const {
+    return hint_key(level, a.s0 + j, a.size[0], idx);
+  }
+};
+
+struct CidrShards {
+  const ShardedHashArgs& a;
+  int ci, col;
+  __device__ __forceinline__ cidr::Table at(int j) const {
+    return cidr_at(a, ci, j);
+  }
+  __device__ __forceinline__ unsigned long long key(int j, int idx) const {
+    return cidr_key(a.s0 + j, a.size[col], idx);
+  }
+};
+
+struct FpCidrShards {
+  const ShardedFpArgs& a;
+  int col;
+  __device__ __forceinline__ fpc::FpCidrArgs at(int j) const {
+    return fp_cidr_at(a, j);
+  }
+  __device__ __forceinline__ unsigned long long key(int j, int idx) const {
+    return cidr_key(a.s0 + j, a.size[col], idx);
+  }
+};
+
+// HINT / CIDR: the launch has a hint column / a CIDR column (an
+// instance without a kind holds none of its code, nor its registers).
+// Bit c of `inter`: column c runs the interleaved form (a warp a query
+// over every shard), else a query's shards over group_of(shards) warps.
+template <bool URI, int W, bool HINT, bool CIDR>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-sharded_hash_kernel(const ShardedHashArgs a) {
+sharded_hash_kernel(const ShardedHashArgs a, int shards, int inter) {
   extern __shared__ __align__(16) int32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * WARPS + warp;
-  const int j = blockIdx.y;
-  const int s = a.s0 + j;
-  const int col = blockIdx.z;
-  const bool hint_col = a.h.pk_meta != nullptr;  // column 0 when present
-  unsigned long long key = 0;
-  if (hint_col && col == 0) {
-    if (q < a.b) {  // warp-uniform; no block sync on this path
-      const hint::FusedArgs h = hint_at(a, j);
-      int bl, bi;
-      hint::warp_verdict<URI, W, false>(h, smem + warp * a.smem_words, q,
-                                        a.np, lane, bl, bi);
-      key = hint_key(bl, s, a.size[col], bi);
+  if ((inter >> blockIdx.y) & 1) {  // block-uniform
+    const int q = blockIdx.x * WARPS + warp, col = blockIdx.y;
+    if (q >= a.b) return;  // warp-uniform; no block sync on this path
+    unsigned long long key = 0;
+    if (HINT && col == 0) {
+      key = hint::warp_verdict_shards<URI, W>(
+          HintShards{a}, shards, smem + warp * a.smem_words, q, a.np, lane);
+    } else if (CIDR) {
+      const int ci = col - (HINT ? 1 : 0);
+      const int g = a.c[ci].g;
+      int32_t* w = smem + warp * cidr::shards_warp_words(g, shards);
+      const bool gate = a.cport[ci] != nullptr;
+      const uint4 addr = __ldg(reinterpret_cast<const uint4*>(a.a16) + q);
+      const int f = __ldg(a.fam + q);
+      const int p = gate ? __ldg(a.cport[ci] + q) : 0;
+      key = cidr::first_match_shards(CidrShards{a, ci, col}, shards, w,
+                                     w + shards * g,
+                                     w + shards * g + cidr::LIST, addr, f,
+                                     gate, p, lane);
     }
-  } else {  // every thread of the block: the routine syncs the block
-    const int ci = col - (hint_col ? 1 : 0);
-    const cidr::Table t = cidr_at(a, ci, j);
-    const int r = cidr::block_first_match(t, smem, a.a16, a.fam,
-                                          a.cport[ci], a.b, q, warp, lane,
-                                          WARPS);
-    if (r >= 0 && r < t.r_cap) key = cidr_key(s, a.size[col], r);
+    write_once(key, lane, q, a.ncols, col, a.keys, a.out);
+    return;
   }
-  reduce(a.keys, a.tickets, a.out, a.b, a.ncols, q, col, key, lane);
+  const int gw = group_of(shards);
+  const int q = blockIdx.x * (WARPS / gw) + warp / gw;
+  const int g = warp % gw;  // this warp's first shard
+  const int col = blockIdx.y;
+  unsigned long long key = 0;
+  if (HINT && col == 0) {  // the hint column is column 0
+    if (q < a.b) {  // warp-uniform; no block sync on this path
+      for (int j = g; j < shards; j += gw) {
+        const hint::FusedArgs h = hint_at(a, j);
+        int bl, bi;
+        hint::warp_verdict<URI, W, false>(h, smem + warp * a.smem_words, q,
+                                          a.np, lane, bl, bi);
+        key = max(key, hint_key(bl, a.s0 + j, a.size[col], bi));
+      }
+    }
+  } else if (CIDR) {  // the group rows read where each shard keeps them
+    const int ci = col - (HINT ? 1 : 0);
+    int32_t* lists = smem + warp * cidr::warp_words(a.c[ci].g);
+    const bool gate = a.cport[ci] != nullptr;
+    if (q < a.b) {  // warp-uniform; no block sync on this path
+      const uint4 addr = __ldg(reinterpret_cast<const uint4*>(a.a16) + q);
+      const int f = __ldg(a.fam + q);
+      const int p = gate ? __ldg(a.cport[ci] + q) : 0;
+      for (int j = g; j < shards; j += gw) {
+        const cidr::Table t = cidr_at(a, ci, j);
+        const int m = cidr::first_match(t, cidr::rows_of(t), lists,
+                                        lists + t.g, addr, f, gate, p, lane);
+        if (m >= 0 && m < t.r_cap)
+          key = max(key, cidr_key(a.s0 + j, a.size[col], m));
+      }
+    }
+  }
+  write_key(key, warp, lane, gw, q, a.b, a.ncols, col, a.keys, a.out);
 }
 
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-sharded_fp_kernel(const ShardedFpArgs a) {
+// Bit c of `inter` as above; the hint column has no interleaved form
+// (it read slower at every batch size: PERF.md).
+template <bool HINT, bool CIDR>
+__global__ void __launch_bounds__(WARPS * 32,
+                                  HINT && CIDR ? MIN_BLOCKS
+                                  : HINT       ? FP_MIN_BLOCKS
+                                               : FP_CIDR_MIN_BLOCKS)
+sharded_fp_kernel(const ShardedFpArgs a, int shards, int inter) {
   extern __shared__ __align__(16) int32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * WARPS + warp;
-  const int j = blockIdx.y;
-  const int s = a.s0 + j;
-  const int col = blockIdx.z;
-  const bool hint_col = a.h.rec != nullptr;  // column 0 when present
-  unsigned long long key = 0;
-  if (hint_col && col == 0) {
-    if (q < a.b) {  // warp-uniform; no block sync on this path
-      const fph::FpHintArgs h = fp_hint_at(a, j);
-      const int best =
-          fph::warp_best(h, smem + (size_t)warp * a.smem_words, q, lane);
-      if (best > 0)
-        key = hint_key(best / (h.r_cap + 1), s, a.size[col],
-                       h.r_cap - best % (h.r_cap + 1));
-    }
-  } else {  // every thread of the block: the routine syncs the block
-    const fpc::FpCidrArgs c = fp_cidr_at(a, j);
-    const int r = fpc::block_first(c, smem, q, warp, lane);
-    if (q < a.b && r >= 0 && r < c.r_cap) key = cidr_key(s, a.size[col], r);
+  if (CIDR && ((inter >> blockIdx.y) & 1)) {  // block-uniform
+    const int q = blockIdx.x * WARPS + warp, col = blockIdx.y;
+    if (q >= a.b) return;  // warp-uniform; no block sync on this path
+    const bool gate = a.c.mrows != nullptr && a.c.port != nullptr;
+    const uint4 addr = __ldg(reinterpret_cast<const uint4*>(a.c.a16) + q);
+    const int f = __ldg(a.c.fam + q);
+    const int p = gate ? __ldg(a.c.port + q) : 0;
+    const unsigned long long key = fpc::warp_first_shards(
+        FpCidrShards{a, col}, shards,
+        smem + (size_t)warp * fpc::shards_warp_words(a.c.g, shards), addr,
+        f, p, lane);
+    write_once(key, lane, q, a.ncols, col, a.keys, a.out);
+    return;
   }
-  reduce(a.keys, a.tickets, a.out, a.b, a.ncols, q, col, key, lane);
+  const int gw = group_of(shards);
+  const int q = blockIdx.x * (WARPS / gw) + warp / gw;
+  const int g = warp % gw;
+  const int col = blockIdx.y;
+  unsigned long long key = 0;
+  if (HINT && col == 0) {  // the hint column is column 0
+    if (q < a.b) {  // warp-uniform; no block sync on this path
+      for (int j = g; j < shards; j += gw) {
+        const fph::FpHintArgs h = fp_hint_at(a, j);
+        const int best =
+            fph::warp_best(h, smem + (size_t)warp * a.smem_words, q, lane);
+        if (best > 0)
+          key = max(key, hint_key(best / (h.r_cap + 1), a.s0 + j,
+                                  a.size[col],
+                                  h.r_cap - best % (h.r_cap + 1)));
+      }
+    }
+  } else if (CIDR) {  // the group rows read where each shard keeps them
+    int32_t* lists = smem + warp * fpc::warp_words(a.c.g);
+    const bool gate = a.c.mrows != nullptr && a.c.port != nullptr;
+    if (q < a.b) {  // warp-uniform; no block sync on this path
+      const uint4 addr = __ldg(reinterpret_cast<const uint4*>(a.c.a16) + q);
+      const int f = __ldg(a.c.fam + q);
+      const int p = gate ? __ldg(a.c.port + q) : 0;
+      for (int j = g; j < shards; j += gw) {
+        const fpc::FpCidrArgs c = fp_cidr_at(a, j);
+        const int m = fpc::warp_first(c, fpc::rows_of(c), lists, addr, f, p,
+                                      lane);
+        if (m >= 0 && m < c.r_cap)
+          key = max(key, cidr_key(a.s0 + j, a.size[col], m));
+      }
+    }
+  }
+  write_key(key, warp, lane, gw, q, a.b, a.ncols, col, a.keys, a.out);
 }
 
 __global__ void sharded_finish_kernel(const unsigned long long* keys,
@@ -338,14 +501,55 @@ bool stride_ok(long long stride, size_t elem, size_t n) {
   return stride >= 0 && ((size_t)stride * elem) % n == 0;
 }
 
+// The grid of a launch: WARPS / group_of(shards) queries a block, one
+// block row per column; WARPS queries a block when every column runs
+// the interleaved form (`inter` holds a bit for each of `ncols`).
+dim3 grid_of(int b, int shards, int ncols, int inter) {
+  const int qpb = inter == (1 << ncols) - 1 ? WARPS : WARPS / group_of(shards);
+  return dim3((b + qpb - 1) / qpb, ncols);
+}
+
+// The layouts a launch may ask for: the launcher's choice, a query's
+// shards over group_of(shards) warps, or the interleaved form.
+enum Layout { AUTO = 0, SPLIT = 1, INTERLEAVED = 2 };
+
+// The waves of `kern`'s blocks (`smem` bytes a block) on `device` that
+// the split layout's grid of b queries over `shards` shards takes; 0
+// when the card cannot say. Within a few waves the split layout
+// answers sooner (its chains run in more warps side by side); past
+// them the interleaved form takes 1 / group_of(shards) of the warps,
+// so fewer waves.
+template <class K>
+double split_waves(K kern, int b, int shards, size_t smem, int device) {
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, WARPS * 32,
+                                                    smem) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess || per_sm * sms <= 0)
+    return 0.0;
+  return (double)grid_of(b, shards, 1, 0).x / ((double)per_sm * sms);
+}
+
+using HashKernel = void (*)(const ShardedHashArgs, int, int);
+
 template <int W>
-cudaError_t launch_hash_word(const ShardedHashArgs& a, dim3 grid,
-                             size_t smem, cudaStream_t s, bool uri) {
-  if (uri)
-    sharded_hash_kernel<true, W><<<grid, WARPS * 32, smem, s>>>(a);
-  else
-    sharded_hash_kernel<false, W><<<grid, WARPS * 32, smem, s>>>(a);
-  return cudaGetLastError();
+HashKernel hash_kernel_word(bool uri, bool cidr) {
+  if (uri && cidr) return sharded_hash_kernel<true, W, true, true>;
+  if (uri) return sharded_hash_kernel<true, W, true, false>;
+  if (cidr) return sharded_hash_kernel<false, W, true, true>;
+  return sharded_hash_kernel<false, W, true, false>;
+}
+
+// The instance of a launch: the hint column's compare word and uri
+// half, and whether it has a CIDR column.
+HashKernel hash_kernel(bool hint, int word, bool uri, bool cidr) {
+  if (!hint) return sharded_hash_kernel<false, 16, false, true>;
+  switch (word) {
+    case 16: return hash_kernel_word<16>(uri, cidr);
+    case 8: return hash_kernel_word<8>(uri, cidr);
+    case 4: return hash_kernel_word<4>(uri, cidr);
+    default: return hash_kernel_word<1>(uri, cidr);
+  }
 }
 
 }  // namespace
@@ -358,26 +562,31 @@ extern "C" int vproxy_sharded_fp_args_size() {
 }
 
 // Launch on `stream` (PyTorch's current stream; no synchronisation)
-// over `shards` local shards. Returns cudaGetLastError() after the
-// launch: 0 when it was accepted; cudaErrorInvalidValue, before any
-// launch, for a column count that disagrees with the tables, a hint
+// over `shards` local shards in `layout` (AUTO, per column: the split
+// layout while its grid fits HINT_WAVES / CIDR_WAVES waves, else the
+// interleaved form; S = 1 stays split). Returns cudaGetLastError() after the launch: 0 when it was
+// accepted; cudaErrorInvalidValue, before any launch, for an unknown
+// layout, a column count that disagrees with the tables, a hint
 // compare word that does not divide the windows or align the byte
 // tables and every shard's slice of them, a CIDR table that is empty or
 // whose 16-byte rows (or a shard's slice of them) are off 16 bytes, or
 // more shared memory than a launch may take unasked (48 KB).
 extern "C" int vproxy_sharded_hash(const ShardedHashArgs* args, int shards,
-                                   int uri_rules, int device, void* stream) {
+                                   int layout, int uri_rules, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   ShardedHashArgs a = *args;
   if (a.b <= 0) return 0;
+  if (shards <= 0 || layout < AUTO || layout > INTERLEAVED)
+    return (int)cudaErrorInvalidValue;
   const bool hint_col = a.h.pk_meta != nullptr;
+  const bool shared_windows = a.hstride[0] == 0 && a.hstride[1] == 0;
   int nc = 0;
-  size_t smem = 0;
+  size_t split = 0;  // bytes a block in the split layout
   if (hint_col) {
     const hint::FusedArgs& h = a.h;
     a.np = 2 * h.maxp + (uri_rules ? 2 * h.lw : 0);
-    a.smem_words = hint::warp_smem_words(h, a.np, uri_rules);
     const int w = h.word;
     const long long* st = a.hstride;
     const bool ok_w =
@@ -393,7 +602,7 @@ extern "C" int vproxy_sharded_hash(const ShardedHashArgs* args, int shards,
                         stride_ok(st[18], 4, 16)));
     if (!ok_w || h.b != a.b || h.mtab != nullptr || a.np <= 0)
       return (int)cudaErrorInvalidValue;
-    smem = (size_t)a.smem_words * 4 * WARPS;
+    split = (size_t)4 * WARPS * hint::warp_smem_words(h, a.np, uri_rules);
   }
   for (int i = 0; i < 2; ++i) {
     const cidr::Table& t = a.c[i];
@@ -407,35 +616,57 @@ extern "C" int vproxy_sharded_hash(const ShardedHashArgs* args, int shards,
         !stride_ok(st[0], 4, 16) || !stride_ok(st[1], 4, 16) ||
         !stride_ok(st[2], 1, 16) || !stride_ok(st[5], 1, 16))
       return (int)cudaErrorInvalidValue;
-    const size_t need = cidr::block_bytes(t.g, WARPS);
-    if (need > smem) smem = need;
+    split = std::max(split, (size_t)4 * WARPS * cidr::warp_words(t.g));
     ++nc;
   }
-  if (shards <= 0 || a.ncols != (hint_col ? 1 : 0) + nc || a.ncols <= 0 ||
-      smem > 48 * 1024)
+  if (a.ncols != (hint_col ? 1 : 0) + nc || a.ncols <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.b + WARPS - 1) / WARPS, shards, a.ncols);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool uri = hint_col && uri_rules;
-  switch (hint_col ? a.h.word : 16) {
-    case 16: return (int)launch_hash_word<16>(a, grid, smem, s, uri);
-    case 8: return (int)launch_hash_word<8>(a, grid, smem, s, uri);
-    case 4: return (int)launch_hash_word<4>(a, grid, smem, s, uri);
-    default: return (int)launch_hash_word<1>(a, grid, smem, s, uri);
+  const HashKernel kern =
+      hash_kernel(hint_col, a.h.word, hint_col && uri_rules, nc > 0);
+  // bit c: column c runs the interleaved form
+  const double waves = layout == AUTO && shards > 1
+                           ? split_waves(kern, a.b, shards, split, device)
+                           : 0.0;
+  int mask = 0;
+  for (int c = 0; c < a.ncols; ++c)
+    if (layout == INTERLEAVED ||
+        waves > (hint_col && c == 0 ? HINT_WAVES : CIDR_WAVES))
+      mask |= 1 << c;
+  size_t smem = 0;
+  if (hint_col) {
+    a.smem_words = (mask & 1) ? hint::shards_smem_words(a.h, a.np, uri_rules,
+                                                        shards,
+                                                        shared_windows)
+                              : hint::warp_smem_words(a.h, a.np, uri_rules);
+    smem = (size_t)4 * WARPS * a.smem_words;
   }
+  for (int i = 0; i < nc; ++i) {
+    const int c = i + (hint_col ? 1 : 0);
+    smem = std::max(smem, (size_t)4 * WARPS *
+                              ((mask >> c) & 1
+                                   ? cidr::shards_warp_words(a.c[i].g, shards)
+                                   : cidr::warp_words(a.c[i].g)));
+  }
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kern<<<grid_of(a.b, shards, a.ncols, mask), WARPS * 32, smem, s>>>(
+      a, shards, mask);
+  return (int)cudaGetLastError();
 }
 
 // The fingerprint tables' form (B6 / B7's routines); errors as above,
 // with B6's and B7's own checks (fp_hint.cu, fp_cidr.cu) per column.
 extern "C" int vproxy_sharded_fp(const ShardedFpArgs* args, int shards,
-                                 int device, void* stream) {
+                                 int layout, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   ShardedFpArgs a = *args;
   if (a.b <= 0) return 0;
+  if (shards <= 0 || layout < AUTO || layout > INTERLEAVED)
+    return (int)cudaErrorInvalidValue;
   const bool hint_col = a.h.rec != nullptr;
   const bool cidr_col = a.c.rec != nullptr;
-  size_t smem = 0;
+  size_t hint_smem = 0, split = 0, inter_smem = 0;
   if (hint_col) {
     const fph::FpHintArgs& h = a.h;
     a.smem_words = fph::warp_words(h);
@@ -450,7 +681,7 @@ extern "C" int vproxy_sharded_fp(const ShardedFpArgs* args, int shards,
         !stride_ok(st[0], 4, 8) || !stride_ok(st[1], 4, 8) ||
         !stride_ok(st[2], 4, 8))
       return (int)cudaErrorInvalidValue;
-    smem = (size_t)WARPS * a.smem_words * 4;
+    hint_smem = (size_t)WARPS * a.smem_words * 4;
   }
   if (cidr_col) {
     const fpc::FpCidrArgs& c = a.c;
@@ -464,15 +695,28 @@ extern "C" int vproxy_sharded_fp(const ShardedFpArgs* args, int shards,
           !stride_ok(st[8], 4, 8))) ||
         (c.t_l0 != nullptr && (c.s1 <= 0 || c.s2 <= 0)))
       return (int)cudaErrorInvalidValue;
-    const size_t need = fpc::block_bytes(c.g);
-    if (need > smem) smem = need;
+    split = (size_t)4 * WARPS * fpc::warp_words(c.g);
+    inter_smem = (size_t)4 * WARPS * fpc::shards_warp_words(c.g, shards);
   }
-  if (shards <= 0 || a.ncols != (hint_col ? 1 : 0) + (cidr_col ? 1 : 0) ||
-      a.ncols <= 0 || smem > 48 * 1024)
+  if (a.ncols != (hint_col ? 1 : 0) + (cidr_col ? 1 : 0) || a.ncols <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.b + WARPS - 1) / WARPS, shards, a.ncols);
+  void (*kern)(const ShardedFpArgs, int, int) =
+      hint_col && cidr_col ? sharded_fp_kernel<true, true>
+      : hint_col           ? sharded_fp_kernel<true, false>
+                           : sharded_fp_kernel<false, true>;
+  // the CIDR column only: the hint column has no interleaved form
+  const bool inter =
+      cidr_col && (layout == INTERLEAVED ||
+                   (layout == AUTO && shards > 1 &&
+                    split_waves(kern, a.b, shards,
+                                std::max(hint_smem, split), device) >
+                        CIDR_WAVES));
+  const size_t smem = std::max(hint_smem, inter ? inter_smem : split);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int mask = inter ? 1 << (a.ncols - 1) : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sharded_fp_kernel<<<grid, WARPS * 32, smem, s>>>(a);
+  kern<<<grid_of(a.b, shards, a.ncols, mask), WARPS * 32, smem, s>>>(
+      a, shards, mask);
   return (int)cudaGetLastError();
 }
 

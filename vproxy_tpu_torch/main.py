@@ -293,6 +293,11 @@ def main(argv: list[str] | None = None) -> int:
         threading.Thread(target=repl, daemon=True, name="stdio").start()
 
     stop.wait()
+    if app.cluster is not None:
+        # the step loop stops first: a peer shutting down with this node
+        # would otherwise hold its barrier to the deadline, and its
+        # threads must be joined before the interpreter exits
+        app.cluster.stop_stepping()
     if want_drain.is_set():
         # graceful drain (SIGTERM / `drain`): listeners close, /healthz
         # flips to draining, pumps finish within VPROXY_TPU_DRAIN_S

@@ -12,8 +12,12 @@ it with ctypes and launches it on PyTorch's current stream.
   layout from the reference's arrays (ops/tables.py) when a matcher
   publishes: per bit m = (W != 0), v = (W < 0), packed most significant
   bit first as np.unpackbits reads them, into little-endian 32-bit
-  words, one row per live rule (rules past the last live one never
-  match and are left out), with the per-rule columns in one int4.
+  words. Hint: the active rules grouped by (host chunks, uri chunks,
+  port gate) into tiles of TILE rows, each rule's live chunks only;
+  cidr: per family the valid patterns in ascending rule order. The
+  packing is host work at publish (a stable sort of the rules).
+* `hint_rows` reads a hint layout back row by row (the tests' torch
+  form of the kernel and the bound's word counts use it).
 * `DenseTable` is what a "torch-dense" matcher publishes: the
   reference's arrays (the plain tier's, and what published_table_bytes
   counts) with the kernel's layout beside them as `packed`.
@@ -38,7 +42,7 @@ import torch
 
 from . import fused_cuda as FC
 from .fused_cuda import KernelError, card_entry
-from .tables import HOST_SLOT, MAX_URI, V6
+from .tables import HOST_SLOT, MAX_URI, V4, V6
 
 SOURCE = os.path.join(os.path.dirname(FC.SOURCE), "dense_match.cu")
 
@@ -47,12 +51,23 @@ URI_WORDS = MAX_URI // 4           # 32
 # packed host word j holds the query's word HOST_ORDER[j]: the word of
 # the length byte first, so every pattern's live words are a prefix
 HOST_ORDER = [HOST_WORDS - 1] + list(range(HOST_WORDS - 1))
-# hint meta column 0: flags, then the live word counts (exact, suffix,
-# uri) in bits 8-15, 16-23, 24-31
-F_ACTIVE, F_EXACT, F_SUFFIX, F_HWILD, F_URI, F_UWILD = 1, 2, 4, 8, 16, 32
-TARGET_BLOCKS = 132 * 16  # blocks a launch aims for: 16 per SM
-MIN_SPLIT = 32            # rules per block, at least: one staged tile
+TILE = 32                 # hint rows a tile (csrc/dense_match.cu)
+CTILE = 64                # cidr entries a tile
+HC_MAX, UC_MAX = 5, 8     # host chunks (20 words >= 17), uri chunks (32)
+MAX_RULES = 1 << 20       # a hint key holds 20 bits of rule index
+IDX_MASK = MAX_RULES - 1
+# a mask bit on the host slot's padding byte 67 (the length byte's
+# word, packed first): the query's byte is 0, the value bit 1, so an
+# absent exact or suffix pattern carrying it never matches
+POISON = 1 << 31
 MAX_THREADS = 128         # queries per block, at most
+CIDR_Q = 4                # cidr queries a thread past 4 x MAX_THREADS
+# blocks a launch aims for: two waves of the blocks an SM holds (4 for
+# a hint block of Q = 2 at <= 128 registers); a cidr launch of one
+# query a thread many more (ranges of a tile or two: its blocks hold a
+# few queries of each family, and more of them hide the tiles' latency)
+TARGET_BLOCKS = {1: 132 * 16, 2: 132 * 8, "cidr": 132 * 8,
+                 "cidr1": 132 * 32}
 
 
 class DenseTable(dict):
@@ -64,7 +79,8 @@ class DenseTable(dict):
 
 class PreparedDense(dict):
     """A packed layout (the dict of tensors) checked for its kernel, with
-    `device` and `n` (its live rule rows) cached."""
+    `device` and its launch sizes cached: hint `n_tiles` and
+    `stage_vec` (the largest tile, uint4s); cidr `n4` and `n6`."""
 
 
 def _planes(w: np.ndarray, nbytes: int) -> tuple:
@@ -77,15 +93,15 @@ def _planes(w: np.ndarray, nbytes: int) -> tuple:
 
 
 def _words(b: np.ndarray, nwords: int) -> np.ndarray:
-    """uint8 [N, L] -> int32 [N, nwords], little-endian, zero-padded."""
+    """uint8 [N, L] -> uint32 [N, nwords], little-endian, zero-padded."""
     out = np.zeros((b.shape[0], nwords * 4), np.uint8)
     out[:, :b.shape[1]] = b
-    return out.view("<i4")
+    return out.view("<u4")
 
 
 def _live_words(m: np.ndarray) -> np.ndarray:
-    """int32 mask words [N, W] -> the live prefix of each row: the last
-    word with a mask bit, plus one (0 for none)."""
+    """Mask words [N, W] -> the live prefix of each row: the last word
+    with a mask bit, plus one (0 for none)."""
     nz = m != 0
     return np.where(nz.any(axis=1),
                     m.shape[1] - np.argmax(nz[:, ::-1], axis=1), 0)
@@ -96,58 +112,116 @@ def _n_live(rows_live: np.ndarray) -> int:
     return int(nz[-1]) + 1 if nz.size else 0
 
 
+def _tile_vec(hc, uc):
+    """uint4s of a hint tile: TILE meta rows, host and uri chunks."""
+    return TILE * (1 + 3 * hc + 2 * uc)
+
+
 def pack_dense_hint_table(arrays: dict) -> dict:
     """A compiled HintTable's arrays (tables.compile_hint_rules) -> the
-    B9 hint layout (numpy): hrows int32 [n, 17, 4] (per host word, in
-    HOST_ORDER: exact mask, exact value, suffix mask, suffix value),
-    urows int32 [n, 16, 4] (per two uri words: mask, value, mask,
-    value), meta int32 [n, 4] (flags | live word counts, uri score,
-    port, 0); n = the last active rule + 1."""
+    B9 hint layout (numpy int32): `rows` [R, 4], the tiles one after
+    another, each TILE meta rows (0xFFFFF - rule index, port, uri level
+    on a match | on a miss << 10 | host wildcard << 20, 1; a pad row is
+    0), then per row its host chunks (exact masks, suffix masks, values
+    of 4 words in HOST_ORDER), then its uri chunks (masks, values of 4
+    words); `tiles` [T, 4], per tile its first row, host chunks | uri
+    chunks << 8 | gated << 16, 0, 0. The active rules are grouped by
+    those three (stable: ascending rule order within a group); an
+    absent exact or suffix pattern, and every pad row of a tile with
+    host chunks, carries the POISON bit. Raises ValueError for more
+    than MAX_RULES rules, or an exact and a suffix pattern whose values
+    differ where both mask (tables.compile_hint_rules never makes
+    one)."""
     n = _n_live(arrays["active"])
+    if n > MAX_RULES:
+        raise ValueError(f"dense hint layout: {n} rules, at most "
+                         f"{MAX_RULES}")
     hm, hv = _planes(arrays["host_w"][:, :2 * n], HOST_SLOT)
+    pad = np.zeros((n, 4 * HC_MAX - HOST_WORDS), np.uint32)
     hm = _words(hm, HOST_WORDS)[:, HOST_ORDER]
     hv = _words(hv, HOST_WORDS)[:, HOST_ORDER]
     me, ms, ve, vs = hm[0::2], hm[1::2], hv[0::2], hv[1::2]
+    if np.any((ve & ms) != (vs & me)):
+        raise ValueError("dense hint layout: an exact and a suffix "
+                         "pattern differ where both mask")
+    me, ms, v = (np.concatenate([x, pad], 1) for x in (me, ms, ve | vs))
+    hvalid = arrays["host_valid"][:n]
+    held = hvalid.any(axis=1)
+    for col, m in ((0, me), (1, ms)):
+        m[held & ~hvalid[:, col], 0] |= POISON
+    v[held & ~hvalid.all(axis=1), 0] |= POISON
     um, uv = _planes(arrays["uri_w"][:, :n], MAX_URI)
     um, uv = _words(um, URI_WORDS), _words(uv, URI_WORDS)
-    hvalid = arrays["host_valid"][:n]
-    flags = (arrays["active"][:n] * F_ACTIVE | hvalid[:, 0] * F_EXACT |
-             hvalid[:, 1] * F_SUFFIX | arrays["host_wild"][:n] * F_HWILD |
-             arrays["uri_valid"][:n] * F_URI |
-             arrays["uri_wild"][:n] * F_UWILD).astype(np.int32)
-    meta = np.zeros((n, 4), np.int32)
-    meta[:, 0] = (flags | _live_words(me) << 8 | _live_words(ms) << 16 |
-                  _live_words(um) << 24)
-    meta[:, 1] = arrays["uri_score"][:n]
-    meta[:, 2] = arrays["port"][:n]
-    return {
-        "hrows": np.ascontiguousarray(np.stack([me, ve, ms, vs], axis=-1)),
-        "urows": np.ascontiguousarray(np.stack(
-            [um[:, 0::2], uv[:, 0::2], um[:, 1::2], uv[:, 1::2]], axis=-1)),
-        "meta": meta}
+    hc = -(-_live_words(me | ms) // 4)
+    uc = -(-_live_words(um) // 4)
+    port = arrays["port"][:n].astype(np.int32)
+    wild = arrays["uri_wild"][:n].astype(np.uint32)
+    hit = np.maximum(np.where(arrays["uri_valid"][:n],
+                              arrays["uri_score"][:n], 0), wild)
+    meta = np.stack([IDX_MASK - np.arange(n, dtype=np.uint32),
+                     port.view(np.uint32),
+                     hit.astype(np.uint32) | wild << 10 |
+                     arrays["host_wild"][:n].astype(np.uint32) << 20,
+                     np.ones(n, np.uint32)], axis=1)
+    gated = (port != 0).astype(np.int64)
+    live = np.flatnonzero(arrays["active"][:n])
+    live = live[np.lexsort((live, gated[live], uc[live], hc[live]))]
+    rows, tiles, off = [], [], 0
+    keys = np.stack([hc[live], uc[live], gated[live]], axis=1)
+    cuts = np.flatnonzero(np.any(keys[1:] != keys[:-1], axis=1)) + 1
+    for grp in np.split(live, cuts) if live.size else []:
+        h, u, g = int(hc[grp[0]]), int(uc[grp[0]]), int(gated[grp[0]])
+        nt = -(-grp.size // TILE)
+        rm = np.zeros((nt * TILE, 4), np.uint32)
+        rm[:grp.size] = meta[grp]
+        rh = np.zeros((nt * TILE, h, 3, 4), np.uint32)
+        for k, x in enumerate((me, ms, v)):
+            rh[:grp.size, :, k] = x[grp, :4 * h].reshape(grp.size, h, 4)
+        if h:
+            rh[grp.size:, 0, :, 0] = POISON  # pad rows: no pattern holds
+        ru = np.zeros((nt * TILE, u, 2, 4), np.uint32)
+        for k, x in enumerate((um, uv)):
+            ru[:grp.size, :, k] = x[grp, :4 * u].reshape(grp.size, u, 4)
+        blob = np.concatenate([rm.reshape(nt, TILE, 4),
+                               rh.reshape(nt, TILE * h * 3, 4),
+                               ru.reshape(nt, TILE * u * 2, 4)], axis=1)
+        rows.append(blob.reshape(-1, 4))
+        tv = _tile_vec(h, u)
+        for i in range(nt):
+            tiles.append((off + i * tv, h | u << 8 | g << 16, 0, 0))
+        off += nt * tv
+    rows = np.concatenate(rows) if rows else np.zeros((0, 4), np.uint32)
+    return {"rows": np.ascontiguousarray(rows.view(np.int32)),
+            "tiles": np.array(tiles, np.int32).reshape(-1, 4)}
 
 
 def pack_dense_cidr_table(arrays: dict) -> dict:
     """A compiled CidrTable's arrays (tables.compile_cidr_rules) -> the
-    B9 cidr layout (numpy): rows int32 [n, 6, 4] (per pattern slot: its
-    4 mask words, then its 4 value words), meta int32 [n, 4] (slot s
-    valid at bit s and V6 at bit 3 + s, min port, max port, 0); n = the
-    last rule with a valid slot + 1."""
+    B9 cidr layout (numpy int32), per family the valid pattern slots in
+    ascending (rule, slot) order: `v4` [n4, 4] (mask and value of the
+    address's last word, rule, min port | max port << 16), `v6` [n6, 3,
+    4] (4 mask words, 4 value words, (rule, ports, 0, 0)). Raises
+    ValueError for an IPv4 pattern that masks a word but the last
+    (tables.compile_cidr_rules never makes one)."""
     valid = arrays["valid"].reshape(-1, 3)
     n = _n_live(valid.any(axis=1))
     m, v = _planes(arrays["w"][:, :3 * n], 16)
     m, v = _words(m, 4).reshape(n, 3, 4), _words(v, 4).reshape(n, 3, 4)
     fam = arrays["family"].reshape(-1, 3)[:n]
-    flags = np.zeros(n, np.int32)
-    for s in range(3):
-        flags |= valid[:n, s].astype(np.int32) << s
-        flags |= (fam[:, s] == V6).astype(np.int32) << (3 + s)
-    meta = np.zeros((n, 4), np.int32)
-    meta[:, 0] = flags
-    meta[:, 1] = arrays["min_port"][:n]
-    meta[:, 2] = arrays["max_port"][:n]
-    return {"rows": np.ascontiguousarray(
-        np.stack([m, v], axis=2).reshape(n, 6, 4)), "meta": meta}
+    ports = (arrays["min_port"][:n].astype(np.uint32) & 0xFFFF) | \
+        arrays["max_port"][:n].astype(np.uint32) << 16
+    r4, s4 = np.nonzero(valid[:n] & (fam == V4))
+    if np.any(m[r4, s4, :3] != 0):
+        raise ValueError("dense cidr layout: an IPv4 pattern masks more "
+                         "than its last word")
+    v4 = np.stack([m[r4, s4, 3], v[r4, s4, 3], r4.astype(np.uint32),
+                   ports[r4]], axis=1).reshape(-1, 4)
+    r6, s6 = np.nonzero(valid[:n] & (fam == V6))
+    v6 = np.zeros((r6.size, 3, 4), np.uint32)
+    v6[:, 0], v6[:, 1] = m[r6, s6], v[r6, s6]
+    v6[:, 2, 0], v6[:, 2, 1] = r6, ports[r6]
+    return {"v4": np.ascontiguousarray(v4.view(np.int32)),
+            "v6": np.ascontiguousarray(v6.view(np.int32))}
 
 
 def packed_of(table: dict, hint: bool) -> dict:
@@ -162,58 +236,97 @@ def packed_of(table: dict, hint: bool) -> dict:
          for k, v in table.items()}).items()}
 
 
+def hint_rows(p: dict) -> dict:
+    """A packed hint layout (tensors) read back row by row, in tile
+    order: `meta` int32 [N, 4], `me` / `ms` / `v` int32 [N, 20] (host
+    words in HOST_ORDER, zero past the row's chunks), `um` / `uv` int32
+    [N, 32] (uri words), `code` int32 [N] (its tile's host chunks | uri
+    chunks << 8 | gated << 16)."""
+    rows, tiles = p["rows"], p["tiles"]
+    dev = rows.device
+    out = {k: [] for k in ("meta", "me", "ms", "v", "um", "uv", "code")}
+    for t in tiles.tolist():
+        h, u = t[1] & 0xFF, (t[1] >> 8) & 0xFF
+        blob = rows[t[0]:t[0] + _tile_vec(h, u)]
+        out["meta"].append(blob[:TILE])
+        host = blob[TILE:TILE * (1 + 3 * h)].reshape(TILE, h, 3, 4)
+        uri = blob[TILE * (1 + 3 * h):].reshape(TILE, u, 2, 4)
+        for k, name in enumerate(("me", "ms", "v")):
+            x = torch.zeros(TILE, 4 * HC_MAX, dtype=torch.int32, device=dev)
+            x[:, :4 * h] = host[:, :, k].reshape(TILE, -1)
+            out[name].append(x)
+        for k, name in enumerate(("um", "uv")):
+            x = torch.zeros(TILE, URI_WORDS, dtype=torch.int32, device=dev)
+            x[:, :4 * u] = uri[:, :, k].reshape(TILE, -1)
+            out[name].append(x)
+        out["code"].append(torch.full((TILE,), t[1], dtype=torch.int32,
+                                      device=dev))
+    if not out["meta"]:
+        return {"meta": rows.new_zeros((0, 4)),
+                **{k: rows.new_zeros((0, 4 * HC_MAX)) for k in
+                   ("me", "ms", "v")},
+                **{k: rows.new_zeros((0, URI_WORDS)) for k in ("um", "uv")},
+                "code": rows.new_zeros(0)}
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
 def _mask_words(m: torch.Tensor) -> torch.Tensor:
     """int32 mask words [..., W] -> int64 [...]: the words with a bit."""
     return (m != 0).sum(-1)
 
 
 def hint_pattern_words(p: dict) -> dict:
-    """A packed hint layout (tensors) -> per rule row, int64 [n]:
+    """A packed hint layout (tensors) -> per packed row, int64 [N]:
     `host`, the words with a mask bit of its exact and of its suffix
     pattern, summed; `uri`, those of its uri prefix; 0 for a pattern the
-    rule does not hold and for an inactive rule. Beside them `active`
-    (bool [n]) and `port` (int32 [n]). A word without a mask bit (the
-    suffix's length-byte word, a pattern's tail) needs no compare."""
-    flags = p["meta"][:, 0].long() & 0xFF
-    active = (flags & F_ACTIVE) != 0
+    rule does not hold (the POISON bit marks it) and for a pad row.
+    Beside them `active` (bool [N]: a rule, not a pad row) and `port`
+    (int32 [N]). A word without a mask bit (the suffix's length-byte
+    word, a pattern's tail) needs no compare."""
+    r = hint_rows(p)
 
-    def held(bit, words):
-        return torch.where(active & ((flags & bit) != 0), words, 0)
-    hr, ur = p["hrows"], p["urows"]
-    return {"active": active, "port": p["meta"][:, 2],
-            "host": held(F_EXACT, _mask_words(hr[..., 0])) +
-            held(F_SUFFIX, _mask_words(hr[..., 2])),
-            "uri": held(F_URI, _mask_words(ur[..., 0]) +
-                        _mask_words(ur[..., 2]))}
+    def held(m):
+        return torch.where((m[:, 0] & POISON) != 0, 0, _mask_words(m))
+    return {"active": r["meta"][:, 3] == 1, "port": r["meta"][:, 1],
+            "host": held(r["me"]) + held(r["ms"]),
+            "uri": _mask_words(r["um"])}
 
 
 def cidr_slot_words(p: dict) -> dict:
-    """A packed cidr layout (tensors) -> `words`, int64 [n, 3]: per rule
-    row and pattern slot, the mask words with a bit (an IPv4 slot masks
-    one word, a v6 /48 two), 0 for an invalid slot; `v6`, bool [n, 3],
-    the slot's family; `min_port` / `max_port`, int32 [n]."""
-    x = p["meta"][:, 0].long()
-    s = torch.arange(3, device=x.device)
-    valid = ((x[:, None] >> s) & 1) == 1
-    words = _mask_words(p["rows"].reshape(-1, 3, 2, 4)[:, :, 0])
-    return {"words": torch.where(valid, words, 0),
-            "v6": ((x[:, None] >> (3 + s)) & 1) == 1,
-            "min_port": p["meta"][:, 1], "max_port": p["meta"][:, 2]}
+    """A packed cidr layout (tensors) -> `words`, int64 [n, 2]: per rule
+    (up to the last with a pattern) the mask words with a bit of its
+    valid slots of each family (column 0 IPv4, 1 IPv6: an IPv4 slot
+    masks one word, a v6 /48 two); `min_port` / `max_port`, int32 [n]
+    (0 for a rule with no pattern)."""
+    v4, v6 = p["v4"], p["v6"]
+    r4, r6 = v4[:, 2].long(), v6[:, 2, 0].long()
+    n = int(max(r4.max() if r4.numel() else -1,
+                r6.max() if r6.numel() else -1)) + 1
+    words = torch.zeros((n, 2), dtype=torch.int64, device=v4.device)
+    words[:, 0].index_add_(0, r4, (v4[:, 0] != 0).long())
+    words[:, 1].index_add_(0, r6, _mask_words(v6[:, 0]))
+    ports = torch.zeros(n, dtype=torch.int64, device=v4.device)
+    ports[r4] = v4[:, 3].long() & 0xFFFFFFFF
+    ports[r6] = v6[:, 2, 1].long() & 0xFFFFFFFF
+    return {"words": words, "min_port": (ports & 0xFFFF).int(),
+            "max_port": (ports >> 16).int()}
 
 
 class _DenseHintArgs(ctypes.Structure):
     """Mirror of `struct DenseHintArgs` (pointers, then ints)."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "q_host", "q_uri", "has_host", "has_uri", "port", "hrows",
-        "urows", "meta", "key", "done", "out_idx", "out_level")] + \
-        [(n, ctypes.c_int) for n in ("b", "n", "threads", "split")]
+        "q_host", "q_uri", "has_host", "has_uri", "port", "rows", "tiles",
+        "key", "done", "out_idx", "out_level")] + \
+        [(n, ctypes.c_int) for n in ("b", "n_tiles", "threads", "split",
+                                     "stage_vec", "q")]
 
 
 class _DenseCidrArgs(ctypes.Structure):
     """Mirror of `struct DenseCidrArgs` (pointers, then ints)."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "a16", "fam", "port", "rows", "meta", "out")] + \
-        [(n, ctypes.c_int) for n in ("b", "n", "threads", "split")]
+        "a16", "fam", "port", "v4", "v6", "out")] + \
+        [(n, ctypes.c_int) for n in ("b", "n4", "n6", "q", "split4",
+                                     "split6")]
 
 
 def build() -> str:
@@ -252,55 +365,111 @@ def _lib():
         return _LIB
 
 
-_HINT_SHAPES = {"hrows": (HOST_WORDS, 4), "urows": (URI_WORDS // 2, 4),
-                "meta": (4,)}
-_CIDR_SHAPES = {"rows": (6, 4), "meta": (4,)}
+_HINT_SHAPES = {"rows": (4,), "tiles": (4,)}
+_CIDR_SHAPES = {"v4": (4,), "v6": (3, 4)}
 
 
 def _prepare(p: dict, shapes: dict, what: str) -> PreparedDense:
     if isinstance(p, PreparedDense):
         return p
-    _lib()
-    dev = p["meta"].device
+    dev = next(iter(p.values())).device
     if dev.type == "cpu":  # the plain tier's, never the kernel's
         raise ValueError(f"{what} needs CUDA tensors, got {dev}")
-    n = p["meta"].shape[0]
     for k, tail in shapes.items():
         if k not in p:
             raise ValueError(f"{what}: missing {k!r}")
         FC._check(k, p[k], dev, torch.int32)
-        if tuple(p[k].shape) != (n, *tail):
-            raise ValueError(f"{what}: {k} must be [{n}, "
+        if tuple(p[k].shape[1:]) != tail:
+            raise ValueError(f"{what}: {k} must be [n, "
                              f"{', '.join(map(str, tail))}], got "
                              f"{tuple(p[k].shape)}")
-    t = PreparedDense(p)
-    t.device, t.n = dev, n
-    return t
+    _lib()
+    return PreparedDense(p)
+
+
+def _tile_table(p: dict) -> torch.Tensor:
+    """A hint layout's tile table on the host (int64), copied once at
+    publish."""
+    return p["tiles"].cpu().long()
 
 
 def prepare_hint(p: dict) -> PreparedDense:
     """Check a packed hint layout (pack_dense_hint_table, uploaded) once
-    for the kernel, and build + load the library. -> a PreparedDense
-    (`p` itself when it already is one). Raises KernelError when the
-    library cannot be built or loaded, ValueError on a bad layout."""
-    return _prepare(p, _HINT_SHAPES, "dense hint kernel")
+    for the kernel: every tile's chunk counts and rows inside `rows`
+    (read back from the tile table at publish), and build + load the
+    library. -> a PreparedDense (`p` itself when it already is one).
+    Raises KernelError when the library cannot be built or loaded,
+    ValueError on a bad layout."""
+    if isinstance(p, PreparedDense):
+        return p
+    t = _prepare(p, _HINT_SHAPES, "dense hint kernel")
+    tiles = _tile_table(p)
+    hc, uc = tiles[:, 1] & 0xFF, (tiles[:, 1] >> 8) & 0xFF
+    vec = _tile_vec(hc, uc)
+    if bool(((hc > HC_MAX) | (uc > UC_MAX) | (tiles[:, 0] < 0) |
+             (tiles[:, 0] + vec > p["rows"].shape[0])).any()):
+        raise ValueError("dense hint kernel: a tile lies outside its rows")
+    t.device, t.n_tiles = p["rows"].device, int(tiles.shape[0])
+    t.stage_vec = int(vec.max()) if tiles.shape[0] else TILE
+    return t
 
 
 def prepare_cidr(p: dict) -> PreparedDense:
     """The same for a packed cidr layout (pack_dense_cidr_table)."""
-    return _prepare(p, _CIDR_SHAPES, "dense cidr kernel")
+    if isinstance(p, PreparedDense):
+        return p
+    t = _prepare(p, _CIDR_SHAPES, "dense cidr kernel")
+    t.device, t.n4, t.n6 = p["v4"].device, p["v4"].shape[0], \
+        p["v6"].shape[0]
+    return t
 
 
-def grid(b: int, n: int) -> tuple:
-    """-> (threads per block, query tiles, rule range per block) of a
-    launch over b queries and n live rules: blocks of up to 4 warps of
-    queries, and rule ranges of at least MIN_SPLIT rules cut so the
-    launch has about TARGET_BLOCKS blocks."""
-    threads = min(MAX_THREADS, 32 * -(-max(b, 1) // 32))
-    tiles = -(-b // threads)
-    splits = max(1, min(-(-TARGET_BLOCKS // max(tiles, 1)),
-                        -(-n // MIN_SPLIT)))
-    return threads, tiles, max(1, -(-n // splits))
+def hint_grid(b: int, n_tiles: int) -> tuple:
+    """-> (threads per block, queries per thread Q, query tiles, tiles
+    per range) of a hint launch over b queries and n_tiles tiles: Q = 2
+    above MAX_THREADS queries, blocks of up to 4 warps, and tile ranges
+    cut so the launch has at most TARGET_BLOCKS[Q] blocks."""
+    q = 1 if b <= MAX_THREADS else 2
+    threads = min(MAX_THREADS, 32 * -(-max(b, 1) // (32 * q)))
+    tiles = -(-b // (threads * q))
+    ranges = max(1, min(TARGET_BLOCKS[q] // max(tiles, 1), n_tiles))
+    return threads, q, tiles, max(1, -(-n_tiles // ranges))
+
+
+def _cidr_shape(b: int, q: int, n4: int, n6: int) -> tuple:
+    threads = min(MAX_THREADS, 32 * -(-max(b, 1) // (32 * q)))
+    tiles = -(-b // (threads * q))
+    ranges = max(1, TARGET_BLOCKS["cidr1" if q == 1 else "cidr"] //
+                 max(tiles, 1))
+    per = max(1, -(-(n4 + 4 * n6) // ranges))
+    split4 = CTILE * max(1, -(-per // CTILE))
+    split6 = CTILE * max(1, -(-per // (4 * CTILE)))
+    return q, threads, tiles, split4, split6, -(-n4 // split4)
+
+
+def cidr_grid(b: int, n4: int, n6: int) -> tuple:
+    """-> (queries per thread Q, threads per block, query tiles, IPv4
+    entries per range, IPv6 entries per range, IPv4 ranges) of a cidr
+    launch: ranges of whole CTILE tiles cut so the launch has at most
+    about TARGET_BLOCKS["cidr"] blocks at Q = CIDR_Q (["cidr1"] at
+    Q = 1), an IPv6 entry counted as four IPv4 ones (its words). Q is
+    CIDR_Q past CIDR_Q x MAX_THREADS queries, and up to them too when
+    that launch still has a block a scheduler (132 x 4: a large table);
+    else 1 (a small batch or table: more blocks, each with less work,
+    hide the tiles' latency)."""
+    wide = _cidr_shape(b, CIDR_Q, n4, n6)
+    blocks = wide[2] * (wide[5] + -(-n6 // wide[4]))
+    if b > CIDR_Q * MAX_THREADS or (b > MAX_THREADS and blocks >= 132 * 4):
+        return wide
+    return _cidr_shape(b, 1, n4, n6)
+
+
+def grid(b: int, p: PreparedDense) -> tuple:
+    """The launch shape of a batch of b over a prepared layout
+    (hint_grid or cidr_grid)."""
+    if "tiles" in p:
+        return hint_grid(b, p.n_tiles)
+    return cidr_grid(b, p.n4, p.n6)
 
 
 def _packed(table: dict, what: str) -> PreparedDense:
@@ -341,18 +510,18 @@ def hint_dense_cuda(table: dict, q: dict):
         if tuple(q[k].shape) != shape:
             raise ValueError(f"dense hint kernel: {k} has shape "
                              f"{tuple(q[k].shape)}, want {shape}")
-    threads, tiles, split = grid(b, p.n)
+    threads, qn, tiles, split = hint_grid(b, p.n_tiles)
     # one fill: the per-query keys, then the tiles' tickets
-    scratch = torch.zeros(b + tiles, dtype=torch.int64, device=dev)
+    scratch = torch.zeros(b + tiles, dtype=torch.int32, device=dev)
     out = torch.empty((2, b), dtype=torch.int32, device=dev)
     a = _DenseHintArgs(
         q_host=q["host"].data_ptr(), q_uri=q["uri"].data_ptr(),
         has_host=q["has_host"].data_ptr(), has_uri=q["has_uri"].data_ptr(),
-        port=q["port"].data_ptr(), hrows=p["hrows"].data_ptr(),
-        urows=p["urows"].data_ptr(), meta=p["meta"].data_ptr(),
-        key=scratch.data_ptr(), done=scratch.data_ptr() + 8 * b,
-        out_idx=out[0].data_ptr(), out_level=out[1].data_ptr(),
-        b=b, n=p.n, threads=threads, split=split)
+        port=q["port"].data_ptr(), rows=p["rows"].data_ptr(),
+        tiles=p["tiles"].data_ptr(), key=scratch.data_ptr(),
+        done=scratch.data_ptr() + 4 * b, out_idx=out[0].data_ptr(),
+        out_level=out[1].data_ptr(), b=b, n_tiles=p.n_tiles,
+        threads=threads, split=split, stage_vec=p.stage_vec, q=qn)
     _launch("hint", a, dev)
     hint_dense_cuda.launches += 1
     return out[0], out[1]
@@ -381,13 +550,13 @@ def cidr_dense_cuda(table: dict, a16, fam, port=None):
             f"dense cidr kernel: want a16 [{b}, 16], fam [{b}], port [{b}];"
             f" got {tuple(a16.shape)}, {tuple(fam.shape)}, "
             f"{None if port is None else tuple(port.shape)}")
-    threads, _, split = grid(b, p.n)
+    q, _, _, split4, split6, _ = cidr_grid(b, p.n4, p.n6)
     out = torch.full((b,), -1, dtype=torch.int32, device=dev)
     a = _DenseCidrArgs(
         a16=a16.data_ptr(), fam=fam.data_ptr(),
         port=None if port is None else port.data_ptr(),
-        rows=p["rows"].data_ptr(), meta=p["meta"].data_ptr(),
-        out=out.data_ptr(), b=b, n=p.n, threads=threads, split=split)
+        v4=p["v4"].data_ptr(), v6=p["v6"].data_ptr(), out=out.data_ptr(),
+        b=b, n4=p.n4, n6=p.n6, q=q, split4=split4, split6=split6)
     _launch("cidr", a, dev)
     cidr_dense_cuda.launches += 1
     return out

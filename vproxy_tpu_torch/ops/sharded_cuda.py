@@ -73,7 +73,7 @@ class _ShardedHashArgs(ctypes.Structure):
     _fields_ = [("h", FC._FusedArgs), ("c", _CidrTable * 2),
                 ("a16", ctypes.c_void_p), ("fam", ctypes.c_void_p),
                 ("cport", ctypes.c_void_p * 2), ("keys", ctypes.c_void_p),
-                ("tickets", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("out", ctypes.c_void_p),
                 ("hstride", ctypes.c_longlong * len(HASH_STRIDED)),
                 ("cstride", (ctypes.c_longlong * len(CIDR_STRIDED)) * 2),
                 ("b", ctypes.c_int), ("ncols", ctypes.c_int),
@@ -84,8 +84,7 @@ class _ShardedHashArgs(ctypes.Structure):
 class _ShardedFpArgs(ctypes.Structure):
     """Mirror of `struct ShardedFpArgs` (csrc/sharded_match.cu)."""
     _fields_ = [("h", FPC._FpHintArgs), ("c", FPC._FpCidrArgs),
-                ("keys", ctypes.c_void_p), ("tickets", ctypes.c_void_p),
-                ("out", ctypes.c_void_p),
+                ("keys", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("hstride", ctypes.c_longlong * len(FPH_STRIDED)),
                 ("cstride", ctypes.c_longlong * len(FPC_STRIDED)),
                 ("b", ctypes.c_int), ("ncols", ctypes.c_int),
@@ -126,11 +125,11 @@ def _lib():
             lib.vproxy_sharded_hash.restype = ctypes.c_int
             lib.vproxy_sharded_hash.argtypes = [
                 ctypes.POINTER(_ShardedHashArgs), ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.vproxy_sharded_fp.restype = ctypes.c_int
             lib.vproxy_sharded_fp.argtypes = [
                 ctypes.POINTER(_ShardedFpArgs), ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_void_p]
             lib.vproxy_sharded_finish.restype = ctypes.c_int
             lib.vproxy_sharded_finish.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -342,8 +341,8 @@ def _check_shards(t: ShardedTable, s: int) -> None:
                          f"shards, the launch {s}")
 
 
-def _launch_hash(hint, cidr, b: int, s: int, s0: int, keys, tickets, out,
-                 dev) -> None:
+def _launch_hash(hint, cidr, b: int, ncols: int, s: int, s0: int, keys,
+                 out, dev, layout: int) -> None:
     a = _ShardedHashArgs()
     if hint is not None:
         t, q, size = hint
@@ -382,19 +381,19 @@ def _launch_hash(hint, cidr, b: int, s: int, s0: int, keys, tickets, out,
         a.size[col + i] = size
     if a16_fam is not None:
         a.a16, a.fam = a16_fam[0].data_ptr(), a16_fam[1].data_ptr()
-    a.keys, a.tickets = keys.data_ptr(), tickets.data_ptr()
+    a.keys = None if keys is None else keys.data_ptr()
     a.out = None if out is None else out.data_ptr()
-    a.b, a.ncols, a.s0 = b, keys.shape[1], s0
+    a.b, a.ncols, a.s0 = b, ncols, s0
     uri = hint is not None and hint[0].base.uri
     err = (_LIB or _lib()).vproxy_sharded_hash(
-        ctypes.byref(a), s, int(uri), dev.index or 0,
+        ctypes.byref(a), s, layout, int(uri), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise KernelError(f"sharded kernel launch failed: CUDA error {err}")
 
 
-def _launch_fp(hint, cidr, b: int, s: int, s0: int, keys, tickets, out,
-               dev) -> None:
+def _launch_fp(hint, cidr, b: int, ncols: int, s: int, s0: int, keys, out,
+               dev, layout: int) -> None:
     a = _ShardedFpArgs()
     if len(cidr) > 1:
         raise ValueError("sharded kernel: the fingerprint form answers one "
@@ -437,30 +436,37 @@ def _launch_fp(hint, cidr, b: int, s: int, s0: int, keys, tickets, out,
             out_stride=1, **t.base.ptrs, **t.base.ints)
         _strides(t, FPC_STRIDED, a.cstride)
         a.size[0 if hint is None else 1] = size
-    a.keys, a.tickets = keys.data_ptr(), tickets.data_ptr()
+    a.keys = None if keys is None else keys.data_ptr()
     a.out = None if out is None else out.data_ptr()
-    a.b, a.ncols, a.s0 = b, keys.shape[1], s0
+    a.b, a.ncols, a.s0 = b, ncols, s0
     err = (_LIB or _lib()).vproxy_sharded_fp(
-        ctypes.byref(a), s, dev.index or 0,
+        ctypes.byref(a), s, layout, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise KernelError(f"sharded kernel launch failed: CUDA error {err}")
 
 
-WARPS = 4  # queries per block (csrc/sharded_match.cu)
+# B8's layouts (csrc/sharded_match.cu `Layout`): the launcher's choice
+# by the batch, a query's shards over several warps, one warp a query
+# over every shard
+LAYOUTS = {"auto": 0, "split": 1, "interleaved": 2}
 
 
 @card_entry("sharded kernel")
 def sharded_cuda(hint=None, cidr: Sequence = (), s0: int = 0,
-                 finish: bool = True):
+                 finish: bool = True, layout: str = "auto"):
     """Launch B8 once over every local shard: `hint` a (ShardedTable,
     ShardQueries, shard_size) column or None, `cidr` up to two (the
     fingerprint form: one) (ShardedTable, a16, fam, port or None,
     shard_size) columns after it; s0 the global index of the tables'
-    first shard. -> int32 [B, ncols] answers, or with finish=False the
-    int64 [B, ncols] keys (for a reduction across ranks, then
-    finish_cuda). CUDA tensors only; raises KernelError unless it
-    launched (card_entry)."""
+    first shard; `layout` one of LAYOUTS ("auto" on every path; the
+    others for the checks and timings that hold both). -> int32 [B,
+    ncols] answers, or with finish=False the int64 [B, ncols] keys (for
+    a reduction across ranks, then finish_cuda). CUDA tensors only;
+    raises KernelError unless it launched (card_entry)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"sharded kernel: layout {layout!r}, want one of "
+                         f"{sorted(LAYOUTS)}")
     tabs = ([hint[0]] if hint is not None else []) + [c[0] for c in cidr]
     if not tabs:
         raise ValueError("sharded kernel: no column")
@@ -479,18 +485,14 @@ def sharded_cuda(hint=None, cidr: Sequence = (), s0: int = 0,
     b = (hint[1]["hp_slot"].shape[-2] if fp else hint[1]["hostb"].shape[0]) \
         if hint is not None else cidr[0][1].shape[0]
     ncols = len(tabs)
-    tiles = -(-b // WARPS)
-    # one fill: the keys, then the query tiles' tickets
-    scratch = torch.zeros(b * ncols + -(-tiles // 2), dtype=torch.int64,
-                          device=dev)
-    keys = scratch[:b * ncols].view(b, ncols)
-    tickets = scratch[b * ncols:]
-    out = torch.empty((b, ncols), dtype=torch.int32, device=dev) \
-        if finish else None
-    (_launch_fp if fp else _launch_hash)(hint, list(cidr), b, s, s0, keys,
-                                         tickets, out, dev)
+    # every (query, column) is written once: no fill before the launch
+    res = torch.empty((b, ncols), device=dev,
+                      dtype=torch.int32 if finish else torch.int64)
+    (_launch_fp if fp else _launch_hash)(
+        hint, list(cidr), b, ncols, s, s0, None if finish else res,
+        res if finish else None, dev, LAYOUTS[layout])
     sharded_cuda.launches += 1
-    return out if finish else keys
+    return res
 
 
 sharded_cuda.launches = 0  # every launch
