@@ -29,9 +29,11 @@ result. Phases, in order:
    limit as nvidia-smi reports them;
 2. build: nvcc of csrc/fused_classify_pick.cu, csrc/cidr_first.cu,
    csrc/fp_hint.cu, csrc/fp_cidr.cu, csrc/dense_match.cu,
-   csrc/maglev_take.cu and csrc/sharded_match.cu (B8: 8 cuckoo
-   instances, uri or uri-free by compare word, the fingerprint one and
-   the cross-rank finish pass), and g++ of the port's
+   csrc/maglev_take.cu and csrc/sharded_match.cu (B8: cuckoo instances
+   uri or uri-free by compare word and column set, the fingerprint
+   ones and the cross-rank finish pass; B6, B8 and B9's hint each with
+   instances of its Maglev column, B9 with its 64-bit key's), and g++
+   of the port's
    native/vtl.cpp (the host FD layer; it must
    load as the native provider, from vproxy_tpu_torch/_build/), all
    started together, with their seconds, and per kernel instance (B1:
@@ -134,13 +136,12 @@ result. Phases, in order:
    last entry;
 7c. fp service (the `fp_service` line): 4 x 512 submit_hint on the
    torch-fp HintMatcher, 4 x 512 submit_classify_pick on a FusedPair
-   over it (B6 plus the Maglev take: the backend fuses nothing), 4 x
-   512 SecurityGroup allow_async on the ACL and 4 x 512 submit_cidr on
-   the routes (phase 7's queries), "device" mode; every answer equal to
-   the host index (and phase 7's linear oracle for CIDR), one B6 launch
-   per hint or cpick batch, one Maglev take (B5, a kernel launch) per
-   cpick batch, one B7 launch per cidr batch, B1 / B3 / B4 never, no
-   failover;
+   over it (B6 with its Maglev column: one launch), 4 x 512
+   SecurityGroup allow_async on the ACL and 4 x 512 submit_cidr on the
+   routes (phase 7's queries), "device" mode; every answer equal to the
+   host index (and phase 7's linear oracle for CIDR), one B6 launch per
+   hint or cpick batch, no Maglev take (B5), one B7 launch per cidr
+   batch, B1 / B3 / B4 never, no failover;
 7d. tcplb_fp (the `tcplb_fp` line): phase 5b's http-splice LB with
    VPROXY_TPU_MATCHER=jax-fp, 256 groups, one burst of 512 connections
    (and the keep-alive burst): every backend equal to the host index's
@@ -157,15 +158,20 @@ result. Phases, in order:
    host suffix and an over-long host query, the boundary sets;
    dense_cidr_cases: mixed families, v4-mapped v6 among them);
    classify_all's five outputs (B9 three times) against the plain
-   tier; B5 against torch indexing and maglev.pick with slots past both
-   ends, at every B;
+   tier; B6 and B9's hint with their Maglev column against their plain
+   versions at every B (maglev_column: slots past both ends); a
+   "torch-dense" table whose live rules lie past 2^20 (dense_wide_check:
+   the 64-bit key) against the plain version and the host index; B5
+   against torch indexing and maglev.pick with slots past both ends, at
+   every B;
 7d3. dense service (the `dense_service` line): 4 x 512 each of
-   submit_hint, submit_classify_pick (a FusedPair: B9 plus B5),
-   SecurityGroup allow_async and submit_cidr on the dense tables,
-   "device" mode; every answer equal to the host index (and phase 7's
-   linear oracle for CIDR); one B9 launch per hint or cidr batch, one
-   B9 and one B5 per cpick batch, B1 / B3 / B4 / B6 / B7 never, no
-   fused dispatch, no failover, B9's plain tier never on the card;
+   submit_hint, submit_classify_pick (a FusedPair: B9 with its Maglev
+   column), SecurityGroup allow_async and submit_cidr on the dense
+   tables, "device" mode; every answer equal to the host index (and
+   phase 7's linear oracle for CIDR); one B9 launch per batch, no B5,
+   B1 / B3 / B4 / B6 / B7 never, no fused dispatch, no failover, B9's
+   plain tier never on the card; then (the `maglev` line) standalone
+   Maglev batches, B5's main path: one B5 launch each;
 7e. control (the `control` line): the port as an operator runs it.
    `python -m vproxy_tpu_torch` boots in a child process (temporary
    VPROXY_TPU_HOME, "device" classify mode) with a resp-controller, an
@@ -222,8 +228,14 @@ result. Phases, in order:
    configurations (a) and (b), full size (the matchers take the
    workers' compiles: worker_compiles), 4 x 512 of each of
    hint, cpick and cidr (routes, and the ACL with ports), every answer
-   the host index's, one B8 launch a batch and B5 a cpick batch, no
-   other kernel, each matcher's checksum the unsharded one's; then
+   the host index's, one B8 launch a batch (a cpick batch's with its
+   Maglev column), no B5 and no other kernel, each matcher's checksum
+   the unsharded one's; B8 with its Maglev column checked at every
+   bucket in every layout and on the keys path; then (the `cpick`
+   line) one classify+pick batch of 512 on each unfused backend both
+   ways, one launch and the parent's two-dispatch chain: equal, and
+   each one's device time (kernels, copies, memsets counted) and wall
+   ms; then
    two cluster nodes (phase_cluster): the leader builds upstream u0 by
    command (config #2's rules until 10 s), the follower converges to
    its generation and checksum and refuses a mutation, each node's
@@ -250,27 +262,30 @@ result. Phases, in order:
    CidrMatcher.match round trip); and for B6 (100k table), B7 (routes,
    ACL) and classify_fp_all (its 3 launches summed), with their plain
    tiers, bounds and designs (the 155.7 MB slot table is three times
-   the L2: a warm time there is not an all-L2 time), and the Maglev take
-   (B5) every unfused cpick batch runs (the `b5_take` line: the kernel
-   alone, with its slots' host-to-device copy, and torch indexing, its
-   plain version and library yardstick); and for B9 on the 100k hint
-   table, the routes, the ACL and classify_all (its 3 launches summed)
-   with their plain tiers, bounds (dense_hint_work / dense_cidr_work)
-   and the count step's GEMM alone (dense_library_ms);
+   the L2: a warm time there is not an all-L2 time), B6 with its Maglev
+   column beside it, and the Maglev take (B5) of a standalone Maglev
+   batch (the `b5_take` line: the kernel alone, with its slots'
+   host-to-device copy, and torch indexing, its plain version and
+   library yardstick); and for B9 on the 100k hint table (and with its
+   Maglev column), the routes, the ACL and classify_all (its 3 launches
+   summed) with their plain tiers, bounds (dense_hint_work /
+   dense_cidr_work) and the count step's GEMM alone (dense_library_ms);
 10. the `phase_s` line (wall seconds per phase), the {"kernels": [...]}
    line (B1, B1 with the route column, B4, B3, B6, B7, B5, B9, B8;
    B1's launches include the cluster step loops', B4's and B7's the
-   `switch` phase's, B5's the fp, dense and sharded services'),
+   `switch` phase's, B6's, B9's and B8's the cpick batches' (with
+   their Maglev column), B5's the standalone Maglev batches'),
    then the card's line, then the device line.
 
 Any failed phase raises, and the script exits non-zero.
 
-    python3 chip_smoke.py --ab DIR [OUT]
+    python3 chip_smoke.py --ab DIR [OUT [PARTS]]
 
 times B6, B7, classify_fp_all, B9 (hint, routes, ACL) and B8 (S = 4 and
 S = 1, every kind and column) of this checkout against a parent commit
 unpacked in DIR (`git archive <parent> | tar -x -C DIR`: its kernel
-sources, and for B9 and B8 its packers and wrappers), in one process on
+sources, packers and wrappers, each with its own argument structs), in
+one process on
 the same tables and batches, in turns (parent, change, change, parent),
 warm and cold, after holding both to the plain tier (the `ab` line;
 every row also to the JSON file OUT).
@@ -337,6 +352,14 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip smoke failed: {what}")
+
+
+def lat_ms(xs) -> dict:
+    """submit -> delivery seconds -> {"n", "p50_ms", "p99_ms"}."""
+    if not xs:
+        return {"n": 0}
+    return {"n": len(xs), "p50_ms": pct(xs, 50) * 1e3,
+            "p99_ms": pct(xs, 99) * 1e3}
 
 
 def pct(xs, q):
@@ -1184,17 +1207,29 @@ def phase_env() -> str:
 def instance(mangled: str) -> str:
     """A kernel's mangled name -> "uri W=16" and the like for
     fused_kernel<URI, W, PICK> (B1), "B3 uri W=16" for its verdict-only
-    instances (PICK false), "B4" for the CIDR kernel, "B6" and "B7" for
-    the fingerprint kernels, "B9 hint Q=2" and "B9 cidr Q=4" and the
-    like for the dense ones, "B5" for the Maglev take, "B8 uri W=16
-    hint+cidr" and the like for sharded_hash_kernel<URI, W, HINT,
-    CIDR>, "B8 fp hint" and the like for sharded_fp_kernel<HINT, CIDR>
-    and "B8 finish" for B8's last pass."""
+    instances (PICK false), "B4" for the CIDR kernel, "B6" / "B6 pick"
+    and "B7" for the fingerprint kernels, "B9 hint Q=2", "B9 hint Q=2
+    wide pick" and "B9 cidr Q=4" and the like for the dense ones, "B5"
+    for the Maglev take, "B8 uri W=16 hint+cidr" and the like for
+    sharded_hash_kernel<URI, W, HINT, CIDR> ("B8 uri W=16 hint pick" for
+    sharded_hash_kernel_pick<URI, W>), "B8 fp hint" and the like for
+    sharded_fp_kernel<HINT, CIDR> ("B8 fp hint pick" for
+    sharded_fp_kernel_pick) and "B8 finish" for B8's last pass ("pick":
+    the Maglev column)."""
     cols = {"10": " hint", "01": " cidr", "11": " hint+cidr"}
     m = re.search(r"sharded_fp_kernelILb([01])ELb([01])E", mangled)
     if m:
         return "B8 fp" + cols[m.group(1) + m.group(2)]
-    m = re.search(r"dense_hint_kernelILi(\d)E", mangled)
+    if "sharded_fp_kernel_pick" in mangled:
+        return "B8 fp hint pick"
+    if "fp_hint_kernel_pick" in mangled:
+        return "B6 pick"
+    m = re.search(r"dense_hint_kernel(_pick)?ILi(\d)ELb([01])E", mangled)
+    if m:
+        return (f"B9 hint Q={m.group(2)}"
+                f"{' wide' if m.group(3) == '1' else ''}"
+                f"{' pick' if m.group(1) else ''}")
+    m = re.search(r"dense_hint_kernelILi(\d)E", mangled)  # a parent's
     if m:
         return f"B9 hint Q={m.group(1)}"
     m = re.search(r"dense_cidr_kernelILi(\d)E", mangled)
@@ -1206,11 +1241,12 @@ def instance(mangled: str) -> str:
                          ("sharded_finish_kernel", "B8 finish")):
         if kernel in mangled:
             return name
-    m = re.search(r"sharded_hash_kernelILb([01])ELi(\d+)ELb([01])ELb([01])E",
-                  mangled)
+    m = re.search(r"sharded_hash_kernel(_pick)?ILb([01])ELi(\d+)E"
+                  r"(?:Lb([01])ELb([01])E)?", mangled)
     if m:
-        return (f"B8 {'uri' if m.group(1) == '1' else 'uri-free'} "
-                f"W={m.group(2)}{cols[m.group(3) + m.group(4)]}")
+        return (f"B8 {'uri' if m.group(2) == '1' else 'uri-free'} "
+                f"W={m.group(3)}"
+                f"{' hint pick' if m.group(1) else cols[m.group(4) + m.group(5)]}")
     m = re.search(r"fused_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
     if not m:
         return mangled
@@ -1285,11 +1321,14 @@ def phase_build() -> dict:
         f" from {os.path.relpath(vtl.SOURCE, os.path.dirname(vtl.BUILD_DIR))}"
         f", provider {vtl.PROVIDER}")
     out = {"vtl": {"build_s": secs}}
-    # sharded: (uri, uri-free) x 4 words x (hint, hint + cidr) + cidr
-    # alone, 3 fingerprint column sets, the finish pass
-    for lib_name, want in (("fused", 16), ("cidr", 1), ("fp_hint", 1),
-                           ("fp_cidr", 1), ("dense", 4), ("take", 1),
-                           ("sharded", 21)):
+    # fp_hint: B6 and its Maglev column's instance; dense: hint Q = 1, 2
+    # x (32-bit, wide key) x (verdict, pick) + cidr Q = 1, 4; sharded:
+    # (uri, uri-free) x 4 words x (hint, hint + pick, hint + cidr) + cidr
+    # alone, 4 fingerprint column sets (hint + pick among them), the
+    # finish pass
+    for lib_name, want in (("fused", 16), ("cidr", 1), ("fp_hint", 2),
+                           ("fp_cidr", 1), ("dense", 10), ("take", 1),
+                           ("sharded", 30)):
         lib, secs = built[lib_name]
         log(f"build: {lib_name} {secs:.2f} s -> {os.path.basename(lib)}")
         kern = _ptxas(lib)
@@ -1459,16 +1498,20 @@ def phase_kernel_vs_plain(device):
     return err, b3_err, keep
 
 
-def _answers(svc, submit, payloads):
-    """Submit one burst and wait for every callback. -> results list."""
+def _answers(svc, submit, payloads, lat=None):
+    """Submit one burst and wait for every callback. -> results list.
+    `lat`: a list that gets each row's submit -> delivery seconds."""
     out = [None] * len(payloads)
     done = threading.Event()
     left = [len(payloads)]
     lock = threading.Lock()
+    t_sub = [0.0] * len(payloads)
 
     def cb_for(i):
         def cb(*res):
             out[i] = res[:-1]
+            if lat is not None:
+                lat.append(time.monotonic() - t_sub[i])
             with lock:
                 left[0] -= 1
                 if left[0] == 0:
@@ -1476,6 +1519,7 @@ def _answers(svc, submit, payloads):
         return cb
 
     for i, p in enumerate(payloads):
+        t_sub[i] = time.monotonic()
         submit(*p, cb_for(i))
     check(done.wait(120), "a burst was not answered within 120 s")
     return out
@@ -4476,10 +4520,58 @@ def fp_hint_batch(tab, hints, b: int, device) -> dict:
     return tables_from_reference(q, device)
 
 
-def b6_vs_plain(name, t, q, device) -> int:
+def maglev_column(b: int, device, seed: int, pad: int = 0) -> tuple:
+    """A Maglev column for a kernel's check: the MAGLEV_M-slot table of
+    BACKENDS backends on `device` and b int64 flow slots
+    (maglev.flow_slots of seeded flows, every third without a port:
+    source affinity, the rest with), one in sixteen past each end of
+    the table (the clamp), the last `pad` rows slot 0 as the engine
+    pads them. -> (mtab int32 [M], slots int64 [b])."""
+    from vproxy_tpu_torch.rules import maglev as M
+    key = (str(device), MAGLEV_M)
+    if key not in _MAGLEV:
+        _MAGLEV[key] = torch.from_numpy(M.build_table(
+            backends(), MAGLEV_M)).to(device)
+    mtab = _MAGLEV[key]
+    real = b - pad
+    slots = M.flow_slots(MAGLEV_M, mk_ips(real, seed=seed), [
+        None if i % 3 == 0 else 1024 + i for i in range(real)])
+    rng = np.random.default_rng(seed)
+    k = max(1, real // 16)
+    at = rng.choice(real, size=min(real, 2 * k), replace=False)
+    slots[at[:k]] = -rng.integers(1, 1 << 40, size=at[:k].size)
+    slots[at[k:]] = MAGLEV_M + rng.integers(0, 1 << 40, size=at[k:].size)
+    slots = np.concatenate([slots, np.zeros(pad, np.int64)])
+    return mtab, torch.from_numpy(slots).to(device)
+
+
+_MAGLEV: dict = {}  # maglev_column's tables, one a device
+
+
+def pick_vs_plain(what: str, got, ref, verdict, mcol) -> int:
+    """A folded kernel's (verdict, pick) rows against its plain version
+    (int32-exact), its verdict column against the verdict-only launch's
+    answers, and its pick column against the host table clipped (the
+    one slot-hash contract's take). -> max |kernel - plain|."""
+    mtab, slots = mcol
+    check(got.dtype == ref.dtype == torch.int32 and got.shape == ref.shape
+          == (slots.shape[0], 2), f"{what}: (verdict, pick) dtype or shape "
+          f"{got.dtype} {tuple(got.shape)}")
+    d = int((got.long() - ref.long()).abs().max())
+    clip = mtab.cpu().numpy()[np.clip(slots.cpu().numpy(), 0,
+                                      mtab.shape[0] - 1)]
+    check(torch.equal(got, ref) and torch.equal(got[:, 0], verdict.to(
+        torch.int32)) and np.array_equal(got[:, 1].cpu().numpy(), clip),
+          f"{what}: the Maglev column's rows != plain, the verdict-only "
+          f"launch or the host table (max_abs_err {d})")
+    return d
+
+
+def b6_vs_plain(name, t, q, device, mcol=None) -> int:
     """B6 against fphash.hint_fp_match on the same tensors, int32-equal
-    in index and level (on CPU tensors the plain tier against itself).
-    -> max |kernel - plain|."""
+    in index and level (on CPU tensors the plain tier against itself);
+    with `mcol` (maglev_column) also B6 with its Maglev column against
+    its plain version (hint_fp_pick_plain). -> max |kernel - plain|."""
     from vproxy_tpu_torch.ops import fphash as FP
     from vproxy_tpu_torch.ops import fphash_cuda as FPC
     ri, rl = FP.hint_fp_match(t, q)
@@ -4487,6 +4579,12 @@ def b6_vs_plain(name, t, q, device) -> int:
     _sync(device)
     d = max(int((gi.long() - ri.long()).abs().max()),
             int((gl.long() - rl.long()).abs().max()))
+    if mcol is not None:
+        ref = FPC.hint_fp_pick_plain(t, q, *mcol)
+        got = FPC.hint_fp_cuda(t, q, mtab=mcol[0], slots=mcol[1]) \
+            if device.type == "cuda" else ref
+        _sync(device)
+        d = max(d, pick_vs_plain(f"B6 pick [{name}]", got, ref, ri, mcol))
     log(f"B6 vs plain [{name}]: b {gi.shape[0]} P {q['hp_slot'].shape[1]} "
         f"U {q['up_slot'].shape[1]} um={'um_fp1' in q} E x M "
         f"{tuple(t['h_em'].shape)} / {tuple(t['u_em'].shape)} matched "
@@ -4707,7 +4805,8 @@ def fp_cidr_cases():
 def phase_fp_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
     """B6 and B7 int32-exact against their plain versions: B6 on the
     published 100k table (uri rules) and a 100k host-only table at every
-    B of `batches`, an eighth of each batch pad rows, and on
+    B of `batches`, an eighth of each batch pad rows, with and without
+    its Maglev column (maglev_column: slots past both ends), and on
     fp_hint_cases (+8 pad rows); B7 on config #4's routes (trie + V6
     groups) and ACL (the touch limit: V4 and V6 groups; ports and None)
     at every B (v4, ::v4, ::ffff:v4, v6 and pad rows), and on
@@ -4734,8 +4833,9 @@ def phase_fp_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
             q = fp_hint_batch(tab, mk_queries(rules, b - b // 8,
                                               seed=900 + b), b, device)
             um_seen.add("um_fp1" in q)
-            b6 = max(b6, b6_vs_plain(f"{name} B={b}, {b // 8} pad rows", t,
-                                     q, device))
+            b6 = max(b6, b6_vs_plain(
+                f"{name} B={b}, {b // 8} pad rows", t, q, device,
+                maglev_column(b, device, 960 + b, b // 8)))
             design["b6"][f"{name} B={b}"] = fp_hint_design(t, q)
     for name, rules, hints in fp_hint_cases():
         tab = FP.compile_hint_fp(rules)
@@ -4826,12 +4926,13 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
     """The fingerprint backend's main path through ClassifyService in
     "device" mode: bursts x burst submit_hint on the torch-fp
     HintMatcher, as many submit_classify_pick on the FusedPair over it
-    (B6 plus the Maglev take: the backend fuses nothing), SecurityGroup
+    (B6 with its Maglev column: one launch a batch), SecurityGroup
     allow_async on config #4's ACL and submit_cidr on the 50k routes.
     Every answer equal to the host index (CidrIndex and the linear
     oracle_snap for CIDR, in worker processes); one B6 launch per hint
-    or cpick batch and one Maglev take (B5) per cpick batch, one B7
-    launch per cidr batch, B1 / B3 / B4 never, no failover. The CIDR
+    or cpick batch (the cpick ones with the Maglev column), no Maglev
+    take (B5) and no `_device_take` call, one B7 launch per cidr batch,
+    B1 / B3 / B4 never, no failover. The CIDR
     queries and their linear-oracle answers are
     phase 7's (`cidr_oracle`, from phase_cidr_service, over the same rule
     lists; the scan of 50k routes takes minutes of CPU); without it the
@@ -4876,8 +4977,10 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
     try:
         # the main path's counts, read just after it
         FPC.hint_fp_cuda.launches = FPC.cidr_fp_cuda.launches = 0
+        FPC.hint_fp_cuda.pick_launches = 0
         FP.hint_fp_match.cuda_calls = M._device_take.calls = 0
         TC.maglev_take_cuda.launches = 0
+        lat = []
         f0, l0 = E.fused_dispatches_total(), E.dispatch_launches_total()
         t0 = time.monotonic()
         for k in range(bursts):
@@ -4896,7 +4999,8 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
                      for i in range(burst)]
             got = _answers(
                 svc, lambda h, ip, port, cb: svc.submit_classify_pick(
-                    pair, h, ip, port, cb), list(zip(hints, ips, ports)))
+                    pair, h, ip, port, cb), list(zip(hints, ips, ports)),
+                lat)
             for i in range(burst):
                 want = (hm.index_snap(hsnap, hints[i]),
                         M.pick(msnap[0], ips[i], ports[i]))
@@ -4910,6 +5014,7 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
             routes, a, p, cb), q) for q in rqs]
         cidr_s = time.monotonic() - t0
         launches = {"hint_fp": FPC.hint_fp_cuda.launches,
+                    "hint_fp_pick": FPC.hint_fp_cuda.pick_launches,
                     "cidr_fp": FPC.cidr_fp_cuda.launches}
         takes = M._device_take.calls
         b5 = TC.maglev_take_cuda.launches
@@ -4925,10 +5030,12 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
               and batches["hint"] > 0 and batches["cpick"] > 0,
               f"B6 launches {launches['hint_fp']} != hint + cpick "
               f"batches {batches}")
-        check(takes == batches["cpick"] and b5 == (
-            batches["cpick"] if on_card else 0),
-              f"Maglev takes {takes}, B5 launches {b5} != cpick batches "
-              f"{batches}")
+        check(launches["hint_fp_pick"] == (batches["cpick"] if on_card
+                                           else 0),
+              f"B6 launches with the Maglev column "
+              f"{launches['hint_fp_pick']} != cpick batches {batches}")
+        check(takes == 0 and b5 == 0, f"a cpick batch took the Maglev "
+              f"take: {takes} _device_take calls, {b5} B5 launches")
         check(launches["cidr_fp"] == (batches["cidr"] if on_card else 0)
               and batches["cidr"] > 0,
               f"B7 launches {launches['cidr_fp']} != cidr batches "
@@ -4936,8 +5043,8 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
         check(E.fused_dispatches_total() == f0,
               "an fp cpick batch took the fused dispatch")
         check(E.dispatch_launches_total() - l0 == batches["hint"] +
-              2 * batches["cpick"] + batches["cidr"],
-              "engine launches != hint + 2 x cpick + cidr batches")
+              batches["cpick"] + batches["cidr"],
+              "engine launches != hint + cpick + cidr batches")
         check([f.launches for f in others] == other0,
               "the fp path launched B1, B3 or B4")
         check(FP.hint_fp_match.cuda_calls == 0,
@@ -4947,6 +5054,7 @@ def phase_fp_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
                "maglev_take_launches": b5, "failovers": st.failovers,
                "max_batch": st.max_batch, "hint_wall_s": hint_s,
                "cpick_wall_s": cpick_s, "cidr_wall_s": cidr_s,
+               "cpick_latency": lat_ms(lat),
                "classify_latency": st.latency_percentiles()}
         log(f"fp service: {json.dumps(out)}")
     finally:
@@ -5049,16 +5157,18 @@ def phase_fp_times(device, tabs):
     with what the previous launch of the same batch left in L2, not an
     all-L2 time. Each B6 / B7 row carries its batch's design
     (fp_hint_design / fp_cidr_design); b5_row times the Maglev take
-    beside them. -> {"B6": rows, "B7 routes": rows, "B7 ACL": rows,
-    "classify_fp_all": rows, "B5": rows}."""
+    beside them, and B6 with its Maglev column beside B6 (maglev_column;
+    its bound adds pick_bytes). -> {"B6": rows, "B6 pick": rows, "B7
+    routes": rows, "B7 ACL": rows, "classify_fp_all": rows, "B5":
+    rows}."""
     from vproxy_tpu_torch.ops import fphash as FP
     from vproxy_tpu_torch.ops import fphash_cuda as FPC
     hsnap = tabs["hm"].snapshot()
     rt, at = tabs["routes"].snapshot()[0], tabs["am"].snapshot()[0]
     saved = (FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    out = {"B6": [], "B7 routes": [], "B7 ACL": [], "classify_fp_all": [],
-           "B5": []}
+    out = {"B6": [], "B6 pick": [], "B7 routes": [], "B7 ACL": [],
+           "classify_fp_all": [], "B5": []}
     for b in TIME_BATCHES:
         q = fp_hint_batch(hsnap[0], mk_queries(tabs["rules"], b, 2600 + b),
                           b, device)
@@ -5068,6 +5178,15 @@ def phase_fp_times(device, tabs):
         row["design"] = fp_hint_design(hsnap[1], q)
         out["B6"].append(row)
         log("times B6 " + json.dumps(row))
+        mcol = maglev_column(b, device, 2650 + b)
+        w = fp_hint_work(hsnap[1], q)
+        row = time_row(b, lambda: FPC.hint_fp_cuda(hsnap[1], q, mtab=mcol[0],
+                                                   slots=mcol[1]),
+                       lambda: FPC.hint_fp_pick_plain(hsnap[1], q, *mcol),
+                       KERNEL_B6, flush,
+                       (w[0] + pick_bytes(b, mcol[1]), w[1]))
+        out["B6 pick"].append(row)
+        log("times B6 pick " + json.dumps(row))
         for label, t, queries in (
                 ("B7 routes", rt, [(a, None) for a, _ in cidr_queries(
                     tabs["nets"], b, 2700 + b)]),
@@ -5148,55 +5267,23 @@ def _parent_csrc(parent_dir: str) -> str:
     return os.path.join(parent_dir, "vproxy_tpu_torch", "csrc")
 
 
-def _parent_lib(kind: str, parent_dir: str):
-    """The parent commit's B6 ("hint") or B7 ("cidr") built from its
-    source in parent_dir and loaded as ops/fphash_cuda.py loads this
-    checkout's (the same argument struct, checked by size)."""
-    import ctypes
-    from vproxy_tpu_torch.ops import fphash_cuda as FPC
-    from vproxy_tpu_torch.ops import fused_cuda as FC
-    path = FC.build_library(os.path.join(_parent_csrc(parent_dir),
-                                         f"fp_{kind}.cu"),
-                            f"libfp{kind}_parent", "fp")
-    lib = ctypes.CDLL(path)
-    args = FPC._FpHintArgs if kind == "hint" else FPC._FpCidrArgs
-    size = getattr(lib, f"vproxy_fp_{kind}_args_size")
-    size.restype = ctypes.c_int
-    fn = getattr(lib, f"vproxy_fp_{kind}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(args), ctypes.c_int, ctypes.c_void_p]
-    check(size() == ctypes.sizeof(args), f"parent {kind} ABI differs")
-    log(f"build: parent fp_{kind}.cu -> {os.path.basename(path)}")
-    return lib, path
-
-
 def phase_fp_ab(device, tabs, parent_dir: str) -> list:
     """B6 and B7 of this checkout against the parent commit's (its
-    fp_hint.cu and fp_cidr.cu in parent_dir) on the same tables and
-    batches as phase_fp_times, in turns (parent, change, change,
-    parent), warm and cold (256 MB written before each launch), at
-    every TIME_BATCHES; both held int32-equal to the plain tier first.
-    -> rows."""
+    fphash_cuda.py, fp_hint.cu and fp_cidr.cu in parent_dir, with their
+    own argument structs) on the same tables and batches as
+    phase_fp_times, in turns (parent, change, change, parent), warm and
+    cold (256 MB written before each launch), at every TIME_BATCHES;
+    both held int32-equal to the plain tier first. -> rows."""
     from vproxy_tpu_torch.ops import fphash as FP
     from vproxy_tpu_torch.ops import fphash_cuda as FPC
-    libs = {k: _parent_lib(k, parent_dir) for k in ("hint", "cidr")}
-    for k, (_, path) in libs.items():
-        for name, inst in _ptxas(path).items():
-            log(f"  ptxas: parent {name}: {inst}")
+    P = parent_module(parent_dir, "fphash_cuda")
     hsnap = tabs["hm"].snapshot()
     rt, at = tabs["routes"].snapshot()[0], tabs["am"].snapshot()[0]
+    old_t = {"hint": P.prepare_hint_table(dict(hsnap[1])),
+             "routes": P.prepare_cidr_table(dict(rt)),
+             "acl": P.prepare_cidr_table(dict(at))}
     saved = (FPC.hint_fp_cuda.launches, FPC.cidr_fp_cuda.launches)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-
-    def parent(fn, kinds):
-        def run():
-            own = {k: FPC._LIBS[k] for k in kinds}
-            FPC._LIBS.update({k: libs[k][0] for k in kinds})
-            try:
-                return fn()
-            finally:
-                FPC._LIBS.update(own)
-        return run
 
     rows = []
     for b in TIME_BATCHES:
@@ -5206,20 +5293,24 @@ def phase_fp_ab(device, tabs, parent_dir: str) -> list:
             tabs["nets"], b, 2700 + b)], b, device)
         aq = cidr_batch(acl_queries(tabs["acl"], b, 2800 + b), b, device)
         cases = (
-            ("B6", KERNEL_B6, 1, ("hint",),
+            ("B6", KERNEL_B6, 1,
              lambda: FPC.hint_fp_cuda(hsnap[1], q),
+             lambda: P.hint_fp_cuda(old_t["hint"], q),
              lambda: FP.hint_fp_match(hsnap[1], q)),
-            ("B7 routes", KERNEL_B7, 1, ("cidr",),
+            ("B7 routes", KERNEL_B7, 1,
              lambda: FPC.cidr_fp_cuda(rt, *rq),
+             lambda: P.cidr_fp_cuda(old_t["routes"], *rq),
              lambda: FP.cidr_fp_match(rt, *rq)),
-            ("B7 ACL", KERNEL_B7, 1, ("cidr",),
+            ("B7 ACL", KERNEL_B7, 1,
              lambda: FPC.cidr_fp_cuda(at, *aq),
+             lambda: P.cidr_fp_cuda(old_t["acl"], *aq),
              lambda: FP.cidr_fp_match(at, *aq)),
-            ("classify_fp_all", "fp_", 3, ("hint", "cidr"),
+            ("classify_fp_all", "fp_", 3,
              lambda: FPC.classify_fp_all(hsnap[1], rt, at, q, *aq),
+             lambda: P.classify_fp_all(old_t["hint"], old_t["routes"],
+                                       old_t["acl"], q, *aq),
              lambda: FP.classify_fp_all(hsnap[1], rt, at, q, *aq)))
-        for label, name, n, kinds, kern, plain in cases:
-            old = parent(kern, kinds)
+        for label, name, n, kern, old, plain in cases:
             ref = plain()
             check(same(kern(), ref) and same(old(), ref),
                   f"{label} (this checkout or the parent) != plain at B={b}")
@@ -5242,12 +5333,11 @@ def phase_fp_ab(device, tabs, parent_dir: str) -> list:
     return rows
 
 
-def parent_module(parent_dir: str, name: str):
-    """The parent checkout's vproxy_tpu_torch/ops/<name>.py loaded beside
-    this checkout's, as vproxy_tpu_torch.ops._parent_<name>: its relative
-    imports take this checkout's other modules, its kernel source and
-    headers are the parent's (SOURCE / HEADERS pointed at DIR), its
-    launch counters its own."""
+def _parent_load(parent_dir: str, name: str):
+    """The parent checkout's vproxy_tpu_torch/ops/<name>.py executed as
+    vproxy_tpu_torch.ops._parent_<name>, every kernel source and header
+    path of it (SOURCE*, HEADER*, HEADERS) pointed at the parent's csrc;
+    nothing built."""
     import importlib.util
     csrc = _parent_csrc(parent_dir)
     spec = importlib.util.spec_from_file_location(
@@ -5255,13 +5345,40 @@ def parent_module(parent_dir: str, name: str):
         os.path.join(parent_dir, "vproxy_tpu_torch", "ops", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.SOURCE = os.path.join(csrc, os.path.basename(mod.SOURCE))
+    for k, v in list(vars(mod).items()):
+        if k.startswith(("SOURCE", "HEADER")) and isinstance(v, str):
+            setattr(mod, k, os.path.join(csrc, os.path.basename(v)))
     if hasattr(mod, "HEADERS"):
         mod.HEADERS = tuple(os.path.join(csrc, os.path.basename(h))
                             for h in mod.HEADERS)
-    path = mod.build()
-    for name_, inst in _ptxas(path).items():
-        log(f"  ptxas: parent {name_}: {inst}")
+    return mod
+
+
+def parent_module(parent_dir: str, name: str, deps=()):
+    """The parent checkout's vproxy_tpu_torch/ops/<name>.py loaded beside
+    this checkout's (_parent_load), then built: its relative imports
+    take this checkout's other modules but `deps`, which take the
+    parent's own copies while it loads (a module whose ctypes mirrors
+    embed another's argument struct must embed the parent's); its
+    launch counters are its own."""
+    import sys
+    pkg = sys.modules["vproxy_tpu_torch.ops"]
+    own = {d: sys.modules[f"vproxy_tpu_torch.ops.{d}"] for d in deps}
+    try:
+        for d in deps:
+            m = _parent_load(parent_dir, d)
+            sys.modules[f"vproxy_tpu_torch.ops.{d}"] = m
+            setattr(pkg, d, m)
+        mod = _parent_load(parent_dir, name)
+    finally:
+        for d, m in own.items():
+            sys.modules[f"vproxy_tpu_torch.ops.{d}"] = m
+            setattr(pkg, d, m)
+    for build in ("build", "build_hint", "build_cidr"):
+        if hasattr(mod, build):
+            path = getattr(mod, build)()
+            for name_, inst in _ptxas(path).items():
+                log(f"  ptxas: parent {name_}: {inst}")
     return mod
 
 
@@ -5346,7 +5463,8 @@ def phase_sharded_ab(device, tabs, parent_dir: str) -> list:
     S = 1, B = 16 / 512 / 4096; the parent's tables are the same stacked
     tensors prepared by its own module. -> rows."""
     from vproxy_tpu_torch.ops import sharded_cuda as SC
-    P = parent_module(parent_dir, "sharded_cuda")
+    # its B6 / B7 argument structs are the parent's (fphash_cuda)
+    P = parent_module(parent_dir, "sharded_cuda", deps=("fphash_cuda",))
     prep = {"hint": P.prepare_hint, "cidr": P.prepare_cidr,
             "fp_hint": P.prepare_fp_hint, "fp_cidr": P.prepare_fp_cidr}
     for (kind, s), t in [(k, v) for k, v in tabs.items()
@@ -5363,8 +5481,10 @@ def phase_sharded_ab(device, tabs, parent_dir: str) -> list:
                                               part)
             old, _, _, _, _ = b8_case(tabs, kind, s, b, 3500 + b, part,
                                       mod=P, key="parent")
+            # 50 cold launches: a profile of 30 lost the same 4 records
+            # five times running in one `--ab` process
             rows.append(ab_row(f"B8 {name}", b, kern, old, plain, KERNEL_B8,
-                               flush, 100, 30))
+                               flush, 100, 50))
     SC.sharded_cuda.launches = saved
     del flush
     return rows
@@ -5405,23 +5525,34 @@ def phase_sharded_layouts(device, tabs, batches=(512, 1024, 2048, 4096)):
     return rows
 
 
-def main_ab(parent_dir: str, out: str = "") -> int:
-    """`chip_smoke.py --ab DIR`: build this checkout's kernels (the
-    sharded compiles start in worker processes at once), then time them
-    against the parent's in DIR: B6 / B7 on the fingerprint tables
-    (phase_fp_ab), B9 (phase_dense_ab), B8 (phase_sharded_ab), then B8's
-    two layouts side by side (phase_sharded_layouts); prints the `ab`
-    line (every row also to the file `out`, when given), the card's line
-    and the device line."""
+def main_ab(parent_dir: str, out: str = "",
+            parts: str = "fp,dense,sharded") -> int:
+    """`chip_smoke.py --ab DIR [OUT [PARTS]]`: build this checkout's
+    kernels (the sharded compiles start in worker processes at once),
+    then time them against the parent's in DIR, the PARTS named (comma
+    separated; all by default): "fp", B6 / B7 on the fingerprint tables
+    (phase_fp_ab); "dense", B9 (phase_dense_ab); "sharded", B8
+    (phase_sharded_ab), then B8's two layouts side by side
+    (phase_sharded_layouts). A process that profiled much loses CUPTI
+    records more often (PERF.md), so the parts may run in processes of
+    their own. Prints the `ab` line (every row also to the file `out`,
+    when given), the card's line and the device line."""
+    parts = set(parts.split(","))
+    check(parts <= {"fp", "dense", "sharded"} and parts,
+          f"--ab parts {sorted(parts)}: want fp, dense and / or sharded")
     smi = phase_env()
     device = torch.device("cuda")
-    pool, futs = sharded_start()
+    pool, futs = sharded_start() if "sharded" in parts else (None, None)
     phase_build()
-    rows = phase_fp_ab(device, fp_tables(device), parent_dir)
-    rows += phase_dense_ab(device, parent_dir)
-    stabs = sharded_tables(device, pool, futs)
-    rows += phase_sharded_ab(device, stabs, parent_dir)
-    rows += phase_sharded_layouts(device, stabs)
+    rows = []
+    if "fp" in parts:
+        rows += phase_fp_ab(device, fp_tables(device), parent_dir)
+    if "dense" in parts:
+        rows += phase_dense_ab(device, parent_dir)
+    if "sharded" in parts:
+        stabs = sharded_tables(device, pool, futs)
+        rows += phase_sharded_ab(device, stabs, parent_dir)
+        rows += phase_sharded_layouts(device, stabs)
     if out:
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
@@ -5618,12 +5749,14 @@ def _dense_plain_hint(t, q):
 
 
 def b9_vs_plain(name, t, q=None, device=None, a16=None, fam=None,
-                port=None, host=None) -> int:
+                port=None, host=None, mcol=None) -> int:
     """B9 (hint when `q` is given, else cidr) against its plain tier
     (matchers.hint_match_chunked / cidr_first_match_chunked) on the same
     tensors, int32-equal (on CPU tensors the plain tier against itself),
     and its first len(host) answers equal to `host` (the host index's)
-    when given. -> max |kernel - plain|."""
+    when given; with `mcol` (maglev_column) also B9's hint with its
+    Maglev column against its plain version (hint_dense_pick_plain).
+    -> max |kernel - plain|."""
     from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import matchers as MT
     on_card = device.type == "cuda"
@@ -5648,7 +5781,79 @@ def b9_vs_plain(name, t, q=None, device=None, a16=None, fam=None,
     if fam is not None:
         check(bool((got[0][fam < 0] == -1).all()),
               f"B9 pad row matched [{name}]")
+    if mcol is not None:
+        ref2 = MT.hint_dense_pick_plain(t, q, *mcol)
+        got2 = DC.hint_dense_cuda(t, q, mtab=mcol[0], slots=mcol[1]) \
+            if on_card else ref2
+        _sync(device)
+        d = max(d, pick_vs_plain(f"B9 hint pick [{name}]", got2, ref2,
+                                 ref[0], mcol))
     return d
+
+
+WIDE_LIVE = 600                   # live rules of the wide table
+WIDE_SLOTS = (1 << 20) + (1 << 16)  # its rule slots, inactive but those
+
+
+def wide_rules(n_live=WIDE_LIVE, slots=WIDE_SLOTS, seed=31) -> tuple:
+    """A rule list of `slots` slots whose n_live live rules (mk_rules)
+    lie at seeded indices, half of them past 2^20, every other slot an
+    inactive (empty) rule; the first live rule past 2^20 repeats the
+    last one below it (equal levels across the boundary: the earlier
+    must win). -> (rules, the live rules)."""
+    from vproxy_tpu_torch.rules.ir import HintRule
+    rng = np.random.default_rng(seed)
+    live = mk_rules(n_live, seed=seed)
+    lo = np.sort(rng.choice(1 << 20, size=n_live // 2, replace=False))
+    hi = (1 << 20) + np.sort(rng.choice(slots - (1 << 20),
+                                        size=n_live - n_live // 2,
+                                        replace=False))
+    rules = [HintRule()] * slots
+    for i, r in zip(np.concatenate([lo, hi]).tolist(), live):
+        rules[i] = r
+    rules[int(hi[0])] = rules[int(lo[-1])]
+    return rules, live
+
+
+def dense_wide_check(device, b=SERVICE_BATCH) -> dict:
+    """ROADMAP Queue C 3 on the card: a "torch-dense" HintMatcher whose
+    live rules lie past index 2^20 (wide_rules) publishes its packed
+    layout with the 64-bit key, and B9's hint answers a batch of b rows
+    (an eighth pad rows) int32-equal to the plain version and to the
+    host index (the linear oracle on 16 rows too), with and without its
+    Maglev column: one launch each. -> the check's numbers."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.rules import engine as E
+    rules, live = wide_rules()
+    t0 = time.monotonic()
+    hm = E.HintMatcher(rules, backend="torch-dense", device=device)
+    publish_s = time.monotonic() - t0
+    snap = hm.snapshot()
+    t = snap[1]
+    on_card = device.type == "cuda"
+    check(not on_card or (t.packed is not None and t.packed.wide),
+          "a table past 2^20 rules did not publish the 64-bit key's layout")
+    hints = mk_queries(live, b - b // 8, seed=33)
+    q = dense_hint_batch(hints, b, device)
+    host = [hm.index_snap(snap, h) for h in hints]
+    check(host[:16] == [hm.oracle_snap(snap, h) for h in hints[:16]],
+          "the wide table's host index != the linear oracle")
+    n0 = DC.hint_dense_cuda.launches
+    d = b9_vs_plain(f"{len(rules)} rule slots, live past 2^20", t, q,
+                    device, host=host,
+                    mcol=maglev_column(b, device, 34, b // 8))
+    check(DC.hint_dense_cuda.launches - n0 == (2 if on_card else 0),
+          "the wide table's checks made no two B9 launches")
+    past = sum(x >= 1 << 20 for x in host)
+    check(past > 0, "no answer of the wide batch lies past 2^20")
+    out = {"rule_slots": len(rules), "live_rules": len(live),
+           "publish_s": publish_s, "wide": bool(on_card and t.packed.wide),
+           "answers_past_2_20": past, "max_abs_err": d}
+    log(f"B9 wide table: {json.dumps(out)}")
+    del hm, snap, t, q
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 def b5_vs_plain(mm, b: int, device) -> int:
@@ -5685,7 +5890,9 @@ def b5_vs_plain(mm, b: int, device) -> int:
 def phase_dense_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
     """B9 int32-exact against its plain tier: hint on the published 100k
     table (uri rules; and against the host index) and a 100k host-only
-    table at every B of `batches`, an eighth of each batch pad rows, and
+    table at every B of `batches`, an eighth of each batch pad rows,
+    with and without its Maglev column (maglev_column), a table whose
+    live rules lie past 2^20 (dense_wide_check), and
     on dense_hint_cases
     (+8 pad rows); cidr on config #4's routes and ACL (ports and None;
     the first two against CidrIndex too) at every B (v4, ::v4,
@@ -5713,8 +5920,10 @@ def phase_dense_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
             b9 = max(b9, b9_vs_plain(
                 f"{name} B={b}, {b // 8} pad rows", t, q, device,
                 host=[tabs["hm"].index_snap(hsnap, h) for h in hints]
-                if t is hsnap[1] else None))
+                if t is hsnap[1] else None,
+                mcol=maglev_column(b, device, 960 + b, b // 8)))
     del host_t
+    wide = dense_wide_check(device, b=min(SERVICE_BATCH, max(batches)))
     for name, rules, hints in dense_hint_cases():
         t = dense_prepared(MT.table_arrays(T.compile_hint_rules(rules)),
                            device, True)
@@ -5770,22 +5979,23 @@ def phase_dense_kernels(device, tabs, batches=TIME_BATCHES, n_host=N_RULES):
     b5 = max(b5_vs_plain(tabs["mm"], b, device) for b in batches)
     for f, n in zip(counters, saved):
         f.launches = n
-    return {"b9": b9, "all": err_all, "b5": b5}
+    return {"b9": max(b9, wide["max_abs_err"]), "all": err_all, "b5": b5,
+            "wide": wide}
 
 
 def phase_dense_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
                         cidr_oracle=None):
     """The dense backend's main path through ClassifyService in "device"
     mode: bursts x burst submit_hint on the torch-dense HintMatcher, as
-    many submit_classify_pick on the FusedPair over it (B9 plus the
-    Maglev take, B5: the backend fuses nothing), SecurityGroup
-    allow_async on config #4's ACL and submit_cidr on the 50k routes.
-    Every answer equal to the host index (HintIndex + maglev.pick;
-    CidrIndex and phase 7's linear oracle for CIDR, `cidr_oracle`, or
-    oracle_snap here without it); one B9 launch per hint or cidr batch,
-    one B9 and one B5 launch per cpick batch, B1 / B3 / B4 / B6 / B7
-    never, no failover, every query answered by the device. -> the
-    phase's numbers."""
+    many submit_classify_pick on the FusedPair over it (B9 with its
+    Maglev column: one launch a batch), SecurityGroup allow_async on
+    config #4's ACL and submit_cidr on the 50k routes. Every answer
+    equal to the host index (HintIndex + maglev.pick; CidrIndex and
+    phase 7's linear oracle for CIDR, `cidr_oracle`, or oracle_snap here
+    without it); one B9 launch per hint, cpick (with the Maglev column)
+    or cidr batch, no B5 launch and no `_device_take` call, B1 / B3 /
+    B4 / B6 / B7 never, no failover, every query answered by the
+    device. -> the phase's numbers."""
     from vproxy_tpu_torch.ops import cidr_cuda as CC
     from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import fphash_cuda as FPC
@@ -5827,8 +6037,10 @@ def phase_dense_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
     try:
         # the main path's counts, read just after it
         DC.hint_dense_cuda.launches = DC.cidr_dense_cuda.launches = 0
+        DC.hint_dense_cuda.pick_launches = 0
         TC.maglev_take_cuda.launches = M._device_take.calls = 0
         MT.hint_match_chunked.cuda_calls = 0
+        lat = []
         MT.cidr_first_match_chunked.cuda_calls = 0
         f0, l0 = E.fused_dispatches_total(), E.dispatch_launches_total()
         t0 = time.monotonic()
@@ -5848,7 +6060,8 @@ def phase_dense_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
                      for i in range(burst)]
             got = _answers(
                 svc, lambda h, ip, port, cb: svc.submit_classify_pick(
-                    pair, h, ip, port, cb), list(zip(hints, ips, ports)))
+                    pair, h, ip, port, cb), list(zip(hints, ips, ports)),
+                lat)
             for i in range(burst):
                 want = (hm.index_snap(hsnap, hints[i]),
                         M.pick(msnap[0], ips[i], ports[i]))
@@ -5862,6 +6075,7 @@ def phase_dense_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
             routes, a, p, cb), q) for q in rqs]
         cidr_s = time.monotonic() - t0
         launches = {"hint_dense": DC.hint_dense_cuda.launches,
+                    "hint_dense_pick": DC.hint_dense_cuda.pick_launches,
                     "cidr_dense": DC.cidr_dense_cuda.launches,
                     "maglev_take": TC.maglev_take_cuda.launches}
         takes = M._device_take.calls
@@ -5878,18 +6092,21 @@ def phase_dense_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
                                          if on_card else 0),
               f"B9 hint launches {launches['hint_dense']} != hint + cpick "
               f"batches {batches}")
-        check(takes == batches["cpick"] and launches["maglev_take"] == (
-            batches["cpick"] if on_card else 0),
-              f"Maglev takes {takes}, B5 launches "
-              f"{launches['maglev_take']} != cpick batches {batches}")
+        check(launches["hint_dense_pick"] == (batches["cpick"] if on_card
+                                              else 0),
+              f"B9 launches with the Maglev column "
+              f"{launches['hint_dense_pick']} != cpick batches {batches}")
+        check(takes == 0 and launches["maglev_take"] == 0,
+              f"a cpick batch took the Maglev take: {takes} _device_take "
+              f"calls, {launches['maglev_take']} B5 launches")
         check(launches["cidr_dense"] == (batches["cidr"] if on_card else 0),
               f"B9 cidr launches {launches['cidr_dense']} != cidr batches "
               f"{batches}")
         check(E.fused_dispatches_total() == f0,
               "a dense cpick batch took the fused dispatch")
         check(E.dispatch_launches_total() - l0 == batches["hint"] +
-              2 * batches["cpick"] + batches["cidr"],
-              "engine launches != hint + 2 x cpick + cidr batches")
+              batches["cpick"] + batches["cidr"],
+              "engine launches != hint + cpick + cidr batches")
         check([f.launches for f in others] == other0,
               "the dense path launched B1, B3, B4, B6 or B7")
         check(MT.hint_match_chunked.cuda_calls ==
@@ -5899,7 +6116,7 @@ def phase_dense_service(device, tabs, bursts=BURSTS, burst=SERVICE_BATCH,
                "launches": launches, "maglev_takes": takes,
                "failovers": st.failovers, "max_batch": st.max_batch,
                "hint_wall_s": hint_s, "cpick_wall_s": cpick_s,
-               "cidr_wall_s": cidr_s,
+               "cidr_wall_s": cidr_s, "cpick_latency": lat_ms(lat),
                "classify_latency": st.latency_percentiles()}
         log(f"dense service: {json.dumps(out)}")
     finally:
@@ -6043,16 +6260,18 @@ def phase_dense_times(device, tabs):
     time per call and the bound (dense_hint_work / dense_cidr_work: the
     larger of the needed packed words' bytes over the HBM rate and the
     compared words' int ops over INT_OPS_PER_S); beside each row the
-    count step's GEMM alone (dense_library_ms) and the launch grid.
-    -> {"B9 hint": rows, "B9 routes": rows, "B9 ACL": rows,
-    "classify_all": rows}."""
+    count step's GEMM alone (dense_library_ms) and the launch grid; B9's
+    hint with its Maglev column beside it (maglev_column; its bound adds
+    pick_bytes). -> {"B9 hint": rows, "B9 hint pick": rows, "B9 routes":
+    rows, "B9 ACL": rows, "classify_all": rows}."""
     from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import matchers as MT
     saved = (DC.hint_dense_cuda.launches, DC.cidr_dense_cuda.launches)
     ht = tabs["hm"].snapshot()[1]
     rt, at = tabs["routes"].snapshot()[0], tabs["am"].snapshot()[0]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    out = {"B9 hint": [], "B9 routes": [], "B9 ACL": [], "classify_all": []}
+    out = {"B9 hint": [], "B9 hint pick": [], "B9 routes": [], "B9 ACL": [],
+           "classify_all": []}
     iters = {"iters": 20, "cold_iters": 10, "plain_iters": 2}
     for b in TIME_BATCHES:
         q = dense_hint_batch(mk_queries(tabs["rules"], b, 2600 + b), b,
@@ -6064,6 +6283,15 @@ def phase_dense_times(device, tabs):
         row["grid"] = DC.grid(b, ht.packed)
         out["B9 hint"].append(row)
         log("times B9 hint " + json.dumps(row))
+        mcol = maglev_column(b, device, 2650 + b)
+        w = dense_hint_work(ht, q)
+        row = time_row(b, lambda: DC.hint_dense_cuda(ht, q, mtab=mcol[0],
+                                                     slots=mcol[1]),
+                       lambda: MT.hint_dense_pick_plain(ht, q, *mcol),
+                       KERNEL_B9_HINT, flush,
+                       (w[0] + pick_bytes(b, mcol[1]), w[1]), **iters)
+        out["B9 hint pick"].append(row)
+        log("times B9 hint pick " + json.dumps(row))
         for label, t, queries in (
                 ("B9 routes", rt, [(a, None) for a, _ in cidr_queries(
                     tabs["nets"], b, 2700 + b)]),
@@ -6363,6 +6591,78 @@ def b8_case(tabs, kind: str, s: int, b: int, seed: int, part=None,
         b, port)), f"{kind} {part} S={s}"
 
 
+def pick_bytes(b: int, slots) -> int:
+    """The bytes a Maglev column adds to a folded kernel's bound: b
+    int64 slots read and b int32 picks written (12 a flow), and each
+    distinct table entry the clipped slots gather (4 each)."""
+    return b * 12 + 4 * int(torch.unique(slots.clamp(0, MAGLEV_M - 1))
+                            .numel())
+
+
+def b8_pick_fns(tabs, kind: str, s: int, b: int, seed: int) -> tuple:
+    """B8 with its Maglev column (kind "hint" or "fp_hint") on one batch
+    of b rows (an eighth of them pad rows) at S shards. -> (kern(),
+    plain(), host verdicts [b], mcol, work(), q): kern the entry
+    (sharded_cuda.hint_pick_sharded), plain its plain version; both
+    int32 [b, 2]."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    t = tabs[(kind, s)]
+    tt = t["hint"]
+    fp = kind == "fp_hint"
+    n = b - b // 8
+    hints = mk_queries(tabs["rules"], n, seed)
+    q = sharded_hint_batch(tt["stab"], hints, b, t["mesh"], fp)
+    host = torch.tensor([tabs["hidx"].lookup(h) for h in hints] +
+                        [-1] * (b - n), dtype=torch.int32)
+    mcol = maglev_column(b, t["mesh"].device, seed + 1, b // 8)
+
+    def kern():
+        return SC.hint_pick_sharded(tt["kern"], q, tt["size"], *mcol, fp=fp)
+
+    def plain():
+        return SC.hint_pick_plain(tt["raw"], q, tt["size"], *mcol, fp=fp)
+
+    def work_():
+        w = b8_case(tabs, kind, s, b, seed)[3]()
+        return w[0] + pick_bytes(b, mcol[1]), w[1]
+    return kern, plain, host, mcol, work_, q
+
+
+def b8_pick_case(tabs, kind: str, s: int, b: int, seed: int,
+                 device) -> int:
+    """B8 with its Maglev column (b8_pick_fns) int32-exact against its
+    plain version, its verdict column against the host index and its
+    pick column against the host table: the launcher's layout, and on
+    the card each forced layout and the keys path (finish=False, the
+    picks written rank-locally, then finish_cuda into the same rows).
+    -> the checks made."""
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    kern, plain, host, mcol, _, q = b8_pick_fns(tabs, kind, s, b, seed)
+    tt = tabs[(kind, s)]["hint"]
+    ref = plain().cpu()
+    cpu_col = (mcol[0].cpu(), mcol[1].cpu())
+    if device.type != "cuda":
+        pick_vs_plain(f"B8 {kind} pick S={s} B={b}", ref, ref, host,
+                      cpu_col)
+        return 1
+    runs = [("auto", kern)]
+    runs += [(lay, lambda lay=lay: SC.sharded_cuda(
+        (tt["kern"], q, tt["size"]), layout=lay, pick=mcol))
+        for lay in ("split", "interleaved")]
+
+    def keys_path():
+        out = torch.empty((b, 2), dtype=torch.int32, device=device)
+        keys = SC.sharded_cuda((tt["kern"], q, tt["size"]), finish=False,
+                               pick=mcol, out=out)
+        return SC.finish_cuda(keys, out)
+    runs.append(("keys + finish", keys_path))
+    for label, fn in runs:
+        got = fn().cpu()
+        pick_vs_plain(f"B8 {kind} pick S={s} B={b} {label}", got, ref,
+                      host, cpu_col)
+    return len(runs)
+
+
 def b8_work(shard, s: int, io: int) -> tuple:
     """B8's (bytes, ops) for one batch: the distinct bytes, so the
     batch's query arrays and its int32 answers once (`io`: a query
@@ -6393,16 +6693,26 @@ def phase_sharded_kernels(device, tabs, buckets=SHARDED_BUCKETS,
     the cuckoo and fingerprint tables of configurations (a) and (b),
     and the tie and late-wildcard cases against the linear oracle
     (sharded_case_checks), and on the card each batch again in both
-    forced layouts; then timed at S = 4 (time_batches) and S = 1 (B =
-    512), warm and cold, with the bound summed over the shards. ->
-    {"max_abs_err", "checks", "case_checks", "layout_checks", "rows":
-    {case: rows}}."""
+    forced layouts; the hint kinds with their Maglev column
+    (b8_pick_case) at the time_batches among the buckets and the
+    largest; then timed at S = 4 (time_batches) and S = 1 (B = 512),
+    warm and cold, with the bound summed over the shards, the hint kinds
+    also with their Maglev column. -> {"max_abs_err", "checks",
+    "case_checks", "layout_checks", "pick_checks", "rows": {case:
+    rows}}."""
     from vproxy_tpu_torch.ops import sharded_cuda as SC
     on_card = device.type == "cuda"
-    saved = SC.sharded_cuda.launches
-    err, checks, layout_checks = 0, 0, 0
+    saved = (SC.sharded_cuda.launches, SC.sharded_cuda.pick_launches,
+             SC.finish_cuda.launches)
+    err, checks, layout_checks, pick_checks = 0, 0, 0, 0
     for kind, s, part in b8_cases(tabs):
         for b in buckets:
+            # the Maglev column at the timed batch sizes (within the
+            # buckets given)
+            if kind in ("hint", "fp_hint") and (
+                    b in time_batches or b == max(buckets)):
+                pick_checks += b8_pick_case(tabs, kind, s, b, 3200 + b,
+                                            device)
             kern, plain, host, _, name = b8_case(tabs, kind, s, b,
                                                  seed=3000 + b, part=part)
             n0 = SC.sharded_cuda.launches
@@ -6428,7 +6738,8 @@ def phase_sharded_kernels(device, tabs, buckets=SHARDED_BUCKETS,
                 layout_checks += 1
     log(f"sharded kernels: {checks} batches int32-exact against the plain "
         f"version and the host index; {layout_checks} more in a forced "
-        f"layout (split, interleaved)")
+        f"layout (split, interleaved); {pick_checks} with the Maglev "
+        f"column (every layout, and the keys path with its finish pass)")
     cases = sharded_case_checks(device)
     log(f"sharded kernels: the tie and late-wildcard cases, {cases} "
         f"batches, equal to the linear oracle")
@@ -6445,9 +6756,20 @@ def phase_sharded_kernels(device, tabs, buckets=SHARDED_BUCKETS,
                     b, kern, plain, KERNEL_B8, flush, work_(), iters=100,
                     cold_iters=30, plain_iters=5))
                 log(f"  B8 {name} B={b}: {json.dumps(rows[name][-1])}")
-    SC.sharded_cuda.launches = saved  # the checks are not the main path
+                if kind in ("hint", "fp_hint"):  # with its Maglev column
+                    kern, plain, _, _, work_, _ = b8_pick_fns(
+                        tabs, kind, s, b, 3500 + b)
+                    rows.setdefault(f"{name} pick", []).append(time_row(
+                        b, kern, plain, KERNEL_B8, flush, work_(),
+                        iters=100, cold_iters=30, plain_iters=5))
+                    log(f"  B8 {name} pick B={b}: "
+                        f"{json.dumps(rows[name + ' pick'][-1])}")
+    # the checks are not the main path
+    (SC.sharded_cuda.launches, SC.sharded_cuda.pick_launches,
+     SC.finish_cuda.launches) = saved
     return {"max_abs_err": err, "checks": checks, "case_checks": cases,
-            "layout_checks": layout_checks, "rows": rows}
+            "layout_checks": layout_checks, "pick_checks": pick_checks,
+            "rows": rows}
 
 
 @contextlib.contextmanager
@@ -6538,14 +6860,15 @@ def phase_sharded_service(device, tabs, bursts=BURSTS,
                           burst=SERVICE_BATCH) -> dict:
     """The sharded backends' main path through ClassifyService in
     "device" mode, at S = 4: per backend bursts x burst submit_hint,
-    submit_classify_pick on the FusedPair (B8, then the Maglev take B5:
-    the backend fuses nothing) and submit_cidr on the routes and on the
-    ACL with ports. Every answer equal to the host index (HintIndex +
+    submit_classify_pick on the FusedPair (B8 with its Maglev column:
+    one launch a batch) and submit_cidr on the routes and on the ACL
+    with ports. Every answer equal to the host index (HintIndex +
     maglev.pick, CidrIndex); one B8 launch per hint, cpick or cidr
-    batch and one B5 launch per cpick batch, no other kernel, the plain
-    versions never on CUDA tensors, no failover; on the card, a hint and
-    a cidr dispatch each make one B8 launch and no fill or memset before
-    it (the profiler); each matcher's checksum() equal to the unsharded
+    batch (the cpick ones with the Maglev column), no B5 launch and no
+    `_device_take` call, no other kernel, the plain versions never on
+    CUDA tensors, no failover; on the card, a hint, a cpick and a cidr
+    dispatch each make one B8 launch and no fill or memset before it
+    (the profiler); each matcher's checksum() equal to the unsharded
     matcher's on the same rules. -> the phase's numbers."""
     from vproxy_tpu_torch.ops import cidr_cuda as CC
     from vproxy_tpu_torch.ops import dense_cuda as DC
@@ -6585,10 +6908,11 @@ def phase_sharded_service(device, tabs, bursts=BURSTS,
         try:
             # the main path's counts, read just after it
             SC.sharded_cuda.launches = SC.finish_cuda.launches = 0
+            SC.sharded_cuda.pick_launches = 0
             TC.maglev_take_cuda.launches = MG._device_take.calls = 0
             H.hint_hash_match.cuda_calls = FP.hint_fp_match.cuda_calls = 0
             l0 = E.dispatch_launches_total()
-            walls = {}
+            walls, lat = {}, []
             t0 = time.monotonic()
             for k in range(bursts):
                 hints = mk_queries(tabs["rules"], burst, seed=4200 + k)
@@ -6607,7 +6931,7 @@ def phase_sharded_service(device, tabs, bursts=BURSTS,
                 got = _answers(
                     svc, lambda h, ip, port, cb: svc.submit_classify_pick(
                         pair, h, ip, port, cb),
-                    list(zip(hints, ips, ports)))
+                    list(zip(hints, ips, ports)), lat)
                 for i in range(burst):
                     want = (hm.index_snap(hsnap, hints[i]),
                             MG.pick(msnap[0], ips[i], ports[i]))
@@ -6635,6 +6959,7 @@ def phase_sharded_service(device, tabs, bursts=BURSTS,
                        ("hint", "cpick", "cidr")}
             n = bursts * burst
             launches = {"sharded_match": SC.sharded_cuda.launches,
+                        "sharded_match_pick": SC.sharded_cuda.pick_launches,
                         "sharded_finish": SC.finish_cuda.launches,
                         "maglev_take": TC.maglev_take_cuda.launches}
             check(st.failovers == 0, f"{be}: {st.failovers} failovers")
@@ -6648,14 +6973,19 @@ def phase_sharded_service(device, tabs, bursts=BURSTS,
                   f"batches {batches}")
             check(launches["sharded_finish"] == 0,
                   f"{be}: a one-process mesh reduced across ranks")
-            check(MG._device_take.calls == batches["cpick"] and
-                  launches["maglev_take"] == (batches["cpick"]
-                                              if on_card else 0),
-                  f"{be}: Maglev takes {MG._device_take.calls}, B5 "
-                  f"{launches['maglev_take']} != cpick batches {batches}")
+            check(launches["sharded_match_pick"] == (batches["cpick"]
+                                                     if on_card else 0),
+                  f"{be}: B8 launches with the Maglev column "
+                  f"{launches['sharded_match_pick']} != cpick batches "
+                  f"{batches}")
+            check(MG._device_take.calls == 0 and
+                  launches["maglev_take"] == 0,
+                  f"{be}: a cpick batch took the Maglev take: "
+                  f"{MG._device_take.calls} _device_take calls, "
+                  f"{launches['maglev_take']} B5 launches")
             check(E.dispatch_launches_total() - l0 == batches["hint"] +
-                  2 * batches["cpick"] + batches["cidr"],
-                  f"{be}: engine launches != hint + 2 x cpick + cidr")
+                  batches["cpick"] + batches["cidr"],
+                  f"{be}: engine launches != hint + cpick + cidr")
             check([f.launches for f in others] == other0,
                   f"{be}: the sharded path launched another kernel")
             check(not on_card or H.hint_hash_match.cuda_calls ==
@@ -6665,8 +6995,12 @@ def phase_sharded_service(device, tabs, bursts=BURSTS,
                 hints = mk_queries(tabs["rules"], burst, seed=4700)
                 addrs = [a for a, _ in cidr_queries(tabs["nets"], burst,
                                                     4701)]
+                rows = list(zip(hints, mk_ips(burst, seed=4702),
+                                [None] * burst))
+                psnap = pair.snapshot()
                 for what, call in (
                         ("hint", lambda: hm.dispatch_snap(hsnap, hints)),
+                        ("cpick", lambda: pair.dispatch_snap(psnap, rows)),
                         ("cidr", lambda: routes.dispatch_snap(rsnap, addrs,
                                                               None))):
                     fills = aten_fills(call)
@@ -6689,11 +7023,184 @@ def phase_sharded_service(device, tabs, bursts=BURSTS,
                                        "routes":
                                            routes.published_table_bytes(),
                                        "acl": am.published_table_bytes()},
-                       **walls,
+                       **walls, "cpick_latency": lat_ms(lat),
                        "classify_latency": st.latency_percentiles()}
             log(f"sharded service {be}: {json.dumps(out[be])}")
         finally:
             ClassifyService.reset()
+    return out
+
+
+# --------------------------------------------- classify+pick batches
+#
+# Since B5's take is the Maglev column of B6, B8 and B9, a classify+pick
+# batch of an unfused backend is ONE launch of its hint kernel; the
+# parent served it with the two-dispatch chain (the verdict-only
+# dispatch, then MaglevMatcher.dispatch_snap: the slots' own copy and
+# B5, then both pulled), which FusedPair keeps for the "host" backend
+# and which MaglevMatcher.dispatch_snap still is for a standalone pick.
+
+
+def cpick_window(fn, calls: int = 20) -> dict:
+    """Every device activity of `calls` calls of fn profiled together
+    (torch.profiler): per call, the device us of all of them (kernels,
+    copies and memsets summed) and how many of each there were, with
+    the names seen. CUPTI drops records now and then, so a profile that
+    saw fewer than one kernel a call is run again, up to five times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kinds = {"kernels": 0, "h2d": 0, "d2h": 0, "memsets": 0}
+        us, names = 0.0, {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            k = ("h2d" if "HtoD" in e.name else "d2h" if "DtoH" in e.name
+                 else "memsets" if "Memset" in e.name else "kernels")
+            kinds[k] += 1
+            us += e.time_range.elapsed_us()
+            names[e.name] = names.get(e.name, 0) + 1
+        if kinds["kernels"] >= calls:
+            return {"device_us": us / calls,
+                    **{k: v / calls for k, v in kinds.items()},
+                    "names": names}
+        log(f"profiler saw {kinds['kernels']} kernels in {calls} cpick "
+            f"batches; profiling again")
+    raise RuntimeError("chip smoke failed: the profiler lost the cpick "
+                       "batches' kernels in five runs")
+
+
+def wall_ms(fn, calls: int = 50, reps: int = 3) -> float:
+    """Host ms per call of fn over `calls` calls back to back (each ends
+    on the host: a pull), the least of `reps` runs."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e3)
+    return best
+
+
+def phase_cpick(device, pairs: dict, b=SERVICE_BATCH, calls=10,
+                timed=True) -> list:
+    """A classify+pick batch of b rows (every third source affinity) on
+    each unfused backend (`pairs`: backend -> (FusedPair, its rules)),
+    as FusedPair.dispatch_snap serves it (one launch) against the
+    two-dispatch chain the parent served it with, each pulled to the
+    host: both held equal to the host index + maglev.pick, one engine
+    launch against two; then per path, in turns (chain, one, one,
+    chain), the device time a batch from one profiler window of `calls`
+    batches (kernels, copies and memsets summed, and counted), the wall
+    ms a batch back to back with its pull (host clock), and the wall ms
+    of the dispatch call alone (CUDA events; a sharded batch pulls
+    inside it); timed=False: the checks alone. Launch counts are
+    restored after. -> rows."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    from vproxy_tpu_torch.ops import sharded_cuda as SC
+    from vproxy_tpu_torch.ops import take_cuda as TC
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import maglev as M
+    from vproxy_tpu_torch.utils.torchenv import to_host
+    counters = [(f, a) for f in (FPC.hint_fp_cuda, DC.hint_dense_cuda,
+                                 SC.sharded_cuda)
+                for a in ("launches", "pick_launches")] + [
+        (TC.maglev_take_cuda, "launches"), (M._device_take, "calls")]
+    saved = [getattr(f, a) for f, a in counters]
+    rows = []
+    for be, (pair, rules) in pairs.items():
+        hm, mm = pair.hm, pair.mm
+        hints = mk_queries(rules, b, seed=5100)
+        ips = mk_ips(b, seed=5101)
+        ports = [None if i % 3 == 0 else 1024 + i for i in range(b)]
+        payloads = list(zip(hints, ips, ports))
+        snap = pair.snapshot()
+        hsnap, msnap = snap
+        sync = be in E.SHARDED_BACKENDS
+
+        def one_call():
+            return pair.dispatch_snap(snap, payloads, pad_to=b, sync=sync)
+
+        def chain_call():
+            v = hm.dispatch_snap(hsnap, hints, pad_to=b, sync=sync)
+            return M._LazyPairRows(v, mm.dispatch_snap(msnap, ips, ports),
+                                   b)
+
+        def one():
+            return to_host(one_call())[:b]
+
+        def chain():
+            return np.asarray(chain_call())
+        want = np.array([[hm.index_snap(hsnap, h), M.pick(msnap[0], ip, p)]
+                         for h, ip, p in payloads], np.int32)
+        l0 = E.dispatch_launches_total()
+        got = one()
+        l1 = E.dispatch_launches_total()
+        old = chain()
+        l2 = E.dispatch_launches_total()
+        check(np.array_equal(got, want) and np.array_equal(old, want),
+              f"{be}: a cpick batch (one launch or the chain) != host")
+        check(l1 - l0 == 1 and l2 - l1 == 2, f"{be}: engine launches "
+              f"{l1 - l0} (one launch) and {l2 - l1} (the chain)")
+        if not timed:
+            rows.append({"backend": be, "batch": b})
+            continue
+        w = [cpick_window(f, calls) for f in (chain, one, one, chain)]
+        row = {"backend": be, "batch": b,
+               "one": {"device_us": [w[1]["device_us"], w[2]["device_us"]],
+                       **{k: w[1][k] for k in ("kernels", "h2d", "d2h",
+                                               "memsets", "names")}},
+               "chain": {"device_us": [w[0]["device_us"],
+                                       w[3]["device_us"]],
+                         **{k: w[0][k] for k in ("kernels", "h2d", "d2h",
+                                                 "memsets", "names")}},
+               "wall_ms": {"chain": wall_ms(chain, 20), "one": wall_ms(one, 20)},
+               "dispatch_call_ms": {"chain": call_ms(chain_call, 20, 3),
+                                    "one": call_ms(one_call, 20, 3)}}
+        row["wall_ms"]["one_again"] = wall_ms(one, 20)
+        row["wall_ms"]["chain_again"] = wall_ms(chain, 20)
+        row["device_saved_us"] = min(row["chain"]["device_us"]) - min(
+            row["one"]["device_us"])
+        rows.append(row)
+        log("cpick " + json.dumps(row))
+    for (f, a), n in zip(counters, saved):
+        setattr(f, a, n)
+    return rows
+
+
+def phase_maglev(device, mm, bursts=BURSTS, b=SERVICE_BATCH) -> dict:
+    """B5's main path since the classify+pick batches fold it into their
+    hint kernels: standalone Maglev batches through MaglevMatcher.match
+    (the entry a pick-only caller uses: the flow slots' own copy, then
+    B5), bursts x b flows (every third source affinity), every pick
+    equal to maglev.pick on the host table; one B5 launch and one
+    `_device_take` call a batch. -> the phase's numbers."""
+    from vproxy_tpu_torch.ops import take_cuda as TC
+    from vproxy_tpu_torch.rules import maglev as M
+    tab = mm.snapshot()[0]
+    TC.maglev_take_cuda.launches = M._device_take.calls = 0
+    t0 = time.monotonic()
+    for k in range(bursts):
+        ips = mk_ips(b, seed=5200 + k)
+        ports = [None if i % 3 == 0 else 1024 + i for i in range(b)]
+        got = mm.match(ips, ports)
+        check([int(x) for x in got] == [M.pick(tab, ip, p) for ip, p in
+                                        zip(ips, ports)],
+              f"standalone Maglev batch {k} != maglev.pick")
+    wall = time.monotonic() - t0
+    out = {"batches": bursts, "launches": TC.maglev_take_cuda.launches,
+           "takes": M._device_take.calls, "wall_s": wall}
+    check(out["takes"] == bursts and out["launches"] == (
+        bursts if device.type == "cuda" else 0),
+          f"standalone Maglev batches: {out}")
+    log(f"maglev: {json.dumps(out)}")
     return out
 
 
@@ -7071,6 +7578,7 @@ def main() -> int:
     dense_svc = run("dense service", phase_dense_service, device, dense,
                     cidr_oracle=oracle)
     log(json.dumps({"dense_service": {**dense_svc, "card": smi}}))
+    maglev = run("maglev", phase_maglev, device, dense["mm"])
     tcplb_fp = run("tcplb_fp", phase_tcplb, device,
                    max_rules=TCPLB_MIN_RULES, bursts=1, matcher="jax-fp")
     log(json.dumps({"tcplb_fp": {**tcplb_fp, "card": smi}}))
@@ -7103,18 +7611,33 @@ def main() -> int:
     del sharded
     b8_svc = run("sharded service", phase_sharded_service, device, svc_tabs)
     log(json.dumps({"sharded_service": {**b8_svc, "card": smi}}))
+    cpick = run("cpick", phase_cpick, device, {
+        "torch-fp": (fp["pair"], fp["rules"]),
+        "torch-dense": (dense["pair"], dense["rules"]),
+        **{be: (svc_tabs[be]["pair"], svc_tabs["rules"])
+           for be in E.SHARDED_BACKENDS}})
+    log(json.dumps({"cpick": {"rows": cpick, "card": smi}}))
     del svc_tabs
     cluster = run("cluster", phase_cluster, device)
     log(json.dumps({"cluster": {**cluster, "card": smi}}))
-    b5_launches = {"fp service": fp_svc["maglev_take_launches"],
-                   "dense service": dense_svc["launches"]["maglev_take"],
-                   "sharded service": sum(
+    # B5's launches: the standalone Maglev batches; the cpick batches of
+    # the three services take none (their hint kernels' Maglev column)
+    b5_launches = {"standalone Maglev batches": maglev["launches"],
+                   "fp service cpick": fp_svc["maglev_take_launches"],
+                   "dense service cpick":
+                       dense_svc["launches"]["maglev_take"],
+                   "sharded service cpick": sum(
                        v["launches"]["maglev_take"]
                        for v in b8_svc.values())}
+    cpick_takes = fp_svc["maglev_takes"] + dense_svc["maglev_takes"] + sum(
+        v["maglev_takes"] for v in b8_svc.values())
+    check(cpick_takes == 0 and sum(b5_launches.values()) ==
+          maglev["launches"] > 0, f"B5 ran for a cpick batch, or not for "
+          f"the standalone ones: {b5_launches}, {cpick_takes} takes")
     log(json.dumps({"b5_take": {
         "replaces": REPLACES_B5, "source": SOURCE_B5,
         "max_abs_err": dense_err["b5"], "launches": b5_launches,
-        "maglev_takes": fp_svc["maglev_takes"] + dense_svc["maglev_takes"],
+        "cpick_maglev_takes": cpick_takes,
         "by_batch": fp_rows["B5"], "card": smi}}))
     log(json.dumps({"phase_s": phase_s}))
     log("clocks " + subprocess.run(
@@ -7182,11 +7705,13 @@ def main() -> int:
               fp_svc["launches"]["hint_fp"] +
               tcplb_fp["fp_launches"]["hint_fp"], fp_err["b6"], fp_rows["B6"],
               launches_by_path={
-                  "fp service": fp_svc["launches"]["hint_fp"],
+                  "fp service hint + cpick": fp_svc["launches"]["hint_fp"],
+                  "of which cpick (Maglev column)":
+                      fp_svc["launches"]["hint_fp_pick"],
                   "tcplb_fp": tcplb_fp["fp_launches"]["hint_fp"]},
               build_s=builds["fp_hint"]["build_s"],
               instances=builds["fp_hint"]["instances"],
-              by_batch=fp_rows["B6"],
+              by_batch=fp_rows["B6"], pick_by_batch=fp_rows["B6 pick"],
               classify_fp_all={"max_abs_err": fp_err["all"],
                                "by_batch": fp_rows["classify_fp_all"]}),
         entry("cidr_fp_match", SOURCE_B7, REPLACES_B7,
@@ -7225,17 +7750,25 @@ def main() -> int:
               launches_by_path={
                   "dense service hint + cpick":
                       dense_svc["launches"]["hint_dense"],
+                  "of which cpick (Maglev column)":
+                      dense_svc["launches"]["hint_dense_pick"],
                   "dense service cidr": dense_svc["launches"]["cidr_dense"]},
               build_s=builds["dense"]["build_s"],
               instances=builds["dense"]["instances"],
-              by_batch=dense_rows),
+              wide_table=dense_err["wide"], by_batch=dense_rows),
         entry("sharded_match", SOURCE_B8, REPLACES_B8,
               sum(b8_launches.values()), b8["max_abs_err"],
               b8["rows"][b8_at],
               table=f"100k hint rules (mk_rules), cuckoo, S = "
               f"{max(SHARD_MESH)} (make_mesh(8, batch=2))",
-              launches_by_path={f"sharded service {be}": n_
-                                for be, n_ in b8_launches.items()},
+              launches_by_path={
+                  **{f"sharded service {be}": n_
+                     for be, n_ in b8_launches.items()},
+                  **{f"of which cpick (Maglev column) {be}":
+                     v["launches"]["sharded_match_pick"]
+                     for be, v in b8_svc.items()}},
+              pick_by_batch={k: v for k, v in b8["rows"].items()
+                             if k.endswith(" pick")},
               finish_launches=sum(v["launches"]["sharded_finish"]
                                   for v in b8_svc.values()),
               build_s=builds["sharded"]["build_s"],
@@ -7257,5 +7790,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
-        sys.exit(main_ab(*sys.argv[2:4]))
+        sys.exit(main_ab(*sys.argv[2:5]))
     sys.exit(main())

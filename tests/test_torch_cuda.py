@@ -1,7 +1,9 @@
 """Torch port on the card: the CIDR kernels, B3, the fingerprint
 kernels (B6, B7), the dense kernels (B9), the Maglev take (B5) and the
-sharded winner reduction (B8) against their plain tiers, and the
-control plane's DNS server and Socks5 answered through B3 and B4.
+sharded winner reduction (B8) against their plain tiers, the Maglev
+column of B6, B8 and B9 (B5's take folded in: a classify+pick batch is
+one launch), B9 on a table past 2^20 rules, and the control plane's DNS
+server and Socks5 answered through B3 and B4.
 
 Every test here is marked `cuda` and asks the `cuda` fixture for the
 card, which skips without one (the CPU tier-1 run skips them all). On a
@@ -274,9 +276,9 @@ def test_dense_cidr_kernel_matches_plain_tier(cuda):
 
 def test_dense_matchers_serve_from_the_kernels(cuda):
     """VPROXY_TPU_MATCHER=jax-dense matchers on the card answer through
-    B9 (one launch a batch) what the host index answers; a cpick is B9
-    plus one B5 launch; classify_dense is one hint and two cidr
-    launches, equal to classify_all."""
+    B9 (one launch a batch) what the host index answers; a cpick is one
+    B9 launch with its Maglev column and no B5 launch; classify_dense is
+    one hint and two cidr launches, equal to classify_all."""
     from vproxy_tpu_torch.ops import dense_cuda as DC
     from vproxy_tpu_torch.ops import matchers as MT
     from vproxy_tpu_torch.ops import take_cuda as TC
@@ -297,7 +299,7 @@ def test_dense_matchers_serve_from_the_kernels(cuda):
     assert list(p) == [M.pick(tabs["mm"].snapshot()[0], ip) for ip in ips]
     assert (DC.hint_dense_cuda.launches - n0[0],
             DC.cidr_dense_cuda.launches - n0[1],
-            TC.maglev_take_cuda.launches - n0[2]) == (2, 1, 1)
+            TC.maglev_take_cuda.launches - n0[2]) == (2, 1, 0)
     q = CS.dense_hint_batch(hints, 256, cuda)
     aq = dict(zip(("addr", "family", "port"), CS.cidr_batch(
         CS.acl_queries(tabs["acl"], 200, 4), 256, cuda)))
@@ -530,8 +532,9 @@ def test_sharded_tie_case_on_the_card(cuda, s, backend):
 
 def test_sharded_service_on_the_card(cuda):
     """ClassifyService in "device" mode over both sharded backends at
-    S = 4: one B8 launch a hint, cpick or cidr batch, B5 a cpick batch,
-    every answer the host index's, checksums the unsharded matcher's."""
+    S = 4: one B8 launch a hint, cpick (with its Maglev column) or cidr
+    batch, no B5 launch, every answer the host index's, checksums the
+    unsharded matcher's."""
     out = CS.phase_sharded_service(
         cuda, CS.sharded_service_tables(cuda, _sharded_tabs(cuda)), bursts=1,
         burst=128)
@@ -580,3 +583,79 @@ def test_sharded_kernel_refuses_unprepared_tables(cuda):
         SC.sharded_cuda(cidr=[(dict(t["raw"]), a16, fam, None, t["size"])])
     with pytest.raises(FC.KernelError):
         SC.sharded_cuda(cidr=[(t["kern"], a16, fam[:4], None, t["size"])])
+
+
+# ------------------ the Maglev column of B6, B8 and B9 (B5 folded in)
+
+def test_folded_pick_kernels_match_plain(cuda):
+    """B6 and B9's hint with their Maglev column == their plain versions
+    (int32 [B, 2]: the verdict-only launch's answers, the host table's
+    picks clipped) at B = 16 / 512 / 4096, an eighth of each batch pad
+    rows and slots past both ends of the table; one launch each."""
+    from vproxy_tpu_torch.ops import dense_cuda as DC
+    from vproxy_tpu_torch.ops import fphash_cuda as FPC
+    fp = CS.fp_tables(cuda, n_rules=3000, n_routes=2000, n_acl=500)
+    dense = CS.dense_tables(cuda, n_rules=3000, n_routes=2000, n_acl=500)
+    fsnap, dsnap = fp["hm"].snapshot(), dense["hm"].snapshot()
+    for b in (16, 512, 4096):
+        hints = CS.mk_queries(fp["rules"], b - b // 8, seed=70 + b)
+        mcol = CS.maglev_column(b, cuda, 80 + b, b // 8)
+        n0 = FPC.hint_fp_cuda.pick_launches
+        assert CS.b6_vs_plain(f"B={b}", fsnap[1], CS.fp_hint_batch(
+            fsnap[0], hints, b, cuda), cuda, mcol) == 0
+        assert FPC.hint_fp_cuda.pick_launches == n0 + 1
+        n0 = DC.hint_dense_cuda.pick_launches
+        assert CS.b9_vs_plain(f"B={b}", dsnap[1], CS.dense_hint_batch(
+            hints, b, cuda), cuda, mcol=mcol) == 0
+        assert DC.hint_dense_cuda.pick_launches == n0 + 1
+
+
+def test_dense_wide_table_on_the_card(cuda):
+    """A table whose live rules lie past index 2^20 publishes on
+    "torch-dense" with the 64-bit key's layout, and B9 answers it as its
+    plain version and the host index, with and without its Maglev
+    column."""
+    out = CS.dense_wide_check(cuda, b=512)
+    assert out["wide"] and out["max_abs_err"] == 0
+    assert out["answers_past_2_20"] > 0
+
+
+def test_sharded_pick_matches_plain(cuda):
+    """B8 with its Maglev column == its plain version (verdicts the host
+    index's, picks the host table's clipped) on the cuckoo and
+    fingerprint hint tables at S = 4, 3 and 1, B = 16 / 512 / 4096: the
+    launcher's layout, each forced layout, and the keys path with its
+    finish pass writing into the picks' rows."""
+    tabs = _sharded_tabs(cuda)
+    n = 0
+    for kind in ("hint", "fp_hint"):
+        for s in (4, 3, 1):
+            for b in (16, 512, 4096):
+                n += CS.b8_pick_case(tabs, kind, s, b, 3300 + b, cuda)
+    assert n == 2 * 3 * 3 * 4
+
+
+def test_cpick_batches_on_the_card(cuda):
+    """FusedPair.dispatch_snap on "torch-fp", "torch-dense" and both
+    sharded backends: one engine launch a classify+pick batch, equal to
+    the two-dispatch chain and to the host; in the profiler's window a
+    batch makes no B5 launch where the chain makes one, and one
+    device-to-host copy fewer (one pull)."""
+    from vproxy_tpu_torch.parallel import mesh as PM
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import maglev as M
+    fp = CS.fp_tables(cuda, n_rules=3000, n_routes=2000, n_acl=500)
+    dense = CS.dense_tables(cuda, n_rules=3000, n_routes=2000, n_acl=500)
+    pairs = {"torch-fp": (fp["pair"], fp["rules"]),
+             "torch-dense": (dense["pair"], dense["rules"])}
+    for be in ("torch-sharded", "torch-fp-sharded"):
+        hm = E.HintMatcher(fp["rules"], backend=be,
+                           mesh=PM.make_mesh(8, batch=2, device=cuda))
+        pairs[be] = (M.FusedPair(hm, fp["pair"].mm), fp["rules"])
+    rows = CS.phase_cpick(cuda, pairs, b=512, calls=5)
+    for r in rows:
+        take = [any(CS.KERNEL_B5 in n for n in r[k]["names"])
+                for k in ("one", "chain")]
+        assert take == [False, True], r
+        assert r["chain"]["kernels"] >= r["one"]["kernels"] + 1, r
+        assert r["chain"]["d2h"] == r["one"]["d2h"] + 1, r

@@ -591,8 +591,9 @@ def packed_hint_torch(p: dict, q: dict):
     as 32 words; per row x = q ^ v, exact |= x & exact masks, suffix |=
     x & suffix masks, uri |= (q ^ v) & m; a tile without host chunks
     matches no exact or suffix pattern; the key (host level << 30) |
-    (uri level << 20) | (0xFFFFF - rule), port-gated in a gated tile;
-    the max key. -> (idx, level)."""
+    (uri level << 20) | (0xFFFFF - rule), or in a wide layout those
+    level fields shifted up 12 bits over (2^31 - 1 - rule), port-gated
+    in a gated tile; the max key. -> (idx, level)."""
     b = q["host"].shape[0]
     host = np.zeros((b, 4 * DC.HC_MAX), np.uint32)
     raw = np.zeros((b, 4 * DC.HOST_WORDS), np.uint8)
@@ -617,14 +618,16 @@ def packed_hint_torch(p: dict, q: dict):
                      ((mt[:, 2] >> 10) & 0x3FF)[None])
     hl = torch.where(torch.from_numpy(q["has_host"])[:, None], hl, 0)
     ul = torch.where(torch.from_numpy(q["has_uri"])[:, None], ul, 0)
-    key = (hl << 30) | (ul << 20) | mt[:, 0][None]
+    wide = bool(((r["code"] & DC.WIDE_CODE) != 0).any())
+    shift, mask = (32, DC.WIDE_MASK) if wide else (20, DC.IDX_MASK)
+    key = (((hl << 30) | (ul << 20)) << (shift - 20)) | mt[:, 0][None]
     qp = torch.from_numpy(q["port"]).long()[:, None]
     rp = r["meta"][:, 1].long()[None]
     gated = (((r["code"] >> 16) & 1) == 1)[None]
     ok = ~gated | (qp == 0) | (rp == 0) | (qp == rp)
     best = torch.where(ok, key, 0).max(1).values
-    level = best >> 20
-    return (torch.where(level > 0, DC.IDX_MASK - (best & DC.IDX_MASK),
+    level = best >> shift
+    return (torch.where(level > 0, mask - (best & mask),
                         -1).int().numpy(), level.int().numpy())
 
 
@@ -663,13 +666,14 @@ def check_hint_layout(p: dict, rules) -> dict:
     meta, code = r["meta"].long() & 0xFFFFFFFF, r["code"].long()
     live = meta[:, 3] == 1
     assert bool((meta[~live] == 0).all())
-    rule = DC.IDX_MASK - meta[:, 0]
+    rule = r["rule"]
+    assert bool((rule[~live] == -1).all())
     where = {int(rule[i]): i for i in range(len(rule)) if live[i]}
     assert sorted(where) == [i for i, x in enumerate(rules)
                              if not x.is_empty()]
     for i, row in where.items():
         x = rules[i]
-        assert int(code[row] >> 16) == int(x.port != 0)
+        assert int(code[row] >> 16 & 1) == int(x.port != 0)
         hc, uc = int(code[row] & 0xFF), int((code[row] >> 8) & 0xFF)
         assert (hc > 0) == (x.host is not None)
         assert (uc > 0) == bool(x.uri)
@@ -677,7 +681,9 @@ def check_hint_layout(p: dict, rules) -> dict:
         assert int(r["um"][row][4 * uc:].abs().sum()) == 0
     order = code.tolist()
     assert order == sorted(order, key=lambda c: (c & 0xFF, c >> 8 & 0xFF,
-                                                 c >> 16))
+                                                 c >> 16 & 1))
+    wide = max(where, default=-1) >= DC.NARROW_RULES
+    assert all(bool(c & DC.WIDE_CODE) == wide for c in order)
     for c in set(order):
         rs = [int(rule[i]) for i in range(len(rule))
               if order[i] == c and live[i]]
@@ -853,16 +859,108 @@ def test_packed_cidr_layout_empty_and_trailing_pad():
     assert packed_cidr_torch(p0, a16, fam).tolist() == [-1]
 
 
-def test_packed_hint_layout_refuses_more_rules_than_its_key_holds():
-    """The B9 hint key keeps 20 bits of rule index: a table whose last
-    live rule is the 2^20 + 1st is refused at publish (a deviation from
-    the reference's jax-dense, which has no such cap; ROADMAP Queue C)."""
-    active = np.zeros(DC.MAX_RULES + 1, bool)
-    active[[0, DC.MAX_RULES]] = True
-    with pytest.raises(ValueError, match=f"{DC.MAX_RULES + 1} rules, at "
-                       f"most {DC.MAX_RULES}"):
-        DC.pack_dense_hint_table({"active": active})
-    assert DC.MAX_RULES == 1 << 20
+# rules whose indices straddle 2^20 (WIDE_AT), among inactive slots: the
+# last two are equal in level, so the earlier wins across the boundary
+WIDE_RULES = [IR.HintRule(host="a.com"), IR.HintRule(host="b.com", uri="/x"),
+              IR.HintRule(host="b.com"), IR.HintRule(host="*", uri="/y"),
+              IR.HintRule(host="c.com", port=443), IR.HintRule(uri="/y/z"),
+              IR.HintRule(host="b.com", uri="/x")]
+WIDE_AT = [5, (1 << 20) - 1, 1 << 20, (1 << 20) + 7, (1 << 20) + 20,
+           (1 << 20) + 21, (1 << 20) + 39]
+WIDE_HINTS = [IR.Hint(host="b.com"), IR.Hint(host="b.com", uri="/x/1"),
+              IR.Hint(host="x.c.com", port=443), IR.Hint(host="x.c.com",
+                                                          port=80),
+              IR.Hint(host="q", uri="/y"), IR.Hint(uri="/y/z/w"),
+              IR.Hint(host="a.com"), IR.Hint(host="zz"), IR.Hint()]
+
+
+def _spread(rules, at, n):
+    """A rule list of n slots: rules[k] at index at[k], every other slot
+    an inactive (empty) rule."""
+    out = [IR.HintRule()] * n
+    for i, r in zip(at, rules):
+        out[i] = r
+    return out
+
+
+def _spread_arrays(small: dict, at, cap: int) -> dict:
+    """A compiled HintTable's arrays (its rules 0 .. k - 1) moved to the
+    rule slots `at` of a table of `cap` rules, every other slot inactive:
+    zero columns in zeros whose pages stay untouched, so a table past
+    2^20 rules costs its live columns."""
+    at = np.asarray(at)
+    out = {}
+    for k, v in small.items():
+        axis, per = MT._HINT_COLS[k]
+        shape = list(v.shape)
+        shape[axis] = cap * per
+        big = np.zeros(shape, v.dtype)
+        idx = (at[:, None] * per + np.arange(per)).reshape(-1)
+        src = np.take(v, np.arange(len(at) * per), axis=axis)
+        if axis == 0:
+            big[idx] = src
+        else:
+            big[:, idx] = src
+        out[k] = big
+    return out
+
+
+@pytest.mark.parametrize("last", [(1 << 20) - 1, 1 << 20, (2 << 20) + 5])
+def test_packed_hint_layout_carries_the_full_index(last):
+    """B9's packed layout holds any rule index: with the last live rule
+    at 2^20 - 1 it keeps the 32-bit key's layout (meta IDX_MASK - rule,
+    no WIDE_CODE); past it every tile carries WIDE_CODE and every meta
+    row WIDE_MASK - rule (31 bits), which hint_rows reads back as the
+    rule; the kernel's compare as torch ops answers as the linear
+    oracle over the spread rule list (the small table's winners, moved),
+    the tie across the boundary to the earlier rule."""
+    at = [3, 70_000, last - 30, last - 9, last - 5, last - 2, last]
+    small = MT.table_arrays(T.compile_hint_rules(WIDE_RULES))
+    p = DC.pack_dense_hint_table(_spread_arrays(small, at, last + 1))
+    wide = last >= DC.NARROW_RULES
+    r = DC.hint_rows(tt(p))
+    live = r["meta"][:, 3] == 1
+    assert sorted(r["rule"][live].tolist()) == at
+    assert bool((r["rule"][~live] == -1).all())
+    mask = DC.WIDE_MASK if wide else DC.IDX_MASK
+    assert (r["meta"][live, 0].long() == mask - r["rule"][live]).all()
+    assert {bool(c & DC.WIDE_CODE) for c in p["tiles"][:, 1]} == {wide}
+    want = [-1 if i < 0 else at[i] for i in
+            (oracle.search(WIDE_RULES, h) for h in WIDE_HINTS)]
+    got = packed_hint_torch(p, T.encode_hints(WIDE_HINTS))
+    assert list(got[0]) == want
+    assert want[1] == at[1]  # the tie, to the earlier of two equal rules
+
+
+def test_torch_dense_serves_rules_past_2_20():
+    """A table whose live rules lie past index 2^20 (a few among inactive
+    rule slots) publishes on "torch-dense", and both a hint batch and a
+    classify+pick batch (FusedPair, the Maglev column's plain version,
+    pad rows included) answer as the linear oracle and the host pick;
+    the layout B9 reads (its 64-bit keys) answers the same through the
+    kernel's compare as torch ops."""
+    rules = _spread(WIDE_RULES, WIDE_AT, (1 << 20) + 40)
+    hm = E.HintMatcher(rules, backend="torch-dense")
+    snap = hm.snapshot()
+    want = [hm.oracle_snap(snap, h) for h in WIDE_HINTS]
+    assert max(want) >= 1 << 20 and want[1] == (1 << 20) - 1
+    assert [int(x) for x in E.to_host(hm.dispatch_snap(snap, WIDE_HINTS))
+            ] == want
+    mm = M.MaglevMatcher([(f"b{i}", 1) for i in range(5)], m=251)
+    ips = mk_ips(len(WIDE_HINTS))
+    pair = M.FusedPair(hm, mm)
+    rows = E.to_host(pair.dispatch_snap(
+        pair.snapshot(), list(zip(WIDE_HINTS, ips, [None] * len(ips))),
+        pad_to=16))
+    assert rows.shape == (16, 2)
+    assert rows[:len(ips), 0].tolist() == want
+    assert rows[:len(ips), 1].tolist() == [
+        M.pick(mm.snapshot()[0], ip) for ip in ips]
+    p = DC.packed_of(snap[1], True)
+    assert bool(((p["tiles"][:, 1] & DC.WIDE_CODE) != 0).all())
+    got = packed_hint_torch({k: v.numpy() for k, v in p.items()},
+                            T.encode_hints(WIDE_HINTS))
+    assert list(got[0]) == want
 
 
 # ---------------------------------------------- matchers and service
@@ -1007,11 +1105,9 @@ def test_service_torch_dense_vs_reference_service(kind):
         st = svc.stats
         assert st.device_queries == b and st.failovers == 0
         assert E.fused_dispatches_total() == f0
-        per_batch = 2 if kind == "cpick" else 1  # B9 + the Maglev take
-        assert E.dispatch_launches_total() - l0 == \
-            per_batch * st.dispatches >= 1
-        assert M._device_take.calls - t0 == (
-            st.dispatches if kind == "cpick" else 0)
+        # a cpick batch is one launch too: B9 with its Maglev column
+        assert E.dispatch_launches_total() - l0 == st.dispatches >= 1
+        assert M._device_take.calls - t0 == 0
     finally:
         svc.close()
         rsvc.close()
@@ -1251,12 +1347,14 @@ def test_dense_and_take_builds_without_nvcc_raise(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
-@pytest.mark.parametrize("kind", ["hint", "cidr"])
+@pytest.mark.parametrize("kind", ["hint", "cidr", "pick"])
 def test_dense_kernel_abi_mirror_matches_source(kind):
-    """The ctypes mirrors have the C structs' fields, in order, and the
-    take's argument list has the C function's."""
-    struct, cls = (("DenseHintArgs", DC._DenseHintArgs) if kind == "hint"
-                   else ("DenseCidrArgs", DC._DenseCidrArgs))
+    """The ctypes mirrors have the C structs' fields, in order (the hint
+    kernel's Maglev column a struct of its own), and the take's argument
+    list has the C function's."""
+    struct, cls = {"hint": ("DenseHintArgs", DC._DenseHintArgs),
+                   "cidr": ("DenseCidrArgs", DC._DenseCidrArgs),
+                   "pick": ("DensePickArgs", DC._DensePickArgs)}[kind]
     with open(DC.SOURCE) as f:
         body = re.search(rf"struct {struct} \{{(.*?)\}};", f.read(),
                          re.S).group(1)
@@ -1266,7 +1364,8 @@ def test_dense_kernel_abi_mirror_matches_source(kind):
             for x in decl.replace("\n", " ").split(",")]
     assert [n for n, _ in cls._fields_] == ptrs + ints
     assert all(t is ctypes.c_void_p for _, t in cls._fields_[:len(ptrs)])
-    assert ctypes.sizeof(cls) == 8 * len(ptrs) + 4 * len(ints)
+    # C pads the struct to its 8-byte alignment
+    assert ctypes.sizeof(cls) == -(-(8 * len(ptrs) + 4 * len(ints)) // 8) * 8
     with open(TC.SOURCE) as f:
         sig = re.search(r"int vproxy_maglev_take\((.*?)\)", f.read(),
                         re.S).group(1)
@@ -1369,13 +1468,22 @@ def test_chip_smoke_dense_phases_on_cpu():
     dev = torch.device("cpu")
     tabs = CS.dense_tables(dev, n_rules=300, n_routes=400, n_acl=300)
     err = CS.phase_dense_kernels(dev, tabs, batches=(16, 64), n_host=300)
+    wide = err.pop("wide")
     assert err == {"b9": 0, "all": 0, "b5": 0}
+    assert wide["max_abs_err"] == 0 and wide["answers_past_2_20"] > 0
+    assert wide["rule_slots"] > 1 << 20
     out = CS.phase_dense_service(dev, tabs, bursts=2, burst=24)
     assert out["queries"] == 4 * 48 and out["failovers"] == 0
-    assert out["launches"] == {"hint_dense": 0, "cidr_dense": 0,
-                               "maglev_take": 0}
-    assert out["maglev_takes"] == out["batches"]["cpick"] > 0
+    assert out["launches"] == {"hint_dense": 0, "hint_dense_pick": 0,
+                               "cidr_dense": 0, "maglev_take": 0}
+    # a cpick batch is one launch of B9 with its Maglev column: no take
+    assert out["maglev_takes"] == 0 and out["batches"]["cpick"] > 0
     assert all(v > 0 for v in out["batches"].values())
+    assert CS.phase_maglev(dev, tabs["mm"], bursts=2, b=24)["takes"] == 2
+    rows = CS.phase_cpick(dev, {"torch-dense": (tabs["pair"],
+                                                tabs["rules"])}, b=24,
+                          timed=False)
+    assert [r["backend"] for r in rows] == ["torch-dense"]
     hsnap = tabs["hm"].snapshot()
     q = CS.dense_hint_batch(mk_queries(tabs["rules"], 48), 64, dev)
     nb, ops = CS.dense_hint_work(hsnap[1], q)
@@ -1384,3 +1492,42 @@ def test_chip_smoke_dense_phases_on_cpu():
                                    dev)
     nb, ops = CS.dense_cidr_work(tabs["am"].snapshot()[0], a16, fam, port)
     assert nb > 64 * 24 and ops > 0
+
+
+def test_sass_diff_compares_opcode_sequences():
+    """tools/sass_diff reads cuobjdump's SASS into per-kernel opcode
+    sequences (predicates, operands and the anonymous namespace's hash
+    dropped, so a kernel keeps its name across edits of its file) and
+    compares two versions kernel by kernel; a kernel one side lacks is
+    listed without a ratio."""
+    from vproxy_tpu_torch.tools import sass_diff as SD
+
+    def dump(ns_hash, kernels):
+        out = []
+        for name, ops in kernels.items():
+            out.append(f"\t\tFunction : _ZN49_GLOBAL__N__{ns_hash}_16_x_cu_"
+                       f"47fbb6b2{name}E")
+            out += [f"        /*{16 * i:04x}*/   {op} ;   /* 0x0 */"
+                    for i, op in enumerate(ops)]
+        return "\n".join(out) + "\n"
+    old = SD.functions(dump("a51a8c4d", {
+        "6kernelA": ["LDC R1, c[0x0][0x28]", "@!P2 LDG.E.U8 R4, [R2.64]",
+                     "EXIT"],
+        "6kernelB": ["IMAD R0, R1, R2, R3", "EXIT"]}))
+    new = SD.functions(dump("77b37209", {
+        "6kernelA": ["LDC R7, c[0x0][0x30]", "@P0 LDG.E.U8 R9, [R4.64]",
+                     "EXIT"],
+        "6kernelB": ["IMAD R0, R1, R2, R3", "LOP3.LUT R0, R0, 0x1", "EXIT"],
+        "6kernelC": ["EXIT"]}))
+    assert old["_ZN49ANON6kernelAE"] == ["LDC", "LDG.E.U8", "EXIT"]
+    rows = {r[0]: r[1:] for r in SD.compare(old, new)}
+    assert rows["_ZN49ANON6kernelAE"] == (3, 3, 1.0)
+    assert rows["_ZN49ANON6kernelBE"][:2] == (2, 3)
+    assert rows["_ZN49ANON6kernelBE"][2] == pytest.approx(0.8)
+    assert rows["_ZN49ANON6kernelCE"] == (None, 1, None)
+    # a renamed kernel (a template parameter added) is paired by pattern
+    renamed = {k.replace("kernelB", "kernelBx"): v for k, v in new.items()}
+    rows = {r[0]: r[1:] for r in SD.compare(
+        old, renamed, [(r"kernelB", "kernelBx")])}
+    assert rows["_ZN49ANON6kernelBE"][:2] == (2, 3)
+    assert "_ZN49ANON6kernelBxE" not in rows

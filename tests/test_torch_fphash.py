@@ -997,9 +997,8 @@ def test_service_torch_fp_vs_reference_service(kind):
         st = svc.stats
         assert st.device_queries == b and st.failovers == 0
         assert E.fused_dispatches_total() == f0
-        per_batch = 2 if kind == "cpick" else 1  # B6 + the Maglev take
-        assert E.dispatch_launches_total() - l0 == \
-            per_batch * st.dispatches >= 1
+        # a cpick batch is one launch too: B6 with its Maglev column
+        assert E.dispatch_launches_total() - l0 == st.dispatches >= 1
     finally:
         svc.close()
         rsvc.close()
@@ -1117,14 +1116,15 @@ def test_fp_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
-@pytest.mark.parametrize("kind", ["hint", "cidr"])
+@pytest.mark.parametrize("kind", ["hint", "cidr", "pick"])
 def test_fp_kernel_abi_mirror_matches_source(kind):
     """The ctypes mirrors have the C structs' fields, in order (each
     struct lives in its routine's header, which the kernel and B8
-    share)."""
-    src_path, struct, cls = (
-        (FPC.HEADER_HINT, "FpHintArgs", FPC._FpHintArgs) if kind == "hint"
-        else (FPC.HEADER_CIDR, "FpCidrArgs", FPC._FpCidrArgs))
+    share; B6's Maglev column is a struct of its own)."""
+    src_path, struct, cls = {
+        "hint": (FPC.HEADER_HINT, "FpHintArgs", FPC._FpHintArgs),
+        "cidr": (FPC.HEADER_CIDR, "FpCidrArgs", FPC._FpCidrArgs),
+        "pick": (FPC.HEADER_HINT, "FpPickArgs", FPC._FpPickArgs)}[kind]
     with open(src_path) as f:
         body = re.search(rf"struct {struct} \{{(.*?)\}};", f.read(),
                          re.S).group(1)
@@ -1154,8 +1154,14 @@ def test_chip_smoke_fp_phases_on_cpu():
     assert err["layouts"]["routes"][0] and not err["layouts"]["acl"][0]
     out = CS.phase_fp_service(dev, tabs, bursts=2, burst=24)
     assert out["queries"] == 4 * 48 and out["failovers"] == 0
-    assert out["launches"] == {"hint_fp": 0, "cidr_fp": 0}
+    assert out["launches"] == {"hint_fp": 0, "hint_fp_pick": 0,
+                               "cidr_fp": 0}
+    # a cpick batch is one launch of B6 with its Maglev column: no take
+    assert out["maglev_takes"] == 0 and out["batches"]["cpick"] > 0
     assert all(v > 0 for v in out["batches"].values())
+    rows = CS.phase_cpick(dev, {"torch-fp": (tabs["pair"], tabs["rules"])},
+                          b=24, timed=False)
+    assert [r["backend"] for r in rows] == ["torch-fp"]
     hsnap = tabs["hm"].snapshot()
     q = CS.fp_hint_batch(hsnap[0], mk_queries(tabs["rules"], 48), 64, dev)
     nb, ops = CS.fp_hint_work(hsnap[1], q)

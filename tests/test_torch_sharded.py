@@ -854,9 +854,16 @@ def test_chip_smoke_sharded_phases_on_cpu():
     tabs = CS.sharded_tables(dev, pool, futs, 2000, 1500, 300)
     out = CS.phase_sharded_kernels(dev, tabs, buckets=(16, 128, 512))
     assert out["max_abs_err"] == 0 and out["checks"] == 2 * 6 * 3
-    svc = CS.phase_sharded_service(
-        dev, CS.sharded_service_tables(dev, tabs), bursts=1,
-        burst=64)
+    # the hint kinds with their Maglev column, at each S, at the timed
+    # batch sizes among the buckets (16, 512) and the largest (512)
+    assert out["pick_checks"] == 2 * 2 * 2
+    stabs = CS.sharded_service_tables(dev, tabs)
+    svc = CS.phase_sharded_service(dev, stabs, bursts=1, burst=64)
+    rows = CS.phase_cpick(dev, {be: (stabs[be]["pair"], stabs["rules"])
+                                for be in ("torch-sharded",
+                                           "torch-fp-sharded")}, b=64,
+                          timed=False)
+    assert len(rows) == 2
     for be in ("torch-sharded", "torch-fp-sharded"):
         assert svc[be]["queries"] == 4 * 64 and svc[be]["failovers"] == 0
         assert svc[be]["launches"]["sharded_match"] == 0

@@ -65,11 +65,31 @@
 //   1, the query's byte is 0), so it never matches.
 // * hint: a rule's key is (host level << 30) | (uri level << 20) |
 //   (0xFFFFF - index): the max key is the highest level, then the
-//   earliest rule, whatever order the groups run in (at most 2^20
-//   rules: the packer refuses more). Each thread keeps its queries'
-//   max; one 32-bit atomicMax per query and block, then the last block
-//   of a query tile (a device-scope ticket after a fence) writes
-//   (index, level).
+//   earliest rule, whatever order the groups run in. Each thread keeps
+//   its queries' max; one 32-bit atomicMax per query and block, then
+//   the last block of a query tile (a device-scope ticket after a
+//   fence) writes (index, level). A table whose last live rule lies
+//   past 2^20 takes the WIDE instances: the same level fields shifted
+//   up 12 bits over (2^31 - 1 - index) in a 64-bit key and a 64-bit
+//   atomicMax (the packer writes that index field and flags the tiles;
+//   the rule is the same). They keep two more registers a query
+//   thread, so they ask for 3 blocks an SM, not 4; the 32-bit
+//   instances serve every table of at most 2^20 rules as before.
+// * The Maglev column (the PICK instances, `dense_hint_kernel_pick`, with
+//   a DensePickArgs of their own):
+//   B5's take folded in, so a classify+pick batch of a "torch-dense"
+//   matcher is one launch answering (verdict, pick) into int32 [B, 2],
+//   the row layout of B1's `fused_classify_pick`. Replaces, with B5
+//   (csrc/maglev_take.cu), vproxy_tpu/rules/maglev.py:235
+//   `_device_take` on that path. The blocks of the first tile range
+//   (blockIdx.y 0) load their queries' flow slots and gather
+//   mtab[clamp(slot, 0, m - 1)] right after their first tile's copies
+//   are issued, and store the picks at once: the two loads wait under
+//   the tile's landing, off the verdict's chain, and hold no register
+//   through the compare loop (the last block, which writes the
+//   verdict, is known only at the end, and the Q = 2 instance sits at
+//   its 128-register bound). 12 bytes a flow more (an 8-byte slot read,
+//   a 4-byte pick written) and 4 for each distinct entry gathered.
 // * cidr: per family a list of the valid patterns in ascending rule
 //   order (an IPv4 pattern is one mask and value word: 16 B with its
 //   rule and ports; an IPv6 one four: 48 B). A block takes one family's
@@ -84,6 +104,8 @@
 // Both reductions are order-independent: the result is deterministic.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
@@ -98,8 +120,10 @@ constexpr int TILE = 32;        // hint rows a tile
 constexpr int CTILE = 64;       // cidr entries a tile
 constexpr int MAX_THREADS = 128;
 constexpr int HINT_MIN_BLOCKS = 4;  // <= 128 registers a thread
+constexpr int WIDE_MIN_BLOCKS = 3;  // the 64-bit key: <= 168
 constexpr int CIDR_Q = 4;           // cidr queries a thread, many queries
 constexpr unsigned IDX_MASK = 0xFFFFFu;  // 20 bits of rule index
+constexpr unsigned WIDE_MASK = 0x7FFFFFFFu;  // 31 bits (WIDE)
 
 }  // namespace
 
@@ -112,11 +136,24 @@ struct DenseHintArgs {
   const int32_t* rows;       // the tiles, one after another (int4s)
   const int32_t* tiles;      // [n_tiles, 4]: first int4, host chunks |
                              // uri chunks << 8 | gated << 16, 0, 0
-  unsigned int* key;         // [b], zero-filled by the wrapper
+  unsigned int* key;         // [b] (WIDE: 64-bit), zero-filled by the
+                             // wrapper
   unsigned int* done;        // [query tiles], zero-filled by the wrapper
-  int32_t* out_idx;          // [b]
-  int32_t* out_level;        // [b]
+  int32_t* out_idx;          // [b] (stride ostride with a Maglev column)
+  int32_t* out_level;        // [b] (unused with a Maglev column)
   int32_t b, n_tiles, threads, split, stage_vec, q;
+};
+
+// The Maglev column, a parameter of the PICK instances alone: the
+// verdict-only instances keep DenseHintArgs as it was, and with it their
+// code (a parameter grown by these fields changed the SASS of the
+// 32-bit verdict-only Q = 2 instance, which then read 7-9% slower on the
+// H100: PERF.md).
+struct DensePickArgs {
+  const int32_t* mtab;       // [m] Maglev table
+  const int64_t* slots;      // [b] flow slots (maglev.flow_slots)
+  int32_t* out_pick;         // [b], stride ostride
+  int32_t m, ostride;        // out_idx's and out_pick's row stride
 };
 
 struct DenseCidrArgs {
@@ -130,6 +167,13 @@ struct DenseCidrArgs {
 };
 
 namespace {
+
+// The Maglev entry at a flow slot, clamped to [0, m - 1] as
+// jnp.take(mode="clip") clamps it, through the read-only path.
+__device__ __forceinline__ int maglev_at(const int32_t* mtab, int m,
+                                         long long slot) {
+  return __ldg(mtab + (slot < 0 ? 0 : (slot >= m ? m - 1 : slot)));
+}
 
 // Copy n_vec uint4s from `src` to `dst` (shared memory) with
 // asynchronous 16-byte copies spread over the block, then commit them
@@ -178,9 +222,14 @@ __device__ __forceinline__ void load_query(const DenseHintArgs& a, int qi,
 
 }  // namespace
 
-template <int Q>
-__global__ void __launch_bounds__(MAX_THREADS, HINT_MIN_BLOCKS)
-dense_hint_kernel(const DenseHintArgs a) {
+// One block's part of a hint batch (the kernels below are its entry
+// points: the verdict-only instances take DenseHintArgs alone).
+template <int Q, bool WIDE, bool PICK>
+__device__ __forceinline__ void hint_block(const DenseHintArgs& a,
+                                           const DensePickArgs& pa) {
+  // the key: level fields over the complemented rule index
+  using Key = typename std::conditional<WIDE, unsigned long long,
+                                        uint32_t>::type;
   // two ring slots of stage_vec uint4s, then the queries' uri chunks
   extern __shared__ uint4 ring[];
   __shared__ unsigned int ticket;
@@ -188,7 +237,8 @@ dense_hint_kernel(const DenseHintArgs a) {
   const int slots = a.threads * Q;
   uint4* qu = ring + 2 * a.stage_vec + threadIdx.x;
   uint32_t qh[Q][4 * HC_MAX];
-  uint32_t hmask[Q], umask[Q], best[Q];
+  uint32_t hmask[Q], umask[Q];
+  Key best[Q];
   int qport[Q];
 #pragma unroll
   for (int k = 0; k < Q; ++k) {
@@ -208,6 +258,16 @@ dense_hint_kernel(const DenseHintArgs a) {
   int4 td = t0 < t1 ? __ldg(tiles + t0) : make_int4(0, 0, 0, 0);
   if (t0 < t1)
     stage(ring, rows + td.x, tile_vec(td.y & 0xff, (td.y >> 8) & 0xff));
+  if (PICK && blockIdx.y == 0) {  // while the first tile lands
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      const int qi = base + k * a.threads;
+      if (qi < a.b)
+        pa.out_pick[(size_t)qi * pa.ostride] = maglev_at(
+            pa.mtab, pa.m,
+            __ldg(reinterpret_cast<const long long*>(pa.slots) + qi));
+    }
+  }
   for (int t = t0; t < t1; ++t) {
     const int4 cur = td;
     if (t + 1 < t1) {  // tile t + 1 lands while tile t is compared
@@ -271,7 +331,9 @@ dense_hint_kernel(const DenseHintArgs a) {
             de[k] == 0 ? 3u << 30 : (ds[k] == 0 ? 2u << 30 : wild);
         // a tile without uri chunks: every row's uri compare holds
         const uint32_t ul = uc == 0 || du[k] == 0 ? hit : miss;
-        uint32_t key = (hl & hmask[k]) | (ul & umask[k]) | (uint32_t)mt.x;
+        const uint32_t lv = (hl & hmask[k]) | (ul & umask[k]);
+        Key key = WIDE ? ((Key)lv << 12) | (uint32_t)mt.x
+                       : (Key)(lv | (uint32_t)mt.x);
         if (gated && !(qport[k] == 0 || mt.y == 0 || qport[k] == mt.y))
           key = 0;
         best[k] = max(best[k], key);
@@ -282,7 +344,8 @@ dense_hint_kernel(const DenseHintArgs a) {
 #pragma unroll
   for (int k = 0; k < Q; ++k) {
     const int qi = base + k * a.threads;
-    if (qi < a.b && best[k] > IDX_MASK) atomicMax(a.key + qi, best[k]);
+    if (qi < a.b && best[k] > (WIDE ? WIDE_MASK : IDX_MASK))
+      atomicMax(reinterpret_cast<Key*>(a.key) + qi, best[k]);
   }
   // the last block of this query tile writes the answers
   __threadfence();
@@ -295,11 +358,31 @@ dense_hint_kernel(const DenseHintArgs a) {
   for (int k = 0; k < Q; ++k) {
     const int qi = base + k * a.threads;
     if (qi >= a.b) continue;
-    const unsigned key = __ldcg(a.key + qi);
-    const int level = (int)(key >> 20);
-    a.out_idx[qi] = level > 0 ? (int)(IDX_MASK - (key & IDX_MASK)) : -1;
-    a.out_level[qi] = level;
+    const Key key = __ldcg(reinterpret_cast<const Key*>(a.key) + qi);
+    const int level = (int)(key >> (WIDE ? 32 : 20));
+    const unsigned mask = WIDE ? WIDE_MASK : IDX_MASK;
+    const int idx = level > 0 ? (int)(mask - (unsigned)(key & mask)) : -1;
+    if (PICK) {
+      a.out_idx[(size_t)qi * pa.ostride] = idx;
+    } else {
+      a.out_idx[qi] = idx;
+      a.out_level[qi] = level;
+    }
   }
+}
+
+template <int Q, bool WIDE>
+__global__ void __launch_bounds__(MAX_THREADS,
+                                  WIDE ? WIDE_MIN_BLOCKS : HINT_MIN_BLOCKS)
+dense_hint_kernel(const DenseHintArgs a) {
+  hint_block<Q, WIDE, false>(a, DensePickArgs{});
+}
+
+template <int Q, bool WIDE>
+__global__ void __launch_bounds__(MAX_THREADS,
+                                  WIDE ? WIDE_MIN_BLOCKS : HINT_MIN_BLOCKS)
+dense_hint_kernel_pick(const DenseHintArgs a, const DensePickArgs pa) {
+  hint_block<Q, WIDE, true>(a, pa);
 }
 
 namespace {
@@ -456,6 +539,35 @@ bool aligned(const void* p, size_t n) {
   return reinterpret_cast<uintptr_t>(p) % n == 0;
 }
 
+// Every hint instance of one Q may take `bytes` of dynamic shared
+// memory.
+template <int Q>
+cudaError_t opt_in(int bytes) {
+  const cudaFuncAttribute at = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(dense_hint_kernel<Q, false>, at,
+                                         bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dense_hint_kernel<Q, true>, at, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dense_hint_kernel_pick<Q, false>, at, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dense_hint_kernel_pick<Q, true>, at, bytes);
+  return err;
+}
+
+template <int Q>
+void launch_hint(const DenseHintArgs& a, const DensePickArgs* pick,
+                 bool wide, dim3 grid, size_t smem, cudaStream_t s) {
+  if (wide && pick != nullptr)
+    dense_hint_kernel_pick<Q, true><<<grid, a.threads, smem, s>>>(a, *pick);
+  else if (wide)
+    dense_hint_kernel<Q, true><<<grid, a.threads, smem, s>>>(a);
+  else if (pick != nullptr)
+    dense_hint_kernel_pick<Q, false><<<grid, a.threads, smem, s>>>(a, *pick);
+  else
+    dense_hint_kernel<Q, false><<<grid, a.threads, smem, s>>>(a);
+}
+
 }  // namespace
 
 extern "C" int vproxy_dense_hint_args_size() {
@@ -464,17 +576,25 @@ extern "C" int vproxy_dense_hint_args_size() {
 extern "C" int vproxy_dense_cidr_args_size() {
   return (int)sizeof(DenseCidrArgs);
 }
+extern "C" int vproxy_dense_pick_args_size() {
+  return (int)sizeof(DensePickArgs);
+}
 
 // Launch on `stream` (PyTorch's current stream; no synchronisation).
 // Returns cudaGetLastError() after the launch: 0 when it was accepted;
 // cudaErrorInvalidValue, before any launch, for a block that is not
 // 32-128 threads in warps, Q other than 1 or 2, a tile range of 0, a
-// ring slot under the largest tile, or a row array or uri batch that is
-// not 16-byte aligned. The grid is ceil(b / (threads * q)) query tiles
-// x ceil(n_tiles / split) ranges: the wrapper zero-fills `done` for the
-// query tiles.
-extern "C" int vproxy_dense_hint(const DenseHintArgs* args, int device,
-                                 void* stream) {
+// ring slot under the largest tile, a row array or uri batch that is
+// not 16-byte aligned, a `wide` key array that is not 8-byte aligned,
+// or a Maglev column without its table (m <= 0), slots, output or a row
+// stride. The grid is ceil(b / (threads * q)) query tiles x
+// ceil(n_tiles / split) ranges: the wrapper zero-fills `key` (32-bit,
+// or 64-bit with `wide`: the WIDE instances) and `done` for the query
+// tiles. A non-null `pick` runs the PICK instances: (verdict, pick) at
+// out_idx / pick->out_pick with row stride pick->ostride, no level.
+extern "C" int vproxy_dense_hint(const DenseHintArgs* args,
+                                 const DensePickArgs* pick, int wide,
+                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const DenseHintArgs& a = *args;
@@ -482,7 +602,11 @@ extern "C" int vproxy_dense_hint(const DenseHintArgs* args, int device,
       a.threads > MAX_THREADS || a.threads % 32 != 0 || a.split <= 0 ||
       (a.q != 1 && a.q != 2) || a.stage_vec < TILE ||
       a.stage_vec > tile_vec(HC_MAX, UC_MAX) || !aligned(a.q_uri, 16) ||
-      !aligned(a.rows, 16) || !aligned(a.tiles, 16))
+      !aligned(a.rows, 16) || !aligned(a.tiles, 16) ||
+      (wide != 0 && wide != 1) || (wide && !aligned(a.key, 8)) ||
+      (pick != nullptr &&
+       (pick->mtab == nullptr || pick->slots == nullptr ||
+        pick->out_pick == nullptr || pick->m <= 0 || pick->ostride <= 0)))
     return (int)cudaErrorInvalidValue;
   if (a.b == 0) return 0;
   const dim3 grid((a.b + a.threads * a.q - 1) / (a.threads * a.q),
@@ -494,21 +618,16 @@ extern "C" int vproxy_dense_hint(const DenseHintArgs* args, int device,
   if (!(opted_in >> device & 1)) {
     const int most = 16 * (2 * tile_vec(HC_MAX, UC_MAX) +
                            UC_MAX * MAX_THREADS * 2);
-    err = cudaFuncSetAttribute(dense_hint_kernel<1>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               most);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dense_hint_kernel<2>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 most);
+    err = opt_in<1>(most);
+    if (err == cudaSuccess) err = opt_in<2>(most);
     if (err != cudaSuccess) return (int)err;
     opted_in |= 1ull << device;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.q == 2)
-    dense_hint_kernel<2><<<grid, a.threads, smem, s>>>(a);
+    launch_hint<2>(a, pick, wide != 0, grid, smem, s);
   else
-    dense_hint_kernel<1><<<grid, a.threads, smem, s>>>(a);
+    launch_hint<1>(a, pick, wide != 0, grid, smem, s);
   return (int)cudaGetLastError();
 }
 

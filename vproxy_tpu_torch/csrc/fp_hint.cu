@@ -96,6 +96,20 @@
 // on. Plain loads through the read-only path, all of a step issued
 // before any is used, are the shortest chain.
 //
+// The Maglev column (the PICK instance, `fp_hint_kernel_pick`, with an
+// FpPickArgs of its own):
+// B5's take folded in, so a classify+pick batch of a "torch-fp" matcher
+// is one launch answering (verdict, pick) into int32 [B, 2], the row
+// layout of B1's `fused_classify_pick`. Replaces, with B5
+// (csrc/maglev_take.cu), vproxy_tpu/rules/maglev.py:235 `_device_take`
+// on that path. Each query's warp loads its flow slot
+// and gathers mtab[clamp(slot, 0, m - 1)] before the routine starts:
+// the two loads are off the verdict's chain, their latency hides under
+// it, and the pick waits in a register until lane 0 stores it beside
+// the verdict. It adds 12 bytes a flow to the bound (an 8-byte slot
+// read, a 4-byte pick written) and 4 for each distinct entry gathered;
+// without a column, the verdict-only kernel is as it was.
+//
 // The routine (the staged query, the pairs, the member levels, one
 // warp's packed best) is fp_hint.cuh's `warp_best`, which B8
 // (sharded_match.cu) also runs, once per rule shard; this file is the
@@ -108,25 +122,50 @@
 #include "fp_hint.cuh"
 
 using fph::FpHintArgs;
+using fph::FpPickArgs;
 
 namespace {
 
 constexpr int WARPS = 4;    // queries per block
 
-__global__ void __launch_bounds__(WARPS * 32)
-fp_hint_kernel(FpHintArgs a) {
+// One warp's query (the kernels below are its entry points: the
+// verdict-only one takes FpHintArgs alone).
+template <bool PICK>
+__device__ __forceinline__ void hint_warp(const FpHintArgs& a,
+                                          const FpPickArgs& pa) {
   extern __shared__ __align__(16) int32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int q = blockIdx.x * WARPS + warp;
   if (q >= a.b) return;  // whole warps leave together; no block sync
+  // the pick, issued before the routine's first load: every lane loads
+  // the same slot and entry (one broadcast each, no lane-0 branch to
+  // hold the loads back); lane 0 stores it
+  const int pick =
+      PICK ? fph::maglev_at(
+                 pa.mtab, pa.m,
+                 __ldg(reinterpret_cast<const long long*>(pa.slots) + q))
+           : 0;
   const int best = fph::warp_best(
       a, smem + (size_t)warp * fph::warp_words(a), q, lane);
   if (lane == 0) {
     const size_t o = (size_t)q * a.out_stride;
     a.out_idx[o] = best > 0 ? a.r_cap - best % (a.r_cap + 1) : -1;
-    if (a.out_level != nullptr) a.out_level[o] = best / (a.r_cap + 1);
+    if (PICK)
+      pa.out_pick[o] = pick;
+    else if (a.out_level != nullptr)
+      a.out_level[o] = best / (a.r_cap + 1);
   }
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+fp_hint_kernel(FpHintArgs a) {
+  hint_warp<false>(a, FpPickArgs{});
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+fp_hint_kernel_pick(FpHintArgs a, FpPickArgs pa) {
+  hint_warp<true>(a, pa);
 }
 
 bool aligned8(const void* p) {
@@ -136,16 +175,19 @@ bool aligned8(const void* p) {
 }  // namespace
 
 extern "C" int vproxy_fp_hint_args_size() { return (int)sizeof(FpHintArgs); }
+extern "C" int vproxy_fp_pick_args_size() { return (int)sizeof(FpPickArgs); }
 
 // Launch on `stream` (PyTorch's current stream; no synchronisation).
 // Returns cudaGetLastError() after the launch: 0 when it was accepted;
 // cudaErrorInvalidValue, before any launch, for a table or batch whose
 // sizes the kernel cannot index: entries wider than a row, a row width
 // that is odd or a table of 2^31 ints or more, a table or wildcard
-// array that is not 8-byte aligned, or a batch whose staged arrays pass
-// the 48 KB of shared memory a launch may take unasked.
-extern "C" int vproxy_fp_hint(const FpHintArgs* args, int device,
-                              void* stream) {
+// array that is not 8-byte aligned, a batch whose staged arrays pass
+// the 48 KB of shared memory a launch may take unasked, or a Maglev
+// column without its table (m <= 0), slots or output. A non-null `pick`
+// runs the PICK instance: (verdict, pick) per row, no level.
+extern "C" int vproxy_fp_hint(const FpHintArgs* args, const FpPickArgs* pick,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const FpHintArgs& a = *args;
@@ -157,10 +199,16 @@ extern "C" int vproxy_fp_hint(const FpHintArgs* args, int device,
       a.he * (2 + 4 * a.hm) > a.rw || a.ue * (2 + 4 * a.um) > a.rw ||
       (long long)a.rows * a.rw >= (1ll << 31) ||
       (a.um_fp1 != nullptr && a.l <= 0) || smem > 48 * 1024 ||
-      !aligned8(a.rec) || !aligned8(a.wh_rec) || !aligned8(a.wu_rec))
+      !aligned8(a.rec) || !aligned8(a.wh_rec) || !aligned8(a.wu_rec) ||
+      (pick != nullptr &&
+       (pick->mtab == nullptr || pick->slots == nullptr ||
+        pick->out_pick == nullptr || pick->m <= 0)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((a.b + WARPS - 1) / WARPS), block(WARPS * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fp_hint_kernel<<<grid, block, smem, s>>>(a);
+  if (pick != nullptr)
+    fp_hint_kernel_pick<<<grid, block, smem, s>>>(a, *pick);
+  else
+    fp_hint_kernel<<<grid, block, smem, s>>>(a);
   return (int)cudaGetLastError();
 }

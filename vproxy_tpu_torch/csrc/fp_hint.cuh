@@ -57,6 +57,26 @@ struct FpHintArgs {
       out_stride;
 };
 
+// The Maglev column, a parameter of B6's PICK instance alone (FpHintArgs,
+// which B8 embeds, stays as it was, and with it the code of every
+// verdict-only instance: a kernel parameter grown by a column's fields
+// changed the SASS of B9's verdict-only instance and cost it 7-9%). The
+// ctypes mirror in ops/fphash_cuda.py is checked against
+// vproxy_fp_pick_args_size().
+struct FpPickArgs {
+  const int32_t* mtab;      // [m] Maglev table
+  const int64_t* slots;     // [B] flow slots (maglev.flow_slots)
+  int32_t* out_pick;        // [B] mtab[clamp(slot)] (stride out_stride)
+  int32_t m;
+};
+
+// The Maglev entry at a flow slot, clamped to [0, m - 1] as
+// jnp.take(mode="clip") clamps it, through the read-only path.
+__device__ __forceinline__ int maglev_at(const int32_t* mtab, int m,
+                                         long long slot) {
+  return __ldg(mtab + (slot < 0 ? 0 : (slot >= m ? m - 1 : slot)));
+}
+
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 // A warp's shared memory, in ints, each part starting on 16 bytes: the

@@ -13,6 +13,11 @@
 // int64 slots (host-computed by maglev.flow_slots, the one slot-hash
 // contract), M the table's length.
 //
+// In this package the classify+pick batches of the unfused backends
+// carry the same take as the Maglev column of their hint kernel (B6,
+// B8, B9: one launch a batch); this kernel serves the standalone
+// Maglev batches (rules/maglev.py MaglevMatcher.dispatch_snap / match).
+//
 // Bound: 16 bytes a flow (an 8-byte slot read, a 4-byte column entry
 // gathered, a 4-byte pick written) over the 3.35 TB/s HBM rate: well
 // under a microsecond at any batch the service forms, so a launch is

@@ -88,6 +88,25 @@
 // fingerprint hint column stays split: its interleaved form (every
 // shard's query arrays staged by one warp) read slower at every batch
 // size.
+//
+// The Maglev column (the PICK instances, `sharded_hash_kernel_pick` and
+// `sharded_fp_kernel_pick`, with a ShardedPickArgs of their own, on a
+// launch whose one column is the hint): B5's take folded in, so a
+// classify+pick batch of "torch-sharded" or "torch-fp-sharded" is one
+// launch. Replaces, with B5 (csrc/maglev_take.cu),
+// vproxy_tpu/rules/maglev.py:235 `_device_take` on that path. The pick
+// depends on no rule shard, so it never rides the cross-rank reduction:
+// the kernel writes it rank-locally, in every layout and on both paths
+// (answers or keys), into `pick` (row stride `ostride`): the writing
+// warp (the first of a query's group, or the query's one warp in the
+// interleaved form) loads the flow slot and gathers
+// mtab[clamp(slot, 0, m - 1)] before its routine's first load, off the
+// verdict's chain, and lane 0 stores the pick beside the verdict. With
+// `out`, the verdicts go to column 0 of rows of `ostride` ints (the
+// caller's int32 [B, 2] (verdict, pick)); with `keys`, the keys go as
+// ever and `vproxy_sharded_finish` later writes the verdicts into the
+// same rows. 12 bytes a flow more (an 8-byte slot read, a 4-byte pick
+// written) and 4 for each distinct entry gathered.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -159,6 +178,18 @@ struct ShardedFpArgs {
   int32_t b, ncols, s0;
   int32_t smem_words;        // set by the launcher
   int32_t size[2];           // shard size per column
+};
+
+// The Maglev column, a parameter of the PICK instances alone (the
+// argument structs above stay as they were, and with them the code of
+// every other instance: a kernel parameter grown by a column's fields
+// changed the SASS of B9's verdict-only instance and cost it 7-9%; here
+// it cost the CIDR columns 2-5%).
+struct ShardedPickArgs {
+  const int32_t* mtab;       // [m] Maglev table
+  const int64_t* mslots;     // [B] flow slots (maglev.flow_slots)
+  int32_t* pick;             // [B], stride ostride
+  int32_t m, ostride;        // table size; out's and pick's row stride
 };
 
 namespace {
@@ -318,6 +349,14 @@ __device__ __forceinline__ void write_once(unsigned long long key, int lane,
     keys[o] = key;
 }
 
+// Query q's Maglev pick (every lane loads the same slot and entry: one
+// broadcast each).
+template <class A>
+__device__ __forceinline__ int pick_of(const A& a, int q) {
+  return fph::maglev_at(
+      a.mtab, a.m, __ldg(reinterpret_cast<const long long*>(a.mslots) + q));
+}
+
 // The shard views the interleaved forms take: shard j's arguments and
 // the key a winner takes.
 struct HintShards {
@@ -424,17 +463,62 @@ sharded_hash_kernel(const ShardedHashArgs a, int shards, int inter) {
   write_key(key, warp, lane, gw, q, a.b, a.ncols, col, a.keys, a.out);
 }
 
-// Bit c of `inter` as above; the hint column has no interleaved form
-// (it read slower at every batch size: PERF.md).
-template <bool HINT, bool CIDR>
-__global__ void __launch_bounds__(WARPS * 32,
-                                  HINT && CIDR ? MIN_BLOCKS
-                                  : HINT       ? FP_MIN_BLOCKS
-                                               : FP_CIDR_MIN_BLOCKS)
-sharded_fp_kernel(const ShardedFpArgs a, int shards, int inter) {
+// The hint column with its Maglev column (no CIDR column): the kernel
+// above's hint paths, each warp that writes an answer also loading its
+// query's flow slot and Maglev entry before its routine and storing the
+// pick beside the answer. A kernel of its own (not a template flag of
+// the one above) so that every instance above stays as it was: wrapping
+// their body in a function shared with this one changed the SASS of the
+// CIDR instances.
+template <bool URI, int W>
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+sharded_hash_kernel_pick(const ShardedHashArgs a, const ShardedPickArgs pa,
+                         int shards, int inter) {
   extern __shared__ __align__(16) int32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // out's rows hold the picks beside the answers; the keys' do not
+  const int os = a.out != nullptr ? pa.ostride : a.ncols;
+  if (inter & 1) {  // block-uniform: the interleaved form
+    const int q = blockIdx.x * WARPS + warp;
+    if (q >= a.b) return;  // warp-uniform; no block sync on this path
+    const int pick = pick_of(pa, q);  // before the routine
+    const unsigned long long key = hint::warp_verdict_shards<URI, W>(
+        HintShards{a}, shards, smem + warp * a.smem_words, q, a.np, lane);
+    write_once(key, lane, q, os, 0, a.keys, a.out);
+    if (lane == 0) pa.pick[(size_t)q * pa.ostride] = pick;
+    return;
+  }
+  const int gw = group_of(shards);
+  const int q = blockIdx.x * (WARPS / gw) + warp / gw;
+  const int g = warp % gw;  // this warp's first shard
+  // the writing warp's pick, before its routine (warp-uniform branch)
+  const bool picks = g == 0 && q < a.b;
+  const int pick = picks ? pick_of(pa, q) : 0;
+  unsigned long long key = 0;
+  if (q < a.b) {  // warp-uniform; no block sync on this path
+    for (int j = g; j < shards; j += gw) {
+      const hint::FusedArgs h = hint_at(a, j);
+      int bl, bi;
+      hint::warp_verdict<URI, W, false>(h, smem + warp * a.smem_words, q,
+                                        a.np, lane, bl, bi);
+      key = max(key, hint_key(bl, a.s0 + j, a.size[0], bi));
+    }
+  }
+  write_key(key, warp, lane, gw, q, a.b, os, 0, a.keys, a.out);
+  if (picks && lane == 0) pa.pick[(size_t)q * pa.ostride] = pick;
+}
+
+// Bit c of `inter` as above; the hint column has no interleaved form
+// (it read slower at every batch size: PERF.md). PICK as above.
+template <bool HINT, bool CIDR, bool PICK>
+__device__ __forceinline__ void fp_block(const ShardedFpArgs& a,
+                                         const ShardedPickArgs& pa,
+                                         int shards, int inter) {
+  extern __shared__ __align__(16) int32_t smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int os = PICK && a.out != nullptr ? pa.ostride : a.ncols;
   if (CIDR && ((inter >> blockIdx.y) & 1)) {  // block-uniform
     const int q = blockIdx.x * WARPS + warp, col = blockIdx.y;
     if (q >= a.b) return;  // warp-uniform; no block sync on this path
@@ -446,13 +530,16 @@ sharded_fp_kernel(const ShardedFpArgs a, int shards, int inter) {
         FpCidrShards{a, col}, shards,
         smem + (size_t)warp * fpc::shards_warp_words(a.c.g, shards), addr,
         f, p, lane);
-    write_once(key, lane, q, a.ncols, col, a.keys, a.out);
+    write_once(key, lane, q, os, col, a.keys, a.out);
     return;
   }
   const int gw = group_of(shards);
   const int q = blockIdx.x * (WARPS / gw) + warp / gw;
   const int g = warp % gw;
   const int col = blockIdx.y;
+  // the writing warp's pick, before its routine (warp-uniform branch)
+  const bool picks = PICK && g == 0 && q < a.b;
+  const int pick = picks ? pick_of(pa, q) : 0;
   unsigned long long key = 0;
   if (HINT && col == 0) {  // the hint column is column 0
     if (q < a.b) {  // warp-uniform; no block sync on this path
@@ -482,13 +569,32 @@ sharded_fp_kernel(const ShardedFpArgs a, int shards, int inter) {
       }
     }
   }
-  write_key(key, warp, lane, gw, q, a.b, a.ncols, col, a.keys, a.out);
+  write_key(key, warp, lane, gw, q, a.b, os, col, a.keys, a.out);
+  if (picks && lane == 0) pa.pick[(size_t)q * pa.ostride] = pick;
 }
 
+template <bool HINT, bool CIDR>
+__global__ void __launch_bounds__(WARPS * 32,
+                                  HINT && CIDR ? MIN_BLOCKS
+                                  : HINT       ? FP_MIN_BLOCKS
+                                               : FP_CIDR_MIN_BLOCKS)
+sharded_fp_kernel(const ShardedFpArgs a, int shards, int inter) {
+  fp_block<HINT, CIDR, false>(a, ShardedPickArgs{}, shards, inter);
+}
+
+// The fingerprint hint column with its Maglev column.
+__global__ void __launch_bounds__(WARPS * 32, FP_MIN_BLOCKS)
+sharded_fp_kernel_pick(const ShardedFpArgs a, const ShardedPickArgs pa,
+                       int shards, int inter) {
+  fp_block<true, false, true>(a, pa, shards, inter);
+}
+
+// n keys (rows of ncols) -> answers in rows of ostride ints.
 __global__ void sharded_finish_kernel(const unsigned long long* keys,
-                                      int32_t* out, int n) {
+                                      int32_t* out, int n, int ncols,
+                                      int ostride) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = answer(keys[i]);
+  if (i < n) out[(size_t)(i / ncols) * ostride + i % ncols] = answer(keys[i]);
 }
 
 bool aligned(const void* p, size_t n) {
@@ -531,6 +637,8 @@ double split_waves(K kern, int b, int shards, size_t smem, int device) {
 }
 
 using HashKernel = void (*)(const ShardedHashArgs, int, int);
+using HashPickKernel = void (*)(const ShardedHashArgs, const ShardedPickArgs,
+                                int, int);
 
 template <int W>
 HashKernel hash_kernel_word(bool uri, bool cidr) {
@@ -552,6 +660,30 @@ HashKernel hash_kernel(bool hint, int word, bool uri, bool cidr) {
   }
 }
 
+// The instance of a launch with the Maglev column (the hint column
+// alone): its compare word and uri half.
+HashPickKernel hash_pick_kernel(int word, bool uri) {
+  switch (word) {
+    case 16: return uri ? sharded_hash_kernel_pick<true, 16>
+                        : sharded_hash_kernel_pick<false, 16>;
+    case 8: return uri ? sharded_hash_kernel_pick<true, 8>
+                       : sharded_hash_kernel_pick<false, 8>;
+    case 4: return uri ? sharded_hash_kernel_pick<true, 4>
+                       : sharded_hash_kernel_pick<false, 4>;
+    default: return uri ? sharded_hash_kernel_pick<true, 1>
+                        : sharded_hash_kernel_pick<false, 1>;
+  }
+}
+
+// A Maglev column (null: none): its table, slots and output, on a
+// launch whose one column is the hint.
+bool pick_ok(const ShardedPickArgs* p, int ncols, bool hint_col) {
+  return p == nullptr ||
+         (hint_col && ncols == 1 && p->mtab != nullptr &&
+          p->mslots != nullptr && p->pick != nullptr && p->m > 0 &&
+          p->ostride >= 1);
+}
+
 }  // namespace
 
 extern "C" int vproxy_sharded_hash_args_size() {
@@ -559,6 +691,9 @@ extern "C" int vproxy_sharded_hash_args_size() {
 }
 extern "C" int vproxy_sharded_fp_args_size() {
   return (int)sizeof(ShardedFpArgs);
+}
+extern "C" int vproxy_sharded_pick_args_size() {
+  return (int)sizeof(ShardedPickArgs);
 }
 
 // Launch on `stream` (PyTorch's current stream; no synchronisation)
@@ -569,9 +704,13 @@ extern "C" int vproxy_sharded_fp_args_size() {
 // layout, a column count that disagrees with the tables, a hint
 // compare word that does not divide the windows or align the byte
 // tables and every shard's slice of them, a CIDR table that is empty or
-// whose 16-byte rows (or a shard's slice of them) are off 16 bytes, or
-// more shared memory than a launch may take unasked (48 KB).
-extern "C" int vproxy_sharded_hash(const ShardedHashArgs* args, int shards,
+// whose 16-byte rows (or a shard's slice of them) are off 16 bytes, a
+// Maglev column (`pick`, null: none) without its table (m <= 0),
+// slots, output or a row stride, or beside another column than the
+// hint (`pick_ok`), or more shared memory than a launch may take unasked
+// (48 KB).
+extern "C" int vproxy_sharded_hash(const ShardedHashArgs* args,
+                                   const ShardedPickArgs* pick, int shards,
                                    int layout, int uri_rules, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -619,14 +758,20 @@ extern "C" int vproxy_sharded_hash(const ShardedHashArgs* args, int shards,
     split = std::max(split, (size_t)4 * WARPS * cidr::warp_words(t.g));
     ++nc;
   }
-  if (a.ncols != (hint_col ? 1 : 0) + nc || a.ncols <= 0)
+  if (a.ncols != (hint_col ? 1 : 0) + nc || a.ncols <= 0 ||
+      !pick_ok(pick, a.ncols, hint_col))
     return (int)cudaErrorInvalidValue;
-  const HashKernel kern =
-      hash_kernel(hint_col, a.h.word, hint_col && uri_rules, nc > 0);
+  const HashKernel kern = hash_kernel(hint_col, a.h.word,
+                                      hint_col && uri_rules, nc > 0);
+  const HashPickKernel pkern =
+      pick != nullptr ? hash_pick_kernel(a.h.word, uri_rules) : nullptr;
   // bit c: column c runs the interleaved form
-  const double waves = layout == AUTO && shards > 1
-                           ? split_waves(kern, a.b, shards, split, device)
-                           : 0.0;
+  const double waves =
+      layout == AUTO && shards > 1
+          ? (pkern != nullptr
+                 ? split_waves(pkern, a.b, shards, split, device)
+                 : split_waves(kern, a.b, shards, split, device))
+          : 0.0;
   int mask = 0;
   for (int c = 0; c < a.ncols; ++c)
     if (layout == INTERLEAVED ||
@@ -649,14 +794,18 @@ extern "C" int vproxy_sharded_hash(const ShardedHashArgs* args, int shards,
   }
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kern<<<grid_of(a.b, shards, a.ncols, mask), WARPS * 32, smem, s>>>(
-      a, shards, mask);
+  const dim3 grid = grid_of(a.b, shards, a.ncols, mask);
+  if (pkern != nullptr)
+    pkern<<<grid, WARPS * 32, smem, s>>>(a, *pick, shards, mask);
+  else
+    kern<<<grid, WARPS * 32, smem, s>>>(a, shards, mask);
   return (int)cudaGetLastError();
 }
 
 // The fingerprint tables' form (B6 / B7's routines); errors as above,
 // with B6's and B7's own checks (fp_hint.cu, fp_cidr.cu) per column.
-extern "C" int vproxy_sharded_fp(const ShardedFpArgs* args, int shards,
+extern "C" int vproxy_sharded_fp(const ShardedFpArgs* args,
+                                 const ShardedPickArgs* pick, int shards,
                                  int layout, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -698,8 +847,16 @@ extern "C" int vproxy_sharded_fp(const ShardedFpArgs* args, int shards,
     split = (size_t)4 * WARPS * fpc::warp_words(c.g);
     inter_smem = (size_t)4 * WARPS * fpc::shards_warp_words(c.g, shards);
   }
-  if (a.ncols != (hint_col ? 1 : 0) + (cidr_col ? 1 : 0) || a.ncols <= 0)
+  if (a.ncols != (hint_col ? 1 : 0) + (cidr_col ? 1 : 0) || a.ncols <= 0 ||
+      !pick_ok(pick, a.ncols, hint_col))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pick != nullptr) {  // the hint column alone: split, no CIDR column
+    if (hint_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    sharded_fp_kernel_pick<<<grid_of(a.b, shards, 1, 0), WARPS * 32,
+                             hint_smem, s>>>(a, *pick, shards, 0);
+    return (int)cudaGetLastError();
+  }
   void (*kern)(const ShardedFpArgs, int, int) =
       hint_col && cidr_col ? sharded_fp_kernel<true, true>
       : hint_col           ? sharded_fp_kernel<true, false>
@@ -714,21 +871,24 @@ extern "C" int vproxy_sharded_fp(const ShardedFpArgs* args, int shards,
   const size_t smem = std::max(hint_smem, inter ? inter_smem : split);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int mask = inter ? 1 << (a.ncols - 1) : 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   kern<<<grid_of(a.b, shards, a.ncols, mask), WARPS * 32, smem, s>>>(
       a, shards, mask);
   return (int)cudaGetLastError();
 }
 
 // The last pass of a launch made without `out`, after the keys were
-// reduced across ranks: n keys -> n answers.
+// reduced across ranks: n keys (rows of ncols) -> n answers, in rows of
+// `ostride` ints (ncols; 2 where a Maglev column's picks already fill
+// column 1). cudaErrorInvalidValue for ncols <= 0 or ostride < ncols.
 extern "C" int vproxy_sharded_finish(const unsigned long long* keys,
-                                     int32_t* out, int n, int device,
-                                     void* stream) {
+                                     int32_t* out, int n, int ncols,
+                                     int ostride, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (ncols <= 0 || ostride < ncols) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sharded_finish_kernel<<<(n + 255) / 256, 256, 0, s>>>(keys, out, n);
+  sharded_finish_kernel<<<(n + 255) / 256, 256, 0, s>>>(keys, out, n, ncols,
+                                                        ostride);
   return (int)cudaGetLastError();
 }

@@ -28,6 +28,18 @@ def compile_patterns(values: np.ndarray, masks: np.ndarray):
     """
     assert values.shape == masks.shape
     n, l = values.shape
+    live = np.flatnonzero(masks.any(axis=1))
+    if live.size * 2 < n:
+        # mostly empty rows (a table of few live rules, as a sparse rule
+        # list compiles): a row without a mask bit has a zero column and
+        # a zero bias, so only the live rows are unpacked, into zeros
+        # whose pages stay untouched (the same bytes as below)
+        w = np.zeros((l * 8, n), np.float32)
+        c = np.zeros(n, np.float32)
+        wl, cl = compile_patterns(values[live], masks[live])
+        w[:, live] = wl
+        c[live] = cl
+        return w, c
     vb = np.unpackbits(values, axis=1).astype(np.float32)  # [N, L*8]
     mb = np.unpackbits(masks, axis=1).astype(np.float32)
     w = (mb - 2.0 * vb * mb).T  # [L*8, N]

@@ -13,9 +13,12 @@ it with ctypes and launches it on PyTorch's current stream.
   publishes: per bit m = (W != 0), v = (W < 0), packed most significant
   bit first as np.unpackbits reads them, into little-endian 32-bit
   words. Hint: the active rules grouped by (host chunks, uri chunks,
-  port gate) into tiles of TILE rows, each rule's live chunks only;
-  cidr: per family the valid patterns in ascending rule order. The
-  packing is host work at publish (a stable sort of the rules).
+  port gate) into tiles of TILE rows, each rule's live chunks only
+  (only the active rules' columns of the weights are read), and the
+  64-bit key's index field where the last live rule lies past
+  NARROW_RULES; cidr: per family the valid patterns in ascending rule
+  order. The packing is host work at publish (a stable sort of the
+  rules).
 * `hint_rows` reads a hint layout back row by row (the tests' torch
   form of the kernel and the bound's word counts use it).
 * `DenseTable` is what a "torch-dense" matcher publishes: the
@@ -28,8 +31,11 @@ it with ctypes and launches it on PyTorch's current stream.
   words with a mask bit of each pattern: the words a query must compare
   (chip_smoke.py's bound counts them).
 * `hint_dense_cuda` and `cidr_dense_cuda` are the kernel wrappers
-  (ops/matchers.py `hint_dense` / `cidr_dense` / `classify_dense` are
-  the entries); each counts the launches it made in `launches`.
+  (ops/matchers.py `hint_dense` / `hint_dense_pick` / `cidr_dense` /
+  `classify_dense` are the entries); each counts the launches it made
+  in `launches`. With a Maglev column (`mtab`, `slots`) B9's hint is
+  one launch answering a classify+pick batch's (verdict, pick) rows:
+  B5's take folded in (`hint_dense_cuda.pick_launches` counts those).
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from . import fused_cuda as FC
+from . import take_cuda as TC
 from .fused_cuda import KernelError, card_entry
 from .tables import HOST_SLOT, MAX_URI, V4, V6
 
@@ -54,8 +61,13 @@ HOST_ORDER = [HOST_WORDS - 1] + list(range(HOST_WORDS - 1))
 TILE = 32                 # hint rows a tile (csrc/dense_match.cu)
 CTILE = 64                # cidr entries a tile
 HC_MAX, UC_MAX = 5, 8     # host chunks (20 words >= 17), uri chunks (32)
-MAX_RULES = 1 << 20       # a hint key holds 20 bits of rule index
-IDX_MASK = MAX_RULES - 1
+# the 32-bit hint key holds 20 bits of rule index; a table whose last
+# live rule lies past NARROW_RULES takes the 64-bit key's instances,
+# whose index field holds 31 bits (every index an int32 rule list has)
+NARROW_RULES = 1 << 20
+IDX_MASK = NARROW_RULES - 1
+WIDE_MASK = (1 << 31) - 1
+WIDE_CODE = 1 << 17       # a tile code's flag: the table's key is wide
 # a mask bit on the host slot's padding byte 67 (the length byte's
 # word, packed first): the query's byte is 0, the value bit 1, so an
 # absent exact or suffix pattern carrying it never matches
@@ -79,8 +91,11 @@ class DenseTable(dict):
 
 class PreparedDense(dict):
     """A packed layout (the dict of tensors) checked for its kernel, with
-    `device` and its launch sizes cached: hint `n_tiles` and
-    `stage_vec` (the largest tile, uint4s); cidr `n4` and `n6`."""
+    `device` and its launch sizes cached: hint `n_tiles`, `stage_vec`
+    (the largest tile, uint4s) and `wide` (the 64-bit key); cidr `n4`
+    and `n6`."""
+
+    wide = False
 
 
 def _planes(w: np.ndarray, nbytes: int) -> tuple:
@@ -120,24 +135,26 @@ def _tile_vec(hc, uc):
 def pack_dense_hint_table(arrays: dict) -> dict:
     """A compiled HintTable's arrays (tables.compile_hint_rules) -> the
     B9 hint layout (numpy int32): `rows` [R, 4], the tiles one after
-    another, each TILE meta rows (0xFFFFF - rule index, port, uri level
-    on a match | on a miss << 10 | host wildcard << 20, 1; a pad row is
-    0), then per row its host chunks (exact masks, suffix masks, values
-    of 4 words in HOST_ORDER), then its uri chunks (masks, values of 4
+    another, each TILE meta rows (the index field, port, uri level on a
+    match | on a miss << 10 | host wildcard << 20, 1; a pad row is 0),
+    then per row its host chunks (exact masks, suffix masks, values of 4
+    words in HOST_ORDER), then its uri chunks (masks, values of 4
     words); `tiles` [T, 4], per tile its first row, host chunks | uri
-    chunks << 8 | gated << 16, 0, 0. The active rules are grouped by
-    those three (stable: ascending rule order within a group); an
-    absent exact or suffix pattern, and every pad row of a tile with
-    host chunks, carries the POISON bit. Raises ValueError for more
-    than MAX_RULES rules, or an exact and a suffix pattern whose values
-    differ where both mask (tables.compile_hint_rules never makes
-    one)."""
+    chunks << 8 | gated << 16 | WIDE_CODE (the table's key is 64-bit),
+    0, 0. The index field is IDX_MASK - rule, or WIDE_MASK - rule when
+    the last live rule lies past NARROW_RULES (then every tile carries
+    WIDE_CODE). Only the active rules' columns of the weights are read.
+    The active rules are grouped by those three (stable: ascending rule
+    order within a group); an absent exact or suffix pattern, and every
+    pad row of a tile with host chunks, carries the POISON bit. Raises
+    ValueError for an exact and a suffix pattern whose values differ
+    where both mask (tables.compile_hint_rules never makes one)."""
     n = _n_live(arrays["active"])
-    if n > MAX_RULES:
-        raise ValueError(f"dense hint layout: {n} rules, at most "
-                         f"{MAX_RULES}")
-    hm, hv = _planes(arrays["host_w"][:, :2 * n], HOST_SLOT)
-    pad = np.zeros((n, 4 * HC_MAX - HOST_WORDS), np.uint32)
+    live = np.flatnonzero(arrays["active"][:n])
+    wide = n > NARROW_RULES
+    cols = np.stack([2 * live, 2 * live + 1], axis=1).reshape(-1)
+    hm, hv = _planes(arrays["host_w"][:, cols], HOST_SLOT)
+    pad = np.zeros((live.size, 4 * HC_MAX - HOST_WORDS), np.uint32)
     hm = _words(hm, HOST_WORDS)[:, HOST_ORDER]
     hv = _words(hv, HOST_WORDS)[:, HOST_ORDER]
     me, ms, ve, vs = hm[0::2], hm[1::2], hv[0::2], hv[1::2]
@@ -145,31 +162,34 @@ def pack_dense_hint_table(arrays: dict) -> dict:
         raise ValueError("dense hint layout: an exact and a suffix "
                          "pattern differ where both mask")
     me, ms, v = (np.concatenate([x, pad], 1) for x in (me, ms, ve | vs))
-    hvalid = arrays["host_valid"][:n]
+    hvalid = arrays["host_valid"][live]
     held = hvalid.any(axis=1)
     for col, m in ((0, me), (1, ms)):
         m[held & ~hvalid[:, col], 0] |= POISON
     v[held & ~hvalid.all(axis=1), 0] |= POISON
-    um, uv = _planes(arrays["uri_w"][:, :n], MAX_URI)
+    um, uv = _planes(arrays["uri_w"][:, live], MAX_URI)
     um, uv = _words(um, URI_WORDS), _words(uv, URI_WORDS)
     hc = -(-_live_words(me | ms) // 4)
     uc = -(-_live_words(um) // 4)
-    port = arrays["port"][:n].astype(np.int32)
-    wild = arrays["uri_wild"][:n].astype(np.uint32)
-    hit = np.maximum(np.where(arrays["uri_valid"][:n],
-                              arrays["uri_score"][:n], 0), wild)
-    meta = np.stack([IDX_MASK - np.arange(n, dtype=np.uint32),
+    port = arrays["port"][live].astype(np.int32)
+    wild = arrays["uri_wild"][live].astype(np.uint32)
+    hit = np.maximum(np.where(arrays["uri_valid"][live],
+                              arrays["uri_score"][live], 0), wild)
+    meta = np.stack([(WIDE_MASK if wide else IDX_MASK) -
+                     live.astype(np.uint32),
                      port.view(np.uint32),
                      hit.astype(np.uint32) | wild << 10 |
-                     arrays["host_wild"][:n].astype(np.uint32) << 20,
-                     np.ones(n, np.uint32)], axis=1)
+                     arrays["host_wild"][live].astype(np.uint32) << 20,
+                     np.ones(live.size, np.uint32)], axis=1)
     gated = (port != 0).astype(np.int64)
-    live = np.flatnonzero(arrays["active"][:n])
-    live = live[np.lexsort((live, gated[live], uc[live], hc[live]))]
+    # positions into the live rules, grouped; ascending rule order within
+    # a group (live is ascending)
+    order = np.lexsort((live, gated, uc, hc))
     rows, tiles, off = [], [], 0
-    keys = np.stack([hc[live], uc[live], gated[live]], axis=1)
+    keys = np.stack([hc[order], uc[order], gated[order]], axis=1)
     cuts = np.flatnonzero(np.any(keys[1:] != keys[:-1], axis=1)) + 1
-    for grp in np.split(live, cuts) if live.size else []:
+    flag = WIDE_CODE if wide else 0
+    for grp in np.split(order, cuts) if order.size else []:
         h, u, g = int(hc[grp[0]]), int(uc[grp[0]]), int(gated[grp[0]])
         nt = -(-grp.size // TILE)
         rm = np.zeros((nt * TILE, 4), np.uint32)
@@ -188,7 +208,7 @@ def pack_dense_hint_table(arrays: dict) -> dict:
         rows.append(blob.reshape(-1, 4))
         tv = _tile_vec(h, u)
         for i in range(nt):
-            tiles.append((off + i * tv, h | u << 8 | g << 16, 0, 0))
+            tiles.append((off + i * tv, h | u << 8 | g << 16 | flag, 0, 0))
         off += nt * tv
     rows = np.concatenate(rows) if rows else np.zeros((0, 4), np.uint32)
     return {"rows": np.ascontiguousarray(rows.view(np.int32)),
@@ -231,9 +251,26 @@ def packed_of(table: dict, hint: bool) -> dict:
     if table.packed is not None:
         return table.packed
     pack = pack_dense_hint_table if hint else pack_dense_cidr_table
+    live = table["active"].cpu().numpy() if hint else None
     return {k: torch.from_numpy(v) for k, v in pack(
-        {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
-         for k, v in table.items()}).items()}
+        {k: _host_planes(v, live) if v.dtype == torch.bfloat16 else
+         v.cpu().numpy() for k, v in table.items()}).items()}
+
+
+def _host_planes(w: torch.Tensor, active) -> np.ndarray:
+    """Published bf16 planes [K, N] -> float32 numpy (exact). With a hint
+    table's `active` flags only the active rules' columns (N / cap a
+    rule: all the hint packer reads) are converted, into zeros whose
+    pages stay untouched."""
+    if active is None:
+        return w.float().cpu().numpy()
+    per = w.shape[1] // active.shape[0]
+    cols = (np.flatnonzero(active)[:, None] * per +
+            np.arange(per)).reshape(-1)
+    out = np.zeros(tuple(w.shape), np.float32)
+    out[:, cols] = w[:, torch.from_numpy(cols).to(w.device)].float().cpu(
+        ).numpy()
+    return out
 
 
 def hint_rows(p: dict) -> dict:
@@ -241,7 +278,8 @@ def hint_rows(p: dict) -> dict:
     order: `meta` int32 [N, 4], `me` / `ms` / `v` int32 [N, 20] (host
     words in HOST_ORDER, zero past the row's chunks), `um` / `uv` int32
     [N, 32] (uri words), `code` int32 [N] (its tile's host chunks | uri
-    chunks << 8 | gated << 16)."""
+    chunks << 8 | gated << 16 | WIDE_CODE), `rule` int64 [N] (the rule
+    index its meta row carries, -1 for a pad row)."""
     rows, tiles = p["rows"], p["tiles"]
     dev = rows.device
     out = {k: [] for k in ("meta", "me", "ms", "v", "um", "uv", "code")}
@@ -266,8 +304,13 @@ def hint_rows(p: dict) -> dict:
                 **{k: rows.new_zeros((0, 4 * HC_MAX)) for k in
                    ("me", "ms", "v")},
                 **{k: rows.new_zeros((0, URI_WORDS)) for k in ("um", "uv")},
-                "code": rows.new_zeros(0)}
-    return {k: torch.cat(v) for k, v in out.items()}
+                "code": rows.new_zeros(0),
+                "rule": rows.new_zeros(0, dtype=torch.int64)}
+    r = {k: torch.cat(v) for k, v in out.items()}
+    mask = torch.where((r["code"] & WIDE_CODE) != 0, WIDE_MASK, IDX_MASK)
+    r["rule"] = torch.where(r["meta"][:, 3] == 1,
+                            mask.long() - r["meta"][:, 0].long(), -1)
+    return r
 
 
 def _mask_words(m: torch.Tensor) -> torch.Tensor:
@@ -321,6 +364,14 @@ class _DenseHintArgs(ctypes.Structure):
                                      "stage_vec", "q")]
 
 
+class _DensePickArgs(ctypes.Structure):
+    """Mirror of `struct DensePickArgs` (pointers, then ints): the Maglev
+    column of the hint kernel's PICK instances."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("mtab", "slots",
+                                               "out_pick")] + \
+        [(n, ctypes.c_int) for n in ("m", "ostride")]
+
+
 class _DenseCidrArgs(ctypes.Structure):
     """Mirror of `struct DenseCidrArgs` (pointers, then ints)."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
@@ -350,17 +401,23 @@ def _lib():
             except OSError as e:
                 raise KernelError(f"cannot load {path}: {e}") from e
             for kind, args in (("hint", _DenseHintArgs),
-                               ("cidr", _DenseCidrArgs)):
+                               ("cidr", _DenseCidrArgs),
+                               ("pick", _DensePickArgs)):
                 size = getattr(lib, f"vproxy_dense_{kind}_args_size")
                 size.restype, size.argtypes = ctypes.c_int, []
-                fn = getattr(lib, f"vproxy_dense_{kind}")
-                fn.restype = ctypes.c_int
-                fn.argtypes = [ctypes.POINTER(args), ctypes.c_int,
-                               ctypes.c_void_p]
                 if size() != ctypes.sizeof(args):
                     raise KernelError(f"{args.__name__} ABI drift: C "
                                       f"{size()} B, ctypes "
                                       f"{ctypes.sizeof(args)} B")
+            lib.vproxy_dense_hint.restype = ctypes.c_int
+            lib.vproxy_dense_hint.argtypes = [
+                ctypes.POINTER(_DenseHintArgs),
+                ctypes.POINTER(_DensePickArgs), ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+            lib.vproxy_dense_cidr.restype = ctypes.c_int
+            lib.vproxy_dense_cidr.argtypes = [
+                ctypes.POINTER(_DenseCidrArgs), ctypes.c_int,
+                ctypes.c_void_p]
             _LIB = lib
         return _LIB
 
@@ -409,8 +466,13 @@ def prepare_hint(p: dict) -> PreparedDense:
     if bool(((hc > HC_MAX) | (uc > UC_MAX) | (tiles[:, 0] < 0) |
              (tiles[:, 0] + vec > p["rows"].shape[0])).any()):
         raise ValueError("dense hint kernel: a tile lies outside its rows")
+    wide = (tiles[:, 1] & WIDE_CODE) != 0
+    if bool(wide.any()) and not bool(wide.all()):
+        raise ValueError("dense hint kernel: tiles disagree on the key "
+                         "width")
     t.device, t.n_tiles = p["rows"].device, int(tiles.shape[0])
     t.stage_vec = int(vec.max()) if tiles.shape[0] else TILE
+    t.wide = bool(wide.any())
     return t
 
 
@@ -480,9 +542,11 @@ def _packed(table: dict, what: str) -> PreparedDense:
     return p
 
 
-def _launch(kind: str, a, dev: torch.device) -> None:
+def _launch(kind: str, a, dev: torch.device, *hint_args) -> None:
+    """Launch B9's `kind` kernel; a hint launch also takes (its Maglev
+    column's _DensePickArgs or None, the wide flag)."""
     err = getattr(_LIB or _lib(), f"vproxy_dense_{kind}")(
-        ctypes.byref(a), dev.index or 0,
+        ctypes.byref(a), *hint_args, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise KernelError(f"dense {kind} kernel launch failed: CUDA error "
@@ -490,14 +554,17 @@ def _launch(kind: str, a, dev: torch.device) -> None:
 
 
 @card_entry("dense hint kernel")
-def hint_dense_cuda(table: dict, q: dict):
+def hint_dense_cuda(table: dict, q: dict, mtab=None, slots=None):
     """Launch B9 over a hint batch: same contract as
     matchers.hint_match_chunked on encode_hints' arrays (host uint8
     [B, 66], uri uint8 [B, 128], has_host / has_uri bool [B], port int32
     [B]), CUDA tensors only. -> (idx, level), int32 [B] views of one
-    [B, 2] output. `table` is a DenseTable with its packed layout
-    (prepare_hint's).
-    Raises KernelError unless it launched (card_entry)."""
+    [B, 2] output; with a Maglev column (`mtab` int32 [M], `slots` int64
+    [B]) -> int32 [B, 2] rows (rule index, mtab[clamp(slot, 0, M - 1)]),
+    matchers.hint_dense_pick_plain's. `table` is a DenseTable with its
+    packed layout (prepare_hint's); a wide layout launches the 64-bit
+    key's instances. Raises KernelError unless it launched
+    (card_entry)."""
     p = _packed(table, "dense hint kernel")
     dev = p.device
     b = q["host"].shape[0]
@@ -511,23 +578,37 @@ def hint_dense_cuda(table: dict, q: dict):
             raise ValueError(f"dense hint kernel: {k} has shape "
                              f"{tuple(q[k].shape)}, want {shape}")
     threads, qn, tiles, split = hint_grid(b, p.n_tiles)
-    # one fill: the per-query keys, then the tiles' tickets
-    scratch = torch.zeros(b + tiles, dtype=torch.int32, device=dev)
-    out = torch.empty((2, b), dtype=torch.int32, device=dev)
+    # one fill: the per-query keys (8 bytes each when wide), then the
+    # tiles' tickets
+    kw = 2 if p.wide else 1
+    scratch = torch.zeros(kw * b + tiles, dtype=torch.int32, device=dev)
     a = _DenseHintArgs(
         q_host=q["host"].data_ptr(), q_uri=q["uri"].data_ptr(),
         has_host=q["has_host"].data_ptr(), has_uri=q["has_uri"].data_ptr(),
         port=q["port"].data_ptr(), rows=p["rows"].data_ptr(),
         tiles=p["tiles"].data_ptr(), key=scratch.data_ptr(),
-        done=scratch.data_ptr() + 4 * b, out_idx=out[0].data_ptr(),
-        out_level=out[1].data_ptr(), b=b, n_tiles=p.n_tiles,
+        done=scratch.data_ptr() + 4 * kw * b, b=b, n_tiles=p.n_tiles,
         threads=threads, split=split, stage_vec=p.stage_vec, q=qn)
-    _launch("hint", a, dev)
+    if mtab is not None:
+        TC.check_column(mtab, slots, b, dev, "dense hint kernel")
+        out = torch.empty((b, 2), dtype=torch.int32, device=dev)
+        a.out_idx = out[:, 0].data_ptr()
+        pick = _DensePickArgs(mtab=mtab.data_ptr(), slots=slots.data_ptr(),
+                              out_pick=out[:, 1].data_ptr(),
+                              m=mtab.shape[0], ostride=2)
+        _launch("hint", a, dev, ctypes.byref(pick), int(p.wide))
+        hint_dense_cuda.launches += 1
+        hint_dense_cuda.pick_launches += 1
+        return out
+    out = torch.empty((2, b), dtype=torch.int32, device=dev)
+    a.out_idx, a.out_level = out[0].data_ptr(), out[1].data_ptr()
+    _launch("hint", a, dev, None, int(p.wide))
     hint_dense_cuda.launches += 1
     return out[0], out[1]
 
 
 hint_dense_cuda.launches = 0  # every launch
+hint_dense_cuda.pick_launches = 0  # of which: with the Maglev column
 
 
 @card_entry("dense cidr kernel")

@@ -10,8 +10,9 @@ nvcc (fused_cuda.build_library: sm_90a, content-keyed into _build/),
 loads it with ctypes and launches it on PyTorch's current stream, as
 ops/cidr_cuda.py does B4.
 
-* `hint_fp`, `cidr_fp` and `classify_fp_all` are the entries the engine
-  serves with: CPU tensors take the plain torch tier (ops/fphash.py),
+* `hint_fp`, `cidr_fp`, `classify_fp_all` and `hint_fp_pick` are the
+  entries the engine serves with: CPU tensors take the plain torch tier
+  (ops/fphash.py; `hint_fp_pick_plain` for the Maglev column),
   everything else the kernels. There is no fallback: every failure to
   serve CUDA tensors raises KernelError (fused_cuda.card_entry).
   `classify_fp_all` on the card launches B6 once and B7 twice (routes,
@@ -22,7 +23,10 @@ ops/cidr_cuda.py does B4.
   calls them when it publishes, which also builds the library, so a
   build failure stops the publish.
 * `hint_fp_cuda` and `cidr_fp_cuda` are the kernel wrappers; each
-  counts the launches it made in its `launches` attribute.
+  counts the launches it made in its `launches` attribute. With a
+  Maglev column (`mtab`, `slots`) B6 is one launch answering a
+  classify+pick batch's (verdict, pick) rows: B5's take folded in
+  (`hint_fp_cuda.pick_launches` counts those launches among the rest).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 
 from . import fphash as F
 from . import fused_cuda as FC
+from . import take_cuda as TC
 from .fused_cuda import KernelError, card_entry
 
 _CSRC = os.path.dirname(FC.SOURCE)
@@ -77,6 +82,14 @@ class _FpHintArgs(ctypes.Structure):
         [(n, ctypes.c_int) for n in _HINT_INTS]
 
 
+class _FpPickArgs(ctypes.Structure):
+    """Mirror of `struct FpPickArgs` (pointers, then ints): B6's Maglev
+    column."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("mtab", "slots",
+                                               "out_pick")] + \
+        [("m", ctypes.c_int)]
+
+
 class _FpCidrArgs(ctypes.Structure):
     """Mirror of `struct FpCidrArgs` (pointers, then ints)."""
     _fields_ = [(n, ctypes.c_void_p) for n in _CIDR_PTRS] + \
@@ -112,22 +125,32 @@ def _load(kind: str):
             lib = ctypes.CDLL(path)
         except OSError as e:
             raise KernelError(f"cannot load {path}: {e}") from e
-        size_fn = getattr(lib, f"vproxy_fp_{kind}_args_size")
-        size_fn.restype, size_fn.argtypes = ctypes.c_int, []
         fn = getattr(lib, f"vproxy_fp_{kind}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(args), ctypes.c_int, ctypes.c_void_p]
-        if size_fn() != ctypes.sizeof(args):
-            raise KernelError(f"{args.__name__} ABI drift: C {size_fn()} B,"
-                              f" ctypes {ctypes.sizeof(args)} B")
+        checks = [(kind, args)]
+        pick = []
+        if kind == "hint":  # B6 also takes its Maglev column
+            pick = [ctypes.POINTER(_FpPickArgs)]
+            checks.append(("pick", _FpPickArgs))
+        fn.argtypes = [ctypes.POINTER(args), *pick, ctypes.c_int,
+                       ctypes.c_void_p]
+        for name, mirror in checks:
+            size_fn = getattr(lib, f"vproxy_fp_{name}_args_size")
+            size_fn.restype, size_fn.argtypes = ctypes.c_int, []
+            if size_fn() != ctypes.sizeof(mirror):
+                raise KernelError(f"{mirror.__name__} ABI drift: C "
+                                  f"{size_fn()} B, ctypes "
+                                  f"{ctypes.sizeof(mirror)} B")
         _LIBS[kind] = lib
         return lib
 
 
-def _launch(kind: str, a, dev: torch.device) -> None:
+def _launch(kind: str, a, dev: torch.device, *pick) -> None:
+    """Launch B6 ("hint": `pick` its Maglev column's _FpPickArgs or None)
+    or B7 ("cidr")."""
     lib = _LIBS.get(kind) or _load(kind)
     err = getattr(lib, f"vproxy_fp_{kind}")(
-        ctypes.byref(a), dev.index or 0,
+        ctypes.byref(a), *pick, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise KernelError(f"fp {kind} kernel launch failed: CUDA error "
@@ -262,15 +285,31 @@ def _hint_args(t: PreparedFpTable, q: dict) -> _FpHintArgs:
 
 
 @card_entry("fp hint kernel")
-def hint_fp_cuda(t: dict, q: dict, out=None, col: int = 0):
+def hint_fp_cuda(t: dict, q: dict, out=None, col: int = 0, mtab=None,
+                 slots=None):
     """Launch B6: same contract as fphash.hint_fp_match, CUDA tensors
     only. -> (idx, level), int32 [B] views of one [B, 2] output; with
     `out` (int32 [B, C], C >= 1) the rule index goes to column `col`
-    and no level is written (-> out). `t` is best a PreparedFpTable
-    (prepare_hint_table); a plain dict is checked on every call. Raises
-    KernelError unless it launched (card_entry)."""
+    and no level is written (-> out). With a Maglev column (`mtab` int32
+    [M], `slots` int64 [B]; no `out`) -> int32 [B, 2] rows (rule index,
+    mtab[clamp(slot, 0, M - 1)]), hint_fp_pick_plain's. `t` is best a
+    PreparedFpTable (prepare_hint_table); a plain dict is checked on
+    every call. Raises KernelError unless it launched (card_entry)."""
     tt = prepare_hint_table(t)
     a = _hint_args(tt, q)
+    if mtab is not None:
+        if out is not None:
+            raise ValueError("fp hint kernel: a Maglev column writes its own "
+                             "[B, 2] rows")
+        TC.check_column(mtab, slots, a.b, tt.device, "fp hint kernel")
+        out = torch.empty((a.b, 2), dtype=torch.int32, device=tt.device)
+        a.out_idx, a.out_stride = out[:, 0].data_ptr(), 2
+        pick = _FpPickArgs(mtab=mtab.data_ptr(), slots=slots.data_ptr(),
+                           out_pick=out[:, 1].data_ptr(), m=mtab.shape[0])
+        _launch("hint", a, tt.device, ctypes.byref(pick))
+        hint_fp_cuda.launches += 1
+        hint_fp_cuda.pick_launches += 1
+        return out
     own = out is None
     if own:
         out = torch.empty((a.b, 2), dtype=torch.int32, device=tt.device)
@@ -278,12 +317,36 @@ def hint_fp_cuda(t: dict, q: dict, out=None, col: int = 0):
     a.out_idx = out[:, col].data_ptr()
     a.out_level = out[:, 1].data_ptr() if own else None
     a.out_stride = out.shape[1]
-    _launch("hint", a, tt.device)
+    _launch("hint", a, tt.device, None)
     hint_fp_cuda.launches += 1
     return (out[:, 0], out[:, 1]) if own else out
 
 
 hint_fp_cuda.launches = 0  # every launch
+hint_fp_cuda.pick_launches = 0  # of which: with the Maglev column
+
+
+def hint_fp_pick_plain(t: dict, q: dict, mtab: torch.Tensor,
+                       slots: torch.Tensor, mode=None) -> torch.Tensor:
+    """The plain version of B6 with its Maglev column: the plain tier's
+    rule index (fphash.hint_fp_match, member mode `mode`) beside B5's
+    plain take (take_cuda.take_plain) -> int32 [B, 2]."""
+    idx = F.hint_fp_match(t, q, mode)[0]
+    return torch.stack([idx.to(torch.int32),
+                        TC.take_plain(mtab, slots).to(torch.int32)], dim=1)
+
+
+def hint_fp_pick(t: dict, q: dict, mtab: torch.Tensor, slots: torch.Tensor,
+                 mode=None) -> torch.Tensor:
+    """B6's classify+pick entry: int32 [B, 2] (rule index, Maglev pick)
+    for an encoded batch and its flow slots. CPU tensors take the plain
+    version (hint_fp_pick_plain, in member mode `mode`); CUDA tensors
+    ONE launch of B6 with its Maglev column (hint_fp_cuda), which
+    raises unless it launched. The kernel computes the one function the
+    member modes agree on."""
+    if t["rec"].device.type == "cpu":
+        return hint_fp_pick_plain(t, q, mtab, slots, mode)
+    return hint_fp_cuda(t, q, mtab=mtab, slots=slots)
 
 
 def _check_out(out, b: int, col: int, dev) -> None:

@@ -18,8 +18,10 @@ the kernels against them on the card); the `_chunked` forms keep the
 [B, chunk] mismatch matrix the largest intermediate, so `cuda_calls`
 counts their calls on tensors off the CPU.
 
-The entries the engine serves with are `hint_dense`, `cidr_dense` and
-`classify_dense`: CPU tensors take the plain tier, every other tensor
+The entries the engine serves with are `hint_dense`, `hint_dense_pick`
+(a classify+pick batch: the verdict and the Maglev pick in one launch),
+`cidr_dense` and `classify_dense`: CPU tensors take the plain tier
+(`hint_dense_pick_plain` for the pick column), every other tensor
 the hand-written CUDA kernels (ops/dense_cuda.py, csrc/dense_match.cu),
 which raise KernelError unless they launched (fused_cuda.card_entry).
 There is no fallback.
@@ -239,6 +241,33 @@ def hint_dense(table: dict, q: dict):
                                   q["port"])
     from . import dense_cuda as DC
     return DC.hint_dense_cuda(table, q)
+
+
+def hint_dense_pick_plain(table: dict, q: dict, mtab: torch.Tensor,
+                          slots: torch.Tensor) -> torch.Tensor:
+    """The plain version of B9's hint with its Maglev column: the plain
+    tier's rule index (hint_match_chunked) beside B5's plain take
+    (take_cuda.take_plain) -> int32 [B, 2]."""
+    from .take_cuda import take_plain
+    idx = hint_match_chunked(table, q["host"], q["has_host"],
+                             unpack_bits(q["uri"]), q["has_uri"],
+                             q["port"])[0]
+    return torch.stack([idx.to(torch.int32),
+                        take_plain(mtab, slots).to(torch.int32)], dim=1)
+
+
+def hint_dense_pick(table: dict, q: dict, mtab: torch.Tensor,
+                    slots: torch.Tensor) -> torch.Tensor:
+    """B9's classify+pick entry: int32 [B, 2] (rule index, -1 for none;
+    Maglev pick mtab[clamp(slot, 0, M - 1)]) for an encode_hints batch
+    and its flow slots. CPU tensors take the plain version
+    (hint_dense_pick_plain); CUDA tensors ONE launch of B9's hint with
+    its Maglev column (dense_cuda.hint_dense_cuda), which raises unless
+    it launched."""
+    if _on_cpu(table):
+        return hint_dense_pick_plain(table, q, mtab, slots)
+    from . import dense_cuda as DC
+    return DC.hint_dense_cuda(table, q, mtab=mtab, slots=slots)
 
 
 def cidr_dense(table: dict, a16, fam, port=None):

@@ -29,8 +29,16 @@ PyTorch's current stream.
   tables shard by shard (ops/fused.py) under one key set, so the packed
   stack keeps a fixed per-shard stride; `prepare_*` check a stacked
   table once on the card and cache its per-shard strides.
-* `sharded_cuda.launches` counts B8's launches, `finish_cuda.launches`
-  the last passes of the cross-rank form.
+* `hint_pick_sharded` is the classify+pick entry: the hint answer and
+  the Maglev pick in int32 [B, 2] rows, ONE launch of B8 with its
+  Maglev column on the card (B5's take folded in), the plain version
+  (`hint_pick_plain`: the plain keys, `finish_plain`, then
+  take_cuda.take_plain) on the CPU. The pick depends on no rule shard:
+  the kernel writes it rank-locally, and across ranks only the keys
+  ride the all_reduce.
+* `sharded_cuda.launches` counts B8's launches (`pick_launches` those
+  with the Maglev column), `finish_cuda.launches` the last passes of
+  the cross-rank form.
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ from . import cidr_cuda as CC
 from . import fphash_cuda as FPC
 from . import fused as F
 from . import fused_cuda as FC
+from . import take_cuda as TC
 from .fused_cuda import KernelError, card_entry
 
 SOURCE = os.path.join(os.path.dirname(FC.SOURCE), "sharded_match.cu")
@@ -92,6 +101,14 @@ class _ShardedFpArgs(ctypes.Structure):
                 ("size", ctypes.c_int * 2)]
 
 
+class _ShardedPickArgs(ctypes.Structure):
+    """Mirror of `struct ShardedPickArgs` (csrc/sharded_match.cu): the
+    Maglev column of B8's PICK instances."""
+    _fields_ = [("mtab", ctypes.c_void_p), ("mslots", ctypes.c_void_p),
+                ("pick", ctypes.c_void_p), ("m", ctypes.c_int),
+                ("ostride", ctypes.c_int)]
+
+
 def build() -> str:
     """Compile csrc/sharded_match.cu (with the four routine headers it
     includes) once; -> the shared library's path."""
@@ -115,7 +132,8 @@ def _lib():
             except OSError as e:
                 raise KernelError(f"cannot load {path}: {e}") from e
             for kind, args in (("hash", _ShardedHashArgs),
-                               ("fp", _ShardedFpArgs)):
+                               ("fp", _ShardedFpArgs),
+                               ("pick", _ShardedPickArgs)):
                 size = getattr(lib, f"vproxy_sharded_{kind}_args_size")
                 size.restype, size.argtypes = ctypes.c_int, []
                 if size() != ctypes.sizeof(args):
@@ -124,16 +142,18 @@ def _lib():
                         f"{ctypes.sizeof(args)} B")
             lib.vproxy_sharded_hash.restype = ctypes.c_int
             lib.vproxy_sharded_hash.argtypes = [
-                ctypes.POINTER(_ShardedHashArgs), ctypes.c_int,
+                ctypes.POINTER(_ShardedHashArgs),
+                ctypes.POINTER(_ShardedPickArgs), ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.vproxy_sharded_fp.restype = ctypes.c_int
             lib.vproxy_sharded_fp.argtypes = [
-                ctypes.POINTER(_ShardedFpArgs), ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(_ShardedFpArgs),
+                ctypes.POINTER(_ShardedPickArgs), ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p]
             lib.vproxy_sharded_finish.restype = ctypes.c_int
             lib.vproxy_sharded_finish.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             _LIB = lib
         return _LIB
 
@@ -322,6 +342,17 @@ def finish_plain(keys: torch.Tensor) -> torch.Tensor:
                        torch.full_like(keys, -1)).to(torch.int32)
 
 
+def hint_pick_plain(t: dict, q: dict, size: int, mtab: torch.Tensor,
+                    slots: torch.Tensor, s0: int = 0, fp: bool = False,
+                    group=None) -> torch.Tensor:
+    """The plain version of B8 with its Maglev column: the plain keys
+    (reduced across the ranks of `group`), finish_plain, and B5's plain
+    take (take_cuda.take_plain) of this rank's slots -> int32 [B, 2]."""
+    from .take_cuda import take_plain
+    v = finish_plain(_reduce(hint_keys_plain(t, q, size, s0, fp), group))
+    return torch.stack([v, take_plain(mtab, slots).to(torch.int32)], dim=1)
+
+
 # ------------------------------------------------------------- the kernel
 
 def _strides(t: ShardedTable, names: tuple, into) -> None:
@@ -341,8 +372,21 @@ def _check_shards(t: ShardedTable, s: int) -> None:
                          f"shards, the launch {s}")
 
 
+def _pick_args(pick, b: int, dev):
+    """The Maglev column's launch argument: `pick` (mtab, slots, out) ->
+    a _ShardedPickArgs by reference (the picks to out's column 1, rows of
+    2 ints), or None."""
+    if pick is None:
+        return None
+    mtab, slots, out = pick
+    TC.check_column(mtab, slots, b, dev, "sharded kernel")
+    return ctypes.byref(_ShardedPickArgs(
+        mtab=mtab.data_ptr(), mslots=slots.data_ptr(),
+        pick=out[:, 1].data_ptr(), m=mtab.shape[0], ostride=2))
+
+
 def _launch_hash(hint, cidr, b: int, ncols: int, s: int, s0: int, keys,
-                 out, dev, layout: int) -> None:
+                 out, dev, layout: int, pick=None) -> None:
     a = _ShardedHashArgs()
     if hint is not None:
         t, q, size = hint
@@ -386,14 +430,15 @@ def _launch_hash(hint, cidr, b: int, ncols: int, s: int, s0: int, keys,
     a.b, a.ncols, a.s0 = b, ncols, s0
     uri = hint is not None and hint[0].base.uri
     err = (_LIB or _lib()).vproxy_sharded_hash(
-        ctypes.byref(a), s, layout, int(uri), dev.index or 0,
+        ctypes.byref(a), _pick_args(pick, b, dev), s, layout, int(uri),
+        dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise KernelError(f"sharded kernel launch failed: CUDA error {err}")
 
 
 def _launch_fp(hint, cidr, b: int, ncols: int, s: int, s0: int, keys, out,
-               dev, layout: int) -> None:
+               dev, layout: int, pick=None) -> None:
     a = _ShardedFpArgs()
     if len(cidr) > 1:
         raise ValueError("sharded kernel: the fingerprint form answers one "
@@ -440,7 +485,8 @@ def _launch_fp(hint, cidr, b: int, ncols: int, s: int, s0: int, keys, out,
     a.out = None if out is None else out.data_ptr()
     a.b, a.ncols, a.s0 = b, ncols, s0
     err = (_LIB or _lib()).vproxy_sharded_fp(
-        ctypes.byref(a), s, layout, dev.index or 0,
+        ctypes.byref(a), _pick_args(pick, b, dev), s, layout,
+        dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise KernelError(f"sharded kernel launch failed: CUDA error {err}")
@@ -454,7 +500,8 @@ LAYOUTS = {"auto": 0, "split": 1, "interleaved": 2}
 
 @card_entry("sharded kernel")
 def sharded_cuda(hint=None, cidr: Sequence = (), s0: int = 0,
-                 finish: bool = True, layout: str = "auto"):
+                 finish: bool = True, layout: str = "auto", pick=None,
+                 out=None):
     """Launch B8 once over every local shard: `hint` a (ShardedTable,
     ShardQueries, shard_size) column or None, `cidr` up to two (the
     fingerprint form: one) (ShardedTable, a16, fam, port or None,
@@ -462,8 +509,12 @@ def sharded_cuda(hint=None, cidr: Sequence = (), s0: int = 0,
     first shard; `layout` one of LAYOUTS ("auto" on every path; the
     others for the checks and timings that hold both). -> int32 [B,
     ncols] answers, or with finish=False the int64 [B, ncols] keys (for
-    a reduction across ranks, then finish_cuda). CUDA tensors only;
-    raises KernelError unless it launched (card_entry)."""
+    a reduction across ranks, then finish_cuda). `pick` (mtab int32
+    [M], slots int64 [B]), with a hint column alone: the Maglev column,
+    -> int32 [B, 2] (answer, pick) rows; with finish=False the keys, the
+    picks written into column 1 of `out` (int32 [B, 2], which
+    finish_cuda(keys, out) completes). CUDA tensors only; raises
+    KernelError unless it launched (card_entry)."""
     if layout not in LAYOUTS:
         raise ValueError(f"sharded kernel: layout {layout!r}, want one of "
                          f"{sorted(LAYOUTS)}")
@@ -485,30 +536,61 @@ def sharded_cuda(hint=None, cidr: Sequence = (), s0: int = 0,
     b = (hint[1]["hp_slot"].shape[-2] if fp else hint[1]["hostb"].shape[0]) \
         if hint is not None else cidr[0][1].shape[0]
     ncols = len(tabs)
+    if pick is not None:
+        if hint is None or cidr:
+            raise ValueError("sharded kernel: a Maglev column goes beside "
+                             "the hint column alone")
+        if finish:
+            out = torch.empty((b, 2), dtype=torch.int32, device=dev)
+        elif out is None:
+            raise ValueError("sharded kernel: keys with a Maglev column "
+                             "want `out` for the picks")
+        FC._check("out", out, dev, torch.int32)
+        if tuple(out.shape) != (b, 2):
+            raise ValueError(f"sharded kernel: out {tuple(out.shape)}, "
+                             f"want ({b}, 2)")
+        pick = (*pick, out)
     # every (query, column) is written once: no fill before the launch
-    res = torch.empty((b, ncols), device=dev,
-                      dtype=torch.int32 if finish else torch.int64)
+    res = out if finish and pick is not None else torch.empty(
+        (b, ncols), device=dev,
+        dtype=torch.int32 if finish else torch.int64)
     (_launch_fp if fp else _launch_hash)(
         hint, list(cidr), b, ncols, s, s0, None if finish else res,
-        res if finish else None, dev, LAYOUTS[layout])
+        res if finish else None, dev, LAYOUTS[layout], pick)
     sharded_cuda.launches += 1
+    if pick is not None:
+        sharded_cuda.pick_launches += 1
     return res
 
 
 sharded_cuda.launches = 0  # every launch
+sharded_cuda.pick_launches = 0  # of which: with the Maglev column
 
 
 @card_entry("sharded finish kernel")
-def finish_cuda(keys: torch.Tensor) -> torch.Tensor:
+def finish_cuda(keys: torch.Tensor, out=None) -> torch.Tensor:
     """B8's last pass after a cross-rank reduction: int64 keys (any
-    shape, contiguous, CUDA) -> int32 answers of the same shape."""
+    shape, contiguous, CUDA) -> int32 answers of the same shape; or,
+    keys [B, 1] with `out` int32 [B, 2] (its picks in column 1, B8's
+    Maglev column), the answers into column 0 of `out` (-> out)."""
     if keys.device.type != "cuda" or keys.dtype != torch.int64 or \
             not keys.is_contiguous():
         raise ValueError("sharded finish: keys must be a contiguous int64 "
                          "CUDA tensor")
-    out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    ncols = keys.shape[-1] if keys.dim() else 1
+    if out is None:
+        out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+        ostride = ncols
+    else:
+        FC._check("out", out, keys.device, torch.int32)
+        if keys.dim() != 2 or ncols != 1 or \
+                tuple(out.shape) != (keys.shape[0], 2):
+            raise ValueError(f"sharded finish: keys {tuple(keys.shape)} "
+                             f"into out {tuple(out.shape)}, want [B, 1] "
+                             f"into [B, 2]")
+        ostride = 2
     err = (_LIB or _lib()).vproxy_sharded_finish(
-        keys.data_ptr(), out.data_ptr(), keys.numel(),
+        keys.data_ptr(), out.data_ptr(), keys.numel(), ncols, ostride,
         keys.device.index or 0,
         torch.cuda.current_stream(keys.device).cuda_stream)
     if err:
@@ -548,6 +630,25 @@ def hint_sharded(t: dict, q: dict, size: int, s0: int = 0, fp: bool = False,
         return sharded_cuda((t, q, size), s0=s0)[:, 0]
     keys = sharded_cuda((t, q, size), s0=s0, finish=False)
     return finish_cuda(_reduce(keys, group))[:, 0]
+
+
+def hint_pick_sharded(t: dict, q: dict, size: int, mtab: torch.Tensor,
+                      slots: torch.Tensor, s0: int = 0, fp: bool = False,
+                      group=None) -> torch.Tensor:
+    """The sharded hint answer and the Maglev pick of a classify+pick
+    batch, int32 [B, 2]: CPU tensors take the plain version
+    (hint_pick_plain), CUDA tensors ONE launch of B8 with its Maglev
+    column. Across the ranks of `group` only the keys are reduced; each
+    rank's picks are its own."""
+    if not _on_card(t):
+        return hint_pick_plain(t, q, size, mtab, slots, s0, fp, group)
+    if group is None:
+        return sharded_cuda((t, q, size), s0=s0, pick=(mtab, slots))
+    b = slots.shape[0]
+    out = torch.empty((b, 2), dtype=torch.int32, device=slots.device)
+    keys = sharded_cuda((t, q, size), s0=s0, finish=False,
+                        pick=(mtab, slots), out=out)
+    return finish_cuda(_reduce(keys, group), out)
 
 
 def cidr_sharded(t: dict, a16, fam, port, size: int, s0: int = 0,

@@ -13,6 +13,12 @@ it with ctypes and launches it on PyTorch's current stream.
   (fused_cuda.card_entry). No fallback.
 * `maglev_take_cuda` is the kernel wrapper; its `launches` attribute
   counts the launches it made.
+
+Since B6, B8 and B9 carry the take as their Maglev column (every
+classify+pick batch of the unfused backends is one launch of its hint
+kernel), B5 serves standalone Maglev batches (MaglevMatcher.dispatch_snap
+/ match) and the "host" backend's two-dispatch chain. `check_column`
+checks a Maglev column for those kernels' wrappers.
 """
 from __future__ import annotations
 
@@ -60,6 +66,18 @@ def take_plain(mtab: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """The plain version: mtab[clamp(slots, 0, M - 1)] by torch
     indexing."""
     return mtab[slots.clamp(0, mtab.shape[0] - 1)]
+
+
+def check_column(mtab: torch.Tensor, slots: torch.Tensor, b: int,
+                 dev: torch.device, what: str) -> None:
+    """A Maglev column for a kernel of `b` rows on `dev`: mtab int32
+    [M > 0], slots int64 [b], contiguous. Raises ValueError."""
+    FC._check("mtab", mtab, dev, torch.int32)
+    FC._check("slots", slots, dev, torch.int64)
+    if mtab.dim() != 1 or mtab.shape[0] == 0 or tuple(slots.shape) != (b,):
+        raise ValueError(f"{what}: the Maglev column wants mtab [M > 0] "
+                         f"and slots [{b}], got {tuple(mtab.shape)} and "
+                         f"{tuple(slots.shape)}")
 
 
 def take(mtab: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:

@@ -352,6 +352,24 @@ def make_sharded_hint_fn(mesh: Mesh, kernel=None):
     return fn
 
 
+def make_sharded_pick_fn(mesh: Mesh, kernel=None):
+    """-> fn(stacked_table, stacked_queries, shard_size, mtab, slots) ->
+    int32 [B, 2] (global hint-rule index, -1 none; Maglev pick) for a
+    classify+pick batch of the engine's sharded backends: the hint fn's
+    answer and B5's take in ONE launch of B8 on the card (its Maglev
+    column: the pick is this rank's own, only the keys cross ranks),
+    the plain version on CPU tensors. `kernel` as make_sharded_hint_fn
+    takes it."""
+    from ..ops import fphash as FP
+    from ..ops import sharded_cuda as SC
+    fp = kernel is FP.hint_fp_match
+
+    def fn(table: dict, q: dict, shard_size: int, mtab, slots):
+        return SC.hint_pick_sharded(table, q, int(shard_size), mtab, slots,
+                                    mesh.rules_lo, fp=fp, group=mesh.group)
+    return fn
+
+
 def make_sharded_cidr_fn(mesh: Mesh, with_port: bool, kernel=None):
     """-> fn(stacked_table, a16, fam, [port,] shard_size) -> int32 [B]
     global first-match index (-1 none): the least global index over the

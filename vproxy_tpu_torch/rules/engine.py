@@ -74,6 +74,9 @@ BACKENDS = ("torch", "torch-fp", "torch-dense", "torch-sharded",
 DEVICE_BACKENDS = ("torch", "torch-fp", "torch-dense", "torch-sharded",
                    "torch-fp-sharded")
 SHARDED_BACKENDS = ("torch-sharded", "torch-fp-sharded")
+# the unfused ones: a classify+pick batch is ONE launch of the hint
+# kernel with its Maglev column (HintMatcher.dispatch_pick_snap)
+PICK_BACKENDS = ("torch-fp", "torch-dense") + SHARDED_BACKENDS
 
 # VPROXY_TPU_MATCHER (and VPROXY_TPU_MESH_BACKEND) speak the
 # reference's names; this package serves each under its own. Any other
@@ -235,9 +238,10 @@ def generation_total() -> int:
 
 def note_launch(n: int = 1, kind: str = "", fused: bool = False) -> None:
     """Count one device program on the dispatch path (a lock-free int
-    store race can only lose a count, never corrupt): fused batches move
-    vproxy_engine_dispatch_launches_total by exactly 1, the unfused
-    chain by one per chained op.
+    store race can only lose a count, never corrupt): fused batches, and
+    the classify+pick batches of the unfused device backends (one launch
+    with the Maglev column), move vproxy_engine_dispatch_launches_total
+    by exactly 1; the "host" backend's chain by one per chained op.
 
     Tracing (utils/trace): when the calling thread carries a sampled
     request's trace context, every launch site also drops a `launch`
@@ -581,6 +585,17 @@ def _fused_slots(mtab, ips, ports, cap: int) -> np.ndarray:
     return slots
 
 
+def _with_slots(q: dict, pick, cap: int) -> dict:
+    """An encoded hint batch with its Maglev column's flow slots
+    (`pick`: (mtab, device table, ips, ports), or None: `q` as it is)
+    as q["slots"], padded to `cap` rows (_fused_slots), so they go up
+    with the probe arrays."""
+    if pick is not None:
+        q = dict(q)
+        q["slots"] = _fused_slots(pick[0], pick[2], pick[3], cap)
+    return q
+
+
 def _dense_table(arrays: dict, device):
     """A dense table's arrays on the serving device as the reference
     publishes them (its engine._to_device): the 2-D float32 bit-plane
@@ -588,11 +603,31 @@ def _dense_table(arrays: dict, device):
     published bytes are the reference's; the rest as they are."""
     from ..ops.dense_cuda import DenseTable
     dev = default_device(device)
+    active = arrays.get("active")
     return DenseTable({
-        k: (torch.from_numpy(v).to(torch.bfloat16)
-            if v.dtype == np.float32 and v.ndim == 2
+        k: (_bf16_planes(v, active) if v.dtype == np.float32 and v.ndim == 2
             else torch.from_numpy(np.ascontiguousarray(v))).to(dev)
         for k, v in arrays.items()})
+
+
+def _bf16_planes(w: np.ndarray, active) -> torch.Tensor:
+    """Bit-plane weights [K, N] float32 -> bfloat16 (exact). `active`: a
+    hint table's rule flags (None for a cidr table). When under half its
+    rules are active, only their columns (N / cap of them a rule) are
+    converted, into zeros whose pages stay untouched: an inactive rule's
+    columns are zero, so a few live rules among many inactive ones (a
+    sparse rule list) cost their own columns, not all N."""
+    if active is None:
+        return torch.from_numpy(w).to(torch.bfloat16)
+    live = np.flatnonzero(active)
+    if live.size * 2 >= active.shape[0]:
+        return torch.from_numpy(w).to(torch.bfloat16)
+    per = w.shape[1] // active.shape[0]
+    cols = (live[:, None] * per + np.arange(per)).reshape(-1)
+    out = torch.from_numpy(np.zeros(w.shape, np.uint16)).view(torch.bfloat16)
+    out[:, torch.from_numpy(cols)] = torch.from_numpy(
+        np.ascontiguousarray(w[:, cols])).to(torch.bfloat16)
+    return out
 
 
 class _StackDev(dict):
@@ -638,6 +673,7 @@ class HintMatcher:
         self._caps: Optional[dict] = None
         self._mesh = mesh  # sharded backends only (lazily defaulted)
         self._fn = None    # sharded: the mesh's hint fn
+        self._pick_fn = None  # sharded: its classify+pick fn
         self.generation = 0  # bumps on every publish (atomic swap)
         # (tab, dev, rules, payload, index, fused) published as ONE
         # tuple so concurrent readers (the ClassifyService dispatcher)
@@ -898,32 +934,71 @@ class HintMatcher:
         idx, _ = FC.hint_match(snap[5], q)
         return idx
 
-    def _dispatch_fp(self, tab, dev, hints, pad_to: Optional[int]):
+    def dispatch_pick_snap(self, snap: tuple, msnap: tuple,
+                           hints: Sequence[Hint], ips: Sequence[bytes],
+                           ports: Optional[Sequence[int]] = None,
+                           pad_to: Optional[int] = None, sync: bool = True):
+        """ONE launch answering a classify+pick batch on an unfused
+        device backend ("torch-fp", "torch-dense", "torch-sharded",
+        "torch-fp-sharded"): the backend's hint kernel (B6, B9 or B8)
+        with its Maglev column (B5's take folded in), against the
+        snapshot pair (snap, msnap: a MaglevMatcher's). The flow slots
+        (maglev.flow_slots, the one slot-hash contract; pad rows slot
+        0) go up with the batch's probe arrays. -> int32 [cap, 2]
+        (verdict, pick) rows on the device (to_host() to block); a
+        sharded batch with `sync` is pulled here, [:len(hints)] (see
+        dispatch_snap). CPU tensors take each kernel's plain version.
+        None where there is no such launch (the "host" and "torch"
+        backends, no rules, no Maglev table): callers take the
+        two-dispatch chain."""
+        if self.backend not in PICK_BACKENDS or not hints or \
+                len(hints) != len(ips):
+            return None
+        tab, dev, rules = snap[0], snap[1], snap[2]
+        mtab, mdev = msnap[0], msnap[1]
+        if not rules or mtab is None or mdev is None:
+            return None
+        note_serving()
+        note_launch(kind="cpick")
+        pick = (mtab, mdev, ips, ports)
+        if self.backend == "torch-fp":
+            return self._dispatch_fp(tab, dev, hints, pad_to, pick)
+        if self.backend == "torch-dense":
+            return self._dispatch_dense(dev, hints, pad_to, pick)
+        return self._dispatch_sharded(tab, dev, hints, pad_to, sync, pick)
+
+    def _dispatch_fp(self, tab, dev, hints, pad_to: Optional[int],
+                     pick=None):
         """A "torch-fp" batch: the fingerprint encode (pad rows zero:
         no probe is live), then B6 on the card, the plain tier on the
         CPU. The member mode is resolved per dispatch, as the reference
         resolves it (checked; both compute the one function its three
-        lowerings agree on)."""
+        lowerings agree on). `pick` (mtab, device table, ips, ports):
+        the batch's Maglev column -> int32 [cap, 2] (fphash_cuda
+        hint_fp_pick)."""
         from ..ops import fphash as FP
+        from ..ops import fphash_cuda as FPC
         mode = FP.default_member_mode()
 
         def encode():
             q = FP.encode_hint_queries_fp(hints, tab)
             if pad_to and pad_to > len(hints):
                 q = _pad_hint_q(q, pad_to, {})
-            return q
+            return _with_slots(q, pick, q["hp_slot"].shape[0])
         q = self._upload(encode)
+        if pick is not None:
+            return FPC.hint_fp_pick(dev, q, pick[1], q.pop("slots"), mode)
         if self.device.type == "cpu":
             return FP.hint_fp_match(dev, q, mode)[0]
-        from ..ops import fphash_cuda as FPC
         return FPC.hint_fp_cuda(dev, q)[0]
 
     def _dispatch_sharded(self, tab, dev, hints, pad_to: Optional[int],
-                          sync: bool):
+                          sync: bool, pick=None):
         """A sharded batch: padded to a multiple of the mesh's query
         shards, the single-pass sharded encode (the fingerprint one pads
-        with empty Hint()s), this rank's shards' probe arrays uploaded,
-        then B8 on the card (one launch), the plain version on the CPU."""
+        with empty Hint()s), this rank's shards' probe arrays uploaded
+        (and `pick`'s flow slots, as _dispatch_fp), then B8 on the card
+        (one launch), the plain version on the CPU."""
         from ..ops import fphash as FP
         from ..parallel import mesh as M
         n = len(hints)
@@ -935,23 +1010,39 @@ class HintMatcher:
                 return FP.encode_hint_queries_fp_sharded(
                     list(hints) + [Hint()] * (cap - n), tab)
             return H.encode_hint_queries_sharded(hints, tab, pad_to=cap)
-        q = _card_upload(self.device, "hint", lambda: (
-            M.shard_hint_queries_sharded(encode(), self._mesh)))
-        if self._fn is None:
-            self._fn = M.make_sharded_hint_fn(
-                self._mesh, kernel=FP.hint_fp_match if fp else None)
-        out = self._fn(dev if self.device.type == "cpu" else dev.kernel, q,
-                       tab.shard_size)
+
+        def upload():
+            q = M.shard_hint_queries_sharded(encode(), self._mesh)
+            if pick is None:
+                return q, None
+            return q, torch.from_numpy(_fused_slots(
+                pick[0], pick[2], pick[3], cap)).to(self.device)
+        q, slots = _card_upload(self.device, "hint", upload)
+        table = dev if self.device.type == "cpu" else dev.kernel
+        kernel = FP.hint_fp_match if fp else None
+        if pick is not None:
+            if self._pick_fn is None:
+                self._pick_fn = M.make_sharded_pick_fn(self._mesh, kernel)
+            out = self._pick_fn(table, q, tab.shard_size, pick[1], slots)
+        else:
+            if self._fn is None:
+                self._fn = M.make_sharded_hint_fn(self._mesh, kernel)
+            out = self._fn(table, q, tab.shard_size)
         return to_host(out)[:n] if sync else out
 
-    def _dispatch_dense(self, dev, hints, pad_to: Optional[int]):
+    def _dispatch_dense(self, dev, hints, pad_to: Optional[int],
+                        pick=None):
         """A "torch-dense" batch: pad rows as empty Hint()s, the
         reference's encode, then B9 on the card, the plain tier on the
-        CPU (matchers.hint_dense)."""
+        CPU (matchers.hint_dense; with `pick`, as _dispatch_fp,
+        matchers.hint_dense_pick -> int32 [cap, 2])."""
         from ..ops import matchers as MT
         if pad_to and pad_to > len(hints):
             hints = list(hints) + [Hint()] * (pad_to - len(hints))
-        q = self._upload(lambda: T.encode_hints(hints))
+        q = self._upload(lambda: _with_slots(T.encode_hints(hints), pick,
+                                             len(hints)))
+        if pick is not None:
+            return MT.hint_dense_pick(dev, q, pick[1], q.pop("slots"))
         return MT.hint_dense(dev, q)[0]
 
     def _upload(self, encode) -> dict:

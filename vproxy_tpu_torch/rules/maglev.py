@@ -17,7 +17,10 @@ hash contract are copies, so tables and picks are bit-identical:
 * **classify_and_pick()/FusedPair** — one batched dispatch answering
   verdict AND pick from one snapshot pair: the fused one-launch program
   (rules/engine.fused_dispatch) where the hint matcher publishes packed
-  tables, else the two-dispatch chain.
+  tables, ONE launch of the hint kernel with its Maglev column on the
+  unfused device backends (engine.HintMatcher.dispatch_pick_snap: B6,
+  B9 or B8 with B5's take folded in), else (the "host" backend) the
+  two-dispatch chain.
 
 Metrics: vproxy_maglev_table_builds_total, vproxy_maglev_build_ms,
 vproxy_maglev_remap_fraction. Knob: VPROXY_TPU_MAGLEV_M (65537, must be
@@ -353,8 +356,9 @@ class MaglevMatcher:
     def dispatch_snap(self, snap: tuple, ips: Sequence[bytes],
                       ports: Optional[Sequence[int]] = None):
         """Batched device picks against one snapshotted generation
-        (a device tensor; to_host() to block). Slots are hashed
-        host-side with the one slot-hash contract (flow_slots)."""
+        (a device tensor; to_host() to block): a standalone Maglev batch,
+        B5 on the card. Slots are hashed host-side with the one
+        slot-hash contract (flow_slots)."""
         tab, dev = snap[0], snap[1]
         if tab is None or not snap[2] or not len(ips):
             return np.full(len(ips), -1, np.int32)
@@ -375,14 +379,19 @@ def classify_and_pick(hint_matcher, maglev: MaglevMatcher, hints,
     from the hint matcher and backend picks from the maglev table
     against one atomic snapshot pair. On a "torch" matcher with packed
     tables published (the default) this is the FUSED one-launch program
-    (rules/engine.fused_dispatch); other backends keep the two-dispatch
-    submit. -> (verdicts int32[B], picks int32[B], hint_payload,
-    maglev_payload)."""
+    (rules/engine.fused_dispatch); the other device backends launch
+    their hint kernel once with its Maglev column
+    (engine.HintMatcher.dispatch_pick_snap); the "host" backend keeps
+    the two-dispatch submit. -> (verdicts int32[B], picks int32[B],
+    hint_payload, maglev_payload)."""
     from . import engine as E
     hsnap = hint_matcher.snapshot()
     msnap = maglev.snapshot()
     out = E.fused_dispatch(hint_matcher, hsnap, maglev, msnap, hints,
                            ips, ports)
+    if out is None:
+        out = hint_matcher.dispatch_pick_snap(hsnap, msnap, hints, ips,
+                                              ports)
     if out is not None:
         arr = to_host(out)[: len(hints)]
         return (np.ascontiguousarray(arr[:, 0]),
@@ -445,11 +454,12 @@ class FusedPair:
 
     def dispatch_snap(self, snap: tuple, payloads, pad_to=None,
                       sync: bool = True):
-        """One fused launch for a batch of (hint, ip, port) payloads;
-        an int32 [cap, 2] device tensor. Falls back to the two-dispatch
-        chain when the fused path is unavailable for this snapshot
-        (`sync` goes to the hint matcher: see
-        engine.HintMatcher.dispatch_snap)."""
+        """One launch for a batch of (hint, ip, port) payloads; an int32
+        [cap, 2] device tensor: the fused kernel (B1) where the hint
+        matcher publishes packed tables, else the hint kernel with its
+        Maglev column (engine.HintMatcher.dispatch_pick_snap: B6, B9 or
+        B8; `sync` goes to it, and a sharded batch with `sync` comes back
+        pulled). The "host" backend takes the two-dispatch chain."""
         from . import engine as E
         hsnap, msnap = snap
         hints = [p[0] for p in payloads]
@@ -459,6 +469,10 @@ class FusedPair:
             ports = None
         out = E.fused_dispatch(self.hm, hsnap, self.mm, msnap, hints,
                                ips, ports, pad_to=pad_to)
+        if out is not None:
+            return out
+        out = self.hm.dispatch_pick_snap(hsnap, msnap, hints, ips, ports,
+                                         pad_to=pad_to, sync=sync)
         if out is not None:
             return out
         v = self.hm.dispatch_snap(hsnap, hints, pad_to=pad_to, sync=sync)
