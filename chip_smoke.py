@@ -19,7 +19,9 @@ unfused backends take the Maglev column with B5), boots the port
 as an operator runs it (`python -m vproxy_tpu_torch`, one config built
 by command, DNS-as-LB, Socks5 and the TcpLB served from it), replays
 config #4's traffic through the port's virtual switch (routes and ACL
-on B4, then on B7), runs the sharded backends ("torch-sharded",
+on B4, then on B7), runs the helloworld, kcptun and WebSocks apps as
+child processes and the docker network plugin (its VPCs' routes on
+B4), runs the sharded backends ("torch-sharded",
 "torch-fp-sharded": B8 over 4 rule shards stacked on the card, and
 over 1) and the cluster plane (two `python -m vproxy_tpu_torch` nodes
 stepping on the card), times the kernels, and prints one JSON line per
@@ -211,6 +213,30 @@ result. Phases, in order:
    counters equal to the prediction; prints packets/s per run, the
    `CidrMatcher.match` round trip's p50/p99 and encode share, launches
    per kernel and the build's counts and seconds;
+7f2. apps (the `apps` line): `python -m vproxy_tpu_torch helloworld 0`
+   as a child, its TCP and UDP echo checked; a kcptun server and a
+   kcptun client, each a child, carry 64 concurrent TCP streams of a
+   seeded 256 KiB each over one KCP session on loopback to an echo
+   server, every byte echoed equal; wall seconds and MB/s; every
+   child exits 0 on SIGTERM;
+7f3. websocks (the `websocks` line): a `websocks server` child (TCP
+   and KCP) and two `websocks agent` children (the TCP transport with
+   an HTTP CONNECT front, and the KCP transport), proxying only the
+   echo server's port; 256 concurrent SOCKS5 CONNECTs (128 a
+   transport) each echoing a seeded 64 KiB, then 16 HTTP CONNECTs;
+   with the server stopped, a direct-rule host still echoes through
+   the agent and a proxied CONNECT is refused; connect -> first byte
+   p50 / p99 and MB/s per transport; the TLS front and shadowsocks are
+   not run (the app serves neither; the CPU tests run them in process);
+7f4. docker (the `docker` line): in process, `add
+   docker-network-plugin-controller` on a unix socket, Plugin.Activate
+   and GetCapabilities, 8 CreateNetwork calls (/24 pools of
+   172.28.0.0/16 with their gateways: 8 VPCs on the card), 56 routes
+   by command (each VPC to the 7 others' pools), one route_lookup_batch
+   of 512 seeded addresses a VPC (the small-table cut set to 0):
+   B4 launches == the 8 batches, every answer the host CidrIndex's;
+   current_config holds the controller line and its replay into a
+   fresh Application rebuilds the 8 VPCs; no tap device is made;
 7g. sharded (the `sharded_kernels`, `sharded_service` and `cluster`
    lines): configurations (a) and (b) compiled by
    compile_*_hash_sharded and compile_*_fp_sharded at S = 4
@@ -273,7 +299,7 @@ result. Phases, in order:
 10. the `phase_s` line (wall seconds per phase), the {"kernels": [...]}
    line (B1, B1 with the route column, B4, B3, B6, B7, B5, B9, B8;
    B1's launches include the cluster step loops', B4's and B7's the
-   `switch` phase's, B6's, B9's and B8's the cpick batches' (with
+   `switch` phase's, B4's the `docker` phase's, B6's, B9's and B8's the cpick batches' (with
    their Maglev column), B5's the standalone Maglev batches'),
    then the card's line, then the device line.
 
@@ -3624,6 +3650,628 @@ def phase_switch(device, n_routes=N_ROUTES, n_acl=N_ACL,
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+# ---------------------------------------------------------- host apps
+# The deployable apps, WebSocks and the docker network plugin: host
+# subsystems, but the plugin's VPCs route on the card through B4.
+
+APPS_STREAMS = 64              # concurrent TCP streams over one KCP session
+APPS_STREAM_BYTES = 256 * 1024
+APPS_SEED = 505
+WS_TCP = 128                   # SOCKS5 CONNECTs over the TCP transport
+WS_KCP = 128                   # ... and over KCP
+WS_BYTES = 64 * 1024           # echoed per CONNECT
+WS_HTTP_CONNECTS = 16
+WS_USER = "smoke:chip-smoke"
+WS_SEED = 606
+DOCKER_NETWORKS = 8
+DOCKER_BATCH = 512
+DOCKER_SEED = 707
+
+
+def _app_env(device) -> dict:
+    """The environment of an app child: this checkout on the path,
+    unbuffered output, and the CPU asked for when the phase runs there
+    (the tier-1 rehearsal)."""
+    env = dict(os.environ)
+    env.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               PYTHONUNBUFFERED="1")
+    if device.type != "cuda":
+        env["VPROXY_TPU_TORCH_DEVICE"] = "cpu"
+    return env
+
+
+class _AppChild:
+    """`python -m vproxy_tpu_torch <args>`, its stdout read on a thread;
+    expect() waits for a line matching a pattern."""
+
+    def __init__(self, name: str, args: list, env: dict, err_dir: str):
+        import queue
+        self.name = name
+        self.err_path = os.path.join(err_dir, name.replace(" ", "_") + ".err")
+        with open(self.err_path, "w") as err:
+            self.p = subprocess.Popen(
+                [sys.executable, "-m", "vproxy_tpu_torch", *args], env=env,
+                cwd=env["PYTHONPATH"], stdout=subprocess.PIPE, stderr=err,
+                text=True)
+        self.lines = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.p.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def expect(self, pattern: str, timeout: float = 120.0):
+        import queue
+        deadline, seen = time.monotonic() + timeout, []
+        while True:
+            try:
+                line = self.lines.get(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                line = None
+            if line is None:
+                with open(self.err_path) as f:
+                    tail = f.read()[-2000:]
+                raise RuntimeError(
+                    f"chip smoke failed: {self.name} printed no "
+                    f"{pattern!r} (rc {self.p.poll()}): {seen} {tail}")
+            seen.append(line.rstrip())
+            m = re.search(pattern, line)
+            if m:
+                return m
+
+    def stop(self) -> int:
+        """SIGTERM, then its exit code (-9 when it had to be killed)."""
+        import signal
+        if self.p.poll() is None:
+            self.p.send_signal(signal.SIGTERM)
+        try:
+            return self.p.wait(30)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            return -9
+
+    def kill(self) -> None:
+        if self.p.poll() is None:
+            self.p.kill()
+            self.p.wait(10)
+
+
+class _EchoServer:
+    """A loopback TCP echo server, one thread per connection."""
+
+    def __init__(self):
+        import socket
+        self.sock = socket.socket()
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.sock.bind((LOOPBACK, 0))
+        self.sock.listen(1024)
+        self.port = self.sock.getsockname()[1]
+        self.accepted = 0
+        self.conns = []
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self) -> None:
+        while True:
+            try:
+                c, _ = self.sock.accept()
+            except OSError:
+                return
+            self.accepted += 1
+            self.conns.append(c)
+            threading.Thread(target=self._echo, args=(c,), daemon=True).start()
+
+    @staticmethod
+    def _echo(c) -> None:
+        try:
+            while True:
+                d = c.recv(262144)
+                if not d:
+                    break
+                c.sendall(d)
+        except OSError:
+            pass
+        finally:
+            c.close()
+
+    def close(self) -> None:
+        import socket
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)  # wakes the accept
+        except OSError:
+            pass
+        self.sock.close()
+        for c in self.conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+
+def _recv_n(c, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        d = c.recv(n - len(buf))
+        if not d:
+            break
+        buf += d
+    return buf
+
+
+def _socks5_to(target_port: int):
+    """A SOCKS5 CONNECT handshake to 127.0.0.1:target_port."""
+    import socket
+    import struct
+
+    def hs(c) -> bytes:
+        c.sendall(b"\x05\x01\x00")
+        check(_recv_n(c, 2) == b"\x05\x00", "socks5 method reply")
+        c.sendall(b"\x05\x01\x00\x01" + socket.inet_aton(LOOPBACK) +
+                  struct.pack(">H", target_port))
+        rep = _recv_n(c, 10)
+        if rep[:2] != b"\x05\x00":
+            raise ConnectionRefusedError(f"socks5 reply {rep!r}")
+        return b""
+    return hs
+
+
+def _http_connect_to(target_port: int):
+    """An HTTP CONNECT handshake; -> the tunnel bytes read past it."""
+    def hs(c) -> bytes:
+        c.sendall(f"CONNECT {LOOPBACK}:{target_port} HTTP/1.1\r\n"
+                  f"host: {LOOPBACK}\r\n\r\n".encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            d = c.recv(4096)
+            check(bool(d), f"HTTP CONNECT: no reply head: {head!r}")
+            head += d
+        head, _, rest = head.partition(b"\r\n\r\n")
+        check(b" 200 " in head.split(b"\r\n", 1)[0],
+              f"HTTP CONNECT refused: {head!r}")
+        return rest
+    return hs
+
+
+def _echo_stream(port: int, payload: bytes, handshake=None,
+                 timeout: float = 120.0) -> dict:
+    """One connection to 127.0.0.1:port (after `handshake`): payload
+    written on a thread while its echo is read back. -> {"ok",
+    "first_s": connect -> first echoed byte, "done_s"}."""
+    import socket
+    t0 = time.perf_counter()
+    c = socket.create_connection((LOOPBACK, port), timeout=timeout)
+    try:
+        c.settimeout(timeout)
+        got = bytearray(handshake(c) if handshake else b"")
+        first = time.perf_counter() - t0 if got else None
+        err = []
+
+        def write():
+            try:
+                c.sendall(payload)
+            except OSError as e:
+                err.append(e)
+        w = threading.Thread(target=write, daemon=True)
+        w.start()
+        while len(got) < len(payload):
+            d = c.recv(262144)
+            if not d:
+                break
+            if first is None:
+                first = time.perf_counter() - t0
+            got += d
+        w.join(timeout)
+        return {"ok": bytes(got) == payload and not err, "first_s": first,
+                "done_s": time.perf_counter() - t0}
+    finally:
+        c.close()
+
+
+def await_tunnel(port: int, target_port: int, what: str,
+                 timeout: float = 60.0) -> None:
+    """Retry a SOCKS5 CONNECT through the agent at `port` to the echo
+    server at `target_port` until a probe echoes: a websocks agent
+    refuses until its health check has passed (its default period is
+    5 s)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            if _echo_stream(port, b"probe", _socks5_to(target_port),
+                            timeout=10)["ok"]:
+                return
+        except OSError:  # ConnectionRefusedError: the agent's refusal
+            pass
+        check(time.monotonic() < deadline, f"{what} never tunnelled a probe")
+        time.sleep(0.2)
+
+
+def _echo_burst(port: int, payloads: list, handshake=None) -> tuple:
+    """Every payload on a connection of its own, all at once. ->
+    (results, wall seconds)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(payloads)) as ex:
+        res = list(ex.map(lambda p: _echo_stream(port, p, handshake),
+                          payloads))
+    return res, time.perf_counter() - t0
+
+
+def _seeded_payloads(n: int, size: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+            for _ in range(n)]
+
+
+def phase_apps(device=torch.device("cpu"), streams=APPS_STREAMS,
+               stream_bytes=APPS_STREAM_BYTES) -> dict:
+    """The helloworld and kcptun apps as an operator runs them, each a
+    `python -m vproxy_tpu_torch` child: helloworld's TCP and UDP echo
+    (its greeting, then the bytes sent); a kcptun server in front of a
+    loopback echo server and a kcptun client dialling it, then
+    `streams` concurrent TCP connections through the client, each
+    writing a seeded `stream_bytes` while reading its echo back, all
+    over the one KCP session. Every byte equal; every child exits 0 on
+    SIGTERM. -> wall seconds and MB/s (payload bytes one way over the
+    burst's wall time)."""
+    import shutil
+    import socket
+    import tempfile
+    from vproxy_tpu_torch.apps.helloworld import GREETING
+    env = _app_env(device)
+    payloads = _seeded_payloads(streams, stream_bytes, APPS_SEED)
+    echo = _EchoServer()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-apps-")
+    kids = []
+    try:
+        t0 = time.perf_counter()
+        hw = _AppChild("helloworld", ["helloworld", "0"], env, tmp)
+        kids.append(hw)
+        ks = _AppChild("kcptun server", ["kcptun", "server", "0",
+                                         f"{LOOPBACK}:{echo.port}"], env, tmp)
+        kids.append(ks)
+        uport = int(ks.expect(r"udp (\d+) ->")[1])
+        kc = _AppChild("kcptun client", ["kcptun", "client", "0",
+                                         f"{LOOPBACK}:{uport}"], env, tmp)
+        kids.append(kc)
+        hport = int(hw.expect(r"echo on tcp/udp 0\.0\.0\.0:(\d+)")[1])
+        tport = int(kc.expect(r"tcp (\d+) ->")[1])
+        boot_s = time.perf_counter() - t0
+        c = socket.create_connection((LOOPBACK, hport), timeout=10)
+        c.sendall(b"ping")
+        tcp_ok = _recv_n(c, len(GREETING) + 4) == GREETING + b"ping"
+        c.close()
+        u = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        u.settimeout(10)
+        u.sendto(b"uping", (LOOPBACK, hport))
+        udp_ok = u.recvfrom(4096)[0] == GREETING + b"uping"
+        u.close()
+        check(tcp_ok and udp_ok, f"helloworld echo: tcp {tcp_ok}, udp "
+              f"{udp_ok}")
+        res, wall = _echo_burst(tport, payloads)
+        bad = sum(not r["ok"] for r in res)
+        check(bad == 0, f"kcptun: {bad} of {streams} streams did not echo "
+              "every byte")
+        check(echo.accepted == streams, f"kcptun: the backend accepted "
+              f"{echo.accepted} connections, not {streams}")
+        codes = {k.name: k.stop() for k in kids}
+        check(all(v == 0 for v in codes.values()),
+              f"an app did not exit 0 on SIGTERM: {codes}")
+        total = streams * stream_bytes
+        out = {"helloworld": {"tcp": tcp_ok, "udp": udp_ok},
+               "kcptun": {"streams": streams, "stream_bytes": stream_bytes,
+                          "bytes_echoed": total, "wall_s": wall,
+                          "mb_s": total / wall / 1e6,
+                          "first_byte": lat_ms([r["first_s"] for r in res])},
+               "boot_s": boot_s, "exit_codes": codes}
+        log(f"apps: kcptun {streams} x {stream_bytes} B echoed in "
+            f"{wall:.2f} s ({out['kcptun']['mb_s']:.2f} MB/s)")
+        return out
+    finally:
+        for k in kids:
+            k.kill()
+        echo.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_websocks(device=torch.device("cpu"), n_tcp=WS_TCP, n_kcp=WS_KCP,
+                   nbytes=WS_BYTES, n_http=WS_HTTP_CONNECTS) -> dict:
+    """The WebSocks server and agents as an operator runs them, each a
+    `python -m vproxy_tpu_torch websocks ...` child: a server taking TCP
+    and KCP, an agent on its TCP transport (with an HTTP CONNECT front)
+    and one on its KCP transport, both proxying only the echo server's
+    port (`rule=:<port>`). Once each agent's health check passes:
+    n_tcp + n_kcp concurrent SOCKS5 CONNECTs to the echo server, each
+    echoing a seeded `nbytes`, then n_http concurrent HTTP CONNECTs;
+    then the server is stopped and a CONNECT to a second echo server
+    (not under the rule) still echoes through the agent, directly,
+    while one to the proxied port is refused. Every byte equal; every
+    child exits 0 on SIGTERM. The TLS front and shadowsocks are not run:
+    the app serves neither (they are library classes, run in process by
+    tests/test_torch_websocks.py). -> connect -> first byte p50 / p99
+    and MB/s per transport."""
+    import shutil
+    import tempfile
+    env = _app_env(device)
+    echo, direct = _EchoServer(), _EchoServer()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-websocks-")
+    kids = []
+    rule = f"rule=:{echo.port}"
+    try:
+        t0 = time.perf_counter()
+        srv = _AppChild("server", ["websocks", "server", "0", WS_USER,
+                                   "kcp"], env, tmp)
+        kids.append(srv)
+        sport = int(srv.expect(r"websocks server on :(\d+) \(tcp\+kcp\)")[1])
+        at = _AppChild("agent tcp", ["websocks", "agent", "0",
+                                     f"{LOOPBACK}:{sport}", WS_USER, rule,
+                                     "connect=0"], env, tmp)
+        ak = _AppChild("agent kcp", ["websocks", "agent", "0",
+                                     f"{LOOPBACK}:{sport}", WS_USER, rule,
+                                     "kcp"], env, tmp)
+        kids += [at, ak]
+        m = at.expect(r"socks5 on 127\.0\.0\.1:(\d+), http-connect (\d+)")
+        tcp_port, http_port = int(m[1]), int(m[2])
+        kcp_port = int(ak.expect(r"socks5 on 127\.0\.0\.1:(\d+)")[1])
+        boot_s = time.perf_counter() - t0
+        ready = {}
+        for name, port in (("tcp", tcp_port), ("kcp", kcp_port)):
+            await_tunnel(port, echo.port, f"the {name} agent")
+            ready[name] = time.perf_counter() - t0
+        payloads = _seeded_payloads(n_tcp + n_kcp + n_http, nbytes, WS_SEED)
+        socks = [(tcp_port, p) for p in payloads[:n_tcp]] + \
+            [(kcp_port, p) for p in payloads[n_tcp:n_tcp + n_kcp]]
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(len(socks)) as ex:
+            res = list(ex.map(lambda a: _echo_stream(
+                a[0], a[1], _socks5_to(echo.port)), socks))
+        wall = time.perf_counter() - t1
+        bad = sum(not r["ok"] for r in res)
+        check(bad == 0, f"websocks: {bad} of {len(socks)} SOCKS5 CONNECTs "
+              "did not echo every byte")
+        http, _ = _echo_burst(http_port, payloads[n_tcp + n_kcp:],
+                              _http_connect_to(echo.port))
+        check(all(r["ok"] for r in http), "websocks: an HTTP CONNECT did "
+              "not echo every byte")
+        codes = {"server": srv.stop()}
+        refused = False
+        try:
+            refused = not _echo_stream(tcp_port, b"x", _socks5_to(echo.port),
+                                       timeout=10)["ok"]
+        except OSError:
+            refused = True
+        check(refused, "a proxied CONNECT succeeded with the server down")
+        d = _echo_stream(tcp_port, payloads[0], _socks5_to(direct.port))
+        check(d["ok"] and direct.accepted == 1, "the direct-rule host did "
+              "not echo through the agent with the server down")
+        codes.update({k.name: k.stop() for k in (at, ak)})
+        check(all(v == 0 for v in codes.values()),
+              f"a websocks child did not exit 0 on SIGTERM: {codes}")
+
+        def side(rs):
+            # its own wall time: the burst's start to its last echo
+            w = max(r["done_s"] for r in rs)
+            return {"connects": len(rs), "bytes_echoed": len(rs) * nbytes,
+                    "first_byte": lat_ms([r["first_s"] for r in rs]),
+                    "wall_s": w, "mb_s": len(rs) * nbytes / w / 1e6}
+        by_t = {"tcp": side(res[:n_tcp]), "kcp": side(res[n_tcp:])}
+        out = {"socks5": {"wall_s": wall, "mb_s": len(res) * nbytes / wall
+                          / 1e6, "first_byte": lat_ms(
+                              [r["first_s"] for r in res]), **by_t},
+               "http_connect": side(http),
+               "direct_rule": {"echoed": True, "server_down_refused": True},
+               "bytes_each": nbytes, "boot_s": boot_s, "ready_s": ready,
+               "exit_codes": codes,
+               "not_run": "the TLS front and shadowsocks: the websocks "
+                          "app serves neither (nor does the reference's); "
+                          "tests/test_torch_websocks.py runs both in "
+                          "process"}
+        log(f"websocks: {len(res)} SOCKS5 CONNECTs x {nbytes} B in "
+            f"{wall:.2f} s ({out['socks5']['mb_s']:.2f} MB/s), p50/p99 "
+            f"{out['socks5']['first_byte'].get('p50_ms', 0):.1f}/"
+            f"{out['socks5']['first_byte'].get('p99_ms', 0):.1f} ms")
+        return out
+    finally:
+        for k in kids:
+            k.kill()
+        echo.close()
+        direct.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _uds_post(path: str, route: str, body: dict) -> dict:
+    """One libnetwork call over the plugin's unix socket."""
+    import socket
+    payload = json.dumps(body).encode()
+    c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    c.settimeout(30)
+    c.connect(path)
+    c.sendall(b"POST " + route.encode() + b" HTTP/1.1\r\nhost: plugin\r\n"
+              b"content-type: application/json\r\ncontent-length: " +
+              str(len(payload)).encode() + b"\r\nconnection: close\r\n\r\n"
+              + payload)
+    buf = b""
+    while True:
+        d = c.recv(65536)
+        if not d:
+            break
+        buf += d
+    c.close()
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    check(head.split(b" ", 2)[1:2] == [b"200"], f"{route}: {head!r}")
+    return json.loads(rest)
+
+
+def docker_addrs(pools: list, b: int, seed: int) -> list:
+    """b seeded IPv4 addresses: uniform over the pools' hosts, and one
+    in nine outside every pool (172.29/16 and 10/8)."""
+    from vproxy_tpu_torch.utils.ip import parse_ip
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(b):
+        k = int(rng.integers(0, len(pools) + 1))
+        host = int(rng.integers(1, 255))
+        if k == len(pools):
+            out.append(parse_ip(f"{int(rng.choice([10, 172]))}."
+                                f"{int(rng.integers(29, 255))}."
+                                f"{int(rng.integers(0, 256))}.{host}"))
+        else:
+            out.append(parse_ip(pools[k].rsplit(".", 1)[0] + f".{host}"))
+    return out
+
+
+def phase_docker(device=torch.device("cpu"), networks=DOCKER_NETWORKS,
+                 batch=DOCKER_BATCH) -> dict:
+    """The docker network plugin, in process: the port's Application
+    takes `add docker-network-plugin-controller` on a unix socket in a
+    temporary directory; Plugin.Activate and GetCapabilities over it;
+    `networks` NetworkDriver.CreateNetwork calls, each a /24 pool of
+    172.28.0.0/16 and its gateway (each a VPC of the plugin's switch,
+    its route table a CidrMatcher on the switch's backend: "torch" on
+    the card); on each VPC one `add route` by command to every other
+    pool via its vni; then per VPC one route_lookup_batch of `batch`
+    seeded addresses (docker_addrs). The phase sets the engine's small-
+    table cut to 0 (what VPROXY_TPU_SMALL_TABLE=0 does) so that each
+    batch reaches the matcher: a VPC of 7 routes is under the default
+    cut of 128, and route_lookup_batch would scan it on the host. One
+    B4 launch per batch on the card (none on the CPU, where the plain
+    tier serves), one engine dispatch per batch, every answer the route
+    the host CidrIndex finds over the VPC's routes. current_config holds
+    the controller's line; replayed into a fresh Application it rebuilds
+    every VPC, annotations and routes, and the replayed plugin answers.
+    The endpoint calls (a tap device each) are not made: they would
+    create a network device on the host; tests/test_torch_docker.py
+    runs them on the CPU. -> seconds, batches, launches."""
+    import shutil
+    import tempfile
+    from vproxy_tpu_torch.control import persist
+    from vproxy_tpu_torch.control.app import Application
+    from vproxy_tpu_torch.control.command import Command
+    from vproxy_tpu_torch.control.docker import ANNO_NETWORK_ID, SWITCH_NAME
+    from vproxy_tpu_torch.ops import cidr_cuda as CC
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules.index import CidrIndex
+    on_card = device.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-docker-")
+    keys = ("VPROXY_TPU_DOCKER_SCRIPTS", "VPROXY_TPU_DOCKER_SWITCH_ADDR")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ["VPROXY_TPU_DOCKER_SCRIPTS"] = os.path.join(tmp, "scripts")
+    os.environ["VPROXY_TPU_DOCKER_SWITCH_ADDR"] = f"{LOOPBACK}:0"
+    small = E.SMALL_TABLE
+    E.SMALL_TABLE = 0
+    apps = [Application.create(workers=1)]
+    run = Command.execute
+    try:
+        app = apps[0]
+        sock = os.path.join(tmp, "plugin.sock")
+        t0 = time.perf_counter()
+        check(run(app, "add docker-network-plugin-controller dk0 path "
+                       f"{sock}") == "OK", "add docker controller")
+        check(_uds_post(sock, "/Plugin.Activate", {}) ==
+              {"Implements": ["NetworkDriver"]}, "Plugin.Activate")
+        check(_uds_post(sock, "/NetworkDriver.GetCapabilities", {}) ==
+              {"Scope": "local", "ConnectivityScope": "local"},
+              "GetCapabilities")
+        pools = [f"172.28.{i}.0/24" for i in range(networks)]
+        ids = [f"chipsmoke{i:02d}" + "0" * 53 for i in range(networks)]
+        for nid, pool in zip(ids, pools):
+            r = _uds_post(sock, "/NetworkDriver.CreateNetwork", {
+                "NetworkID": nid, "IPv4Data": [{
+                    "AddressSpace": "", "Pool": pool,
+                    "Gateway": pool.replace(".0/24", ".1/24")}],
+                "IPv6Data": []})
+            check(r == {}, f"CreateNetwork {pool}: {r}")
+        create_s = time.perf_counter() - t0
+        sw = app.switches[SWITCH_NAME]
+        by_id = {n.annotations.get(ANNO_NETWORK_ID): n
+                 for n in sw.networks.values()}
+        nets = [by_id[nid] for nid in ids]
+        t1 = time.perf_counter()
+        for i, net in enumerate(nets):
+            for k, other in enumerate(nets):
+                if k != i:
+                    check(run(app, f"add route to{k} to vpc {net.vni} in "
+                                   f"switch {SWITCH_NAME} network {pools[k]}"
+                                   f" vni {other.vni}") == "OK",
+                          f"add route to{k} in vpc {net.vni}")
+        routes_s = time.perf_counter() - t1
+        n_routes = sum(len(n.routes.rules_v4) for n in nets)
+        check(n_routes == networks * (networks - 1), f"{n_routes} routes")
+        for net in nets:
+            m = net._matcher_v4
+            check(m.backend == "torch", f"vpc {net.vni} serves on "
+                  f"{m.backend!r}, not the switch's default 'torch'")
+            check(on_card == (m.device.type == "cuda"),
+                  f"vpc {net.vni}'s matcher is on {m.device}")
+        kern = CC.cidr_first_cuda
+        b4_0, disp0 = kern.launches, E.dispatch_launches_total()
+        answers = misses = 0
+        lookup_ms = []
+        for i, net in enumerate(nets):
+            addrs = docker_addrs(pools, batch, DOCKER_SEED + i)
+            t = time.perf_counter()
+            got = net.route_lookup_batch(addrs)
+            lookup_ms.append((time.perf_counter() - t) * 1e3)
+            rules = net.routes.rules_v4
+            idx = CidrIndex([r.rule for r in rules])
+            for a, g in zip(addrs, got):
+                j = idx.lookup(a)
+                want = rules[j] if j >= 0 else None
+                check(g is want, f"vpc {net.vni}: {a.hex()} -> "
+                      f"{g} != the host index's {want}")
+                answers += 1
+                misses += want is None
+        b4 = kern.launches - b4_0
+        disp = E.dispatch_launches_total() - disp0
+        check(disp == networks, f"{disp} engine dispatches for "
+              f"{networks} route batches")
+        check(b4 == (networks if on_card else 0),
+              f"B4 launches {b4} for {networks} route batches")
+        cfg = persist.current_config(app)
+        check(f"add docker-network-plugin-controller dk0 path {sock}" in cfg,
+              "current_config lacks the controller's line")
+        path = os.path.join(tmp, "saved.cfg")
+        with open(path, "w") as f:
+            f.write(cfg)
+        app.close()
+        apps.append(Application.create(workers=1))
+        app2 = apps[-1]
+        persist.load(app2, path)
+        sw2 = app2.switches[SWITCH_NAME]
+        got_ids = sorted(n.annotations.get(ANNO_NETWORK_ID)
+                         for n in sw2.networks.values())
+        check(got_ids == sorted(ids), "the replay lost a VPC")
+        check(sum(len(n.routes.rules_v4) for n in sw2.networks.values())
+              == n_routes, "the replay lost a route")
+        check(set(app2.docker_controllers) == {"dk0"} and _uds_post(
+            sock, "/Plugin.Activate", {}) == {
+                "Implements": ["NetworkDriver"]},
+            "the replayed plugin does not answer")
+        out = {"networks": networks, "routes": n_routes, "batch": batch,
+               "batches": networks, "answers": answers, "misses": misses,
+               "engine_dispatches": disp, "launches": {"cidr_first": b4},
+               "create_networks_s": create_s, "routes_by_command_s": routes_s,
+               "lookup_ms": {"per_batch": lookup_ms,
+                             "p50": pct(lookup_ms, 50)},
+               "small_table_cut": 0, "replayed_vpcs": len(sw2.networks),
+               "endpoint_lifecycle": "not run: a tap device would change "
+               "the host's network devices (tests/test_torch_docker.py "
+               "runs it on the CPU)"}
+        log(f"docker: {networks} networks in {create_s:.2f} s, {n_routes} "
+            f"routes by command in {routes_s:.2f} s, {networks} batches "
+            f"of {batch}, B4 {b4}")
+        return out
+    finally:
+        E.SMALL_TABLE = small
+        for a in apps:
+            a.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def bucket_percentile(b1, b0):
@@ -7591,6 +8239,12 @@ def main() -> int:
     log(json.dumps({"control_fp": {**control_fp, "card": smi}}))
     switch = run("switch", phase_switch, device)
     log(json.dumps({"switch": {**switch, "card": smi}}))
+    apps = run("apps", phase_apps, device)
+    log(json.dumps({"apps": {**apps, "card": smi}}))
+    websocks = run("websocks", phase_websocks, device)
+    log(json.dumps({"websocks": {**websocks, "card": smi}}))
+    docker = run("docker", phase_docker, device)
+    log(json.dumps({"docker": {**docker, "card": smi}}))
     rows, b3_rows, sweep = run("times", phase_times, device, keep)
     crows = run("cidr times", phase_cidr_times, device, keep, routes, am,
                 acl)
@@ -7684,11 +8338,13 @@ def main() -> int:
               by_batch=crows["B1 route column"]),
         entry("cidr_first", SOURCE_B4, REPLACES_B4,
               b4_launches + tcplb["launches"]["cidr_first"] +
-              switch["launches"]["cidr_first"], b4_err,
+              switch["launches"]["cidr_first"] +
+              docker["launches"]["cidr_first"], b4_err,
               crows["B4 ACL"], table="ACL 5k, ports",
               launches_by_path={"cidr service": b4_launches,
                                 "tcplb": tcplb["launches"]["cidr_first"],
-                                "switch": switch["launches"]["cidr_first"]},
+                                "switch": switch["launches"]["cidr_first"],
+                                "docker": docker["launches"]["cidr_first"]},
               build_s=builds["cidr"]["build_s"],
               instances=builds["cidr"]["instances"],
               by_batch={"acl": crows["B4 ACL"],

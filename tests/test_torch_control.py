@@ -3,9 +3,8 @@ the matchers on the CPU.
 
 * ported reference cases, each run on both packages (`pkg`):
   tests/test_control.py (3), test_controllers.py (2), test_resp_matrix.py
-  (2, over the ported resource types, the switch's among them; the
-  one type whose subsystem is not ported yet, the docker plugin, is
-  listed exactly in NOT_PORTED and refuses over RESP),
+  (2, over every creatable resource type, the switch's and the docker
+  plugin's among them; no type refuses as not ported),
   test_control_extras.py's inventory, resolver/dns-cache,
   controller-resource, timeout/persist and socks5-update cases (its
   switch cases are in test_torch_vswitch.py),
@@ -25,8 +24,9 @@ the matchers on the CPU.
   VPROXY_TPU_TORCH_DEVICE=cpu hosting a tcp-lb, a socks5-server, a
   dns-server, a switch and both controllers from a config file, serving
   each once, then saving its config on SIGTERM (tests/test_boot_all.py);
-  without a GPU and without the host asked for, it exits non-zero, as
-  it does for the deployable apps not ported yet;
+  without a GPU and without the host asked for, it exits non-zero, an
+  app named or not; each deployable app (helloworld, kcptun, websocks,
+  daemon) boots through it and serves;
   VPROXY_TPU_MATCHER=jax-dense boots it on the dense backend, and the
   command script over its resp-controller answers what the reference's
   does; jax-sharded and jax-fp-sharded boot it on the sharded backends,
@@ -386,17 +386,12 @@ MATRIX = [
     # the remote-switch link, listed as an iface
     ("add switch rsw0 to switch sw0 address 127.0.0.1:18473",
      None, None, "remove switch rsw0 from switch sw0"),
+    ("add docker-network-plugin-controller dk0 path {SOCK}", "path",
+     None, "remove docker-network-plugin-controller dk0"),
 ]
 
-# the types whose subsystem the port does not have yet, each with the
-# ROADMAP Queue A item that ports it: exactly these refuse, so the list
-# cannot grow unnoticed
-NOT_PORTED = {
-    "docker-network-plugin-controller": 10,
-}
-
 # queried/virtual or attach-only resources, and the controllers (their
-# own cases below): the reference matrix's list, less the not-ported.
+# own cases below): the reference matrix's list.
 # cluster-node needs a booted cluster plane (VPROXY_TPU_CLUSTER_PEERS),
 # which this clusterless matrix app does not have: its verbs are
 # exercised in tests/test_torch_cluster.py and by
@@ -429,7 +424,8 @@ def test_resp_crud_matrix(pkg, resp):
     app, c, tmp, (cert, key) = resp
     created = []
     for add, detail_sub, update, remove in MATRIX:
-        add = add.replace("{CERT}", cert).replace("{KEY}", key)
+        add = add.replace("{CERT}", cert).replace("{KEY}", key).replace(
+            "{SOCK}", os.path.join(str(tmp), "docker", "plugin.sock"))
         assert c.cmd(*add.split()) == "OK", add
         rtype, alias = add.split()[1:3]
         ctx = add.split(" to ", 1)[1] if " to " in add else None
@@ -475,34 +471,35 @@ def test_resp_crud_matrix(pkg, resp):
         assert sw2.users  # u001 came back
         assert any(r.alias == "rt0" for r in sw2.networks[7].routes.rules)
         assert app2.tcp_lbs["lb0"].timeout_ms == 9000
+        assert set(app2.docker_controllers) == {"dk0"}
     finally:
         app2.close()
 
 
 def test_resp_matrix_covers_creatable_inventory():
-    """Every resource type of the grammar is in the matrix, uncreatable,
-    or not ported yet; the port's not-ported list is exactly
-    NOT_PORTED, and every such type refuses every action over RESP
-    with its ROADMAP item."""
+    """Every resource type of the grammar is in the matrix or
+    uncreatable, and none refuses as not ported: the port keeps no
+    list of unported types, and `list <type>` of every type over RESP
+    answers, or fails for want of its context, never "not ported"."""
     C = mod(PORT, "control.command")
     assert set(mod("vproxy_tpu", "control.command").TYPES.values()) == \
         set(C.TYPES.values())
-    assert C.NOT_PORTED == NOT_PORTED
+    assert not hasattr(C, "NOT_PORTED") and not hasattr(C, "_not_ported")
+    assert "docker-network-plugin-controller" in \
+        {row[0].split()[1] for row in MATRIX}
     covered = {row[0].split()[1] for row in MATRIX}
     for t in set(C.TYPES.values()):
-        assert (t in covered) + (t in UNCREATABLE) + (t in NOT_PORTED) == 1, t
+        assert (t in covered) + (t in UNCREATABLE) == 1, t
     app = mod(PORT, "control.app").Application.create(workers=1)
     try:
         C.Command.execute(app, "add resp-controller ctl address "
                                "127.0.0.1:0")
         c = RespClient(app.resp_controllers["ctl"].bind_port)
-        for t, item in NOT_PORTED.items():
-            for line in (f"add {t} x0", f"list {t}", f"list-detail {t}",
-                         f"update {t} x0", f"remove {t} x0"):
-                with pytest.raises(RuntimeError) as e:
-                    c.cmd(*line.split())
-                assert f"{t}: not ported yet (ROADMAP Queue A item " \
-                    f"{item})" in str(e.value), (line, str(e.value))
+        for t in sorted(set(C.TYPES.values())):
+            try:
+                c.cmd("list", t)
+            except RuntimeError as e:
+                assert "not ported" not in str(e), (t, str(e))
         c.close()
     finally:
         app.close()
@@ -1314,19 +1311,14 @@ def test_boot_from_config_serves_and_saves_on_sigterm(tmp_path):
 
 REFUSALS = {
     "no-GPU": ({}, [], "no CUDA device"),
-    "helloworld": ({"VPROXY_TPU_TORCH_DEVICE": "cpu"}, ["helloworld"],
-                   "ROADMAP Queue A item 10"),
-    "kcptun": ({"VPROXY_TPU_TORCH_DEVICE": "cpu"}, ["kcptun"],
-               "ROADMAP Queue A item 10"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_entry_refuses(case, tmp_path):
     """Without a GPU, and without the CPU or the host asked for, the
-    entry exits non-zero with torchenv's message; the deployable apps
-    not ported yet are refused, never ignored. Nothing is served and
-    no config is written."""
+    entry exits non-zero with torchenv's message. Nothing is served
+    and no config is written."""
     env, args, msg = REFUSALS[case]
     if case == "no-GPU" and torch.cuda.is_available():
         pytest.skip("a GPU is present: the entry would boot")
@@ -1340,6 +1332,74 @@ def test_entry_refuses(case, tmp_path):
     assert msg in r.stderr, r.stderr[-2000:]
     assert "resp-controller on" not in r.stdout
     assert not (tmp_path / "vproxy.last").exists()
+
+
+APPS = ("helloworld", "kcptun", "websocks", "daemon")
+
+
+@pytest.mark.parametrize("name", APPS)
+def test_entry_serves_app(name, tmp_path):
+    """`python -m vproxy_tpu_torch <app>` with VPROXY_TPU_TORCH_DEVICE=cpu
+    boots the app and serves: helloworld echoes over TCP and UDP; a
+    kcptun server and client (two children) carry a TCP connection to
+    an echo server; a websocks server and agent (two children, over
+    KCP) carry a SOCKS5 CONNECT; the daemon supervises a control-plane
+    child whose resp-controller answers. Every child exits 0 on
+    SIGTERM."""
+    import chip_smoke as CS
+    env = _port_env(tmp_path, VPROXY_TPU_TORCH_DEVICE="cpu",
+                    PYTHONUNBUFFERED="1")
+    kids = []
+    echo = CS._EchoServer()
+
+    def boot(*args):
+        kids.append(CS._AppChild(f"{name}{len(kids)}", list(args), env,
+                                 str(tmp_path)))
+        return kids[-1]
+    try:
+        if name == "helloworld":
+            port = int(boot("helloworld", "0").expect(
+                r"echo on tcp/udp 0\.0\.0\.0:(\d+)")[1])
+            c = socket.create_connection(("127.0.0.1", port), timeout=5)
+            c.sendall(b"ping")
+            assert c.recv(256) == b"hello from vproxy-tpu\nping"
+            c.close()
+            u = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            u.settimeout(5)
+            u.sendto(b"uping", ("127.0.0.1", port))
+            assert u.recvfrom(256)[0] == b"hello from vproxy-tpu\nuping"
+            u.close()
+        elif name == "kcptun":
+            uport = int(boot("kcptun", "server", "0",
+                             f"127.0.0.1:{echo.port}").expect(
+                r"udp (\d+) ->")[1])
+            tport = int(boot("kcptun", "client", "0",
+                             f"127.0.0.1:{uport}").expect(
+                r"tcp (\d+) ->")[1])
+            assert CS._echo_stream(tport, b"through-kcp" * 1000,
+                                   timeout=30)["ok"]
+        elif name == "websocks":
+            sport = int(boot("websocks", "server", "0", "alice:pw",
+                             "kcp").expect(
+                r"websocks server on :(\d+) \(tcp\+kcp\)")[1])
+            aport = int(boot("websocks", "agent", "0", f"127.0.0.1:{sport}",
+                             "alice:pw", "kcp").expect(
+                r"socks5 on 127\.0\.0\.1:(\d+)")[1])
+            CS.await_tunnel(aport, echo.port, "the websocks agent")
+        else:
+            rport = int(boot(
+                "daemon", "noLoadLast", "noSave", "resp-controller",
+                "127.0.0.1:0", "pw", "http-controller", "127.0.0.1:0")
+                .expect(r"resp-controller on 127\.0\.0\.1:(\d+)")[1])
+            cli = RespClient(rport, password="pw")
+            assert cli.cmd("add", "upstream", "ud") == "OK"
+            assert cli.cmd("list", "upstream") == ["ud"]
+            cli.close()
+        assert [k.stop() for k in reversed(kids)] == [0] * len(kids)
+    finally:
+        for k in kids:
+            k.kill()
+        echo.close()
 
 
 def _resp_script(port: int, lines: list) -> list:

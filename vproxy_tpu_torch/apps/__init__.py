@@ -1,5 +1,6 @@
-"""Deployable apps (reference vproxyx/*).
+"""Deployable apps (reference vproxyx/*): Simple one-liner LB,
+HelloWorld smoke test, Daemon supervisor, KcpTun tunnel, and the
+WebSocks server and agent.
 
-The port carries Simple mode (apps/simple.py, the one-liner LB). The
-reference's HelloWorld, Daemon, KcpTun and WebSocks apps come with
-ROADMAP Queue A item 10; main.py refuses them until then."""
+The port's copies of vproxy_tpu/apps/, each dispatched by main.py as
+`python -m vproxy_tpu_torch <app> ...`."""

@@ -15,11 +15,9 @@ control-plane isolation (doc/architecture.md:64-66).
 
 The port's copy of vproxy_tpu/control/command.py: the same grammar
 (ACTIONS, TYPES, PARAM_KEYS, FLAGS, the bare verbs), the same
-resource-type inventory and the cluster plane's leader/follower
-replication hook in Command.execute. The handler of the one type whose
-subsystem is not ported yet (NOT_PORTED: the docker plugin) raises
-CmdError("<type>: not ported yet (ROADMAP Queue A item N)") for every
-action; everything else is the reference's.
+resource-type inventory, every type's handler (the docker plugin's
+included) and the cluster plane's leader/follower replication hook in
+Command.execute.
 
 `list-detail upstream` prints the serving backend's name (`backend
 torch` here, `backend jax` in the reference) and the fused tier's name
@@ -1684,16 +1682,36 @@ def _h_cluster(app: Application, c: Command):
     raise CmdError(f"unsupported action {c.action} for cluster-node")
 
 
-# resource types whose subsystem is not ported yet -> the ROADMAP
-# Queue A item that ports it
-NOT_PORTED = {
-    "docker-network-plugin-controller": 10,
-}
-
-
-def _not_ported(app: Application, c: Command):
-    raise CmdError(f"{c.type}: not ported yet "
-                   f"(ROADMAP Queue A item {NOT_PORTED[c.type]})")
+def _h_docker(app: Application, c: Command):
+    """Docker libnetwork plugin host: unix-socket HTTP driver bridging
+    docker networks onto the vswitch (DockerNetworkPluginController.java)."""
+    from .docker import DockerNetworkPluginController
+    if c.action == "add":
+        if c.alias in app.docker_controllers:
+            raise CmdError(f"docker-network-plugin-controller {c.alias} "
+                           "already exists")
+        if "path" not in c.params:
+            raise CmdError("docker-network-plugin-controller requires "
+                           "`path <uds-path>`")
+        try:
+            ctl = DockerNetworkPluginController(app, c.alias, c.params["path"])
+        except OSError as e:
+            raise CmdError(f"listen on {c.params['path']} failed: {e}")
+        app.docker_controllers[c.alias] = ctl
+        return "OK"
+    if c.action == "list":
+        return list(app.docker_controllers.keys())
+    if c.action == "list-detail":
+        return [f"{a} -> path {ctl.path}"
+                for a, ctl in app.docker_controllers.items()]
+    if c.action in ("remove", "force-remove"):
+        ctl = _need(app.docker_controllers, c.alias,
+                    "docker-network-plugin-controller")
+        ctl.stop()
+        del app.docker_controllers[c.alias]
+        return "OK"
+    raise CmdError(f"unsupported action {c.action} for "
+                   "docker-network-plugin-controller")
 
 
 _HANDLERS = {
@@ -1708,7 +1726,7 @@ _HANDLERS = {
     "proxy": _h_proxy,
     "resp-controller": _h_respc,
     "http-controller": _h_httpc,
-    "docker-network-plugin-controller": _not_ported,
+    "docker-network-plugin-controller": _h_docker,
     "event-loop-group": _h_elg,
     "event-loop": _h_el,
     "upstream": _h_ups,

@@ -141,9 +141,9 @@ def current_config(app: Application) -> str:
                     if iface.annotations else "")
                 lines.append(f"add tap {iface.dev} to switch {sw.alias} "
                              f"vni {iface.local_side_vni}{ps}{anno}")
-    # the reference emits docker plugin controllers here; the port has
-    # none until ROADMAP Queue A item 10 lands, and their add command
-    # refuses, so no app can hold one
+    for a, ctl in app.docker_controllers.items():
+        lines.append(f"add docker-network-plugin-controller {a} "
+                     f"path {ctl.path}")
     from ..policing import engine as _policing
     for p in _policing.default().list_policies():
         tenant_part = f" tenant={p['tenant']}" if p["tenant"] else ""

@@ -8,8 +8,9 @@ VPROXY_TPU_MATCHER=host: no device matcher at all). The multi-host
 bring-up (VPROXY_TPU_DIST_*) joins a torch.distributed job in place of
 jax.distributed (parallel/mesh.py init_distributed), first thing;
 VPROXY_TPU_CLUSTER_PEERS boots the cluster plane after the config load.
-Not carried over yet: the deployable apps other than `simple`
-(refused, ROADMAP Queue A item 10). VPROXY_TPU_MATCHER=jax-fp serves
+The deployable apps (simple, helloworld, daemon, kcptun, websocks) are
+dispatched after the device check, as the reference dispatches them.
+VPROXY_TPU_MATCHER=jax-fp serves
 the port's "torch-fp" backend, jax-dense its "torch-dense" backend,
 jax-sharded and jax-fp-sharded its "torch-sharded" and
 "torch-fp-sharded" backends.
@@ -130,14 +131,12 @@ def main(argv: list[str] | None = None) -> int:
               f"{dist.get_world_size()}")
 
     # deployable apps (reference -Deploy=...): first arg selects the app
-    if argv and argv[0].lower() in ("helloworld", "daemon", "kcptun",
-                                    "websocks"):
-        print(f"{argv[0].lower()}: not ported yet (ROADMAP Queue A "
-              "item 10)", file=sys.stderr)
-        return 1
-    if argv and argv[0].lower() == "simple":
-        from .apps import simple
-        return simple.run(argv[1:])
+    if argv and argv[0].lower() in ("simple", "helloworld", "daemon",
+                                    "kcptun", "websocks"):
+        name = argv.pop(0).lower()
+        import importlib
+        mod = importlib.import_module(f".apps.{name}", __package__)
+        return mod.run(argv)
     opts = {"resp": DEFAULT_RESP, "resp_pass": None, "http": DEFAULT_HTTP,
             "load": None, "no_load": False, "no_save": False,
             "no_stdio": False, "workers": None, "inspect": None}
