@@ -181,8 +181,8 @@ result. Phases, in order:
    built by command only (RESP, the frontends over HTTP): an Upstream
    of phase 5b's Host rules, one server group each on a loopback
    address of its own at id-server i mod 256, until 10,000 groups or
-   30 s (never under 256), one security group with config #4's ACL as
-   TCP rules and as UDP rules (each until 5,000 or 30 s, never under
+   20 s (never under 256), one security group with config #4's ACL as
+   TCP rules and as UDP rules (each until 5,000 or 20 s, never under
    256), a dns-server, a socks5-server and an http-splice tcp-lb on
    them; 4 x 4,096 DNS queries (512 in flight), 2 x 512 Socks5 domain
    CONNECTs with an HTTP request each, 2 x 512 http-splice connections
@@ -266,7 +266,15 @@ result. Phases, in order:
    command (config #2's rules until 10 s), the follower converges to
    its generation and checksum and refuses a mutation, each node's
    step loop serves 1,024 queries on the card (B1 through the
-   FusedPair), every answer the host index's, not degraded;
+   FusedPair), every answer the host index's, not degraded; then the
+   scenario and load tools (phase_tools, the `tools` line; device
+   mode, the small-table cut at 0): the storm suite at full scale
+   (hard gates; B1 / B3 / B4 launches == the engine's dispatches by
+   kind, per scenario), chaos at tests/test_chaos.py's floor with the
+   card's KernelError contract in its phase 4, one replay round trip
+   with its fidelity gates and schedule hash, and 3 s of the port's
+   hostbench client through a TcpLB with one Host rule (0 errors; B3 a
+   hint batch);
 8. times at B = 16, 512, 4096: the kernel's and the plain tier's device
    time per call (profiler) with the 22.7 MB table L2-warm, as under
    steady serving; the kernel's device time with L2 flushed before each
@@ -298,8 +306,9 @@ result. Phases, in order:
    dense_cidr_work) and the count step's GEMM alone (dense_library_ms);
 10. the `phase_s` line (wall seconds per phase), the {"kernels": [...]}
    line (B1, B1 with the route column, B4, B3, B6, B7, B5, B9, B8;
-   B1's launches include the cluster step loops', B4's and B7's the
-   `switch` phase's, B4's the `docker` phase's, B6's, B9's and B8's the cpick batches' (with
+   B1's launches include the cluster step loops', B1's, B3's and
+   B4's the `tools` phase's, B4's and B7's the `switch` phase's, B4's
+   the `docker` phase's, B6's, B9's and B8's the cpick batches' (with
    their Maglev column), B5's the standalone Maglev batches'),
    then the card's line, then the device line.
 
@@ -1966,7 +1975,7 @@ def phase_loop(device, pair, rules, bursts=BURSTS, burst=SERVICE_BATCH,
 TCPLB_MAX_RULES = 10_000  # BASELINE config #2's target
 TCPLB_MIN_RULES = 256
 TCPLB_BUILD_S = 15.0      # the Upstream build's budget: every add publishes
-# (the `control` phase builds the same Upstream for its full 30 s)
+# (the `control` phase builds the same Upstream for CONTROL_BUILD_S)
 TCPLB_BACKENDS = 256
 B3_PATH_BATCHES = 32  # batches a bucket below the largest (b3_on_path)
 TCPLB_RULE_SEED, TCPLB_REQ_SEED = 61, 62
@@ -2476,9 +2485,10 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
 
 CONTROL_MAX_GROUPS = 10_000  # records built against config #3's 100k
 CONTROL_MIN_GROUPS = 256
-CONTROL_BUILD_S = 30.0       # the Upstream's budget: every add publishes
+# the build budgets, 20 s each, keep the whole run inside its limit
+CONTROL_BUILD_S = 20.0       # the Upstream's budget: every add publishes
 CONTROL_MIN_ACL = 256        # rules of each protocol, at least
-CONTROL_ACL_BUILD_S = 30.0   # each protocol's budget: every add compiles
+CONTROL_ACL_BUILD_S = 20.0   # each protocol's budget: every add compiles
 CONTROL_FP_ACL = 128  # the fp run's ACL: each add recompiles the fp table
 CONTROL_WORKERS = 4
 CONTROL_QUERY_SEED = 81
@@ -8182,6 +8192,224 @@ def phase_cluster(device, max_groups=CLUSTER_MAX_GROUPS,
         shutil.rmtree(work, ignore_errors=True)
 
 
+TOOLS_SEED = 1
+TOOLS_SCALE = 1.0           # storm at the reference's full scale
+TOOLS_CHAOS_REQUESTS = 120  # tests/test_chaos.py's floor run
+TOOLS_REPLAY_ARRIVALS = 100
+TOOLS_HOST_SECS = 3.0
+# the storm gates that fail the phase: hard failures, failed or wrong
+# answers, convergence and the rejected torn generation. The rest
+# (latency, shed and delivery ratios, differentials) are printed with
+# their values; one that fails on the card is a finding, not a failed
+# run. Row gates are "<row>.<gate>".
+STORM_HARD = {
+    "flash_crowd": ("static.hard_failures", "adaptive.hard_failures"),
+    "adversarial_crowd": ("on.hard_failures", "off.hard_failures"),
+    "replay_flash_crowd": ("recorded_mix_clean", "hard_failures",
+                           "schedule_deterministic"),
+    "slowloris": ("legit_success",),
+    "dns_storm": ("failed_queries",),
+    "elephant_mice": ("native_drops",),
+    "rolling_upgrade": ("failed_queries", "rejected_generation_seen",
+                        "healed_after_reject", "fleet_converged"),
+}
+
+
+def storm_gates(out: dict) -> dict:
+    """A storm scenario's gates by name, its rows' as "<row>.<gate>"."""
+    gates = dict(out.get("slo", {}))
+    for row, r in out.get("rows", {}).items():
+        for name, g in r.get("slo", r.get("legit_slo", {})).items():
+            gates[f"{row}.{name}"] = g
+    return gates
+
+
+def launches_want(batches: dict, on_card: bool) -> dict:
+    """The CUDA launches a run's engine dispatches (by kind) make on
+    "torch": B1 for fused classify+pick ("cpick", "all"), B3 for hint,
+    B4 for cidr; none on the CPU, where the plain tiers serve."""
+    n = int(on_card)
+    return {"B1": n * (batches.get("cpick", 0) + batches.get("all", 0)),
+            "B3": n * batches.get("hint", 0),
+            "B4": n * batches.get("cidr", 0)}
+
+
+def phase_tools(device, scale=TOOLS_SCALE,
+                replay_arrivals=TOOLS_REPLAY_ARRIVALS,
+                host_secs=TOOLS_HOST_SECS) -> dict:
+    """The port's scenario and load tools (vproxy_tpu_torch/tools/), in
+    process, with ClassifyService in device mode (VPROXY_TPU_CLASSIFY=
+    device, the service rebuilt) and the engine's small-table cut at 0
+    (every storm table is under the default 128), both restored after:
+
+    * storm.run_all(seed=1, scale): every scenario runs (none skipped,
+      none raised), its STORM_HARD gates pass, and its B1 / B3 / B4
+      launches equal its engine dispatches by kind (launches_want);
+      rolling_upgrade's steps launch B1, slowloris' and dns_storm's
+      hint batches B3, on the card. The other gates are printed;
+    * chaos.run at tests/test_chaos.py's floor, phase 4 under the card's
+      contract (a KernelError closes the phase's own service, every
+      held callback gets -1, no failover, a later submit raises);
+    * one replay round trip: a seeded Zipf mix recorded through a
+      ReplayWorld, replayed at 1x with the fidelity gates (the tier-1
+      rate band), its report's schedule_hash that of build_schedule for
+      the same model and seed;
+    * hostbench built from the port's copy, `client` for host_secs
+      through a port TcpLB (http-splice, one Host rule) to two
+      `hostbench server`s: 0 errors, B3 == the hint batches (> 0 on the
+      card). Its req/s is a smoke reading, no claim.
+    -> the phase's numbers."""
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules.service import ClassifyService
+    from vproxy_tpu_torch.tools import chaos, hostbench, replay, storm
+    from vproxy_tpu_torch.utils import sketch, workload
+    on_card = device.type == "cuda"
+    keys = ("VPROXY_TPU_CLASSIFY", "VPROXY_TPU_FAILPOINT_SEED")
+    saved = {k: os.environ.get(k) for k in keys}
+    small = E.SMALL_TABLE
+    os.environ["VPROXY_TPU_CLASSIFY"] = "device"
+    E.SMALL_TABLE = 0
+    ClassifyService.reset()
+    secs = {}
+    try:
+        t0 = time.monotonic()
+        rep = storm.run_all(seed=TOOLS_SEED, scale=scale)
+        secs["storm"] = time.monotonic() - t0
+        check(rep["device"] == device.type, f"storm ran on {rep['device']}")
+        scenarios, soft_failed = {}, []
+        for name, out in rep["scenarios"].items():
+            check("error" not in out and not out.get("skipped"),
+                  f"storm {name}: {out.get('error') or out.get('reason')}")
+            gates = storm_gates(out)
+            for g in STORM_HARD[name]:
+                check(gates[g]["pass"], f"storm {name} gate {g}: "
+                      f"{gates[g]}")
+            soft_failed += [f"{name}.{g}" for g, v in gates.items()
+                            if not v["pass"] and g not in STORM_HARD[name]]
+            dev = out["device"]
+            check(dev["launches"] == launches_want(dev["batches"], on_card),
+                  f"storm {name}: launches {dev['launches']} for engine "
+                  f"dispatches {dev['batches']}")
+            scenarios[name] = {
+                "s": out["elapsed_s"], "pass": out["pass"],
+                "batches": dev["batches"], "launches": dev["launches"],
+                "gates": {g: [v["value"], v["pass"]]
+                          for g, v in gates.items()}}
+        if on_card:
+            ru, ds, sl = (rep["scenarios"][n]["device"]["launches"] for n in
+                          ("rolling_upgrade", "dns_storm", "slowloris"))
+            check(ru["B1"] > 0 and ds["B3"] > 0 and sl["B3"] > 0,
+                  f"no kernel launched: rolling_upgrade {ru}, dns_storm "
+                  f"{ds}, slowloris {sl}")
+
+        t0 = time.monotonic()
+        c0 = storm.device_counts()
+        ch = chaos.run(clients=4, requests=TOOLS_CHAOS_REQUESTS,
+                       payload_len=4096,
+                       eject_base_s=0.5, drain_s=10.0)
+        ch_dev = storm.counts_since(c0)
+        secs["chaos"] = time.monotonic() - t0
+        cls = ch["classify"]
+        check(ch["success_rate"] >= 0.99 and ch["warmup"]["fail"] == 0,
+              f"chaos success rate {ch['success_rate']}")
+        check(ch["ejected"] and ch["eject_latency_s"] is not None and
+              ch["eject_latency_s"] < 5.0 and ch["readmitted"] and
+              ch["victim_served_after_readmit"],
+              f"chaos eject / readmit: {ch['eject_latency_s']}")
+        check(ch["drain_sheds_new_accepts"] and ch["drain_inflight_alive"]
+              and ch["drain_clean"] and ch["drain_elapsed_s"] < 10.0,
+              "chaos drain")
+        check(cls["delivered"] and cls["on_card"] == on_card, f"chaos "
+              f"phase 4: {cls}")
+        if on_card:
+            check(cls["error"] == "KernelError" and cls["failovers"] == 0
+                  and cls["answers"] and set(cls["answers"]) == {-1} and
+                  len(cls["answers"]) + len(cls["refused"]) == 2 and
+                  set(cls["refused"]) <= {"KernelError"} and
+                  cls["later_submit_raised"] == "KernelError",
+                  f"chaos phase 4, the card's contract: {cls}")
+        else:
+            check(cls["failovers"] >= 1 and cls["answers"] == [-1, 0],
+                  f"chaos phase 4 on the CPU: {cls}")
+        check(ch_dev["launches"] == launches_want(ch_dev["batches"],
+                                                  on_card),
+              f"chaos: launches {ch_dev}")
+
+        t0 = time.monotonic()
+        sketch.reset()
+        workload.reset()
+        w = replay.ReplayWorld(alias="smoke-replay-src")
+        try:
+            workload.capture_start()
+            mix = replay.drive_zipf_mix(w.lb.bind_port, seed=11, n=120,
+                                        clients=6, pace_s=0.015)
+            workload.capture_stop()
+            model = workload.WorkloadModel.fit(seed=11)
+        finally:
+            w.close()
+        rp = replay.run_replay(model, seed=11, speed=1.0,
+                               max_arrivals=replay_arrivals,
+                               fidelity_gate=True, rate_band=(0.75, 1.3))
+        secs["replay"] = time.monotonic() - t0
+        want_hash = replay.schedule_hash(replay.build_schedule(
+            model, 11, max_arrivals=replay_arrivals))
+        check(mix["fail"] == 0 and rp["results"]["fail"] == 0,
+              f"replay failures: mix {mix['fail']}, replay "
+              f"{rp['results']['fail']}")
+        check(rp["schedule_hash"] == want_hash,
+              f"replay hash {rp['schedule_hash']} != {want_hash}")
+        check(rp["pass"] and rp["fidelity"]["pass"],
+              f"replay gates: {rp['slo']} {rp['fidelity']['gates']}")
+
+        t0 = time.monotonic()
+        c0 = storm.device_counts()
+        hb = hostbench.serve_through_lb(secs=host_secs, conns=16,
+                                        pipeline=4)
+        hb_dev = storm.counts_since(c0)
+        secs["hostbench"] = time.monotonic() - t0
+        check(hb["errors"] == 0 and hb["reqs"] > 0,
+              f"hostbench: {hb['reqs']} served, {hb['errors']} errors")
+        check(hb_dev["launches"] == launches_want(hb_dev["batches"], on_card)
+              and (hb_dev["launches"]["B3"] > 0 or not on_card),
+              f"hostbench: {hb_dev}")
+        launches = {k: sum(sc["launches"][k] for sc in scenarios.values())
+                    + ch_dev["launches"][k] + hb_dev["launches"][k]
+                    for k in ("B1", "B3", "B4")}
+        out = {"seed": TOOLS_SEED, "scale": scale, "seconds": secs,
+               "classify_mode": "device", "small_table_cut": 0,
+               "storm": scenarios, "soft_gates_failed": soft_failed,
+               "chaos": {"success_rate": ch["success_rate"],
+                         "sessions": ch["total_sessions"],
+                         "eject_latency_s": ch["eject_latency_s"],
+                         "drain_elapsed_s": ch["drain_elapsed_s"],
+                         "classify": cls, "device": ch_dev},
+               "replay": {"arrivals": rp["arrivals"],
+                          "schedule_hash": rp["schedule_hash"],
+                          "p50_ms": rp["p50_ms"], "p99_ms": rp["p99_ms"],
+                          "fidelity": {g: [v["value"], v["pass"]] for g, v
+                                       in rp["fidelity"]["gates"].items()},
+                          "results": {k: rp["results"][k]
+                                      for k in ("ok", "fail", "shed")}},
+               "hostbench": {**{k: hb[k] for k in ("reqs", "secs", "rps",
+                                                   "errors", "conns",
+                                                   "pipeline")},
+                             "backends": hb["backends"], "device": hb_dev},
+               "launches": launches}
+        log(f"tools: storm {secs['storm']:.1f} s, chaos "
+            f"{secs['chaos']:.1f} s, replay {secs['replay']:.1f} s, "
+            f"hostbench {hb['rps']:.0f} req/s, launches {launches}, soft "
+            f"gates failed {soft_failed}")
+        return out
+    finally:
+        E.SMALL_TABLE = small
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        ClassifyService.reset()
+
+
 def main() -> int:
     smi = phase_env()
     # the native FD provider, built from this checkout: a build or load
@@ -8274,6 +8502,8 @@ def main() -> int:
     del svc_tabs
     cluster = run("cluster", phase_cluster, device)
     log(json.dumps({"cluster": {**cluster, "card": smi}}))
+    tools = run("tools", phase_tools, device)
+    log(json.dumps({"tools": {**tools, "card": smi}}))
     # B5's launches: the standalone Maglev batches; the cpick batches of
     # the three services take none (their hint kernels' Maglev column)
     b5_launches = {"standalone Maglev batches": maglev["launches"],
@@ -8326,10 +8556,12 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         entry("fused_classify_pick", SOURCE, REPLACES,
-              launches + loop["b1_launches"] + b1_cluster, err, rows,
+              launches + loop["b1_launches"] + b1_cluster +
+              tools["launches"]["B1"], err, rows,
               launches_by_path={"service": launches,
                                 "loop": loop["b1_launches"],
-                                "cluster step loops": b1_cluster},
+                                "cluster step loops": b1_cluster,
+                                "tools": tools["launches"]["B1"]},
               build_s=builds["fused"]["build_s"],
               instances=builds["fused"]["instances"], by_batch=rows,
               sweep=sweep),
@@ -8339,12 +8571,13 @@ def main() -> int:
         entry("cidr_first", SOURCE_B4, REPLACES_B4,
               b4_launches + tcplb["launches"]["cidr_first"] +
               switch["launches"]["cidr_first"] +
-              docker["launches"]["cidr_first"], b4_err,
-              crows["B4 ACL"], table="ACL 5k, ports",
+              docker["launches"]["cidr_first"] + tools["launches"]["B4"],
+              b4_err, crows["B4 ACL"], table="ACL 5k, ports",
               launches_by_path={"cidr service": b4_launches,
                                 "tcplb": tcplb["launches"]["cidr_first"],
                                 "switch": switch["launches"]["cidr_first"],
-                                "docker": docker["launches"]["cidr_first"]},
+                                "docker": docker["launches"]["cidr_first"],
+                                "tools": tools["launches"]["B4"]},
               build_s=builds["cidr"]["build_s"],
               instances=builds["cidr"]["instances"],
               by_batch={"acl": crows["B4 ACL"],
@@ -8352,10 +8585,12 @@ def main() -> int:
               host_breakdown={"acl": crows["breakdown ACL"],
                               "routes": crows["breakdown routes"]}),
         entry("hint_match", SOURCE, REPLACES_B3,
-              tcplb["launches"]["hint_match"], b3_err, b3_rows,
+              tcplb["launches"]["hint_match"] + tools["launches"]["B3"],
+              b3_err, b3_rows,
               mode="B1's kernel, verdict-only (null Maglev column)",
               plain="hashmatch.hint_hash_match",
-              launches_by_path={"tcplb": tcplb["launches"]["hint_match"]},
+              launches_by_path={"tcplb": tcplb["launches"]["hint_match"],
+                                "tools": tools["launches"]["B3"]},
               by_batch=b3_rows),
         entry("hint_fp_match", SOURCE_B6, REPLACES_B6,
               fp_svc["launches"]["hint_fp"] +

@@ -7,7 +7,9 @@ batch by batch and answer by answer: classify_and_pick, FusedPair, the
 unfused hint dispatch, ClassifyService hint and classify+pick batches,
 its inline lone-query lane, and device-fault failover through the
 existing `device.dispatch.error` site. Plus the engine contracts the
-reference tests: one launch per fused batch, atomic generation swaps,
+reference tests: one launch per fused batch, atomic generation swaps
+(and, on both packages, tests/test_engine_swap.py's coalesced installs,
+install errors and swap metrics),
 the VPROXY_TPU_FUSED / VPROXY_TPU_FUSED_KERNEL knobs, and the rule that
 a kernel that cannot serve (KernelError) is never failed over to the
 host.
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from test_fused import mk_ips, mk_queries, mk_rules
+from test_torch_dns import IDS, PKGS, mod
 from test_torch_kernels import host_only, host_only_hints
 from vproxy_tpu.rules import engine as RE
 from vproxy_tpu.rules import maglev as RM
@@ -236,6 +239,58 @@ def test_maglev_install_swaps_pick_atomically():
     assert [int(x) for x in p] == [mm.pick_snap(msnap, ip) for ip in ips]
     assert np.array_equal(mm.match(ips), RM.MaglevMatcher(
         [("only:1", 1), ("second:2", 1)], m=251).match(ips))
+
+
+# ports of tests/test_engine_swap.py's installer cases that the two
+# above do not cover, each run on both packages (the reference's
+# matchers on the JAX CPU backend)
+
+def swap_rules(IR, n, dom="example.com"):
+    return [IR.HintRule(host=f"svc{i}.{dom}") for i in range(n)]
+
+
+@pytest.mark.parametrize("pkg", PKGS, ids=IDS)
+def test_coalesced_installs_last_writer_wins(pkg):
+    En, IR = mod(pkg, "rules.engine"), mod(pkg, "rules.ir")
+    m = En.HintMatcher(swap_rules(IR, 4))
+    tickets = [En.TableInstaller.get().submit(
+        m, (swap_rules(IR, 4 + k), None)) for k in range(6)]
+    for t in tickets:
+        t.ev.wait(10)
+    assert En.flush_installs(timeout=10)
+    assert m.size() in (9,)  # the newest pending list won
+    assert int(m.match_one(IR.Hint.of_host("svc8.example.com"))) == 8
+
+
+@pytest.mark.parametrize("pkg", PKGS, ids=IDS)
+def test_install_error_propagates_to_waiter_and_keeps_serving(pkg):
+    En, IR = mod(pkg, "rules.engine"), mod(pkg, "rules.ir")
+    max_host = mod(pkg, "ops.tables").MAX_HOST
+    m = En.HintMatcher(swap_rules(IR, 4))
+    with pytest.raises(ValueError):
+        m.set_rules([IR.HintRule(host="x" * (max_host + 10))])
+    # the published generation still serves
+    assert m.match_one(IR.Hint.of_host("svc1.example.com")) == 1
+
+
+@pytest.mark.parametrize("pkg", PKGS, ids=IDS)
+def test_swap_metrics_and_table_bytes_surface(pkg):
+    """A set_rules moves the swap histogram, and the generation and
+    table-bytes families show it. (The reference's case also reads its
+    bench_snapshot, which the port does not carry.)"""
+    En, IR = mod(pkg, "rules.engine"), mod(pkg, "rules.ir")
+    gi = mod(pkg, "utils.metrics").GlobalInspection.get()
+    m = En.HintMatcher(swap_rules(IR, 200))
+    before = gi.get_histogram("vproxy_engine_swap_ms", reservoir=512)
+    n0 = before.value()
+    m.set_rules(swap_rules(IR, 210))
+    hist = gi.get_histogram("vproxy_engine_swap_ms", reservoir=512)
+    assert hist.value() > n0
+    text = gi.prometheus_string()
+    assert "vproxy_engine_generation" in text
+    assert 'vproxy_engine_table_bytes{matcher="hint"}' in text
+    assert m.published_table_bytes() > 0
+    assert En.table_bytes_total("hint") >= m.published_table_bytes()
 
 
 # ------------------------------------------------------------- service

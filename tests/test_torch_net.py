@@ -8,8 +8,9 @@ The port's copies of vproxy_tpu's net/ modules run here on the CPU
   tests/test_wrapfd_dhcp.py, on the port's modules;
 * the port's libvtl: built from its own native/vtl.cpp into a build
   directory keyed by content (an edited source builds anew, concurrent
-  builders build once), exporting the current ABI, and vlint's ABI pass
-  over the port's vtl.cpp / vtl.py pair;
+  processes build it once), exporting the current ABI, the port's vlint ABI
+  pass over the port's vtl.cpp / vtl.py pair, and the fdtrace cases of
+  tests/test_fdtrace.py;
 * Maglev in three planes: the port's C pick (vtl.maglev_pick), the
   port's maglev.pick and the reference's;
 * parse_client_hello_sni of the port == the reference's on stdlib
@@ -38,7 +39,6 @@ import torch
 import chip_smoke as CS
 from test_fused import mk_ips, mk_queries, mk_rules
 from test_native_build import REQUIRED_SYMBOLS
-from tools.vlint import structs as vstructs
 from vproxy_tpu.net.sniff import parse_client_hello_sni as ref_sni
 from vproxy_tpu.rules import engine as RE
 from vproxy_tpu.rules import maglev as RM
@@ -50,6 +50,7 @@ from vproxy_tpu_torch.net.connection import Connection, Handler, ServerSock
 from vproxy_tpu_torch.net.eventloop import SelectorEventLoop
 from vproxy_tpu_torch.net.sniff import MAX_HELLO, parse_client_hello_sni
 from vproxy_tpu_torch.net.wrapfd import BlockingUdp, FileConn
+from vproxy_tpu_torch.tools.vlint import structs as vstructs
 from vproxy_tpu_torch.rules import engine as E
 from vproxy_tpu_torch.rules import maglev as M
 from vproxy_tpu_torch.rules.service import ClassifyService
@@ -501,6 +502,36 @@ def test_port_vtl_concurrent_builders_build_once(tmp_path):
     assert len(paths) == 1
     assert sorted(f for f in os.listdir(build) if not f.startswith(".")) \
         == [os.path.basename(paths.pop())]
+
+
+def test_fdtrace_logs_every_fd_op():
+    """tests/test_fdtrace.py on the port's vtl: a child with
+    VPROXY_TPU_FDTRACE=1 logs every syscall-layer op it performs on
+    stderr, with args and results, failures included."""
+    code = (
+        "from vproxy_tpu_torch.net import vtl\n"
+        "lfd = vtl.tcp_listen('127.0.0.1', 0)\n"
+        "ip, port = vtl.sock_name(lfd)\n"
+        "cfd = vtl.tcp_connect('127.0.0.1', port)\n"
+        "vtl.close(cfd)\n"
+        "vtl.close(lfd)\n"
+        "try:\n"
+        "    vtl.tcp_listen('300.1.1.1', 0)\n"
+        "except OSError:\n"
+        "    pass\n"
+    )
+    r = run_child(code, VPROXY_TPU_FDTRACE="1")
+    assert r.returncode == 0, r.stderr
+    err = r.stderr
+    assert "[fdtrace] tcp_listen('127.0.0.1',0) -> " in err
+    assert "[fdtrace] sock_name(" in err
+    assert "[fdtrace] tcp_connect('127.0.0.1'," in err
+    assert "[fdtrace] close(" in err
+    assert "tcp_listen('300.1.1.1',0) !> " in err
+
+
+def test_fdtrace_off_by_default():
+    assert not vtl._trace_installed
 
 
 def test_vlint_abi_pass_over_the_port_pair():

@@ -220,6 +220,8 @@ _MATCHERS: "weakref.WeakSet" = weakref.WeakSet()
 _LAST_SERVE = [0.0]  # monotonic ts of the last serving-path read
 _LAUNCHES = [0]      # device launches on the dispatch path (per batch)
 _FUSED_DISP = [0]    # of which: fused one-launch dispatches
+_BY_KIND: dict = {}  # the same launches by kind ("hint", "cpick", ...)
+_kind_lock = threading.Lock()
 
 
 def note_serving() -> None:
@@ -248,6 +250,8 @@ def note_launch(n: int = 1, kind: str = "", fused: bool = False) -> None:
     marker span, so a trace shows how many programs a batch cost. One
     branch when no context is bound."""
     _LAUNCHES[0] += n
+    with _kind_lock:
+        _BY_KIND[kind] = _BY_KIND.get(kind, 0) + n
     from ..utils import trace
     tid = trace.current_id()
     if tid:
@@ -257,6 +261,15 @@ def note_launch(n: int = 1, kind: str = "", fused: bool = False) -> None:
 
 def dispatch_launches_total() -> int:
     return _LAUNCHES[0]
+
+
+def dispatches_by_kind() -> dict:
+    """The dispatch-path launches counted so far, by note_launch's kind
+    ("hint", "cpick", "all", "cidr"; "" for a standalone Maglev
+    take). On "torch" each of them is one CUDA launch on the card: B3
+    for "hint", B1 for "cpick" and "all", B4 for "cidr"."""
+    with _kind_lock:
+        return dict(_BY_KIND)
 
 
 def fused_dispatches_total() -> int:
