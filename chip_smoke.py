@@ -1970,7 +1970,11 @@ def phase_loop(device, pair, rules, bursts=BURSTS, burst=SERVICE_BATCH,
 # Upstream's Host/URI rules (B3, the hint kind), picks the group's
 # backend and splices the connection to it through the native pump;
 # a second LB runs the L7 http1 engine, which routes every request of a
-# keep-alive connection on its own.
+# keep-alive connection on its own. Two more terminate TLS over the same
+# Upstream and ACL with one certificate minted at run time: a `tcp` LB
+# (its SNI the classify hint, on the native OpenSSL pump and on the
+# Python MemoryBIO plane in turn) and an `http` one (the L7 engine
+# inside TLS).
 
 TCPLB_MAX_RULES = 10_000  # BASELINE config #2's target
 TCPLB_MIN_RULES = 256
@@ -1980,6 +1984,8 @@ TCPLB_BACKENDS = 256
 B3_PATH_BATCHES = 32  # batches a bucket below the largest (b3_on_path)
 TCPLB_RULE_SEED, TCPLB_REQ_SEED = 61, 62
 KEEPALIVE_CONNS, KEEPALIVE_REQS = 64, 4
+HTTPS_CONNS = 128  # lb-https: one request a connection, the L7 engine
+TLS_REQ_SEED, HTTPS_REQ_SEED = 163, 800
 
 
 def tcplb_rules(n: int, seed: int) -> list:
@@ -2119,19 +2125,83 @@ def _keepalive_client(port: int, reqs: list) -> list:
         s.close()
 
 
+def mint_cert(d: str) -> tuple:
+    """One self-signed EC P-256 certificate for example.com and
+    *.example.com (config #2's tenants), minted with `cryptography`
+    into directory d. -> (cert path, key path)."""
+    import datetime
+    try:
+        from cryptography import x509
+        from cryptography.hazmat.primitives import hashes, serialization
+        from cryptography.hazmat.primitives.asymmetric import ec
+        from cryptography.x509.oid import NameOID
+    except ImportError as e:
+        check(False, f"cannot mint the TLS LBs' certificate: {e}")
+    key = ec.generate_private_key(ec.SECP256R1())
+    name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME,
+                                         "example.com")])
+    now = datetime.datetime.now(datetime.timezone.utc)
+    cert = (x509.CertificateBuilder().subject_name(name).issuer_name(name)
+            .public_key(key.public_key())
+            .serial_number(x509.random_serial_number())
+            .not_valid_before(now - datetime.timedelta(hours=1))
+            .not_valid_after(now + datetime.timedelta(days=2))
+            .add_extension(x509.SubjectAlternativeName(
+                [x509.DNSName("example.com"), x509.DNSName("*.example.com")]),
+                critical=False)
+            .sign(key, hashes.SHA256()))
+    cert_path, key_path = os.path.join(d, "lb.crt"), os.path.join(d, "lb.key")
+    with open(cert_path, "wb") as f:
+        f.write(cert.public_bytes(serialization.Encoding.PEM))
+    with open(key_path, "wb") as f:
+        f.write(key.private_bytes(serialization.Encoding.PEM,
+                                  serialization.PrivateFormat.PKCS8,
+                                  serialization.NoEncryption()))
+    return cert_path, key_path
+
+
+_TLS_CLIENT = None  # the client process's TLS context (no verification)
+
+
+def _tls_client(port: int, host: str, path: str) -> tuple:
+    """One TLS connection with SNI `host` (the certificate is not
+    verified), one request that asks to close. -> (client port,
+    connect->first byte seconds, response body)."""
+    import socket
+    import ssl
+    global _TLS_CLIENT
+    if _TLS_CLIENT is None:
+        _TLS_CLIENT = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        _TLS_CLIENT.check_hostname = False
+        _TLS_CLIENT.verify_mode = ssl.CERT_NONE
+    t0 = time.monotonic()
+    s = socket.create_connection((LOOPBACK, port), timeout=60)
+    try:
+        cport = s.getsockname()[1]
+        s = _TLS_CLIENT.wrap_socket(s, server_hostname=host)  # owns the fd
+        s.sendall(http_request(host, path, close=True))
+        first = s.recv(65536)
+        t1 = time.monotonic()
+        body, _ = _read_response(s, first)
+        return cport, t1 - t0, body
+    finally:
+        s.close()
+
+
 _HTTP_CLIENTS = None  # the client process's thread pool
 
 
 def _http_burst(port: int, kind: str, items: list, concurrency: int) -> list:
     """Runs in the client process: items through `kind` ("splice": one
-    (host, path) per connection; "keepalive": a list of them per
-    connection), at most `concurrency` connections at once."""
+    (host, path) per connection; "tls": the same in TLS, SNI the host;
+    "keepalive": a list of them per connection), at most `concurrency`
+    connections at once."""
     global _HTTP_CLIENTS
     if _HTTP_CLIENTS is None:
         _HTTP_CLIENTS = ThreadPoolExecutor(concurrency)
-    if kind == "splice":
-        return list(_HTTP_CLIENTS.map(
-            lambda it: _splice_client(port, *it), items))
+    if kind in ("splice", "tls"):
+        one = _splice_client if kind == "splice" else _tls_client
+        return list(_HTTP_CLIENTS.map(lambda it: one(port, *it), items))
     return list(_HTTP_CLIENTS.map(
         lambda reqs: _keepalive_client(port, reqs), items))
 
@@ -2229,14 +2299,24 @@ def build_upstream(rules, elg, bports) -> tuple:
 
 def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
                 burst=SERVICE_BATCH, keepalive=KEEPALIVE_CONNS,
-                n_acl=N_ACL, matcher=None) -> dict:
+                n_acl=N_ACL, matcher=None, tls_bursts=None,
+                https=HTTPS_CONNS) -> dict:
     """The port's TcpLB main path (BASELINE config #2 as far as one
     Upstream holds it, config #4's ACL): `bursts` bursts of `burst`
     concurrent http-splice connections and one burst of `keepalive`
     keep-alive connections x 4 requests through the L7 http engine,
     every answer checked against the group the port's host index gives;
-    on the card, B3 and B4 launched once per device batch of their kind,
-    B1 and B3's torch tier never; then B3 held on the path's own table
+    then the TLS-terminating LBs over the same Upstream and ACL:
+    `tls_bursts` (default `bursts`) bursts of `burst` TLS connections
+    into `lb-tls` (protocol tcp, the SNI alone the classify hint) on the
+    native OpenSSL pump, the same bursts with VPROXY_TPU_NATIVE_TLS=0 on
+    the Python MemoryBIO plane, and `https` connections into `lb-https`
+    (the L7 http engine inside TLS, picks from the host index), every
+    `lb-tls` answer the group that the host index and the linear oracle
+    give the SNI-only hint; each plane's handshakes, queries, batches
+    and launches counted; on the card, B3 and B4 launched once per
+    device batch of their kind over all of it, B1 and B3's torch tier
+    never; then B3 held on the path's own table
     and batch buckets (b3_on_path), misses included. The LBs reach ClassifyService through
     its process-wide instance, run here in "device" mode, as the
     reference's benchmarks run it: in "auto" mode the inline lane
@@ -2249,8 +2329,11 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
     fingerprint table has no packed cuckoo half). -> the phase's
     numbers."""
     import multiprocessing as mp
+    import shutil
+    import tempfile
     from concurrent.futures import ProcessPoolExecutor
 
+    from vproxy_tpu_torch.components.certkey import CertKey
     from vproxy_tpu_torch.components.elgroup import EventLoopGroup
     from vproxy_tpu_torch.components.secgroup import SecurityGroup
     from vproxy_tpu_torch.components.tcplb import TcpLB
@@ -2261,14 +2344,20 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
     from vproxy_tpu_torch.ops import hashmatch as H
     from vproxy_tpu_torch.processors.http1 import HeadParser
     from vproxy_tpu_torch.rules.index import CidrIndex
+    from vproxy_tpu_torch.rules.ir import Hint
     from vproxy_tpu_torch.rules.service import ClassifyService
     from vproxy_tpu_torch.utils.ip import parse_ip
     from vproxy_tpu_torch.utils.metrics import GlobalInspection
     fp = matcher == "jax-fp"
+    tls_bursts = bursts if tls_bursts is None else tls_bursts
     env_matcher = os.environ.get("VPROXY_TPU_MATCHER")
+    env_tls = os.environ.get("VPROXY_TPU_NATIVE_TLS")
     if matcher is not None:
         os.environ["VPROXY_TPU_MATCHER"] = matcher
     vtl = native_vtl()
+    check(vtl.tls_available(), "the native TLS plane cannot run: "
+          "vtl_tls_init found no libssl.so.3 (nor libssl.so) with its "
+          "symbols on this host")
     nofile = raise_nofile()
     check(nofile >= NOFILE_MIN, f"RLIMIT_NOFILE {nofile} < {NOFILE_MIN}")
     mode = os.environ.get("VPROXY_TPU_CLASSIFY")
@@ -2282,6 +2371,7 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
     clients = ProcessPoolExecutor(1, mp_context=ctx)
     elg = EventLoopGroup("tcplb", 2)
     groups, lbs = [], []
+    certdir = tempfile.mkdtemp(prefix="chip-smoke-tls-")
     try:
         check(pipe.poll(120), "the backend process sent no ports")
         bports = pipe.recv()
@@ -2309,7 +2399,13 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
                        protocol="http-splice", security_group=sg, lanes=0)
         l7 = TcpLB("lb-http", elg, elg, LOOPBACK, 0, ups, protocol="http",
                    security_group=sg, lanes=0)
-        for lb in (splice, l7):
+        ck = CertKey("ck-tls", *mint_cert(certdir))
+        tls = TcpLB("lb-tls", elg, elg, LOOPBACK, 0, ups, protocol="tcp",
+                    security_group=sg, lanes=0, cert_keys=[ck])
+        l7s = TcpLB("lb-https", elg, elg, LOOPBACK, 0, ups,
+                    protocol="http", security_group=sg, lanes=0,
+                    cert_keys=[ck])
+        for lb in (splice, l7, tls, l7s):
             lbs.append(lb)
             lb.start()
         # the clients' address passes the ACL: no rule's network holds
@@ -2317,7 +2413,7 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
         index = CidrIndex([r.network for r in acl], acl=acl)
         lo = parse_ip(LOOPBACK)
         check(all(index.lookup(lo, p) == -1 for p in
-                  (splice.bind_port, l7.bind_port, 0, 80, 443, 65535)),
+                  [lb.bind_port for lb in lbs] + [0, 80, 443, 65535]),
               "an ACL rule matches the clients' loopback address")
 
         def want_backend(host: str, path: str):
@@ -2337,6 +2433,92 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
                   f"{what}: {host}{path} reached backend {bid}, the host "
                   f"index gives {want}")
             return want is not None
+
+        m = ups._matcher
+
+        def check_sni(body: str, host: str, path: str, what: str) -> bool:
+            """lb-tls classifies by the SNI alone: the backend must be
+            that of the group the host index gives Hint.of_host(host),
+            which must be the linear oracle's (so a host+uri rule
+            answers as the host-only hint does)."""
+            bid, _, seen = body.partition(" ")
+            check(seen == host, f"{what}: backend saw Host {seen!r}, "
+                  f"sent {host!r}")
+            h = Hint.of_host(host)
+            i = m.index_snap(m.snapshot(), h)
+            check(i == m.oracle_one(h), f"{what}: the host index gives "
+                  f"rule {i} for SNI {host!r}, the oracle "
+                  f"{m.oracle_one(h)}")
+            g = ups.search_for_group(h)
+            want = None if g is None else int(g.alias[1:]) % TCPLB_BACKENDS
+            check(want is None or int(bid) == want,
+                  f"{what}: SNI {host} reached backend {bid}, the host "
+                  f"index gives {want}")
+            return want is not None
+
+        def metric(name: str) -> int:
+            """An unlabelled family's value, as /metrics shows it."""
+            text = GlobalInspection.get().prometheus_string()
+            got = re.search(rf"^{name} (\S+)$", text, re.M)
+            check(got is not None, f"/metrics has no {name}")
+            return int(float(got.group(1)))
+
+        def launch_counts() -> dict:
+            return {"hint_match": FC.hint_match_cuda.launches,
+                    "cidr_first": CC.cidr_first_cuda.launches,
+                    "hint_fp": FPC.hint_fp_cuda.launches,
+                    "cidr_fp": FPC.cidr_fp_cuda.launches}
+
+        def tls_plane(lb, plan, check_fn, native: bool) -> dict:
+            """plan's bursts into the TLS LB lb, every answer held by
+            check_fn. -> the plane's connections, handshakes (the
+            native pump's counter: every connection on the native
+            plane, none on the MemoryBIO one), queries, batches and
+            launches by kind over its bursts, and connect -> first
+            byte percentiles."""
+            by0 = {k: list(v) for k, v in st.by_kind.items()}
+            hs0 = metric("vproxy_pump_tls_handshakes_total")
+            dq0 = metric("vproxy_classify_device_queries")
+            l0 = launch_counts()
+            lat, matched, t0 = [], 0, time.monotonic()
+            for k, reqs in enumerate(plan):
+                got = clients.submit(_http_burst, lb.bind_port, "tls", reqs,
+                                     len(reqs)).result(timeout=300)
+                for i, ((host, path), (_, secs, body)) in enumerate(
+                        zip(reqs, got)):
+                    matched += check_fn(body, host, path,
+                                        f"{lb.alias} burst {k} row {i}")
+                    lat.append(secs * 1e6)
+            conns = len(lat)
+            d = {k: [a - b for a, b in zip(st.by_kind.get(k, [0, 0]),
+                                           by0.get(k, [0, 0]))]
+                 for k in ("hint", "cidr")}
+            queries = {k: v[1] for k, v in d.items()}
+            out = {"connections": conns, "matched": matched,
+                   "wall_s": time.monotonic() - t0,
+                   "handshakes": metric("vproxy_pump_tls_handshakes_total")
+                   - hs0,
+                   "device_queries": metric(
+                       "vproxy_classify_device_queries") - dq0,
+                   "queries": queries,
+                   "batches": {k: v[0] for k, v in d.items()},
+                   "launches": {k: v - l0[k]
+                                for k, v in launch_counts().items()},
+                   "connect_to_first_byte_p50_us": pct(lat, 50),
+                   "connect_to_first_byte_p99_us": pct(lat, 99)}
+            check(out["handshakes"] == (conns if native else 0),
+                  f"{lb.alias}: {out['handshakes']} native handshakes for "
+                  f"{conns} connections (native plane: {native})")
+            # every accept asks the ACL; the native plane classifies
+            # every SNI on the device, the MemoryBIO relay and the L7
+            # engine pick from the host index
+            check(queries == {"hint": conns if native else 0,
+                              "cidr": conns},
+                  f"{lb.alias}: queries {queries} for {conns} connections")
+            check(out["device_queries"] == sum(queries.values()),
+                  f"{lb.alias}: {out['device_queries']} device queries, "
+                  f"{sum(queries.values())} reached the service")
+            return out
 
         plan = [tcplb_requests(rules, burst, TCPLB_REQ_SEED + k)
                 for k in range(bursts)]
@@ -2381,11 +2563,20 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
                 ka_matched += check_body(body, host, path,
                                          f"http conn {c} request {j}")
         ka_s = time.monotonic() - t0
-        launches = {"hint_match": FC.hint_match_cuda.launches,
-                    "cidr_first": CC.cidr_first_cuda.launches,
-                    "fused_classify_pick": FC.fused_classify_pick_cuda.launches}
-        fp_launches = {"hint_fp": FPC.hint_fp_cuda.launches,
-                       "cidr_fp": FPC.cidr_fp_cuda.launches}
+        tls_plan = [tcplb_requests(rules, burst, TLS_REQ_SEED + k)
+                    for k in range(tls_bursts)]
+        tls_out = {}
+        os.environ.pop("VPROXY_TPU_NATIVE_TLS", None)
+        tls_out["native"] = tls_plane(tls, tls_plan, check_sni, True)
+        os.environ["VPROXY_TPU_NATIVE_TLS"] = "0"  # read at each accept
+        tls_out["memorybio"] = tls_plane(tls, tls_plan, check_sni, False)
+        tls_out["https"] = tls_plane(
+            l7s, [tcplb_requests(rules, https, HTTPS_REQ_SEED)],
+            check_body, False)
+        counts = launch_counts()
+        launches = {k: counts[k] for k in ("hint_match", "cidr_first")}
+        launches["fused_classify_pick"] = FC.fused_classify_pick_cuda.launches
+        fp_launches = {k: counts[k] for k in ("hint_fp", "cidr_fp")}
         torch_tier_cuda = H.hint_hash_match.cuda_calls + \
             FP.hint_fp_match.cuda_calls
         path_b3 = None if fp else b3_on_path(
@@ -2404,7 +2595,6 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
         hint_k, cidr_k, idle = (
             ("hint_fp", "cidr_fp", ("hint_match", "cidr_first"))
             if fp else ("hint_match", "cidr_first", ("hint_fp", "cidr_fp")))
-        counts = {**launches, **fp_launches}
         for k, kind in ((hint_k, "hint"), (cidr_k, "cidr")):
             check(counts[k] == (batches[kind]["batches"] if on_card else 0)
                   and batches[kind]["batches"] > 0,
@@ -2437,6 +2627,7 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
                "connect_to_first_byte_p99_us": pct(lat, 99),
                "keepalive_requests": keepalive * KEEPALIVE_REQS,
                "keepalive_matched": ka_matched, "keepalive_wall_s": ka_s,
+               "tls": tls_out,
                "accept_stage_us": stages,
                "classify_latency": st.latency_percentiles(),
                "batches": batches,
@@ -2463,8 +2654,10 @@ def phase_tcplb(device, max_rules=TCPLB_MAX_RULES, bursts=BURSTS,
             backends.terminate()
             backends.join(5)
         ClassifyService.reset()
+        shutil.rmtree(certdir, ignore_errors=True)
         for k, v in (("VPROXY_TPU_CLASSIFY", mode),
-                     ("VPROXY_TPU_MATCHER", env_matcher)):
+                     ("VPROXY_TPU_MATCHER", env_matcher),
+                     ("VPROXY_TPU_NATIVE_TLS", env_tls)):
             if v is None:
                 os.environ.pop(k, None)
             else:

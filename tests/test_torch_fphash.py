@@ -1180,8 +1180,14 @@ def test_chip_smoke_tcplb_fp_phase_on_cpu():
     the ACL serve on "torch-fp", every answer the host index's group."""
     dev = torch.device("cpu")
     out = CS.phase_tcplb(dev, max_rules=64, bursts=1, burst=24,
-                         keepalive=4, n_acl=200, matcher="jax-fp")
+                         keepalive=4, n_acl=200, matcher="jax-fp",
+                         https=8)
     assert out["backend"] == "torch-fp" and out["b3_on_path"] is None
+    tls = out["tls"]
+    assert tls["native"]["handshakes"] == 24
+    assert tls["native"]["queries"] == {"hint": 24, "cidr": 24}
+    assert tls["memorybio"]["queries"] == {"hint": 0, "cidr": 24}
+    assert tls["https"]["connections"] == 8
     assert out["splice_connections"] == 24 and out["failovers"] == 0
     assert out["fp_launches"] == {"hint_fp": 0, "cidr_fp": 0}
     assert out["batches"]["hint"]["batches"] > 0

@@ -2,11 +2,11 @@
 
 * the cases of tests/test_tcplb.py (the reference TestTcpLB pattern:
   tiny id-servers as backends, so balancing decisions are assertable)
-  and of tests/test_drain_overload.py (all but
-  test_healthz_flips_to_draining, which needs the inspection HTTP
-  server of the control plane), on vproxy_tpu_torch's modules; the two
-  cases the reference drives through its control plane's command
-  grammar read the same facts from the LB and the lifecycle module;
+  and of tests/test_drain_overload.py (its
+  test_healthz_flips_to_draining is in test_torch_control.py), on
+  vproxy_tpu_torch's modules; the two cases the reference drives
+  through its control plane's command grammar go through the port's
+  (control/command.py, control/app.py);
 * BASELINE config #1 against both packages: an http TcpLB with health
   checks, 8 Host rules (exact, suffix, wildcard, one with a uri) on 8
   groups over 2 loopback backends; the same seeded request list goes
@@ -30,7 +30,7 @@ from vproxy_tpu_torch.components.servergroup import (HealthCheckConfig,
 from vproxy_tpu_torch.components.tcplb import TcpLB
 from vproxy_tpu_torch.components.upstream import Upstream
 from vproxy_tpu_torch.rules.ir import AclRule, HintRule, Proto
-from vproxy_tpu_torch.utils import events, lifecycle
+from vproxy_tpu_torch.utils import lifecycle
 from vproxy_tpu_torch.utils.events import FlightRecorder
 from vproxy_tpu_torch.utils.ip import Network
 from vproxy_tpu_torch.utils.metrics import GlobalInspection
@@ -188,31 +188,13 @@ def test_tcp_mode_wrr_distribution(stack):
     assert lb.accepted == 12
 
 
-def _sessions_of(lb) -> list:
-    """(desc, bytes_in, bytes_out) per live spliced session, read on
-    each session's loop, as the reference's `list-detail session in
-    tcp-lb` collects them (vproxy_tpu/control/command.py _sessions_of)."""
-    out = []
-    for lid, loop in list(lb._watch_loops.items()):
-        def collect(lid=lid, loop=loop):
-            rows = []
-            for pid, ent in list(lb._pump_watch.get(lid, {}).items()):
-                try:
-                    a2b, b2a, _err = loop.pump_stat(pid)
-                except OSError:
-                    continue
-                rows.append((ent[2] if len(ent) > 2 else "?", a2b, b2a))
-            return rows
-        out.extend(loop.call_sync(collect))
-    return out
-
-
 def test_session_and_connection_listing(stack):
     """ResourceType sess/conn/ss: a live spliced session is observable
-    with its front/back addresses and byte counters. The reference reads
-    them through its control plane's command grammar, which the port
-    does not have yet; the same facts are read here from the LB the
-    grammar reads them from."""
+    with its front/back addresses and byte counters, through the port's
+    command grammar as the reference reads it through its own."""
+    from vproxy_tpu_torch.control.app import Application
+    from vproxy_tpu_torch.control.command import Command
+
     # split acceptor/worker groups: the session lives on a WORKER loop,
     # which the listing must still reach (not just the acceptor loops)
     elg = stack["make_elg"](1)
@@ -229,29 +211,36 @@ def test_session_and_connection_listing(stack):
     stack["lbs"].append(lb)
     lb.start()
 
-    c = socket.create_connection(("127.0.0.1", lb.bind_port), timeout=5)
-    c.settimeout(5)
-    assert c.recv(10) == b"S"
-    deadline = time.time() + 15
-    rows = []
-    while time.time() < deadline:
-        rows = _sessions_of(lb)
-        if rows:
-            break
-        time.sleep(0.02)
-    assert len(rows) == 1, rows
-    desc, a2b, b2a = rows[0]
-    assert desc.endswith(f"-> 127.0.0.1:{s1.port}")
-    assert b2a >= 1 and a2b >= 0
-    assert lb.active_sessions == 1
-    assert [f"{ss.ip}:{ss.port} -> loop {ss.loop.name}"
-            for ss in lb.server_socks] == [
-        f"127.0.0.1:{lb.bind_port} -> loop {elg.loops[0].name}"]
-    c.close()
-    deadline = time.time() + 15
-    while time.time() < deadline and lb.active_sessions:
-        time.sleep(0.02)
-    assert lb.active_sessions == 0
+    app = Application.create(workers=1)
+    try:
+        app.tcp_lbs["lb"] = lb
+        c = socket.create_connection(("127.0.0.1", lb.bind_port), timeout=5)
+        c.settimeout(5)
+        assert c.recv(10) == b"S"
+        deadline = time.time() + 15
+        rows = []
+        while time.time() < deadline:
+            rows = Command.execute(app, "list-detail session in tcp-lb lb")
+            if rows:
+                break
+            time.sleep(0.02)
+        assert len(rows) == 1, rows
+        assert f"-> 127.0.0.1:{s1.port}" in rows[0]
+        assert "bytes-in" in rows[0]
+        assert Command.execute(app, "list session in tcp-lb lb") == ["1"]
+        conns = Command.execute(app, "list-detail connection in tcp-lb lb")
+        assert len(conns) == 2 and f"{lb.bind_ip}:{lb.bind_port}" in conns[0]
+        socks = Command.execute(app, "list-detail server-sock in tcp-lb lb")
+        assert socks == [
+            f"127.0.0.1:{lb.bind_port} -> loop {elg.loops[0].name}"]
+        c.close()
+        deadline = time.time() + 15
+        while time.time() < deadline and lb.active_sessions:
+            time.sleep(0.02)
+        assert Command.execute(app, "list session in tcp-lb lb") == ["0"]
+    finally:
+        app.tcp_lbs.pop("lb", None)
+        app.close()
 
 
 def test_http_mode_host_rule_routing(stack):
@@ -426,77 +415,54 @@ def _mk_lb(stack, alias, **kw):
     return lb
 
 
-def _in_flight(lb) -> int:
-    """Live client sessions of one LB: python-side active_sessions plus
-    those the C accept lanes own (the reference's
-    Application.sessions_in_flight over one LB)."""
-    return lb.active_sessions + getattr(lb, "lane_active", lambda: 0)()
-
-
-def _drain_wait(lb, timeout_s: float, settle_s: float = 0.2) -> bool:
-    """The reference's Application.drain_wait over one LB: True once the
-    LB's sessions stay at zero across a settle window."""
-    deadline = time.monotonic() + timeout_s
-    zero_since = None
-    while True:
-        left = _in_flight(lb)
-        now = time.monotonic()
-        if left <= 0:
-            if zero_since is None:
-                zero_since = now
-            elif now - zero_since >= settle_s:
-                events.record("drain", "drain complete: all sessions "
-                              "finished")
-                return True
-        else:
-            zero_since = None
-        if now >= deadline:
-            return left <= 0
-        time.sleep(0.05)
-
-
 def test_drain_lets_sessions_finish_and_sheds_new(stack, _clean):
-    """The reference drives this through its control plane's `drain`
-    command (Application.request_drain), which the port does not have
-    yet: the same steps run here on the port's lifecycle, flight
-    recorder and LB."""
+    """The reference's case through the port's `drain` command
+    (Application.request_drain) and Application.drain_wait."""
+    from vproxy_tpu_torch.control.app import Application
+    from vproxy_tpu_torch.control.command import Command
+
     lb = _mk_lb(stack, "lb-drain")
-    # a live echo session that outlives the drain request
-    c = socket.create_connection(("127.0.0.1", lb.bind_port), timeout=5)
-    c.settimeout(5)
-    assert c.recv(10) == b"A"
-
-    assert lifecycle.set_draining() is True
-    assert lifecycle.set_draining() is False  # already draining
-    events.record("drain", f"drain requested: {_in_flight(lb)} sessions "
-                  "in flight, healthz now draining",
-                  sessions=_in_flight(lb))
-    lb.begin_drain()
-    assert lifecycle.is_draining()
-    assert lb.draining and lb.server_socks == []
-
-    # the in-flight session keeps moving bytes through the pump
-    c.sendall(b"still-here")
-    assert c.recv(64) == b"still-here"
-
-    # new connections are refused (listener closed) or shed on accept
+    app = Application.create(workers=1)
     try:
-        c2 = socket.create_connection(("127.0.0.1", lb.bind_port),
-                                      timeout=2)
-        c2.settimeout(2)
-        assert c2.recv(16) == b""
-        c2.close()
-    except OSError:
-        pass  # connection refused: equally fine
+        app.tcp_lbs["lb-drain"] = lb
+        # a live echo session that outlives the drain request
+        c = socket.create_connection(("127.0.0.1", lb.bind_port), timeout=5)
+        c.settimeout(5)
+        assert c.recv(10) == b"A"
 
-    # the live session provably holds the drain open (one sample)...
-    assert _in_flight(lb) >= 1
-    assert _drain_wait(lb, 0) is False
-    # ...and releasing it completes the drain within a deadline poll
-    c.close()
-    assert _drain_wait(lb, 10) is True
-    kinds = [e["kind"] for e in FlightRecorder.get().snapshot()]
-    assert "drain" in kinds
+        drained = []
+        app.on_drain_request.append(lambda: drained.append(True))
+        assert Command.execute(app, "drain") == "OK"
+        assert Command.execute(app, "drain") == "already draining"
+        assert drained == [True]
+        assert lifecycle.is_draining()
+        assert lb.draining and lb.server_socks == []
+
+        # the in-flight session keeps moving bytes through the pump
+        c.sendall(b"still-here")
+        assert c.recv(64) == b"still-here"
+
+        # new connections are refused (listener closed) or shed on accept
+        try:
+            c2 = socket.create_connection(("127.0.0.1", lb.bind_port),
+                                          timeout=2)
+            c2.settimeout(2)
+            assert c2.recv(16) == b""
+            c2.close()
+        except OSError:
+            pass  # connection refused: equally fine
+
+        # the live session provably holds the drain open (one sample)...
+        assert app.sessions_in_flight() >= 1
+        assert app.drain_wait(0) is False
+        # ...and releasing it completes the drain within a deadline poll
+        c.close()
+        assert app.drain_wait(10) is True
+        kinds = [e["kind"] for e in FlightRecorder.get().snapshot()]
+        assert "drain" in kinds
+    finally:
+        app.tcp_lbs.pop("lb-drain", None)
+        app.close()
 
 
 def test_overload_guard_sheds_past_max_sessions(stack, _clean):
@@ -661,6 +627,37 @@ def test_baseline1_routes_like_the_reference(stack, monkeypatch, protocol,
         RefService.reset()
 
 
+def test_tcplb_sni_only_picks_match_the_reference():
+    """The TLS LB's hint is the SNI alone (Hint.of_host): over config
+    #2's rules and chip_smoke.py's TLS requests, the port's host index
+    and oracle give every SNI the rule the reference's give, and a
+    request aimed at a host+uri rule answers as its host-only hint does
+    (the uri is not seen) in both packages."""
+    from vproxy_tpu.rules import index as r_index
+    from vproxy_tpu.rules import oracle as r_oracle
+    from vproxy_tpu.rules.ir import Hint as RHint
+    from vproxy_tpu.rules.ir import HintRule as RHintRule
+    from vproxy_tpu_torch.rules import index, oracle
+    from vproxy_tpu_torch.rules.ir import Hint
+
+    import chip_smoke as CS
+    rules = CS.tcplb_rules(2000, CS.TCPLB_RULE_SEED)
+    r_rules = [RHintRule(host=r.host, uri=r.uri) for r in rules]
+    reqs = CS.tcplb_requests(rules, 2000, CS.TLS_REQ_SEED)
+    hi, r_hi = index.HintIndex(rules), r_index.HintIndex(r_rules)
+    uri_aimed = 0
+    for host, path in reqs:
+        got = oracle.search(rules, Hint.of_host(host))
+        assert got == hi.lookup(Hint.of_host(host)) == \
+            r_oracle.search(r_rules, RHint.of_host(host)) == \
+            r_hi.lookup(RHint.of_host(host)), host
+        full = oracle.search(rules, Hint.of_host_uri(host, path))
+        if full >= 0 and rules[full].uri is not None:
+            uri_aimed += 1
+            assert got == full, (host, path)
+    assert uri_aimed > 0
+
+
 def test_chip_smoke_tcplb_phase_on_cpu():
     """chip_smoke.py's TcpLB phase at a small size on the CPU: the
     backend and client processes, both LBs, the ACL and the Upstream
@@ -671,8 +668,22 @@ def test_chip_smoke_tcplb_phase_on_cpu():
 
     import chip_smoke as CS
     out = CS.phase_tcplb(torch.device("cpu"), max_rules=64, bursts=2,
-                         burst=24, keepalive=4, n_acl=200)
+                         burst=24, keepalive=4, n_acl=200, https=8)
     assert out["rules"] == 64 and out["splice_connections"] == 48
+    # the TLS LBs: lb-tls on the native pump (every SNI a hint query,
+    # every connection a native handshake), then on the MemoryBIO
+    # plane, then lb-https; every accept an ACL query
+    tls = out["tls"]
+    for plane, n, hint, hs in (("native", 48, 48, 48),
+                               ("memorybio", 48, 0, 0), ("https", 8, 0, 0)):
+        t = tls[plane]
+        assert t["connections"] == n and 0 < t["matched"] <= n, plane
+        assert t["handshakes"] == hs, plane
+        assert t["queries"] == {"hint": hint, "cidr": n}, plane
+        assert t["device_queries"] == hint + n, plane
+        assert t["batches"]["cidr"] > 0 and (t["batches"]["hint"] > 0) == \
+            (hint > 0), plane
+        assert set(t["launches"].values()) == {0}, plane
     assert 0 < out["keepalive_matched"] < out["keepalive_requests"] == 16
     assert 0 < out["splice_matched"] < 48
     assert out["batches"]["hint"]["batches"] > 0

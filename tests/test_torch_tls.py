@@ -1,7 +1,8 @@
 """TLS termination on the port's TcpLB: the cases of tests/test_tls.py
-on the port's modules (all but test_tls_command_grammar, which drives
-the control plane the port does not have yet), the matchers on the
-CPU. Certificates are minted with openssl, as the reference's are."""
+on the port's modules, test_tls_command_grammar through the port's
+control plane (control/command.py, control/persist.py), the matchers
+on the CPU. Certificates are minted with openssl, as the reference's
+are."""
 import socket
 import ssl
 import subprocess
@@ -141,6 +142,63 @@ def test_tls_tcp_mode_uses_sni_as_hint(stack, certs):
 
     assert probe("a.example.com").startswith(b"RA")
     assert probe("b.w.example.com").startswith(b"RB")
+
+
+def test_tls_command_grammar(stack, certs, tmp_path):
+    pytest.importorskip("cryptography")  # CertKey parses SAN/CN with it
+    from vproxy_tpu_torch.control import persist
+    from vproxy_tpu_torch.control.app import Application
+    from vproxy_tpu_torch.control.command import Command
+
+    app = Application.create(workers=1)
+    try:
+        sa = IdServer("CA", http=True)
+        stack["servers"].append(sa)
+        cert, key = certs["a"]
+        Command.execute(app, f"add cert-key ck0 cert {cert} key {key}")
+        assert Command.execute(app, "list cert-key") == ["ck0"]
+        Command.execute(app, "add upstream u0")
+        Command.execute(app, "add server-group g0 timeout 500 period 100 "
+                             "up 1 down 1")
+        Command.execute(app, f"add server s0 to server-group g0 address "
+                             f"127.0.0.1:{sa.port}")
+        Command.execute(app, "add server-group g0 to upstream u0")
+        Command.execute(app, "add tcp-lb lb0 address 127.0.0.1:0 upstream "
+                             "u0 protocol http cert-key ck0")
+        wait_healthy(app.server_groups["g0"], 1)
+        body, _ = _tls_get(app.tcp_lbs["lb0"].bind_port, "a.example.com",
+                           "x")
+        assert body == b"CA"
+        cfg = persist.current_config(app)
+        assert f"add cert-key ck0 cert {cert} key {key}" in cfg
+        assert "cert-key ck0" in [ln for ln in cfg.splitlines()
+                                  if ln.startswith("add tcp-lb")][0]
+
+        # hot update: swap the cert at runtime ("modifiable when
+        # running") — new accepts are SERVED the new cert (compare the
+        # DER the client actually received)
+        _, old_der = _tls_get(app.tcp_lbs["lb0"].bind_port,
+                              "a.example.com", "x")
+        wcert, wkey = certs["w"]
+        with open(wcert) as f:
+            w_der = ssl.PEM_cert_to_DER_cert(f.read())
+        assert old_der != w_der
+        Command.execute(app, f"add cert-key ckw cert {wcert} key {wkey}")
+        assert Command.execute(
+            app, "update tcp-lb lb0 timeout 60000 cert-key ckw") == "OK"
+        assert app.tcp_lbs["lb0"].timeout_ms == 60000
+        body, new_der = _tls_get(app.tcp_lbs["lb0"].bind_port,
+                                 "x.w.example.com", "x")
+        assert body == b"CA"
+        assert new_der == w_der  # the swapped cert is what gets served
+        # BOTH hot-set values survive the config round trip
+        cfg2 = persist.current_config(app)
+        lb_line = [ln for ln in cfg2.splitlines()
+                   if ln.startswith("add tcp-lb")][0]
+        assert "timeout 60000" in lb_line
+        assert "cert-key ckw" in lb_line
+    finally:
+        app.close()
 
 
 def test_native_tls_splice_large_bidirectional(stack, certs):

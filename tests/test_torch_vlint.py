@@ -42,6 +42,40 @@ def test_tree_is_clean_and_fast():
     assert elapsed < 10.0, f"vlint blew the tier-1 budget: {elapsed:.1f}s"
 
 
+def test_run_all_parses_each_file_once_with_the_findings_of_fresh_parses(
+        monkeypatch):
+    """run_all's passes share one Trees cache: every file is parsed at
+    most once a run, and the findings are those of the four passes
+    called on their own, each parsing every file it reads afresh (the
+    package's files four times or more)."""
+    import ast
+    import collections
+    parses = collections.Counter()
+    real = ast.parse
+
+    def counting(source, filename="<unknown>", *a, **kw):
+        parses[filename] += 1
+        return real(source, filename, *a, **kw)
+
+    monkeypatch.setattr(ast, "parse", counting)
+
+    def keys(findings):
+        return sorted((f.pass_name, f.key, f.path, f.line, f.message)
+                      for f in findings)
+
+    cached = vlint.run_all(ROOT)
+    once = dict(parses)
+    parses.clear()
+    fresh = (structs.check_abi(ROOT) + gengate.check_gengate(ROOT)
+             + registry.check_registry(ROOT) + loopcheck.check_loops(ROOT))
+    assert keys(cached.findings) == keys(fresh) and fresh
+    assert not cached.stale_baseline
+    assert set(once) == set(parses)
+    assert max(once.values()) == 1, [p for p, n in once.items() if n > 1]
+    assert parses[os.path.join(ROOT, "vproxy_tpu_torch", "net",
+                               "vtl.py")] >= 4
+
+
 def test_abi_pass_covers_every_shared_record_field_by_field():
     model = structs.shared_model(ROOT)
     assert set(model) == set(structs.SHARED_RECORDS)

@@ -26,7 +26,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set
 
-from . import Finding
+from . import Finding, trees
 
 MUT_METHODS = {"append", "add", "remove", "pop", "popitem", "clear",
                "update", "insert", "extend", "setdefault", "discard",
@@ -208,11 +208,11 @@ def _caller_gated(name: str, infos: Dict[str, _FnInfo],
 def check_gengate(root: str,
                   guards: Optional[List[Guard]] = None) -> List[Finding]:
     findings: List[Finding] = []
+    run_trees = trees()
     for g in (guards if guards is not None else GUARDS):
         path = os.path.join(root, g.module)
         try:
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
+            tree = run_trees.parse(path)
         except (OSError, SyntaxError) as e:
             findings.append(Finding("gengate", f"gengate:{g.module}:parse",
                                     path, 0, f"cannot parse: {e}"))

@@ -29,7 +29,7 @@ import ast
 import os
 from typing import Dict, List, Optional, Tuple
 
-from . import PKG, Finding, py_files
+from . import PKG, Finding, py_files, trees, walk
 
 # sink method name -> callback argument index
 SINKS = {"delay": 1, "period": 1, "next_tick": 0, "run_on_loop": 0,
@@ -188,11 +188,11 @@ def _resolve_cb(expr: ast.AST, scope: _Scope):
 def check_loops(root: str,
                 files: Optional[List[str]] = None) -> List[Finding]:
     findings: List[Finding] = []
+    run_trees = trees()
     for path in files if files is not None else py_files(
             root, [PKG]):
         try:
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
+            tree = run_trees.parse(path)
         except (OSError, SyntaxError):
             continue
         module_fns = {n.name: n for n in tree.body
@@ -207,10 +207,11 @@ def check_loops(root: str,
                 units.extend((cls_fns, m) for m in cls_fns.values())
         rel = os.path.relpath(path, root)
         for cls_fns, fn in units:
-            local_fns = {d.name: d for d in ast.walk(fn)
+            nodes = walk(fn)
+            local_fns = {d.name: d for d in nodes
                          if isinstance(d, ast.FunctionDef) and d is not fn}
             scope = _Scope(module_fns, cls_fns, local_fns)
-            for node in ast.walk(fn):
+            for node in nodes:
                 if not (isinstance(node, ast.Call)
                         and isinstance(node.func, ast.Attribute)
                         and node.func.attr in SINKS):

@@ -32,7 +32,7 @@ import subprocess
 import sys
 from typing import Dict, List, Optional, Set, Tuple
 
-from . import PKG, Finding, py_files
+from . import PKG, Finding, py_files, trees
 
 # dotted doc tokens that look like failpoint sites but are not
 FAILPOINT_DOC_ALLOW = {"cluster.vproxy.local"}
@@ -93,8 +93,7 @@ def _package_name(tok: str) -> bool:
 
 def _parse(path: str):
     try:
-        with open(path) as f:
-            return ast.parse(f.read(), path)
+        return trees().parse(path)
     except (OSError, SyntaxError):
         return None
 
@@ -107,13 +106,11 @@ def metric_references(root: str,
     methods, the raw Metric constructors AND module-local memo wrappers
     (swmetrics._ctr) without a brittle method-name list."""
     refs: Dict[str, List[Tuple[str, int]]] = {}
+    run_trees = trees()
     for path in files if files is not None else py_files(
             root, [PKG]):
-        tree = _parse(path)
-        if tree is None:
-            continue
-        for node in ast.walk(tree):
-            if (isinstance(node, ast.Call) and node.args
+        for node in run_trees.calls(path):
+            if (node.args
                     and isinstance(node.args[0], ast.Constant)
                     and isinstance(node.args[0].value, str)
                     and _FAMILY.match(node.args[0].value)
@@ -205,27 +202,40 @@ def failpoint_sites(root: str) -> Set[str]:
     return set()
 
 
-def _call_name_refs(root: str, dirs, method: str
-                    ) -> Dict[str, List[Tuple[str, int]]]:
-    """First-arg string literals of every `<x>.method("...")` /
-    `method("...")` call under dirs."""
-    refs: Dict[str, List[Tuple[str, int]]] = {}
-    for path in py_files(root, dirs):
-        tree = _parse(path)
-        if tree is None:
-            continue
-        for node in ast.walk(tree):
-            if not (isinstance(node, ast.Call) and node.args
+def _call_name_refs(files: List[str], methods
+                    ) -> Dict[str, Dict[str, List[Tuple[str, int]]]]:
+    """{method: {name: sites}}: the first-arg string literals of every
+    `<x>.method("...")` / `method("...")` call in files, for each of
+    methods, in one walk of each file."""
+    refs: Dict[str, Dict[str, List[Tuple[str, int]]]] = {
+        m: {} for m in methods}
+    run_trees = trees()
+    for path in files:
+        for node in run_trees.calls(path):
+            if not (node.args
                     and isinstance(node.args[0], ast.Constant)
                     and isinstance(node.args[0].value, str)):
                 continue
             f = node.func
             name = f.attr if isinstance(f, ast.Attribute) else (
                 f.id if isinstance(f, ast.Name) else None)
-            if name == method:
-                refs.setdefault(node.args[0].value, []).append(
+            if name in refs:
+                refs[name].setdefault(node.args[0].value, []).append(
                     (path, node.lineno))
     return refs
+
+
+# a file outside the package is read for arm() calls only, and one
+# whose text never holds the word "arm" has none: it is not parsed
+_ARM_WORD = re.compile(r"\barm\b")
+
+
+def _mentions_arm(path: str) -> bool:
+    try:
+        with open(path) as f:
+            return _ARM_WORD.search(f.read()) is not None
+    except OSError:
+        return False
 
 
 def _site_token_re(sites: Set[str]) -> re.Pattern:
@@ -245,7 +255,22 @@ def check_failpoints(root: str) -> List[Finding]:
     if not sites:
         return [Finding("registry", "failpoint-catalog", fp_py, 0,
                         "could not extract the SITES catalog")]
-    hits = _call_name_refs(root, [PKG], "hit")
+    # hit() sites in the package and arm() references in the package,
+    # the port's tests and its chip drive, gathered in one walk
+    arm_only = ["chip_smoke.py"]
+    tests = os.path.join(root, "tests")
+    if os.path.isdir(tests):
+        arm_only += [os.path.join("tests", f) for f in os.listdir(tests)
+                     if f.startswith("test_torch_") and f.endswith(".py")]
+    refs = _call_name_refs(sorted(
+        py_files(root, [PKG]) + [p for p in py_files(root, arm_only)
+                                 if _mentions_arm(p)]), ("hit", "arm"))
+    pkg = os.path.join(root, PKG) + os.sep
+    hits: Dict[str, List[Tuple[str, int]]] = {}
+    for name, where in refs["hit"].items():
+        where = [w for w in where if w[0].startswith(pkg)]
+        if where:
+            hits[name] = where
     # hit() names that aren't sites never fire (hit() returns False
     # silently for unknown names — the injection is dead code)
     for name, where in sorted(hits.items()):
@@ -263,15 +288,8 @@ def check_failpoints(root: str) -> List[Finding]:
                 f"failpoint site {name!r} is in SITES but has no "
                 f"failpoint.hit() site — arming it injects nothing "
                 f"and every chaos run 'passes'"))
-    # arm() references in the package, the port's tests and its chip
-    # drive must resolve
-    arm_dirs = [PKG, "chip_smoke.py"]
-    tests = os.path.join(root, "tests")
-    if os.path.isdir(tests):
-        arm_dirs += [os.path.join("tests", f) for f in os.listdir(tests)
-                     if f.startswith("test_torch_") and f.endswith(".py")]
-    for name, where in sorted(_call_name_refs(root, arm_dirs,
-                                              "arm").items()):
+    # arm() references must resolve
+    for name, where in sorted(refs["arm"].items()):
         if name not in sites:
             path, line = where[0]
             findings.append(Finding(

@@ -33,7 +33,7 @@ import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
-from . import PKG, Finding
+from . import PKG, Finding, trees
 
 # the shared-record map: python struct.Struct name -> C struct name.
 # Everything else inside pack(1) regions (the self-defined io_uring
@@ -197,8 +197,7 @@ def parse_py_format(fmt: str) -> List[Tuple[int, int, str]]:
 def parse_py_structs(py_path: str):
     """-> ({NAME: fmt}, {NAME_FIELDS: (names...)}) from net/vtl.py's
     AST: `X = struct.Struct("<fmt>")` and `X_FIELDS = ("a", ...)`."""
-    with open(py_path) as f:
-        tree = ast.parse(f.read(), py_path)
+    tree = trees().parse(py_path)
     fmts: Dict[str, str] = {}
     names: Dict[str, Tuple[str, ...]] = {}
     for node in ast.walk(tree):
