@@ -1,0 +1,7 @@
+"""dispatch_us_per_query (metrics/dispatch_us_per_query.py) in the cidr
+cells, whose runs spread too widely for lookups/s to be held end to end:
+there it names device_peak_mb, the end-to-end metric those cells report
+(PERF.md §2)."""
+from portbench.spec import metric_reader
+
+read = metric_reader("dispatch_us_per_query")
