@@ -329,9 +329,11 @@ def _span_names(mod, tid) -> list:
 def test_install_and_dispatch_spans_and_routes_parity(monkeypatch):
     """The hooks of rules/engine.py and rules/service.py: a traced
     standby install records the same install / compile / upload / swap
-    spans in both packages, a traced device batch the same queue_wait /
-    dispatch / launch / d2h_sync spans, and the batches credit the same
-    `upstream:<alias>` keys to the routes dimension."""
+    spans in both packages, a traced device batch the reference's
+    queue_wait / dispatch / launch / d2h_sync spans in both (the port
+    adds the phases of its dispatcher's batch cycle, and only those),
+    and the batches credit the same `upstream:<alias>` keys to the
+    routes dimension."""
     import threading
 
     from test_fused import mk_queries, mk_rules
@@ -377,8 +379,15 @@ def test_install_and_dispatch_spans_and_routes_parity(monkeypatch):
             svc.close()
         got[name] = (_span_names(tr, install[0]), _span_names(tr, tid),
                      sorted(r["key"] for r in sk.top_table("routes")))
-    assert got["ref"] == got["port"]
+    ref_install, ref_batch, ref_routes = got["ref"]
     install_spans, batch_spans, routes = got["port"]
+    assert (install_spans, routes) == (ref_install, ref_routes)
+    assert set(ref_batch) <= set(batch_spans)
+    assert {("engine", s) for s in ("submit", "encode", "upload",
+                                    "deliver")} <= \
+        set(batch_spans) - set(ref_batch) <= \
+        {("engine", s) for s in ("submit", "dispatcher_idle", "encode",
+                                 "upload", "deliver")}
     assert {("install", s) for s in ("install", "compile", "upload",
                                      "swap")} <= set(install_spans)
     assert {("engine", s) for s in ("queue_wait", "dispatch", "launch",

@@ -512,3 +512,203 @@ def test_step_loop_queue_shape():
         seen.append(sorted((s["plane"], s["span"], s.get("n"))
                            for s in spans))
     assert seen[0] == seen[1]
+
+
+# ------------------------------------- the dispatcher's batch cycle
+
+# every span of a traced device batch, with the fields each carries
+# besides trace / plane / span / t_ns / dur_ns ("cpu_ns": the thread's
+# CPU time, never above dur_ns)
+CYCLE_FIELDS = {
+    "submit": {"kind", "cpu_ns"},
+    "queue_wait": {"kind"},
+    "dispatcher_idle": {"idle_ns", "waits", "since_ns"},
+    "dispatch": {"kind", "batch", "cpu_ns"},
+    "encode": {"batch", "cpu_ns"},
+    "flow_slots": {"batch", "cpu_ns"},
+    "upload": {"copies", "bytes", "cpu_ns"},
+    "launch": {"kind", "fused"},
+    "d2h_sync": {"kind", "batch", "cpu_ns"},
+    "deliver": {"kind", "batch", "cpu_ns"},
+    "callback_wait": {"kind"},
+    "callback": {"kind", "cpu_ns"},
+}
+
+
+def _cycle_case(kind: str, b: int = 24):
+    """-> (a ClassifyService in mode "device", submit(payload, cb,
+    loop) of `kind` to it, b payloads) on the CPU tier (the "torch"
+    backend)."""
+    from test_fused import mk_ips, mk_queries, mk_rules
+    from vproxy_tpu_torch.rules import engine as E
+    from vproxy_tpu_torch.rules import maglev as M
+    from vproxy_tpu_torch.rules.ir import AclRule, Proto
+    from vproxy_tpu_torch.rules.service import ClassifyService
+    from vproxy_tpu_torch.utils.ip import Network, mask_bytes
+    svc = ClassifyService(mode="device")
+    if kind == "cidr":
+        acl = [AclRule(f"r{i}", Network(bytes([10, i, 0, 0]), mask_bytes(16)),
+                       Proto.TCP, 1000, 2000, True) for i in range(20)]
+        m = E.CidrMatcher([a.network for a in acl], acl=acl)
+        payloads = [(bytes([10, i % 20, 1, 2]), 1500) for i in range(b)]
+        return svc, (lambda p, cb, lp: svc.submit_cidr(m, *p, cb, lp)), \
+            payloads
+    rules = mk_rules(200)
+    hm = E.HintMatcher(rules)
+    if kind == "hint":
+        return svc, (lambda p, cb, lp: svc.submit_hint(hm, p, cb, lp)), \
+            mk_queries(rules, b)
+    pair = M.FusedPair(hm, M.MaglevMatcher(
+        [(f"10.9.0.{i}:80", 1) for i in range(7)], m=251))
+    return svc, \
+        (lambda p, cb, lp: svc.submit_classify_pick(pair, *p, cb, lp)), \
+        [(h, ip, 1024 + i) for i, (h, ip) in
+         enumerate(zip(mk_queries(rules, b), mk_ips(b)))]
+
+
+def _serve(submit, payloads, lp, tid: int) -> None:
+    """Submit every payload under trace context `tid` (0: none) with
+    callbacks on `lp`; wait for every answer."""
+    left = [len(payloads)]
+    done = threading.Event()
+
+    def cb(*_):
+        left[0] -= 1  # on the loop thread only
+        if not left[0]:
+            done.set()
+
+    with T.bind(tid):
+        for p in payloads:
+            submit(p, cb, lp)
+    assert done.wait(60)
+
+
+@pytest.mark.parametrize("kind", ["cpick", "hint", "cidr"])
+def test_dispatcher_batch_cycle_spans(kind):
+    """A bound, sampled submit records every phase of the dispatcher's
+    batch cycle (submit, the dispatcher's idle wait, encode, flow_slots
+    for cpick, upload, dispatch, d2h_sync, deliver, and the callback's
+    wait and run on the loop) with its fields, cpu_ns <= dur_ns; each
+    device batch's dispatch and deliver count its queries once. With
+    sampling off a batch leaves the buffer and the engine plane's span
+    count as they were."""
+    from vproxy_tpu_torch.net.eventloop import SelectorEventLoop
+    lp = SelectorEventLoop("trace-cycle")
+    lp.loop_thread()
+    svc, submit, payloads = _cycle_case(kind)
+    try:
+        n0 = T.plane_spans_total("engine")
+        _serve(submit, payloads, lp, T.maybe_sample())  # sampling off: 0
+        assert T.trace_ids() == []
+        assert T.plane_spans_total("engine") == n0
+        T.configure(1)
+        # one untraced batch, so the dispatcher next waits while tracing
+        _serve(submit, payloads[:1], lp, 0)
+        time.sleep(0.3)
+        tid = T.new_trace_id()
+        _serve(submit, payloads, lp, tid)
+        want = set(CYCLE_FIELDS) - ({"flow_slots"} if kind != "cpick"
+                                    else set())
+        n = len(payloads)
+        assert _wait(lambda: sum(s["span"] == "callback"
+                                 for s in T.get_trace(tid)) == n)
+        spans = T.get_trace(tid)
+        assert {s["span"] for s in spans} == want
+        for s in spans:
+            assert s["plane"] == "engine"
+            assert set(s) - {"trace", "plane", "span", "t_ns", "dur_ns"} \
+                == CYCLE_FIELDS[s["span"]], s
+            if "cpu_ns" in s:
+                assert 0 <= s["cpu_ns"] <= s["dur_ns"], s
+        by = {}
+        for s in spans:
+            by.setdefault(s["span"], []).append(s)
+        for name in ("submit", "queue_wait", "callback_wait", "callback"):
+            assert len(by[name]) == n, name
+        for name in ("dispatch", "d2h_sync", "deliver"):
+            assert sum(s["batch"] for s in by[name]) == n, name
+        assert sum(s["batch"] for s in by["encode"]) == n
+        assert all(s["copies"] >= 2 and s["bytes"] > 0
+                   for s in by["upload"])
+        # the idle wait ends before the first batch's dispatch begins,
+        # and it is the last (here the one) wait its idle_ns counts
+        idle = by["dispatcher_idle"][0]
+        assert idle["t_ns"] + idle["dur_ns"] <= by["dispatch"][0]["t_ns"]
+        assert idle["waits"] >= 1 and idle["since_ns"] <= idle["t_ns"]
+        assert idle["idle_ns"] >= idle["dur_ns"] >= 200_000_000
+    finally:
+        svc.close()
+        lp.close()
+
+
+@pytest.mark.parametrize("kind", ["cpick", "cidr"])
+def test_dispatcher_idle_counts_the_waits_of_unsampled_batches(kind):
+    """While tracing, the dispatcher's waits before small batches with no
+    sampled request are not lost: the next sampled wake's
+    engine/dispatcher_idle span counts them all (`idle_ns`, `waits`,
+    from `since_ns`), and the span itself is the last wait."""
+    from vproxy_tpu_torch.net.eventloop import SelectorEventLoop
+    lp = SelectorEventLoop("trace-idle")
+    lp.loop_thread()
+    svc, submit, payloads = _cycle_case(kind, b=8)
+    try:
+        _serve(submit, payloads[:2], lp, 0)  # built and warm
+        T.configure(1)
+        _serve(submit, payloads[:2], lp, 0)  # its wait began untraced
+        for i in range(3):
+            time.sleep(0.1)
+            if i < 2:
+                _serve(submit, payloads[2 * i + 2:2 * i + 4], lp, 0)
+        tid = T.new_trace_id()
+        _serve(submit, payloads[6:], lp, tid)
+        idle = [s for s in T.get_trace(tid)
+                if s["span"] == "dispatcher_idle"]
+        assert len(idle) == 1
+        idle = idle[0]
+        assert idle["waits"] == 3
+        assert idle["idle_ns"] >= 300_000_000
+        assert 100_000_000 <= idle["dur_ns"] < idle["idle_ns"]
+        assert idle["since_ns"] + idle["idle_ns"] <= \
+            idle["t_ns"] + idle["dur_ns"]
+        # nothing carried on: the next sampled wake counts its own wait
+        time.sleep(0.05)
+        tid2 = T.new_trace_id()
+        _serve(submit, payloads[:2], lp, tid2)
+        nxt = [s for s in T.get_trace(tid2)
+               if s["span"] == "dispatcher_idle"]
+        assert [s["waits"] for s in nxt] == [1]
+        assert nxt[0]["since_ns"] == nxt[0]["t_ns"]
+    finally:
+        svc.close()
+        lp.close()
+
+
+def test_dispatcher_phases_are_profiler_ranges(tmp_path):
+    """While a torch profiler records (every thread), the dispatcher's
+    traced phases are also record_function ranges named
+    "engine/<span>": the exported chrome trace holds engine/encode,
+    engine/upload and engine/deliver as user_annotation events."""
+    import json
+
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    from vproxy_tpu_torch.net.eventloop import SelectorEventLoop
+    lp = SelectorEventLoop("trace-prof")
+    lp.loop_thread()
+    svc, submit, payloads = _cycle_case("cpick")
+    try:
+        _serve(submit, payloads[:1], lp, 0)  # built and warm
+        T.configure(1)
+        with profile(activities=[ProfilerActivity.CPU],
+                     experimental_config=_ExperimentalConfig(
+                         profile_all_threads=True)) as prof:
+            _serve(submit, payloads, lp, T.new_trace_id())
+        out = tmp_path / "trace.json"
+        prof.export_chrome_trace(str(out))
+    finally:
+        svc.close()
+        lp.close()
+    names = {e.get("name") for e in json.loads(out.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert {"engine/encode", "engine/flow_slots", "engine/upload",
+            "engine/dispatch", "engine/d2h_sync", "engine/deliver"} <= names

@@ -59,6 +59,7 @@ import torch
 
 from ..ops import hashmatch as H
 from ..ops import tables as T
+from ..utils import trace
 from ..utils.log import Logger
 from ..utils.torchenv import (default_device, sync, tables_from_reference,
                               to_host)
@@ -179,7 +180,6 @@ def _install_phase(tid: int, span: str, t0_ns: int, **fields) -> None:
     installer's trace (utils/trace) — tid 0 (constructor compiles, or
     tracing off) records nothing."""
     if tid:
-        from ..utils import trace
         trace.record_span(tid, "install", span, t0_ns,
                           time.monotonic_ns() - t0_ns, **fields)
 
@@ -252,7 +252,6 @@ def note_launch(n: int = 1, kind: str = "", fused: bool = False) -> None:
     _LAUNCHES[0] += n
     with _kind_lock:
         _BY_KIND[kind] = _BY_KIND.get(kind, 0) + n
-    from ..utils import trace
     tid = trace.current_id()
     if tid:
         trace.record_span(tid, "engine", "launch", time.monotonic_ns(),
@@ -424,7 +423,6 @@ class TableInstaller:
                 # gets its own trace — _recompile's phase spans
                 # (compile / upload / swap) attach through the bound
                 # context
-                from ..utils import trace
                 itid = trace.new_trace_id() if trace.enabled() else 0
                 with trace.bind(itid):
                     matcher._install(args)
@@ -518,7 +516,7 @@ def fused_dispatch(hm, hsnap: tuple, mm, msnap: tuple, hints,
     note_serving()
     q = _fused_hint_q(hsnap[0], hints, pad_to)
     q["slots"] = _fused_slots(mtab, ips, ports, q["hostb"].shape[0])
-    qd = tables_from_reference(q, fd["pk_meta"].device)
+    qd = _upload_q(q, fd["pk_meta"].device)
     slots = qd.pop("slots")
     from ..ops import fused_cuda as FC
     note_launch(kind="cpick", fused=True)
@@ -554,7 +552,7 @@ def fused_dispatch_all(hm, hsnap: tuple, cm, csnap: tuple, mm,
     q["slots"] = _fused_slots(mtab, ips, ports, cap)
     a16, fam, _ = _cidr_q(addrs, None, cap)
     q["a16"], q["fam"] = a16, fam
-    qd = tables_from_reference(q, fd["pk_meta"].device)
+    qd = _upload_q(q, fd["pk_meta"].device)
     slots, a16, fam = qd.pop("slots"), qd.pop("a16"), qd.pop("fam")
     from ..ops import fused_cuda as FC
     note_launch(kind="all", fused=True)
@@ -562,11 +560,21 @@ def fused_dispatch_all(hm, hsnap: tuple, cm, csnap: tuple, mm,
     return FC.fused_classify_pick(fd, qd, mdev, slots, cfd, a16, fam, None)
 
 
+# A batch's host phases on the dispatch path are spans of the trace bound
+# on the calling thread (ClassifyService binds the batch's first sampled
+# request; none is bound with tracing off, and each site then costs a
+# thread-local read and one check): engine/encode (the queries' encode,
+# pad rows included, `batch` = the real queries), engine/flow_slots (the
+# Maglev slots on the host) and engine/upload (the batch's query arrays
+# to the serving device: `copies`, `bytes`).
+
 def _cidr_q(addrs: Sequence[bytes], ports: Optional[Sequence[int]],
             cap: Optional[int]) -> tuple:
     """Encoded CIDR queries padded to `cap` rows: -> (a16 u8 [cap, 16],
     fam i32 [cap], port i32 [cap] or None). Pad rows carry family -1,
-    which matches no group."""
+    which matches no group. The engine/encode span."""
+    tid = trace.current_id()
+    sp = trace.Span(tid, "engine", "encode") if tid else None
     a16, fam = T.encode_ips(addrs)
     p = None if ports is None else np.asarray(ports, np.int32)
     if cap and cap > a16.shape[0]:
@@ -575,13 +583,21 @@ def _cidr_q(addrs: Sequence[bytes], ports: Optional[Sequence[int]],
         fam = np.concatenate([fam, np.full(k, -1, fam.dtype)])
         if p is not None:
             p = np.concatenate([p, np.zeros(k, p.dtype)])
+    if sp:
+        sp.end(batch=len(addrs))
     return a16, fam, p
 
 
 def _fused_hint_q(tab, hints, pad_to: Optional[int]) -> dict:
+    """The cuckoo encode of a hint batch, padded to `pad_to` rows: the
+    engine/encode span."""
+    tid = trace.current_id()
+    sp = trace.Span(tid, "engine", "encode") if tid else None
     q = H.encode_hint_queries(hints, tab, pad_to=pad_to or 0)
     if pad_to and q["hostb"].shape[0] < pad_to:
         q = _pad_hint_q(q, pad_to, _PAD_CUCKOO)
+    if sp:
+        sp.end(batch=len(hints))
     return q
 
 
@@ -589,13 +605,28 @@ def _fused_slots(mtab, ips, ports, cap: int) -> np.ndarray:
     """Host-side Maglev slots (maglev.flow_slots — THE one copy of the
     slot-hash contract, so fused picks are bit-identical to every
     other pick plane); pad rows ride slot 0 and are sliced off by the
-    caller."""
+    caller. The engine/flow_slots span."""
     from .maglev import flow_slots
+    tid = trace.current_id()
+    sp = trace.Span(tid, "engine", "flow_slots") if tid else None
     slots = flow_slots(len(mtab), ips, ports)
     if cap > len(slots):
         slots = np.concatenate([slots, np.zeros(cap - len(slots),
                                                 np.int64)])
+    if sp:
+        sp.end(batch=len(ips))
     return slots
+
+
+def _upload_q(q: dict, device) -> dict:
+    """tables_from_reference of one batch's query arrays: the
+    engine/upload span."""
+    tid = trace.current_id()
+    sp = trace.Span(tid, "engine", "upload") if tid else None
+    qd = tables_from_reference(q, device)
+    if sp:
+        sp.end(copies=len(q), bytes=sum(v.nbytes for v in q.values()))
+    return qd
 
 
 def _with_slots(q: dict, pick, cap: int) -> dict:
@@ -742,7 +773,6 @@ class HintMatcher:
         return int(sum(v.numel() * v.element_size() for v in dev.values()))
 
     def _recompile(self) -> None:
-        from ..utils import trace
         itid = trace.current_id()  # nonzero only under a traced install
         t_ph = time.monotonic_ns() if itid else 0
         fused_dev = None
@@ -994,9 +1024,13 @@ class HintMatcher:
         mode = FP.default_member_mode()
 
         def encode():
+            tid = trace.current_id()
+            sp = trace.Span(tid, "engine", "encode") if tid else None
             q = FP.encode_hint_queries_fp(hints, tab)
             if pad_to and pad_to > len(hints):
                 q = _pad_hint_q(q, pad_to, {})
+            if sp:
+                sp.end(batch=len(hints))
             return _with_slots(q, pick, q["hp_slot"].shape[0])
         q = self._upload(encode)
         if pick is not None:
@@ -1019,10 +1053,16 @@ class HintMatcher:
         fp = self.backend == "torch-fp-sharded"
 
         def encode():
+            tid = trace.current_id()
+            sp = trace.Span(tid, "engine", "encode") if tid else None
             if fp:
-                return FP.encode_hint_queries_fp_sharded(
+                q = FP.encode_hint_queries_fp_sharded(
                     list(hints) + [Hint()] * (cap - n), tab)
-            return H.encode_hint_queries_sharded(hints, tab, pad_to=cap)
+            else:
+                q = H.encode_hint_queries_sharded(hints, tab, pad_to=cap)
+            if sp:
+                sp.end(batch=n)
+            return q
 
         def upload():
             q = M.shard_hint_queries_sharded(encode(), self._mesh)
@@ -1050,19 +1090,27 @@ class HintMatcher:
         CPU (matchers.hint_dense; with `pick`, as _dispatch_fp,
         matchers.hint_dense_pick -> int32 [cap, 2])."""
         from ..ops import matchers as MT
-        if pad_to and pad_to > len(hints):
-            hints = list(hints) + [Hint()] * (pad_to - len(hints))
-        q = self._upload(lambda: _with_slots(T.encode_hints(hints), pick,
-                                             len(hints)))
+        n = len(hints)
+        if pad_to and pad_to > n:
+            hints = list(hints) + [Hint()] * (pad_to - n)
+
+        def encode():
+            tid = trace.current_id()
+            sp = trace.Span(tid, "engine", "encode") if tid else None
+            q = T.encode_hints(hints)
+            if sp:
+                sp.end(batch=n)
+            return _with_slots(q, pick, len(hints))
+        q = self._upload(encode)
         if pick is not None:
             return MT.hint_dense_pick(dev, q, pick[1], q.pop("slots"))
         return MT.hint_dense(dev, q)[0]
 
     def _upload(self, encode) -> dict:
         """encode() -> the batch's tensors on the serving device
-        (_card_upload)."""
+        (_card_upload, _upload_q)."""
         return _card_upload(self.device, "hint", lambda: (
-            tables_from_reference(encode(), self.device)))
+            _upload_q(encode(), self.device)))
 
 
 class CidrMatcher:
@@ -1133,7 +1181,6 @@ class CidrMatcher:
         return int(sum(v.numel() * v.element_size() for v in dev.values()))
 
     def _recompile(self) -> None:
-        from ..utils import trace
         itid = trace.current_id()  # nonzero only under a traced install
         t_ph = time.monotonic_ns() if itid else 0
         fused_dev = None
@@ -1342,7 +1389,7 @@ class CidrMatcher:
             q["port"] = p
         if self.backend in SHARDED_BACKENDS:
             return self._dispatch_sharded(snap, a16, fam, p, sync)
-        q = tables_from_reference(q, self.device)
+        q = _upload_q(q, self.device)
         if self.backend == "torch-fp":
             from ..ops import fphash_cuda as FPC
             return FPC.cidr_fp(dev, q["a16"], q["fam"], q.get("port"))

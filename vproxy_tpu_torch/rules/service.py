@@ -131,15 +131,49 @@ def _apply_gil_slice() -> None:
 class _Req:
     __slots__ = ("payload", "cb", "loop", "t0", "tid")
 
-    def __init__(self, payload, cb, loop):
+    def __init__(self, payload, cb, loop, tid: int = 0):
         self.payload = payload
         self.cb = cb
         self.loop = loop
         self.t0 = time.monotonic()
         # the submitter's trace context rides the request so the
         # dispatcher thread can attach its spans (queue wait, dispatch,
-        # d2h sync) to the sampled request that triggered them
-        self.tid = trace.current_id()
+        # d2h sync, deliver, the callback's wait) to the sampled request
+        # that triggered them
+        self.tid = tid
+
+
+class _IdleWaits:
+    """The dispatcher's waits for work while tracing, carried to the
+    first sampled request of a later wake as one engine/dispatcher_idle
+    span: the last wait's own interval, with `idle_ns` (every wait since
+    the previous such span), `waits` and `since_ns` (when the first of
+    them began). A wait that woke for batches with no sampled request
+    is so still counted, whatever the batches' size."""
+
+    __slots__ = ("ns", "waits", "since", "last")
+
+    def __init__(self):
+        self.ns = self.waits = self.since = 0
+        self.last = (0, 0)
+
+    def note(self, t_wait: int, batches: list) -> None:
+        """A wake: `t_wait` the start of its wait (0: it did not wait
+        while tracing), `batches` the work it took."""
+        if t_wait:
+            dur = time.monotonic_ns() - t_wait
+            self.ns += dur
+            self.waits += 1
+            self.since = self.since or t_wait
+            self.last = (t_wait, dur)
+        tid = _first_tid(r for b in batches for r in b[2]) \
+            if trace.SAMPLE else 0
+        if tid:
+            trace.record_span(tid, "engine", "dispatcher_idle", *self.last,
+                              idle_ns=self.ns, waits=self.waits,
+                              since_ns=self.since)
+        if tid or not trace.SAMPLE:
+            self.__init__()
 
 
 class _Inflight:
@@ -304,6 +338,9 @@ class ClassifyService:
         self._submit("cpick", pair, (hint, ip, port), cb, loop)
 
     def _submit(self, kind: str, matcher, payload, cb, loop) -> None:
+        tid = trace.current_id()
+        # per query: the trace-id check, and no call with tracing off
+        sp = trace.Span(tid, "engine", "submit") if tid else None
         inline = False
         with self._cv:
             if self.error is not None:
@@ -316,9 +353,10 @@ class ClassifyService:
             if ent is None and self._inline_host(matcher):
                 inline = True  # answered below, outside the lock
             elif ent is None:
-                self._pending[key] = (kind, matcher, [_Req(payload, cb, loop)])
+                self._pending[key] = (kind, matcher,
+                                      [_Req(payload, cb, loop, tid)])
             else:
-                ent[2].append(_Req(payload, cb, loop))
+                ent[2].append(_Req(payload, cb, loop, tid))
             if not inline:
                 if self._thread is None:
                     self._thread = threading.Thread(
@@ -326,6 +364,8 @@ class ClassifyService:
                         daemon=True)
                     self._thread.start()
                 self._cv.notify()
+        if sp:
+            sp.end(kind=kind)
         if inline:
             self._answer_inline(kind, matcher, payload, cb, loop)
 
@@ -499,14 +539,20 @@ class ClassifyService:
         # next one encodes/submits; the in-flight result syncs just
         # before its delivery (one host round trip per batch)
         inflight: Optional[_Inflight] = None
+        idle = _IdleWaits()
         while True:
             with self._cv:
+                t_wait = 0  # while tracing: when an idle wait began
                 while not self._pending and not self._closed \
                         and inflight is None:
+                    if not t_wait and trace.SAMPLE:
+                        t_wait = time.monotonic_ns()
                     self._cv.wait()
                 batches = list(self._pending.values())
                 self._pending.clear()
                 closed = self._closed
+            if t_wait or idle.ns:
+                idle.note(t_wait, batches)
             if not batches:
                 if inflight is not None:
                     self._finish_guarded(inflight)
@@ -605,12 +651,13 @@ class ClassifyService:
             if own:
                 sketch.update("routes", f"upstream:{own}", n,
                               plane="engine")
-        # sampled requests in the batch: batch-shared phases (dispatch,
-        # d2h sync, host_index) attach to the FIRST one — one span, not
-        # one per request; per-request queue wait is recorded for every
-        # sampled request on BOTH serving branches
-        tids = [r.tid for r in reqs if r.tid]
-        if tids:
+        # sampled requests in the batch, looked for only while tracing:
+        # batch-shared phases (dispatch, d2h sync, host_index, deliver)
+        # attach to the FIRST one — one span, not one per request;
+        # per-request queue wait is recorded for every sampled request
+        # on BOTH serving branches
+        tid = _first_tid(reqs) if trace.SAMPLE else 0
+        if tid:
             t_q = time.monotonic()
             for r in reqs:
                 if r.tid:
@@ -621,16 +668,15 @@ class ClassifyService:
         if self._use_device(matcher, n):
             try:
                 t0 = time.monotonic()
-                with trace.bind(tids[0] if tids else 0):
-                    # the bind makes engine-level launch markers
+                sp = trace.Span(tid, "engine", "dispatch") if tid else None
+                with trace.bind(tid):
+                    # the bind makes engine-level spans (encode,
+                    # flow_slots, upload) and launch markers
                     # (rules/engine.note_launch) attach to the sampled
                     # request's trace
                     arr = self._device_submit(kind, matcher, snap, reqs)
-                if tids:
-                    trace.record_span(
-                        tids[0], "engine", "dispatch", int(t0 * 1e9),
-                        int((time.monotonic() - t0) * 1e9), kind=kind,
-                        batch=n)
+                if sp:
+                    sp.end(kind=kind, batch=n)
                 return _Inflight(kind, matcher, reqs, snap, arr, t0,
                                  lone_big)
             except (MemoryError, KernelError):
@@ -642,15 +688,16 @@ class ClassifyService:
                 self._device_failed(e, n)
         t0 = time.monotonic()
         idxs = self._oracle_batch(kind, matcher, snap, reqs)
-        if tids:
-            trace.record_span(tids[0], "engine", "host_index",
+        if tid:
+            trace.record_span(tid, "engine", "host_index",
                               int(t0 * 1e9),
                               int((time.monotonic() - t0) * 1e9),
                               kind=kind, batch=n)
         if lone_big:
             self._note_lone_latency("oracle", time.monotonic() - t0)
         self.stats.bump("oracle_queries", n)
-        self._deliver(reqs, idxs, matcher.snap_payload(snap), kind=kind)
+        self._deliver(reqs, idxs, matcher.snap_payload(snap), kind=kind,
+                      tid=tid)
         return None
 
     def _finish_guarded(self, inf: "_Inflight") -> None:
@@ -676,15 +723,12 @@ class ClassifyService:
         except a CUDA fault, which raises KernelError."""
         n = len(inf.reqs)
         idxs = None
-        tids = [r.tid for r in inf.reqs if r.tid]
+        tid = _first_tid(inf.reqs) if trace.SAMPLE else 0
         try:
-            t_sync = time.monotonic()
+            sp = trace.Span(tid, "engine", "d2h_sync") if tid else None
             idxs = _pull(inf.arr)[:n]
-            if tids:
-                trace.record_span(
-                    tids[0], "engine", "d2h_sync", int(t_sync * 1e9),
-                    int((time.monotonic() - t_sync) * 1e9),
-                    kind=inf.kind, batch=n)
+            if sp:
+                sp.end(kind=inf.kind, batch=n)
             if inf.lone_big:
                 self._note_lone_latency("device", time.monotonic() - inf.t0)
             with self.stats.lock:
@@ -708,7 +752,7 @@ class ClassifyService:
         try:
             self._deliver(inf.reqs, idxs,
                           inf.matcher.snap_payload(inf.snap),
-                          kind=inf.kind)
+                          kind=inf.kind, tid=tid)
         except MemoryError:
             raise
         except Exception:
@@ -801,7 +845,7 @@ class ClassifyService:
                 for r in reqs]
 
     def _deliver(self, reqs: list[_Req], idxs, payload=None,
-                 kind: str = "hint") -> None:
+                 kind: str = "hint", tid: int = 0) -> None:
         """cb(idx, payload) — or cb(verdict, pick, payload) for cpick
         batches, where a row is the fused program's (verdict, pick)
         pair (a scalar row is an error fill: both -1). payload is the
@@ -809,7 +853,11 @@ class ClassifyService:
         served the batch (None when the owner didn't register one).
         Callbacks run on the submitting loop; if that loop is gone,
         inline on this thread so cleanup (closing an accepted fd)
-        still happens."""
+        still happens. tid: the batch's first sampled request (0:
+        none); the delivery is then its engine/deliver span, and each
+        sampled request's callback records its wait and run
+        (_traced_run)."""
+        sp = trace.Span(tid, "engine", "deliver") if tid else None
         now = time.monotonic()
         for r, idx in zip(reqs, idxs):
             self.stats.record_latency(now - r.t0)
@@ -835,8 +883,12 @@ class ClassifyService:
                     except Exception:
                         _log.error("classify callback failed", exc=True)
 
+            if sp and r.tid and r.loop is not None:
+                run = _traced_run(run, r.tid, kind)
             if r.loop is None or not r.loop.run_on_loop(run):
                 run()
+        if sp:
+            sp.end(kind=kind, batch=len(reqs))
 
     # ------------------------------------------------------------- control
 
@@ -849,6 +901,30 @@ class ClassifyService:
             self._cv.notify()
         with self._probe_cv:  # wake the probe worker so it exits
             self._probe_cv.notify()
+
+
+def _traced_run(run, tid: int, kind: str):
+    """`run` as a sampled request's loop runs it from a traced batch:
+    it records engine/callback_wait (from now, the enqueue, to its start
+    on the loop) and engine/callback (its own run) on trace `tid`."""
+    t_enq = time.monotonic_ns()
+
+    def traced() -> None:
+        t0 = time.monotonic_ns()
+        trace.record_span(tid, "engine", "callback_wait", t_enq, t0 - t_enq,
+                          kind=kind)
+        sp = trace.Span(tid, "engine", "callback")
+        run()  # the delivery closure: it logs its callback's errors
+        sp.end(kind=kind)
+    return traced
+
+
+def _first_tid(reqs) -> int:
+    """The trace id of the first sampled request of `reqs` (0: none)."""
+    for r in reqs:
+        if r.tid:
+            return r.tid
+    return 0
 
 
 def _card_error(matcher, e: Exception) -> Optional[KernelError]:

@@ -19,8 +19,10 @@ process-wide bounded buffer:
 * **accept**  — the python accept path (components/tcplb.py): acl,
   backend_pick, connect, splice, close, total.
 * **engine**  — classify dispatch (rules/service.py + rules/engine.py):
-  queue_wait, dispatch, launch markers (fused vs unfused
-  distinguishable), d2h_sync, classify_inline / host_index fallbacks.
+  submit, queue_wait, dispatcher_idle, dispatch (holding encode,
+  flow_slots and upload), launch markers (fused vs unfused
+  distinguishable), d2h_sync, deliver, callback_wait, callback,
+  classify_inline / host_index fallbacks.
 * **install** — the TableInstaller (rules/engine.py): every standby
   generation install traced as compile / upload / swap spans.
 * **cluster** — the step-synchronized submit loop (cluster/submit.py):
@@ -43,6 +45,45 @@ CLOCK_MONOTONIC nanoseconds on both sides (time.monotonic_ns() and
 clock_gettime share the clock on linux), so cross-plane spans in one
 trace order consistently.
 
+`Span(tid, plane, span)` ... `Span.end(**fields)` times a block on
+that clock and adds `cpu_ns`, the thread's CPU time over it (wall minus
+CPU is time spent waiting for the interpreter lock or descheduled).
+Where the thread CPU clock moves in scheduler ticks, a single span's
+`cpu_ns` is 0 or a tick: read it only as a sum over many spans. While a
+torch profiler records in the process (`torch.autograd.profiler`'s
+flag), the block is also a `torch.profiler.record_function(
+"<plane>/<span>")` range: a profiler trace of the program (every thread
+recorded: `_ExperimentalConfig(profile_all_threads=True)`) holds those
+spans as `user_annotation` events on the device trace's own clock,
+beside the copies and kernels they launched. A site opens one only for
+a nonzero trace id (`Span(...) if tid else None`), so untraced it reads
+no clock.
+
+The ClassifyService dispatcher's batch cycle, in the `engine` plane.
+Per-batch spans go on the batch's first sampled request:
+
+| span | where | per | fields |
+| --- | --- | --- | --- |
+| `submit` | `ClassifyService._submit`, on the submitting thread: the queue lock, the request, the dispatcher's wake-up | sampled request | `kind`, `cpu_ns` |
+| `dispatcher_idle` | `_run`'s wait for work | the next wake with a sampled request | `idle_ns`, `waits`, `since_ns` |
+| `encode` | the host encode of a batch (`_fused_hint_q`, `_cidr_q`, the other backends' encoders) | batch | `batch`, `cpu_ns` |
+| `flow_slots` | `_fused_slots`: a classify+pick batch's Maglev slots | batch | `batch`, `cpu_ns` |
+| `upload` | `_upload_q`: the batch's query arrays to the serving device | batch | `copies`, `bytes`, `cpu_ns` |
+| `dispatch` | encode + slots + upload + launch | batch | `kind`, `batch`, `cpu_ns` |
+| `d2h_sync` | the pull of a batch's answers | batch | `kind`, `batch`, `cpu_ns` |
+| `deliver` | `_deliver`: a latency record, a closure and a `run_on_loop` a query | batch | `kind`, `batch`, `cpu_ns` |
+| `callback_wait` | `run_on_loop`'s enqueue -> the callback starts on its loop | sampled request | `kind` |
+| `callback` | the callback's run on its loop | sampled request | `kind`, `cpu_ns` |
+
+`dispatcher_idle` is the last wait's own interval; `idle_ns` sums every
+wait since the previous such span (`waits` of them, the first from
+`since_ns`), those that woke for batches with no sampled request
+included. Untraced, a submit costs the trace-id check it always had;
+a batch one check in `_run`, one in each of `_begin_uniform` and
+`_finish_inflight`, a thread-local read of the bound id in each of its
+host phases (encode, slots, upload) and a test of `deliver`'s (None)
+span a query: no clock read, lock or allocation.
+
 Surfaces: `GET /trace` (inspection server + HTTP controller),
 `list[-detail] trace` and the bare `trace <id>` line on every command
 surface, `tools/traceview.py` for offline artifacts, and the
@@ -54,6 +95,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import sys
 import threading
 import time
 from collections import OrderedDict
@@ -196,6 +238,40 @@ def record_span(trace_id: int, plane: str, span: str, t_start_ns: int,
             return
         spans.append(ev)
         _plane_spans[plane] = _plane_spans.get(plane, 0) + 1
+
+
+class Span:
+    """One open span of `plane`/`span` on trace `trace_id` (nonzero) on
+    the calling thread. end() records it with `cpu_ns`: the
+    thread's CPU time over the block, read inside the wall-clock pair so
+    cpu_ns <= dur_ns where the thread CPU clock is exact (where it moves
+    in scheduler ticks, as on some VMs, only sums over many spans mean
+    anything). While a torch profiler records in the process
+    (torch.autograd.profiler's flag, read once a span), the block is also a
+    record_function range named "<plane>/<span>", opened before the
+    clocks are read and closed after, so the range holds the span. A
+    span whose end() is never reached (the block raised) is not
+    recorded."""
+
+    __slots__ = ("tid", "plane", "span", "t0", "c0", "rf")
+
+    def __init__(self, trace_id: int, plane: str, span: str):
+        self.tid, self.plane, self.span = trace_id, plane, span
+        self.rf = None
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is not None and getattr(prof, "_is_profiler_enabled", 0):
+            self.rf = prof.record_function(f"{plane}/{span}")
+            self.rf.__enter__()
+        self.t0 = time.monotonic_ns()
+        self.c0 = time.thread_time_ns()
+
+    def end(self, **fields) -> None:
+        c1 = time.thread_time_ns()
+        t1 = time.monotonic_ns()
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        record_span(self.tid, self.plane, self.span, self.t0, t1 - self.t0,
+                    cpu_ns=c1 - self.c0, **fields)
 
 
 def ingest_lane_recs(recs) -> None:
