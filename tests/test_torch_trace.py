@@ -529,7 +529,7 @@ CYCLE_FIELDS = {
     "upload": {"copies", "bytes", "cpu_ns"},
     "launch": {"kind", "fused"},
     "d2h_sync": {"kind", "batch", "cpu_ns"},
-    "deliver": {"kind", "batch", "cpu_ns"},
+    "deliver": {"kind", "batch", "handoffs", "cpu_ns"},
     "callback_wait": {"kind"},
     "callback": {"kind", "cpu_ns"},
 }
@@ -610,8 +610,12 @@ def test_dispatcher_batch_cycle_spans(kind):
         want = set(CYCLE_FIELDS) - ({"flow_slots"} if kind != "cpick"
                                     else set())
         n = len(payloads)
+        # a loop may run a batch's callbacks before the dispatcher closes
+        # the batch's deliver span (one hand-off a loop): wait for both
         assert _wait(lambda: sum(s["span"] == "callback"
-                                 for s in T.get_trace(tid)) == n)
+                                 for s in T.get_trace(tid)) == n
+                     and sum(s["batch"] for s in T.get_trace(tid)
+                             if s["span"] == "deliver") == n)
         spans = T.get_trace(tid)
         assert {s["span"] for s in spans} == want
         for s in spans:

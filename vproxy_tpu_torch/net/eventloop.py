@@ -4,7 +4,8 @@ Functional equivalent of the reference's selector/SelectorEventLoop.java
 (poll loop :265-322, timer queue :159-168, cross-thread task queue
 :370-389, wakeups, loop-thread confinement): a single thread polls the
 native epoll loop; all state mutation happens on that thread; other
-threads submit closures via run_on_loop() + eventfd wakeup. Timers are a
+threads submit closures via run_on_loop() + eventfd wakeup (or a list of
+them, one wakeup, via run_batch_on_loop()). Timers are a
 heapq; the poll timeout is the nearest deadline (same single-clock
 design — one coarse timestamp per tick).
 
@@ -12,7 +13,9 @@ The native splice pump (net/vtl.py pump_*) is the handleDirect fast
 path: once a session enters TCP-splice mode both fds are handed to C++
 and Python only sees the PUMP_DONE lifecycle event.
 
-The port's copy of vproxy_tpu/net/eventloop.py, same names and behaviour.
+The port's copy of vproxy_tpu/net/eventloop.py, same names and behaviour,
+plus run_batch_on_loop() (ClassifyService hands a batch's answers to each
+loop at once).
 """
 from __future__ import annotations
 
@@ -306,15 +309,23 @@ class SelectorEventLoop:
         clean up themselves — e.g. ClassifyService delivery). True means
         the task WILL run: enqueue and the closed-flag flip share one
         lock, and close() drains tasks that raced the shutdown."""
+        return self.run_batch_on_loop((fn,))
+
+    def run_batch_on_loop(self, fns) -> bool:
+        """run_on_loop for a sequence of tasks, in order, under its
+        contract (False: nothing was queued): one lock and one wakeup
+        for them all. Each task still runs alone through _timed, so
+        callback health and stall accounting read as for single
+        submits."""
         if threading.current_thread() is self._thread:
             if not self._alive():
                 return False
-            self.next_tick(fn)
+            self._tick_q.extend(fns)
             return True
         with self._xq_lock:
             if not self._alive():
                 return False
-            self._xq.append(fn)
+            self._xq.extend(fns)
         if self._lp is not None:
             vtl.LIB.vtl_wakeup(self._lp)
         return True

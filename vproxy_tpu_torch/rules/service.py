@@ -77,8 +77,17 @@ queue — the next batch's encode overlaps the previous batch's device
 work, and the previous result is pulled (one host round trip per
 batch) just before delivery.
 
-Callbacks are delivered on the submitting event loop via run_on_loop();
-submissions without a loop get the callback on the dispatcher thread.
+Callbacks are delivered on the submitting event loop, a batch at a time:
+a batch's callbacks are grouped by loop, in submit order within each,
+and each loop gets its group in ONE hand-off (run_batch_on_loop: one
+lock, one wakeup), where each callback still runs alone. Submissions
+without a loop, or whose loop is gone, get the callback inline on the
+dispatcher thread. The dispatcher then HOLDS its next take of the queue
+while callbacks it handed off have not started: those callbacks are
+the submits that fill the next batch. The hold ends when they have all
+started, when a query comes from a submitter holding none of them (no
+loop, or a loop with none queued), or when the service closes. An
+in-flight device batch is finished during the hold as at any time.
 """
 from __future__ import annotations
 
@@ -174,6 +183,26 @@ class _IdleWaits:
                               since_ns=self.since)
         if tid or not trace.SAMPLE:
             self.__init__()
+
+
+class _Handoff:
+    """One delivery's callbacks handed to one loop: `left` of them have
+    not started yet. Only that loop's thread counts it down (or, where
+    the loop refused them, the dispatcher running them inline), so the
+    count needs no lock; the service's lock guards its list of them."""
+
+    __slots__ = ("svc", "loop", "left")
+
+    def __init__(self, svc: "ClassifyService", loop):
+        self.svc = svc
+        self.loop = loop
+        self.left = 0
+
+    def started(self) -> None:
+        """A callback of this hand-off starts (first thing it does)."""
+        self.left -= 1
+        if not self.left:
+            self.svc._handoff_drained()
 
 
 class _Inflight:
@@ -302,6 +331,11 @@ class ClassifyService:
         self._cv = threading.Condition(self._lock)
         # key -> (kind, matcher, list[_Req]); key identifies the matcher
         self._pending: dict[int, tuple[str, object, list[_Req]]] = {}
+        # the hold (_run): hand-offs whose callbacks have not all
+        # started, and whether a query has ended the hold before the
+        # next take
+        self._handoffs: list[_Handoff] = []
+        self._hold_off = False
         self._thread: Optional[threading.Thread] = None
         self._closed = False
         # the KernelError that closed the service (None while serving)
@@ -363,7 +397,11 @@ class ClassifyService:
                         target=self._run, name="classify-dispatch",
                         daemon=True)
                     self._thread.start()
-                self._cv.notify()
+                if loop is None or not self._holds(loop):
+                    # a submitter the hold does not wait on ends it; a
+                    # held loop's query is taken with its callbacks'
+                    self._hold_off = True
+                    self._cv.notify()
         if sp:
             sp.end(kind=kind)
         if inline:
@@ -543,14 +581,22 @@ class ClassifyService:
         while True:
             with self._cv:
                 t_wait = 0  # while tracing: when an idle wait began
-                while not self._pending and not self._closed \
-                        and inflight is None:
+                # the hold (module doc): pending queries wait while the
+                # loops have yet to start callbacks this thread handed
+                # them, whose submits fill the next batch; an in-flight
+                # batch is still finished
+                while not self._closed and inflight is None and (
+                        not self._pending or self._holding()):
                     if not t_wait and trace.SAMPLE:
                         t_wait = time.monotonic_ns()
                     self._cv.wait()
-                batches = list(self._pending.values())
-                self._pending.clear()
                 closed = self._closed
+                if closed or not self._holding():
+                    batches = list(self._pending.values())
+                    self._pending.clear()
+                    self._hold_off = False
+                else:
+                    batches = []
             if t_wait or idle.ns:
                 idle.note(t_wait, batches)
             if not batches:
@@ -588,6 +634,32 @@ class ClassifyService:
                         self._finish_guarded(inflight)
                         inflight = None
                     inflight = nxt
+
+    def _holds(self, loop) -> bool:
+        """Under the lock: `loop` has callbacks of a hand-off that have
+        not started."""
+        for h in self._handoffs:
+            if h.loop is loop and h.left > 0:
+                return True
+        return False
+
+    def _holding(self) -> bool:
+        """Under the lock: the dispatcher holds its next take of the
+        queue (see _run)."""
+        if self._hold_off:
+            return False
+        for h in self._handoffs:
+            if h.left > 0:
+                return True
+        return False
+
+    def _handoff_drained(self) -> None:
+        """Every callback of a hand-off has started: the last hand-off
+        draining ends the hold (a wake only where queries wait)."""
+        with self._cv:
+            self._handoffs = [x for x in self._handoffs if x.left > 0]
+            if not self._handoffs and self._pending:
+                self._cv.notify()
 
     def _use_device(self, matcher, n: int) -> bool:
         if self.mode == "host" or getattr(matcher, "backend", "host") == "host":
@@ -851,21 +923,42 @@ class ClassifyService:
         pair (a scalar row is an error fill: both -1). payload is the
         matcher-owner's object versioned with the table generation that
         served the batch (None when the owner didn't register one).
-        Callbacks run on the submitting loop; if that loop is gone,
-        inline on this thread so cleanup (closing an accepted fd)
-        still happens. tid: the batch's first sampled request (0:
-        none); the delivery is then its engine/deliver span, and each
-        sampled request's callback records its wait and run
-        (_traced_run)."""
+        Callbacks run on the submitting loop: each loop gets its
+        requests' callbacks, in submit order, in one hand-off
+        (run_batch_on_loop), counted in a _Handoff that holds the
+        dispatcher's next take (_run). A request with no loop, or whose
+        loop is gone, runs its callback inline on this thread, so
+        cleanup (closing an accepted fd) still happens. tid: the batch's
+        first sampled request (0: none); the delivery is then its
+        engine/deliver span, with `handoffs` (loop hand-offs plus inline
+        runs), and each sampled request's callback records its wait and
+        run (_traced_run)."""
         sp = trace.Span(tid, "engine", "deliver") if tid else None
         now = time.monotonic()
+        if isinstance(idxs, np.ndarray):
+            idxs = idxs.tolist()  # rows of Python ints, read once
+        # loop -> (its _Handoff, its callbacks, (position, trace id) of
+        # the sampled ones)
+        groups: dict = {}
+        handoffs = 0
         for r, idx in zip(reqs, idxs):
             self.stats.record_latency(now - r.t0)
+            loop = r.loop
+            h = None
+            if loop is not None:
+                g = groups.get(loop)
+                if g is None:
+                    g = groups[loop] = (_Handoff(self, loop), [], [])
+                h = g[0]
+                h.left += 1
             if kind == "cpick":
-                v, p = (int(idx[0]), int(idx[1])) if np.ndim(idx) \
+                v, p = (int(idx[0]), int(idx[1])) \
+                    if isinstance(idx, list) or np.ndim(idx) \
                     else (int(idx), int(idx))
 
-                def run(cb=r.cb, v=v, p=p) -> None:
+                def run(cb=r.cb, v=v, p=p, h=h) -> None:
+                    if h is not None:
+                        h.started()
                     try:
                         cb(v, p, payload)
                     except MemoryError:
@@ -875,7 +968,9 @@ class ClassifyService:
             else:
                 i = int(idx)
 
-                def run(cb=r.cb, i=i) -> None:
+                def run(cb=r.cb, i=i, h=h) -> None:
+                    if h is not None:
+                        h.started()
                     try:
                         cb(i, payload)
                     except MemoryError:
@@ -883,12 +978,26 @@ class ClassifyService:
                     except Exception:
                         _log.error("classify callback failed", exc=True)
 
-            if sp and r.tid and r.loop is not None:
-                run = _traced_run(run, r.tid, kind)
-            if r.loop is None or not r.loop.run_on_loop(run):
+            if loop is None:
                 run()
+                handoffs += 1
+                continue
+            if sp and r.tid:
+                g[2].append((len(g[1]), r.tid))
+            g[1].append(run)
+        for loop, (h, runs, traced) in groups.items():
+            with self._lock:
+                self._handoffs.append(h)
+            for k, rtid in traced:
+                runs[k] = _traced_run(runs[k], rtid, kind)
+            if loop.run_batch_on_loop(runs):
+                handoffs += 1
+                continue
+            for run in runs:  # counts h down, so its hold ends
+                run()
+            handoffs += len(runs)
         if sp:
-            sp.end(kind=kind, batch=len(reqs))
+            sp.end(kind=kind, batch=len(reqs), handoffs=handoffs)
 
     # ------------------------------------------------------------- control
 
@@ -905,8 +1014,9 @@ class ClassifyService:
 
 def _traced_run(run, tid: int, kind: str):
     """`run` as a sampled request's loop runs it from a traced batch:
-    it records engine/callback_wait (from now, the enqueue, to its start
-    on the loop) and engine/callback (its own run) on trace `tid`."""
+    it records engine/callback_wait (from now, its batch's hand-off to
+    the loop, to its start there) and engine/callback (its own run) on
+    trace `tid`."""
     t_enq = time.monotonic_ns()
 
     def traced() -> None:

@@ -71,8 +71,8 @@ Per-batch spans go on the batch's first sampled request:
 | `upload` | `_upload_q`: the batch's query arrays to the serving device | batch | `copies`, `bytes`, `cpu_ns` |
 | `dispatch` | encode + slots + upload + launch | batch | `kind`, `batch`, `cpu_ns` |
 | `d2h_sync` | the pull of a batch's answers | batch | `kind`, `batch`, `cpu_ns` |
-| `deliver` | `_deliver`: a latency record, a closure and a `run_on_loop` a query | batch | `kind`, `batch`, `cpu_ns` |
-| `callback_wait` | `run_on_loop`'s enqueue -> the callback starts on its loop | sampled request | `kind` |
+| `deliver` | `_deliver`: the batch's latency records, a closure a query, one hand-off a loop (`run_batch_on_loop`); `handoffs` counts those plus the callbacks run inline | batch | `kind`, `batch`, `handoffs`, `cpu_ns` |
+| `callback_wait` | the hand-off of its batch to its loop -> the callback starts there | sampled request | `kind` |
 | `callback` | the callback's run on its loop | sampled request | `kind`, `cpu_ns` |
 
 `dispatcher_idle` is the last wait's own interval; `idle_ns` sums every
